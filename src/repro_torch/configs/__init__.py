@@ -1,0 +1,16 @@
+"""Config registry of the ported architectures."""
+from __future__ import annotations
+
+from . import qwen2_1_5b
+from .base import ArchConfig  # noqa: F401
+
+_CONFIGS = {qwen2_1_5b.CONFIG.name: qwen2_1_5b.CONFIG}
+
+
+def get_config(name: str) -> ArchConfig:
+    try:
+        return _CONFIGS[name]
+    except KeyError:
+        raise KeyError(
+            f"config {name!r} is not ported; ported: {sorted(_CONFIGS)}"
+        ) from None

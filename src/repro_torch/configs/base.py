@@ -1,0 +1,65 @@
+"""Architecture configuration: the fields of the reference's ``ArchConfig``
+that the ported dense decoder reads, with its ``reduced()`` test variant and
+a map from the dtype name to a torch dtype."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..runtime import ApproxConfig
+
+_DTYPES = {
+    "bfloat16": torch.bfloat16, "float32": torch.float32,
+    "float16": torch.float16,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    rotary_pct: float = 1.0
+    norm: str = "rms"
+    mlp: str = "swiglu"
+    tie_embeddings: bool = True
+    n_experts: int = 0
+
+    dtype_name: str = "bfloat16"
+    repair: ApproxConfig = ApproxConfig(
+        mode="memory", policy="neighbor_mean", max_magnitude=1e3
+    )
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype_name]
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def reduced(self) -> "ArchConfig":
+        """Same family at test scale, in f32 (the reference's ``reduced``)."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            dtype_name="float32",
+            n_layers=min(self.n_layers, 4),
+            d_model=128,
+            n_heads=4,
+            n_kv=min(self.n_kv, 2) if self.n_kv < self.n_heads else 4,
+            head_dim=32,
+            d_ff=256 if self.d_ff else 0,
+            vocab=512,
+        )

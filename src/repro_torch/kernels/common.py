@@ -1,0 +1,136 @@
+"""Shared repair logic of the kernels and their plain versions.
+
+Detection inside a kernel is data, not code: the IEEE layout constants and
+the detector's enables travel as an int32[8] operand (layout on
+``core.rules``), slot 6 carrying the scrub's count-valid row bound.  The
+plain versions below decode the same operand with the same bucket rules, so
+the CUDA kernels, the plain versions and the reference all agree on which
+lanes are fatal and how they are counted.
+
+Kernel fills are the value-independent subset: zero, constant and
+``clamp_finite_max`` (the kernel form: +max on every repaired lane).
+"""
+from __future__ import annotations
+
+import collections
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..core import detect, policies as policies_lib, rules as rules_lib
+
+KERNEL_POLICIES = ("zero", "constant", "clamp_finite_max")
+
+# launches per kernel wrapper: bumped only where a CUDA kernel is launched
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def kernel_fill(fill) -> Optional[Tuple[str, float]]:
+    """Map a ``RepairRule`` fill onto a kernel (policy, constant) pair that
+    is bit-identical to the tensor-level repair — value-independent fills
+    only; anything else returns ``None``."""
+    if isinstance(fill, (int, float)) and not isinstance(fill, bool):
+        return ("constant", float(fill))
+    if fill == "zero":
+        return ("zero", 0.0)
+    if isinstance(fill, policies_lib.RepairPolicy) and fill.name == "zero":
+        return ("zero", 0.0)
+    return None
+
+
+def resolve_detector(
+    detector: Optional[rules_lib.Detector], include_inf: bool
+) -> rules_lib.Detector:
+    """An explicit detector wins; otherwise the legacy ``include_inf`` knob
+    lifts into the equivalent detector."""
+    if detector is not None:
+        return detector
+    return rules_lib.Detector(nan=True, inf=include_inf)
+
+
+def detector_operand(
+    detector: Optional[rules_lib.Detector], dtype: torch.dtype,
+    n_valid_rows: int = 0,
+) -> Tuple[int, ...]:
+    """The int32[8] detector-constants operand as Python ints, folded into
+    int32 range by two's complement (masks are bit patterns); ``None``
+    gives the all-off row.  The kernels take it by value."""
+    if detector is None:
+        return (0,) * 8
+    consts = list(detector.constants(dtype))
+    consts[6] = int(n_valid_rows)
+    return tuple(detect.signed(int(c), 32) for c in consts)
+
+
+def masks_from_consts(
+    bits: torch.Tensor, consts: Sequence[int], width: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nan_mask, inf_mask) of a bit view under the constants operand.
+    Compares as uint32 the way the reference does: a 16-bit view widens by
+    zero extension, and the operand's slots are read back as unsigned.
+    Custom bit patterns land in the NaN bucket; the range guard owns the
+    non-NaN bucket when enabled."""
+    u = [int(c) & 0xFFFFFFFF for c in consts]
+    b = bits.to(torch.int64) & ((1 << width) - 1)
+    exp_mask, man_mask, flags = u[0], u[1], u[2]
+    exp_all = (b & exp_mask) == exp_mask
+    man_nz = (b & man_mask) != 0
+    false = torch.zeros_like(exp_all)
+    nan_m = exp_all & man_nz if flags & rules_lib.FLAG_NAN else false
+    if flags & rules_lib.FLAG_BITPATTERN:
+        nan_m = nan_m | ((b & u[4]) == u[5])
+    inf_m = exp_all & ~man_nz if flags & rules_lib.FLAG_INF else false
+    if flags & rules_lib.FLAG_RANGE:
+        inf_m = inf_m | (((b & exp_mask) >= u[3]) & ~nan_m)
+    return nan_m, inf_m
+
+
+def fatal_masks(
+    x: torch.Tensor, consts: Sequence[int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``masks_from_consts`` on a float tensor."""
+    return masks_from_consts(
+        detect.bits_of(x), consts, detect.layout_of(x.dtype).width
+    )
+
+
+def fill_value(policy: str, constant: float, dtype: torch.dtype) -> float:
+    """The repaired value of a kernel fill, already rounded to ``dtype``
+    (so the f32 value handed to a kernel converts to ``dtype`` exactly)."""
+    if policy == "zero":
+        v = 0.0
+    elif policy == "constant":
+        v = constant
+    elif policy == "clamp_finite_max":
+        v = torch.finfo(dtype).max
+    elif policy in policies_lib.NOT_PORTED:
+        raise NotImplementedError(
+            f"kernel fill {policy!r} is not ported: "
+            f"{policies_lib.NOT_PORTED[policy]}"
+        )
+    else:
+        raise ValueError(
+            f"kernel policy must be one of {KERNEL_POLICIES}, got {policy!r}"
+        )
+    return float(torch.tensor(v, dtype=dtype).to(torch.float32))
+
+
+def repair_tile(
+    x: torch.Tensor, consts: Sequence[int], policy: str, constant: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(repaired, nan_mask, inf_mask): every fatal lane of ``x`` takes the
+    kernel fill.  Masks, not counts: callers count per tile visit."""
+    nan_m, inf_m = fatal_masks(x, consts)
+    fill = torch.full_like(x, fill_value(policy, constant, x.dtype))
+    return torch.where(nan_m | inf_m, fill, x), nan_m, inf_m
+
+
+def require_device(x: torch.Tensor, what: str) -> str:
+    """'cpu' or 'cuda' for a wrapper's dispatch; anything else raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return x.device.type

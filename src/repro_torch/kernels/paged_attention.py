@@ -1,0 +1,392 @@
+"""Paged attention with fused on-read repair: decode (serial and split-K)
+and chunked-q prefill, straight off the pool.  Kernels:
+``csrc/paged_decode.cu`` and ``csrc/paged_prefill.cu``.
+
+Layout (the reference's):
+
+  q             (B, H, Dh) decode / (B, C, H, Dh) prefill
+  k/v pages     (P, L, pg, Kh, Dh)  page axis leading; ``layer`` picks L
+  block_tables  (B, M) int32        per-request page lists, null-padded
+  positions     (B,) int32          last valid position (decode)
+  q_start       (B,) int32          context position of chunk row 0 (prefill)
+
+Each (b, j) page visit repairs the page's whole (pg, Kh, Dh) K and V tiles
+with the operand's detector and fill and counts them: ``slot_counts[b, j]``
+is the visit's fatal-lane total and ``counts`` the AT int32[8] layout
+[nan_k, inf_k, ev_k, nan_v, inf_v, ev_v, ev_total, 0].  Null-padded slots
+are read, repaired and counted on every visit.
+
+The plain versions replay the kernels' page walk (online softmax over the
+pages, ``p`` cast to the cache dtype before the value product), vectorised
+over the batch; ``kernels.ref`` holds the gather-then-softmax oracles.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import _native, common
+from .scrub import _fill_bits
+
+NEG_INF = -1e30
+
+# counts layout (int32[8])
+NAN_K, INF_K, EV_K, NAN_V, INF_V, EV_V, EV_TOTAL = range(7)
+
+# detector sentinel: "the legacy NaN(+Inf) pattern via include_inf".
+# ``None`` means detection off for that operand.
+DEFAULT_DETECTOR = "default"
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _consts(det, dtype, include_inf):
+    if det == DEFAULT_DETECTOR:
+        det = common.resolve_detector(None, include_inf)
+    return common.detector_operand(det, dtype)
+
+
+def _operand_spec(dtype, include_inf, policy, constant, detector_k,
+                  detector_v, policy_k, constant_k, policy_v, constant_v):
+    """(consts_k, consts_v, (policy_k, constant_k), (policy_v, constant_v))."""
+    fill_k = (policy if policy_k is None else policy_k,
+              constant if constant_k is None else constant_k)
+    fill_v = (policy if policy_v is None else policy_v,
+              constant if constant_v is None else constant_v)
+    return (_consts(detector_k, dtype, include_inf),
+            _consts(detector_v, dtype, include_inf), fill_k, fill_v)
+
+
+# ----------------------------------------------------------------- plain
+def _repair_visits(pages, bt, layer, consts, fill):
+    """Repaired (B, M, pg, Kh, Dh) rows of every page visit, with per-visit
+    NaN and Inf lane counts (B, M)."""
+    rows = pages[bt.long(), layer]
+    fixed, nan_m, inf_m = common.repair_tile(rows, consts, *fill)
+    return fixed, nan_m.sum(dim=(2, 3, 4)), inf_m.sum(dim=(2, 3, 4))
+
+
+def _visit_counts(nk, ik, nv, iv):
+    """slot_counts (B, M) and the AT counts of a set of page visits."""
+    fk, fv = nk + ik, nv + iv
+    counts = torch.stack([
+        nk.sum(), ik.sum(), (fk > 0).sum(), nv.sum(), iv.sum(), (fv > 0).sum(),
+        ((fk + fv) > 0).sum(), torch.zeros((), dtype=nk.dtype, device=nk.device),
+    ]).to(torch.int32)
+    return (fk + fv).to(torch.int32), counts
+
+
+def _online_step(s, m, l, acc, v, out_dtype_p):
+    """One page of the online softmax.  ``s`` (..., t) masked scores,
+    ``v`` (..., t, d) values in the cache dtype."""
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.where(s > NEG_INF * 0.5, torch.exp(s - m_new[..., None]), 0.0)
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    pv = torch.matmul(p.to(out_dtype_p).float(), v.float())
+    return m_new, l, acc * alpha[..., None] + pv
+
+
+def _decode_plain(q, k_pages, v_pages, bt, pos, layer, splits, spec):
+    consts_k, consts_v, fill_k, fill_v = spec
+    B, H, Dh = q.shape
+    P, L, pg, Kh, _ = k_pages.shape
+    G, M = H // Kh, bt.shape[1]
+    ns = M // splits
+    fk, nk, ik = _repair_visits(k_pages, bt, layer, consts_k, fill_k)
+    fv, nv, iv = _repair_visits(v_pages, bt, layer, consts_v, fill_v)
+    slot_counts, counts = _visit_counts(nk, ik, nv, iv)
+    # (B, S, ns, Kh, pg, Dh): split s walks slots s*ns .. s*ns + ns - 1
+    fk = fk.reshape(B, splits, ns, pg, Kh, Dh).transpose(3, 4).float()
+    fv = fv.reshape(B, splits, ns, pg, Kh, Dh).transpose(3, 4)
+    qg = q.float().reshape(B, 1, Kh, G, Dh)
+    sm_scale = 1.0 / math.sqrt(Dh)
+    acc = q.new_zeros((B, splits, Kh, G, Dh), dtype=torch.float32)
+    m = torch.full((B, splits, Kh, G), NEG_INF, device=q.device)
+    l = torch.zeros((B, splits, Kh, G), device=q.device)
+    base = torch.arange(splits, device=q.device)[:, None] * ns * pg
+    for jj in range(ns):
+        s = torch.matmul(qg, fk[:, :, jj].transpose(-1, -2)) * sm_scale
+        t = base + jj * pg + torch.arange(pg, device=q.device)   # (S, pg)
+        valid = t[None, :, None, None, :] <= pos.long()[:, None, None, None, None]
+        s = torch.where(valid, s, NEG_INF)
+        m, l, acc = _online_step(s, m, l, acc, fv[:, :, jj], v_pages.dtype)
+    out = lse_merge(q.dtype, acc.reshape(B, splits, H, Dh),
+                    m.reshape(B, splits, H), l.reshape(B, splits, H))
+    return out, slot_counts, counts
+
+
+def lse_merge(out_dtype, o_part, m_part, l_part):
+    """Log-sum-exp merge of unnormalised partials along axis 1; a partial
+    whose slice held no valid position (m = -inf) gets zero weight."""
+    m_star = m_part.amax(dim=1)
+    live = m_part > NEG_INF * 0.5
+    w = torch.where(live, torch.exp(m_part - m_star[:, None, :]), 0.0)
+    l_tot = (w * l_part).sum(dim=1)
+    acc = (w[..., None] * o_part).sum(dim=1)
+    return (acc / l_tot.clamp_min(1e-30)[..., None]).to(out_dtype)
+
+
+def _prefill_plain(q, k_pages, v_pages, bt, q_start, layer, spec):
+    consts_k, consts_v, fill_k, fill_v = spec
+    B, C, H, Dh = q.shape
+    P, L, pg, Kh, _ = k_pages.shape
+    G, M = H // Kh, bt.shape[1]
+    fk, nk, ik = _repair_visits(k_pages, bt, layer, consts_k, fill_k)
+    fv, nv, iv = _repair_visits(v_pages, bt, layer, consts_v, fill_v)
+    slot_counts, counts = _visit_counts(nk, ik, nv, iv)
+    fk = fk.transpose(2, 3).float()                    # (B, M, Kh, pg, Dh)
+    fv = fv.transpose(2, 3)
+    # rows in (Kh, C, G) order per KV head: (B, Kh, C*G, Dh)
+    qh = q.float().reshape(B, C, Kh, G, Dh).permute(0, 2, 1, 3, 4)
+    qh = qh.reshape(B, Kh, C * G, Dh)
+    sm_scale = 1.0 / math.sqrt(Dh)
+    acc = q.new_zeros((B, Kh, C * G, Dh), dtype=torch.float32)
+    m = torch.full((B, Kh, C * G), NEG_INF, device=q.device)
+    l = torch.zeros((B, Kh, C * G), device=q.device)
+    tq = q_start.long()[:, None] + torch.arange(C, device=q.device)
+    tq = tq.repeat_interleave(G, dim=1)[:, None, :, None]   # (B, 1, C*G, 1)
+    for j in range(M):
+        s = torch.matmul(qh, fk[:, j].transpose(-1, -2)) * sm_scale
+        tk = j * pg + torch.arange(pg, device=q.device)
+        s = torch.where(tk <= tq, s, NEG_INF)
+        m, l, acc = _online_step(s, m, l, acc, fv[:, j], v_pages.dtype)
+
+    def rows(x):                       # (B, Kh, C*G, ...) -> (B, C*H, ...)
+        x = x.reshape(B, Kh, C, G, *x.shape[3:]).transpose(1, 2)
+        return x.reshape(B, C * H, *x.shape[4:])
+
+    acc = rows(acc).reshape(B, C, H, Dh)
+    return acc, rows(m), rows(l), slot_counts, counts
+
+
+# ---------------------------------------------------------------- kernels
+_DECODE_SIG = [
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.I, _native.HOST_INTS, _native.HOST_INTS,
+    _native.U, _native.U, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P, _native.P,
+]
+_PREFILL_SIG = [
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.I, _native.HOST_INTS, _native.HOST_INTS,
+    _native.U, _native.U, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P,
+]
+
+
+def _lib(name, fn, signature):
+    lib = _native.library(name)
+    getattr(lib, fn).argtypes = signature
+    getattr(lib, fn).restype = _native.I
+    return getattr(lib, fn)
+
+
+def _check_operands(q, k_pages, v_pages, bt, vec, what):
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tables", bt), ("positions", vec)):
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if k_pages.shape != v_pages.shape or k_pages.dtype != v_pages.dtype:
+        raise ValueError(f"{what}: k/v pages differ in shape or dtype")
+    if q.dtype != k_pages.dtype or q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what}: q and pages must share an f32/bf16/f16 dtype")
+    if bt.dtype != torch.int32 or vec.dtype != torch.int32:
+        raise TypeError(f"{what}: block tables and positions must be int32")
+
+
+def _decode_kernel(q, k_pages, v_pages, bt, pos, layer, splits, spec):
+    consts_k, consts_v, fill_k, fill_v = spec
+    _check_operands(q, k_pages, v_pages, bt, pos, "paged decode")
+    B, H, Dh = q.shape
+    P, L, pg, Kh, _ = k_pages.shape
+    M = bt.shape[1]
+    dev = q.device
+    o_part = torch.empty((B, splits, H, Dh), dtype=torch.float32, device=dev)
+    m_part = torch.empty((B, splits, H), dtype=torch.float32, device=dev)
+    l_part = torch.empty((B, splits, H), dtype=torch.float32, device=dev)
+    slot_counts = torch.empty((B, M), dtype=torch.int32, device=dev)
+    counts = torch.zeros(8, dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+    err = _lib("paged_decode", "repro_paged_decode", _DECODE_SIG)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
+        pos.data_ptr(), _DTYPE_CODES[q.dtype], B, H, Dh, L, pg, Kh, M, splits,
+        int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
+        _fill_bits(*fill_k, q.dtype), _fill_bits(*fill_v, q.dtype),
+        o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+        slot_counts.data_ptr(), counts.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _native.check(err, "paged decode")
+    common.LAUNCHES["paged_decode"] += 1
+    return out, slot_counts, counts
+
+
+def _prefill_kernel(q, k_pages, v_pages, bt, q_start, layer, spec):
+    consts_k, consts_v, fill_k, fill_v = spec
+    _check_operands(q, k_pages, v_pages, bt, q_start, "paged prefill")
+    B, C, H, Dh = q.shape
+    P, L, pg, Kh, _ = k_pages.shape
+    M = bt.shape[1]
+    dev = q.device
+    acc = torch.empty((B, C, H, Dh), dtype=torch.float32, device=dev)
+    m = torch.empty((B, C * H), dtype=torch.float32, device=dev)
+    l = torch.empty((B, C * H), dtype=torch.float32, device=dev)
+    slot_counts = torch.empty((B, M), dtype=torch.int32, device=dev)
+    counts = torch.zeros(8, dtype=torch.int32, device=dev)
+    err = _lib("paged_prefill", "repro_paged_prefill", _PREFILL_SIG)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
+        q_start.data_ptr(), _DTYPE_CODES[q.dtype], B, C, H, Dh, L, pg, Kh, M,
+        int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
+        _fill_bits(*fill_k, q.dtype), _fill_bits(*fill_v, q.dtype),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), slot_counts.data_ptr(),
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _native.check(err, "paged prefill")
+    common.LAUNCHES["paged_prefill"] += 1
+    return acc, m, l, slot_counts, counts
+
+
+# --------------------------------------------------------------- wrappers
+def _decode_spec(q, k_pages, block_tables, splits, include_inf, fills):
+    H, M = q.shape[1], block_tables.shape[1]
+    if H % k_pages.shape[3]:
+        raise ValueError(f"H={H} is not a multiple of Kh={k_pages.shape[3]}")
+    if splits < 1 or M % splits:
+        raise ValueError(f"splits={splits} must divide the block-table width M={M}")
+    return _operand_spec(q.dtype, include_inf, **fills)
+
+
+def paged_decode_plain(
+    q, k_pages, v_pages, block_tables, positions, layer, *, splits: int = 1,
+    policy: str = "zero", constant: float = 0.0, include_inf: bool = True,
+    detector_k=DEFAULT_DETECTOR, detector_v=DEFAULT_DETECTOR,
+    policy_k: Optional[str] = None, constant_k: Optional[float] = None,
+    policy_v: Optional[str] = None, constant_v: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the decode kernel (any device)."""
+    spec = _decode_spec(q, k_pages, block_tables, splits, include_inf, dict(
+        policy=policy, constant=constant, detector_k=detector_k,
+        detector_v=detector_v, policy_k=policy_k, constant_k=constant_k,
+        policy_v=policy_v, constant_v=constant_v,
+    ))
+    return _decode_plain(q, k_pages, v_pages, block_tables, positions,
+                         int(layer), splits, spec)
+
+
+def _decode(q, k_pages, v_pages, block_tables, positions, layer, splits,
+            include_inf, **fills):
+    if common.require_device(q, "paged decode") == "cpu":
+        return paged_decode_plain(
+            q, k_pages, v_pages, block_tables, positions, layer,
+            splits=splits, include_inf=include_inf, **fills,
+        )
+    spec = _decode_spec(q, k_pages, block_tables, splits, include_inf, fills)
+    return _decode_kernel(q, k_pages, v_pages, block_tables, positions, layer,
+                          splits, spec)
+
+
+def paged_attention_raw(
+    q, k_pages, v_pages, block_tables, positions, layer, *,
+    policy: str = "zero", constant: float = 0.0, include_inf: bool = True,
+    detector_k=DEFAULT_DETECTOR, detector_v=DEFAULT_DETECTOR,
+    policy_k: Optional[str] = None, constant_k: Optional[float] = None,
+    policy_v: Optional[str] = None, constant_v: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer of serial paged decode with fused on-read repair.
+    ``detector_k``/``detector_v``: a ``core.rules.Detector``, the default
+    sentinel, or ``None`` (detection off for that operand).  Per-operand
+    fills override the shared ``policy``/``constant``.  Returns
+    ``(out (B, H, Dh), slot_counts (B, M) int32, counts int32[8])``."""
+    return _decode(
+        q, k_pages, v_pages, block_tables, positions, layer, 1, include_inf,
+        policy=policy, constant=constant, detector_k=detector_k,
+        detector_v=detector_v, policy_k=policy_k, constant_k=constant_k,
+        policy_v=policy_v, constant_v=constant_v,
+    )
+
+
+def paged_attention_splitk_raw(
+    q, k_pages, v_pages, block_tables, positions, layer, *, splits: int,
+    policy: str = "zero", constant: float = 0.0, include_inf: bool = True,
+    detector_k=DEFAULT_DETECTOR, detector_v=DEFAULT_DETECTOR,
+    policy_k: Optional[str] = None, constant_k: Optional[float] = None,
+    policy_v: Optional[str] = None, constant_v: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split-K paged decode: the M slots cut into ``splits`` contiguous
+    groups, each an unnormalised partial, merged by log-sum-exp.  Counts
+    are identical to the serial walk's (every slot is visited once)."""
+    return _decode(
+        q, k_pages, v_pages, block_tables, positions, layer, splits,
+        include_inf, policy=policy, constant=constant, detector_k=detector_k,
+        detector_v=detector_v, policy_k=policy_k, constant_k=constant_k,
+        policy_v=policy_v, constant_v=constant_v,
+    )
+
+
+def prefill_normalize(out_dtype, acc, l):
+    """acc / max(l, 1e-30), cast — the epilogue outside the kernel."""
+    B, C, H, Dh = acc.shape
+    out = acc.reshape(B, C * H, Dh) / l.clamp_min(1e-30)[..., None]
+    return out.to(out_dtype).reshape(B, C, H, Dh)
+
+
+def _prefill_spec(q, k_pages, include_inf, fills):
+    H = q.shape[2]
+    if H % k_pages.shape[3]:
+        raise ValueError(f"H={H} is not a multiple of Kh={k_pages.shape[3]}")
+    return _operand_spec(q.dtype, include_inf, **fills)
+
+
+def paged_prefill_plain(
+    q, k_pages, v_pages, block_tables, q_start, layer, *,
+    policy: str = "zero", constant: float = 0.0, include_inf: bool = True,
+    detector_k=DEFAULT_DETECTOR, detector_v=DEFAULT_DETECTOR,
+    policy_k: Optional[str] = None, constant_k: Optional[float] = None,
+    policy_v: Optional[str] = None, constant_v: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the prefill kernel (any device)."""
+    spec = _prefill_spec(q, k_pages, include_inf, dict(
+        policy=policy, constant=constant, detector_k=detector_k,
+        detector_v=detector_v, policy_k=policy_k, constant_k=constant_k,
+        policy_v=policy_v, constant_v=constant_v,
+    ))
+    acc, m, l, slot_counts, counts = _prefill_plain(
+        q, k_pages, v_pages, block_tables, q_start, int(layer), spec
+    )
+    return prefill_normalize(q.dtype, acc, l), slot_counts, counts
+
+
+def paged_prefill_raw(
+    q, k_pages, v_pages, block_tables, q_start, layer, *,
+    policy: str = "zero", constant: float = 0.0, include_inf: bool = True,
+    detector_k=DEFAULT_DETECTOR, detector_v=DEFAULT_DETECTOR,
+    policy_k: Optional[str] = None, constant_k: Optional[float] = None,
+    policy_v: Optional[str] = None, constant_v: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer of chunked-q paged prefill with fused on-read repair: chunk
+    row ``c`` (context position ``q_start[b] + c``) attends to keys at
+    positions ``<= q_start[b] + c``.  Rows past the caller's real chunk
+    length are garbage the caller discards.  Returns ``(out (B, C, H, Dh),
+    slot_counts (B, M), counts int32[8])``."""
+    fills = dict(
+        policy=policy, constant=constant, detector_k=detector_k,
+        detector_v=detector_v, policy_k=policy_k, constant_k=constant_k,
+        policy_v=policy_v, constant_v=constant_v,
+    )
+    if common.require_device(q, "paged prefill") == "cpu":
+        return paged_prefill_plain(
+            q, k_pages, v_pages, block_tables, q_start, layer,
+            include_inf=include_inf, **fills,
+        )
+    spec = _prefill_spec(q, k_pages, include_inf, fills)
+    acc, m, l, slot_counts, counts = _prefill_kernel(
+        q, k_pages, v_pages, block_tables, q_start, layer, spec
+    )
+    return prefill_normalize(q.dtype, acc, l), slot_counts, counts

@@ -1,0 +1,81 @@
+"""`ApproxConfig` — the one frozen configuration of the approximate-memory
+runtime: repair mode and fill, the refresh→BER point, region rules, the
+scrub schedule and an optional ``RuleSet``.  Attribute-compatible with the
+reference's; the autopilot contract is not ported (ROADMAP)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+from ..core import injection as injection_lib
+from ..core import regions as regions_lib
+from ..core import rules as rules_lib
+
+_MODES = ("off", "register", "memory")
+
+
+@dataclasses.dataclass(frozen=True)
+class ScrubSchedule:
+    """When the memory-repairing mechanism runs: every step boundary, and
+    every ``interval`` steps (0 disables the periodic pass)."""
+
+    boundary: bool = True
+    interval: int = 0
+
+    def due(self, t: int) -> bool:
+        return bool(self.interval) and t % self.interval == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ApproxConfig:
+    """Repair (mode, policy, include_inf, max_magnitude), the simulated
+    memory (refresh_interval_s, ber), regions, schedule and rules."""
+
+    mode: str = "memory"
+    policy: Any = "neighbor_mean"
+    include_inf: bool = True
+    max_magnitude: Optional[float] = None
+
+    refresh_interval_s: float = 1.0
+    ber: Optional[float] = None
+
+    region_rules: Tuple[Tuple[str, regions_lib.Region], ...] = (
+        regions_lib.DEFAULT_RULES
+    )
+    scrub: ScrubSchedule = ScrubSchedule()
+    rules: Optional[rules_lib.RuleSet] = None
+
+    def __post_init__(self):
+        if self.mode not in _MODES:
+            raise ValueError(f"bad repair mode {self.mode!r}")
+        if isinstance(self.rules, (tuple, list)):
+            object.__setattr__(self, "rules", rules_lib.RuleSet(tuple(self.rules)))
+
+    @property
+    def ruleset(self) -> rules_lib.RuleSet:
+        if self.rules is not None:
+            return self.rules
+        return rules_lib.RuleSet.from_legacy(self)
+
+    @property
+    def memory_model(self) -> injection_lib.ApproxMemoryModel:
+        return injection_lib.ApproxMemoryModel.from_refresh(self.refresh_interval_s)
+
+    @property
+    def resolved_ber(self) -> float:
+        return self.ber if self.ber is not None else self.memory_model.ber
+
+    @staticmethod
+    def from_legacy(cfg: Any, **overrides) -> "ApproxConfig":
+        """Lift any object with the four repair fields (an ``ApproxConfig``
+        included) into an ``ApproxConfig``."""
+        if isinstance(cfg, ApproxConfig):
+            return dataclasses.replace(cfg, **overrides) if overrides else cfg
+        fields = dict(
+            mode=cfg.mode,
+            policy=cfg.policy,
+            include_inf=cfg.include_inf,
+            max_magnitude=getattr(cfg, "max_magnitude", None),
+        )
+        fields.update(overrides)
+        return ApproxConfig(**fields)

@@ -1,0 +1,249 @@
+"""`RepairPlan` — what one repair pass covers and how it runs.
+
+  scope       "none"    no-op (non-memory modes)
+              "tree"    every approximate-region float leaf
+              "pages"   rows ``page_ids`` of the leading page axis
+              "inject"  the simulation boundary (one bit-flip window)
+  placement   "kernel"  tree and pages scrubs go through the scrub wrapper
+                        (``kernels.scrub``): its CUDA kernel for tensors on
+                        the card, its plain version on the CPU.  Chosen
+                        when every leaf the pass repairs has a kernel fill
+                        and an encodable detector (pages scope: ndim ≥ 2)
+              "local"   the tensor-level rule repair, for anything else
+
+Page scrubs pad their id list to the next power of two with duplicates of
+the first id, whose lanes are repaired but masked out of the counts — the
+reference's bucketing, kept so counts and pool bits match it.  Stats are
+host integers; per-rule [nan, inf, events] deltas fold into the space's
+ledger.  The reference's executable cache, trace counter and buffer
+donation are JAX mechanisms and have no counterpart here: passes run
+eagerly and update the state dict's tensors in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import injection as injection_lib
+from ..core import regions as regions_lib
+from ..core import stats as stats_lib
+from ..kernels import common as kernels_common
+from ..kernels import scrub as scrub_kernel
+
+__all__ = ["RepairPlan", "plan_for", "serving_scope", "SCOPES"]
+
+SCOPES = ("none", "tree", "pages", "inject")
+
+_SERVING_SCOPE = {"off": "none", "whole": "tree", "page": "pages"}
+
+
+def serving_scope(repair_mode: str) -> str:
+    """Serving repair mode ("off" | "whole" | "page") → plan scope."""
+    try:
+        return _SERVING_SCOPE[repair_mode]
+    except KeyError:
+        raise ValueError(f"bad serving repair mode {repair_mode!r}") from None
+
+
+def is_approx_float(leaf, region) -> bool:
+    return region is regions_lib.Region.APPROX and leaf.is_floating_point()
+
+
+def _bucket(n: int, cap: int) -> int:
+    """Next power of two ≥ n, clamped to the page-axis size."""
+    b = 1
+    while b < n:
+        b <<= 1
+    return max(1, min(b, cap))
+
+
+def _kernel_eligible(tree, regions, rules, trigger, scope) -> bool:
+    for path, leaf in tree.items():
+        rule = rules[path]
+        if not is_approx_float(leaf, regions[path]):
+            continue
+        if not rule.fires(trigger) or not leaf.numel():
+            continue
+        if kernels_common.kernel_fill(rule.fill) is None:
+            return False
+        if scope == "pages" and leaf.dim() < 2:
+            return False
+        try:
+            rule.detect.constants(leaf.dtype)
+        except (TypeError, ValueError):
+            return False
+    return True
+
+
+def finish_rule_counts(rc: np.ndarray) -> np.ndarray:
+    """Append the per-rule events column (≥1 fatal lane = one event)."""
+    events = ((rc[:, 0] + rc[:, 1]) > 0).astype(np.int64)[:, None]
+    return np.concatenate([rc, events], axis=1)
+
+
+@dataclasses.dataclass
+class RepairPlan:
+    space: Any
+    scope: str
+    placement: str
+    regions: Dict[str, regions_lib.Region]
+    rules: Dict[str, Any]
+    indices: Dict[str, int]
+    n_rules: int
+    trigger: str
+    bytes_per_run: int
+    page_row_bytes: int
+    page_capacity: int
+    ber: Optional[float] = None
+
+    def _firing(self, tree):
+        for path, leaf in tree.items():
+            rule = self.rules[path]
+            if (
+                is_approx_float(leaf, self.regions[path])
+                and rule.fires(self.trigger)
+                and leaf.numel()
+            ):
+                yield path, leaf, rule
+
+    def _fold(self, per_leaf) -> stats_lib.Stats:
+        """Sum per-leaf [nan, inf] count tensors with ONE host readback,
+        fold them into the rule ledger, return the stats delta."""
+        if not per_leaf:
+            self.space.record_rule_counts(
+                finish_rule_counts(np.zeros((self.n_rules, 2), np.int64))
+            )
+            return stats_lib.zeros()
+        paths = [p for p, _ in per_leaf]
+        values = torch.stack([c[:2].to(torch.int64) for _, c in per_leaf])
+        values = values.cpu().numpy()
+        rc = np.zeros((self.n_rules, 2), np.int64)
+        for path, (n, i) in zip(paths, values):
+            rc[self.indices[path]] += (n, i)
+        self.space.record_rule_counts(finish_rule_counts(rc))
+        return stats_lib.record_repair(
+            stats_lib.zeros(), int(values[:, 0].sum()), int(values[:, 1].sum())
+        )
+
+    def run(
+        self,
+        tree: Dict[str, torch.Tensor],
+        *,
+        page_ids=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[Dict[str, torch.Tensor], Any]:
+        """Run the pass over ``tree`` (tensors updated in place).  Returns
+        ``(tree, stats delta)``, or ``(tree, n_flips)`` for "inject"."""
+        if self.scope == "none":
+            return tree, (0 if self.ber is not None else stats_lib.zeros())
+        if self.scope == "inject":
+            return tree, self._inject(tree, generator)
+        if self.scope == "tree":
+            return tree, self._fold(
+                [(p, self._scrub_leaf(leaf, rule)) for p, leaf, rule in self._firing(tree)]
+            )
+        ids = np.asarray(page_ids, np.int64).reshape(-1)
+        if ids.size == 0:
+            return tree, stats_lib.zeros()
+        bucket = _bucket(ids.size, max(self.page_capacity, ids.size))
+        padded = np.full((bucket,), ids[0], np.int64)
+        padded[: ids.size] = ids
+        return tree, self._fold([
+            (p, self._scrub_pages_leaf(leaf, rule, padded, ids.size))
+            for p, leaf, rule in self._firing(tree)
+        ])
+
+    def _scrub_leaf(self, leaf, rule) -> torch.Tensor:
+        if self.placement == "kernel":
+            policy, constant = kernels_common.kernel_fill(rule.fill)
+            return scrub_kernel.scrub(
+                leaf, policy=policy, constant=constant, detector=rule.detect
+            )[1]
+        fixed, n, i = rule.apply(leaf)
+        leaf.copy_(fixed)
+        return torch.stack([n, i])
+
+    def _scrub_pages_leaf(self, leaf, rule, padded, n_valid) -> torch.Tensor:
+        if self.placement == "kernel":
+            policy, constant = kernels_common.kernel_fill(rule.fill)
+            return scrub_kernel.scrub_pages(
+                leaf, padded, policy=policy, constant=constant,
+                detector=rule.detect, n_valid=n_valid,
+            )[1]
+        idx = torch.as_tensor(padded, device=leaf.device)
+        rows = leaf[idx]
+        nan_m, inf_m = rule.detect.masks(rows)
+        mask = nan_m | inf_m
+        leaf[idx] = torch.where(mask, rule.resolved_fill()(rows, mask), rows)
+        valid = (torch.arange(len(padded), device=leaf.device) < n_valid)
+        valid = valid.reshape((-1,) + (1,) * (rows.dim() - 1))
+        return torch.stack([(nan_m & valid).sum(), (inf_m & valid).sum()])
+
+    def _inject(self, tree, generator) -> int:
+        flips = 0
+        for path, leaf in tree.items():
+            if not is_approx_float(leaf, self.regions[path]):
+                continue
+            flipped, n = injection_lib.flip_bits_counted(leaf, self.ber, generator)
+            leaf.copy_(flipped)
+            flips += n
+        return flips
+
+
+def plan_for(
+    space: Any,
+    tree: Dict[str, torch.Tensor],
+    *,
+    scope: str = "tree",
+    ber: Optional[float] = None,
+    trigger: str = "forced",
+) -> RepairPlan:
+    """Plan one pass over ``tree`` for ``space`` (cached per scope, trigger,
+    layout and rule set)."""
+    if scope not in SCOPES:
+        raise ValueError(f"bad plan scope {scope!r}; expected one of {SCOPES}")
+    if scope in ("tree", "pages") and space.config.mode != "memory":
+        scope = "none"
+    if scope not in ("tree", "pages"):
+        trigger = "forced"
+    layout = tuple(
+        (path, tuple(leaf.shape), str(leaf.dtype)) for path, leaf in tree.items()
+    )
+    extra = float(ber) if scope == "inject" else None
+    key = (scope, trigger, layout, extra, space.ruleset.digest())
+    plan = space._plan_cache.get(key)
+    if plan is not None:
+        return plan
+    regions = space.regions_for(tree)
+    rules, indices = space.rules_for(tree)
+    placement = "local"
+    if scope in ("tree", "pages") and _kernel_eligible(
+        tree, regions, rules, trigger, scope
+    ):
+        placement = "kernel"
+    approx_bytes = page_row_bytes = page_capacity = 0
+    for path, leaf in tree.items():
+        if not is_approx_float(leaf, regions[path]):
+            continue
+        if scope in ("tree", "pages") and not rules[path].fires(trigger):
+            continue
+        nbytes = leaf.numel() * leaf.element_size()
+        approx_bytes += nbytes
+        if leaf.dim() >= 1 and leaf.shape[0]:
+            page_row_bytes += nbytes // leaf.shape[0]
+            page_capacity = (
+                leaf.shape[0] if page_capacity == 0
+                else min(page_capacity, leaf.shape[0])
+            )
+    plan = RepairPlan(
+        space=space, scope=scope, placement=placement, regions=regions,
+        rules=rules, indices=indices, n_rules=space.ruleset.n_rules,
+        trigger=trigger, bytes_per_run=0 if scope == "none" else approx_bytes,
+        page_row_bytes=page_row_bytes, page_capacity=max(page_capacity, 1),
+        ber=extra,
+    )
+    space._plan_cache[key] = plan
+    return plan

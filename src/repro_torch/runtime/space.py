@@ -1,0 +1,169 @@
+"""`ApproxSpace` — the runtime object owning approximate memory: regions
+and rule assignments per state layout, the unified stats stream (kernel
+counter vectors included), the memory-mode scrubs, the simulation boundary
+and the per-rule ledger.
+
+State is a flat ``{path: tensor}`` dict (``core.regions``); passes update
+its tensors in place and return the same dict.  Every mechanism has a pure
+form (pass ``stats``, get ``(tree, stats')`` back) and a convenience form
+(omit ``stats``; deltas accumulate in ``self.stats``).  Not ported yet:
+register-mode ``use``, reference repair, the step decorators and meshes
+(ROADMAP).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import regions as regions_lib
+from ..core import rules as rules_lib
+from ..core import stats as stats_lib
+from .config import ApproxConfig
+
+__all__ = ["ApproxSpace"]
+
+Tree = Dict[str, torch.Tensor]
+
+
+class ApproxSpace:
+    """The runtime service over one approximate-memory deployment::
+
+        space = ApproxSpace(ApproxConfig(mode="memory", policy="zero"))
+        space = ApproxSpace(model.cfg.repair, policy="zero")   # overrides
+    """
+
+    def __init__(self, config: Any = None, *, mesh: Any = None, **overrides):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-native ApproxSpace is not ported: ROADMAP slice 6 "
+                "(multi-GPU)"
+            )
+        rules = overrides.get("rules")
+        if rules is not None and not isinstance(rules, rules_lib.RuleSet):
+            overrides["rules"] = rules_lib.RuleSet(tuple(rules))
+        if config is None:
+            config = ApproxConfig(**overrides)
+        else:
+            config = ApproxConfig.from_legacy(config, **overrides)
+        self.config: ApproxConfig = config
+        self.stats: stats_lib.Stats = stats_lib.zeros()
+        self.scrubbed_bytes: int = 0
+        self._region_cache: Dict[Any, Dict[str, regions_lib.Region]] = {}
+        self._rule_cache: Dict[Any, Tuple[Dict, Dict]] = {}
+        self._plan_cache: Dict[Any, Any] = {}
+        self._rule_counts: Optional[np.ndarray] = None
+        self._ruleset: rules_lib.RuleSet = config.ruleset
+
+    @property
+    def ruleset(self) -> rules_lib.RuleSet:
+        return self._ruleset
+
+    def plan_for(self, tree: Tree, *, scope: str = "tree",
+                 ber: Optional[float] = None, trigger: str = "forced"):
+        from . import plan as plan_lib
+
+        return plan_lib.plan_for(self, tree, scope=scope, ber=ber, trigger=trigger)
+
+    # ---------------------------------------------------------------- regions
+    def rules_for(self, tree: Tree) -> Tuple[Dict[str, Any], Dict[str, int]]:
+        """(``{path: RepairRule}``, ``{path: rule index}``), cached by the
+        state's paths."""
+        key = tuple(tree)
+        hit = self._rule_cache.get(key)
+        if hit is None:
+            hit = self.ruleset.assign(tree)
+            self._rule_cache[key] = hit
+        return hit
+
+    def regions_for(self, tree: Tree) -> Dict[str, regions_lib.Region]:
+        """``{path: Region}``; an exact-island rule pins its leaves EXACT."""
+        key = tuple(tree)
+        hit = self._region_cache.get(key)
+        if hit is None:
+            regions = regions_lib.annotate(tree, self.config.region_rules)
+            rules, _ = self.rules_for(tree)
+            hit = {
+                p: regions_lib.Region.EXACT if rules[p].exact else r
+                for p, r in regions.items()
+            }
+            self._region_cache[key] = hit
+        return hit
+
+    # ------------------------------------------------------------- mechanisms
+    def scrub(self, tree: Tree, stats: Optional[stats_lib.Stats] = None, *,
+              trigger: str = "forced"):
+        """Memory-mode repair of every approximate float leaf, in place."""
+        plan = self.plan_for(tree, scope="tree", trigger=trigger)
+        out, delta = plan.run(tree)
+        self.scrubbed_bytes += plan.bytes_per_run
+        return self._thread_stats(out, delta, stats)
+
+    def scrub_pages(self, tree: Tree, page_ids: Any,
+                    stats: Optional[stats_lib.Stats] = None, *,
+                    trigger: str = "forced"):
+        """Repair rows ``page_ids`` of the leading (page) axis of every
+        approximate float leaf, in place — the serving engine's page-
+        granular scrub.  Ids are bucketed to a power of two (padding
+        duplicates masked out of the counts)."""
+        ids = np.asarray(page_ids, np.int64).reshape(-1)
+        if ids.size == 0 or self.config.mode != "memory":
+            return self._thread_stats(tree, stats_lib.zeros(), stats)
+        plan = self.plan_for(tree, scope="pages", trigger=trigger)
+        out, delta = plan.run(tree, page_ids=ids)
+        self.scrubbed_bytes += int(ids.size) * plan.page_row_bytes
+        return self._thread_stats(out, delta, stats)
+
+    def _thread_stats(self, out, delta, stats):
+        if stats is None:
+            self.stats = stats_lib.merge(self.stats, delta)
+            return out
+        return out, stats_lib.merge(stats, delta)
+
+    def inject(self, tree: Tree, generator: torch.Generator,
+               ber: Optional[float] = None, *,
+               stats: Optional[stats_lib.Stats] = None):
+        """One approximate-memory window of bit flips over the approximate
+        region (in place).  With ``stats``: ``(tree, stats')``; otherwise
+        ``(tree, n_flips)``, recorded into ``self.stats``."""
+        ber = self.config.resolved_ber if ber is None else ber
+        if ber <= 0.0:
+            flips = 0
+        else:
+            plan = self.plan_for(tree, scope="inject", ber=ber)
+            tree, flips = plan.run(tree, generator=generator)
+        if stats is not None:
+            return tree, stats_lib.record_flips(stats, flips)
+        self.stats = stats_lib.record_flips(self.stats, flips)
+        return tree, flips
+
+    # ------------------------------------------------------------------ stats
+    def record_kernel(self, counts) -> stats_lib.Stats:
+        """Fold a kernel counter vector (int32[8]) into the stream."""
+        self.stats = stats_lib.record_kernel_counts(self.stats, counts)
+        return self.stats
+
+    def record_rule_counts(self, rule_counts: np.ndarray) -> None:
+        """Fold one pass's per-rule [nan, inf, events] delta."""
+        if self._rule_counts is None:
+            self._rule_counts = np.zeros((self.ruleset.n_rules, 3), np.int64)
+        self._rule_counts = self._rule_counts + rule_counts
+
+    def rule_stats(self) -> Dict[str, Dict[str, int]]:
+        labels = self.ruleset.labels()
+        rc = (
+            np.zeros((len(labels), 3), np.int64)
+            if self._rule_counts is None else self._rule_counts
+        )
+        return {
+            label: {
+                "nan_found": int(rc[i, 0]),
+                "inf_found": int(rc[i, 1]),
+                "events": int(rc[i, 2]),
+            }
+            for i, label in enumerate(labels)
+        }
+
+    def stats_dict(self) -> Dict[str, int]:
+        return stats_lib.as_dict(self.stats)

@@ -1,0 +1,424 @@
+"""`Engine` — continuous batching over the paged approximate-memory KV pool.
+
+    engine = Engine(model, ServingConfig(...))          # device="cuda"
+    rid = engine.add_request(prompt_ids, max_new=32)
+    while engine.has_work:
+        out = engine.step()          # {"emitted": {rid: [tok]}, "finished"}
+    engine.results[rid]["tokens"]    # prompt + generated
+
+One step, in lockstep (every lane's kernel counters are read back and
+acted on within the step):
+
+  1. one approximate-memory window strikes the pool (``ber > 0`` only)
+  2. admission: waiting requests get zeroed pages and a decode slot
+  3. the prefill lane: one prompt chunk per mid-prefill request through the
+     paged prefill kernel, straight off the pool, then ONE reactive scrub
+     from the summed per-page fatal counts
+  4. one decode step over the static ``(max_batch, M)`` slot batch through
+     the paged decode kernel (split-K when ``resolve_split_k() > 1``), then
+     the reactive scrub of the pages its counts flagged
+  5. the background sweep tick
+
+The kernels repair on read with a value-independent fill, so the tokens do
+not depend on when the scrub writes the repair back.  Configurations that
+need the reference's gathered-view fallback (``repair="off"``, non-memory
+modes, fills the kernels cannot reproduce) are not ported and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import device as device_lib
+from ..core import stats as stats_lib
+from ..core.regions import Region
+from ..kernels import common as kernels_common
+from ..runtime import ApproxSpace, ScrubSchedule
+from ..runtime.plan import serving_scope
+from .config import ServingConfig
+from .pool import PagedKVPool
+from .repair import PageRepairManager
+from .scheduler import Request, RequestState, Scheduler
+
+
+def engine_space(model: Any) -> ApproxSpace:
+    """The engine's default runtime: memory mode, NaN/Inf only, zero fill,
+    no boundary scrub (the page repair manager owns every scrub)."""
+    return ApproxSpace(
+        model.cfg.repair,
+        mode="memory",
+        policy="zero",
+        max_magnitude=None,
+        scrub=ScrubSchedule(boundary=False, interval=0),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class _PagedDecodePlan:
+    """One detector (``None`` = detection off) and one kernel fill per
+    pool-leaf name, shared by the decode and prefill kernels."""
+
+    detectors: Mapping[str, Any]
+    fills: Mapping[str, Tuple[str, float]]
+
+
+def _paged_decode_plan(
+    model: Any, space: ApproxSpace, pool: PagedKVPool
+) -> Optional[_PagedDecodePlan]:
+    """The kernels' repair spec, or ``None`` where the reference falls back
+    to the gathered view: ``repair="off"``, non-memory modes, register-mode
+    model reads, fills without a bit-identical kernel form, detectors that
+    do not encode into the constants, or leaves of one name disagreeing."""
+    if not getattr(model, "supports_paged_decode", False):
+        return None
+    if space.config.mode != "memory":
+        return None
+    if getattr(model.cfg.repair, "mode", "off") == "register":
+        return None
+    regions = space.regions_for(pool.tree)
+    rules, _ = space.rules_for(pool.tree)
+    detectors: Dict[str, Any] = {}
+    fills: Dict[str, Tuple[str, float]] = {}
+    for path, leaf in pool.tree.items():
+        name = path.rsplit("/", 1)[-1]
+        rule = rules[path]
+        if (
+            not leaf.is_floating_point()
+            or regions[path] is not Region.APPROX
+            or not rule.fires("reactive")
+        ):
+            det, fill = None, ("zero", 0.0)
+        else:
+            fill = kernels_common.kernel_fill(rule.fill)
+            if fill is None:
+                return None
+            try:
+                rule.detect.constants(leaf.dtype)
+            except (TypeError, ValueError):
+                return None
+            det = rule.detect
+        if name in detectors and detectors[name] != det:
+            return None
+        if det is not None and fills.get(name, fill) != fill:
+            return None
+        detectors[name] = det
+        if det is not None or name not in fills:
+            fills[name] = fill
+    return _PagedDecodePlan(detectors=detectors, fills=fills)
+
+
+class Engine:
+    """Continuous-batching serving engine (add_request / step / run)."""
+
+    def __init__(
+        self,
+        model: Any,
+        cfg: Optional[ServingConfig] = None,
+        space: Optional[ApproxSpace] = None,
+        *,
+        device=None,
+    ):
+        self.device = device_lib.resolve(device)
+        if model.device != self.device:
+            raise ValueError(
+                f"model weights are on {model.device}, engine on {self.device}"
+            )
+        if not getattr(model, "supports_paged_kv", False):
+            raise NotImplementedError(
+                f"{type(model).__name__} has no paged KV layout"
+            )
+        self.model = model
+        self.cfg = cfg or ServingConfig()
+        self.space = space or engine_space(model)
+        self.pool = PagedKVPool(model, self.space, self.cfg, device=self.device)
+        self.n_host_syncs = 0
+        self.stage_wall_s: Dict[str, float] = {
+            "admit": 0.0, "prefill": 0.0, "decode": 0.0, "repair": 0.0,
+        }
+        self.sched = Scheduler(self.pool, self.cfg)
+        self.repair = PageRepairManager(
+            self.pool, self.space, self.cfg, on_host_sync=self._note_host_sync
+        )
+        self.paged_plan = (
+            _paged_decode_plan(model, self.space, self.pool)
+            if serving_scope(self.cfg.repair) != "none" else None
+        )
+        if self.paged_plan is None:
+            raise NotImplementedError(
+                "this configuration needs the gathered-view fallback "
+                "(repair='off', a non-memory mode, or a fill without a kernel "
+                "form), which is not ported: ROADMAP 'Modules still to port', "
+                "launch/serve.py::build_serve_step"
+            )
+        self._split_k = self.cfg.resolve_split_k()
+        self._prefilling: List[Request] = []
+        self.kernel_counts = np.zeros(8, np.int64)
+        self._stream = stats_lib.zeros()
+        self.results: Dict[int, Dict[str, Any]] = {}
+        self._next_rid = 0
+        self._t = 0
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            self.cfg.seed + 1
+        )
+        self._last_touched: List[int] = []
+        self.tokens_emitted = 0
+        self.prefill_tokens_recomputed = 0
+
+    # ------------------------------------------------------------------ admit
+    def add_request(self, prompt: Sequence[int], max_new: int) -> int:
+        prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        if not prompt:
+            raise ValueError("empty prompt")
+        if max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        rid = self._next_rid
+        self._next_rid += 1
+        self.sched.add(Request(rid=rid, prompt=prompt, max_new=int(max_new)))
+        return rid
+
+    @property
+    def has_work(self) -> bool:
+        return self.sched.has_work
+
+    # ------------------------------------------------------------------- step
+    @torch.no_grad()
+    def step(self) -> Dict[str, Any]:
+        """One engine step; returns the tokens emitted and requests finished."""
+        t = self._t
+        self.pool.now = t
+        emitted: Dict[int, List[int]] = {}
+        finished: List[int] = []
+        self._last_touched = []
+
+        # (1) simulation boundary: one window of flips strikes the pool
+        if self.cfg.ber > 0.0:
+            self.pool.tree, self._stream = self.space.inject(
+                self.pool.tree, self._generator, self.cfg.ber, stats=self._stream
+            )
+
+        # (2) admission: fresh pages are zeroed; the prefill kernel is the
+        # detector, so no probe runs here
+        t_admit = time.perf_counter()
+        self._prefilling = [
+            r for r in self._prefilling if r.state is RequestState.RUNNING
+        ]
+        plan = self.sched.step_plan(self._prefilling)
+        if plan.admitted:
+            self._last_touched = sorted({p for r in plan.admitted for p in r.pages})
+        for req in plan.admitted:
+            if req.prefill_pos is None:
+                req.prefill_pos = 0
+            self._prefilling.append(req)
+        self.stage_wall_s["admit"] += time.perf_counter() - t_admit
+
+        # (3) the prefill lane, then one reactive pass over its summed counts
+        if self._prefilling:
+            t_pre = time.perf_counter()
+            page_counts = counts = None
+            covered = {self.pool.null_page}
+            still: List[Request] = []
+            for req in self._prefilling:
+                pc_r, cnt_r, done = self._prefill_paged(req, emitted)
+                page_counts = pc_r if page_counts is None else page_counts + pc_r
+                counts = cnt_r if counts is None else counts + cnt_r
+                covered.update(req.pages)
+                if not done:
+                    still.append(req)
+                    continue
+                if req.state is RequestState.RUNNING and self._maybe_finish(req):
+                    finished.append(req.rid)
+            self._prefilling = still
+            self._last_touched = sorted(
+                set(self._last_touched) | (covered - {self.pool.null_page})
+            )
+            self.stage_wall_s["prefill"] += time.perf_counter() - t_pre
+            self._flush_lane(page_counts, counts, covered)
+
+        # (4) one decode step + the reactive repair pass
+        decodable = []
+        for r in plan.decode:
+            if r.state is not RequestState.RUNNING:
+                continue
+            if self._reserve_next_page(r):
+                decodable.append(r)
+        decodable = [r for r in decodable if r.state is RequestState.RUNNING]
+        if decodable:
+            touched = sorted(
+                set(self._last_touched) | {p for r in decodable for p in r.pages}
+            )
+            self._last_touched = touched
+            t_dec = time.perf_counter()
+            page_counts, counts = self._decode_paged(decodable, emitted)
+            self.stage_wall_s["decode"] += time.perf_counter() - t_dec
+            self._flush_lane(page_counts, counts, set(touched) | {self.pool.null_page})
+            for req in decodable:
+                if self._maybe_finish(req):
+                    finished.append(req.rid)
+
+        # (5) background sweep tick
+        t_rep = time.perf_counter()
+        self._stream = self.repair.sweep_step(t, self._stream)
+        self.stage_wall_s["repair"] += time.perf_counter() - t_rep
+
+        self._t += 1
+        for toks in emitted.values():
+            self.tokens_emitted += len(toks)
+        return {"t": t, "emitted": emitted, "finished": finished}
+
+    def run(self, max_idle_steps: int = 100) -> Dict[int, Dict[str, Any]]:
+        """Drive the engine until every queued request finishes."""
+        idle = 0
+        while self.has_work:
+            out = self.step()
+            idle = 0 if (out["emitted"] or out["finished"]) else idle + 1
+            if idle > max_idle_steps:
+                raise RuntimeError(
+                    f"engine made no progress in {max_idle_steps} steps"
+                )
+        return self.results
+
+    # --------------------------------------------------------------- lanes
+    def _note_host_sync(self) -> None:
+        self.n_host_syncs += 1
+
+    def _host(self, x: torch.Tensor) -> np.ndarray:
+        """Blocking device→host readback; every hot-path sync funnels here."""
+        self.n_host_syncs += 1
+        return x.cpu().numpy()
+
+    def _flush_lane(self, page_counts, counts, covered) -> None:
+        """Read one lane's kernel counters back and run the reactive pass."""
+        if page_counts is None:
+            return
+        pc = self._host(page_counts)
+        self.kernel_counts += self._host(counts).astype(np.int64)
+        t0 = time.perf_counter()
+        self._stream = self.repair.repair_counts(pc, covered, self._stream)
+        self.stage_wall_s["repair"] += time.perf_counter() - t0
+
+    def _page_counts(self, bt: torch.Tensor, slot_counts: torch.Tensor):
+        """Per-slot counts scatter-added onto the pool's page axis."""
+        n_rows = self.cfg.n_pages + 1
+        out = torch.zeros(n_rows, dtype=torch.int32, device=self.device)
+        return out.index_add_(0, bt.reshape(-1).long(), slot_counts.reshape(-1))
+
+    def _reserve_next_page(self, req: Request) -> bool:
+        req.pos = req.n_context - 1
+        return self.sched.ensure_capacity(req)
+
+    def _prefill_paged(self, req: Request, emitted: Dict[int, List[int]]):
+        """One prompt chunk straight off the pool (``prefill_chunk == 0``:
+        the whole remaining context).  Returns the per-page fatal counts and
+        the counter vector as device tensors, and whether the prefill is
+        complete (the first token is emitted only then)."""
+        toks = req.prefill_tokens()
+        start = req.prefill_pos
+        rest = toks[start:]
+        width = len(rest) if self.cfg.prefill_chunk == 0 else self.cfg.prefill_chunk
+        chunk = rest[:width]
+        q_len = len(chunk)
+        padded = chunk + [0] * (width - q_len)
+        dev = self.device
+        bt = torch.as_tensor(self.pool.block_table(req.pages)[None, :], device=dev)
+        logits, slot_counts, counts = self.model.prefill_paged(
+            self.pool.tree,
+            torch.as_tensor([padded], dtype=torch.int64, device=dev),
+            bt,
+            torch.tensor([start], dtype=torch.int32, device=dev),
+            torch.tensor([q_len], dtype=torch.int32, device=dev),
+            detectors=self.paged_plan.detectors, fills=self.paged_plan.fills,
+        )
+        nxt = logits[0, max(q_len - 1, 0)].argmax()
+        page_counts = self._page_counts(bt, slot_counts)
+        req.prefill_pos += q_len
+        done = start + q_len >= len(toks)
+        if done:
+            req.pos = len(toks)
+            req.prefill_pos = None
+            if req.n_preempted:
+                self.prefill_tokens_recomputed += len(toks)
+            tok = int(self._host(nxt))
+            req.tokens.append(tok)
+            emitted.setdefault(req.rid, []).append(tok)
+        return page_counts, counts, done
+
+    def _decode_batch(self, reqs: List[Request]):
+        """The static-shape decode batch: block tables, tokens, positions."""
+        B, M = self.cfg.max_batch, self.cfg.max_pages_per_request
+        bt = np.full((B, M), self.pool.null_page, np.int32)
+        tokens = np.zeros((B, 1), np.int64)
+        pos = np.zeros((B,), np.int32)
+        for req in reqs:
+            bt[req.slot] = self.pool.block_table(req.pages)
+            tokens[req.slot, 0] = req.last_token
+            pos[req.slot] = req.pos
+        return bt, tokens, pos
+
+    def _decode_paged(self, reqs: List[Request], emitted: Dict[int, List[int]]):
+        bt, tokens, pos = self._decode_batch(reqs)
+        dev = self.device
+        bt = torch.as_tensor(bt, device=dev)
+        logits, slot_counts, counts = self.model.serve_step_paged(
+            self.pool.tree, torch.as_tensor(tokens, device=dev), bt,
+            torch.as_tensor(pos, device=dev),
+            detectors=self.paged_plan.detectors, fills=self.paged_plan.fills,
+            split_k=self._split_k,
+        )
+        nxt = self._host(logits[:, -1, :].argmax(dim=-1))
+        for req in reqs:
+            tok = int(nxt[req.slot])
+            req.tokens.append(tok)
+            req.pos += 1
+            emitted.setdefault(req.rid, []).append(tok)
+        return self._page_counts(bt, slot_counts), counts
+
+    def _maybe_finish(self, req: Request) -> bool:
+        if req.done or req.n_context >= self.cfg.max_seq:
+            req.truncated = not req.done
+            self.sched.finish(req)
+            self.results[req.rid] = {
+                "tokens": req.prompt + req.tokens,
+                "generated": list(req.tokens),
+                "n_preempted": req.n_preempted,
+                "truncated": req.truncated,
+            }
+            return True
+        return False
+
+    # ----------------------------------------------------------- observation
+    def record_kernel(self, counts) -> None:
+        """Report an externally run kernel's counter vector: folded into
+        the stats and routed back to the pages the last step touched."""
+        self.repair.note_kernel(counts, self._last_touched)
+
+    def unified_stats(self) -> stats_lib.Stats:
+        return stats_lib.merge(self.space.stats, self._stream)
+
+    def stats_dict(self) -> Dict[str, int]:
+        return stats_lib.as_dict(self.unified_stats())
+
+    def rule_stats(self) -> Dict[str, Dict[str, int]]:
+        return self.space.rule_stats()
+
+    def metrics(self) -> Dict[str, Any]:
+        toks = max(self.tokens_emitted, 1)
+        steps = max(self._t, 1)
+        return {
+            "tokens_emitted": self.tokens_emitted,
+            "steps": self._t,
+            "n_host_syncs": self.n_host_syncs,
+            "host_syncs_per_step": self.n_host_syncs / steps,
+            "stage_wall_s": dict(self.stage_wall_s),
+            "prefill_tokens_recomputed": self.prefill_tokens_recomputed,
+            "n_preemptions": self.sched.n_preemptions,
+            "scrubbed_bytes": self.pool.scrubbed_bytes,
+            "scrub_calls": self.pool.scrub_calls,
+            "scrubbed_bytes_per_token": self.pool.scrubbed_bytes / toks,
+            "split_k": self._split_k,
+            "paged_kernel_events": int(self.kernel_counts[6]),
+            **self.repair.summary(),
+        }

@@ -1,0 +1,171 @@
+"""Paged KV pool: block-table-indexed physical cache pages + the free list.
+
+Every leaf is ``(n_pages + 1, L, page_size, Kh, Dh)`` with the page axis
+leading, so one page is one contiguous row — the unit of region accounting,
+fault attribution and targeted repair.  Row ``n_pages`` is the null page
+that pads block tables; it is read, repaired and counted like any page.
+The pool's state is the flat dict ``tree = {"layers/k": ..., "layers/v":
+...}``, updated in place by the model's K/V writes and by the scrubs.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Any, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import device as device_lib
+from ..core import stats as stats_lib
+from ..core.regions import Region
+from ..runtime import ApproxSpace
+from .config import ServingConfig
+
+
+class PagedKVPool:
+    """Fixed-size KV pages + free list + per-page fault accounting."""
+
+    def __init__(self, model: Any, space: ApproxSpace, cfg: ServingConfig, *,
+                 device=None):
+        dev = device_lib.resolve(device)
+        defs = model.paged_cache_defs(cfg.n_pages + 1, cfg.page_size)
+        self.tree = {
+            path: torch.zeros(shape, dtype=dtype, device=dev)
+            for path, (shape, dtype) in sorted(defs.items())
+        }
+        self.device = dev
+        self.space = space
+        self.cfg = cfg
+        self.null_page = cfg.n_pages
+        space.regions_for(self.tree)        # pre-register page regions
+        self._free: collections.deque = collections.deque(range(cfg.n_pages))
+        self._refcount = np.zeros(cfg.n_pages + 1, np.int64)
+        self._refcount[self.null_page] = 1
+        # dwell clock: ``now`` is the engine's step; page_clean_step stamps
+        # each page's last scrub or zeroing
+        self.now = 0
+        self.page_clean_step = np.zeros(cfg.n_pages + 1, np.int64)
+        self.page_events = np.zeros(cfg.n_pages + 1, np.int64)
+        self.page_scrubs = np.zeros(cfg.n_pages + 1, np.int64)
+        self.scrubbed_bytes = 0
+        self.scrub_calls = 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    # ------------------------------------------------------------ allocation
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """Allocate ``n`` zeroed pages, or None when the pool cannot."""
+        if n > len(self._free):
+            return None
+        pages = [self._free.popleft() for _ in range(n)]
+        if pages:
+            idx = torch.as_tensor(pages, device=self.device)
+            for leaf in self.tree.values():
+                if leaf.is_floating_point():
+                    leaf[idx] = 0
+            assert all(self._refcount[p] == 0 for p in pages), pages
+            self._refcount[pages] = 1
+            self.page_clean_step[pages] = self.now
+        return pages
+
+    def free(self, pages: Sequence[int]) -> None:
+        """Release one reference per page; a page returns to the free list
+        when its last holder lets go.  A double free raises."""
+        for p in pages:
+            if not 0 <= p < self.null_page:
+                raise ValueError(f"bad page id {p}")
+            if self._refcount[p] <= 0:
+                raise RuntimeError(f"double free of page {p} (no live reference)")
+            self._refcount[p] -= 1
+            if self._refcount[p] == 0:
+                self._free.append(p)
+
+    def is_free(self, page: int) -> bool:
+        return self._refcount[page] == 0
+
+    def mark_clean(self, pages: Sequence[int]) -> None:
+        self.page_clean_step[sorted(set(pages))] = self.now
+
+    def block_table(self, pages: Sequence[int]) -> np.ndarray:
+        """Fixed-width block table row, null-padded."""
+        M = self.cfg.max_pages_per_request
+        assert len(pages) <= M, "request outgrew its block table"
+        row = np.full((M,), self.null_page, np.int32)
+        row[: len(pages)] = pages
+        return row
+
+    # ----------------------------------------------------------------- repair
+    def _probe_fatal_pages(self, page_ids: Sequence[int]) -> List[int]:
+        """The subset of ``page_ids`` holding ≥1 fatal lane under each
+        leaf's rule detector (detection only), gated like the repair:
+        approximate-region float leaves whose rule fires reactively."""
+        ids = sorted(set(page_ids))
+        if not ids:
+            return []
+        idx = torch.as_tensor(ids, device=self.device)
+        regions = self.space.regions_for(self.tree)
+        rules, _ = self.space.rules_for(self.tree)
+        flags = None
+        for path, leaf in self.tree.items():
+            if not leaf.is_floating_point() or regions[path] is not Region.APPROX:
+                continue
+            if not rules[path].fires("reactive"):
+                continue
+            rows = leaf[idx]
+            nan_m, inf_m = rules[path].detect.masks(rows)
+            bad = (nan_m | inf_m).reshape(rows.shape[0], -1).any(dim=1)
+            flags = bad if flags is None else flags | bad
+        if flags is None:
+            return []
+        return [p for p, b in zip(ids, flags.cpu().tolist()) if b]
+
+    def scrub_pages(self, page_ids: Sequence[int], stats: stats_lib.Stats, *,
+                    trigger: str = "reactive") -> stats_lib.Stats:
+        """Targeted in-place scrub of exactly ``page_ids`` with byte
+        accounting — the page-granular reactive repair."""
+        ids = sorted(set(page_ids))
+        if not ids:
+            return stats
+        plan = self.space.plan_for(self.tree, scope="pages", trigger=trigger)
+        if plan.scope == "none" or plan.page_row_bytes == 0:
+            return stats
+        self.tree, stats = self.space.scrub_pages(
+            self.tree, ids, stats, trigger=trigger
+        )
+        self.page_scrubs[ids] += 1
+        self.scrubbed_bytes += len(ids) * plan.page_row_bytes
+        self.scrub_calls += 1
+        self.mark_clean(ids)
+        return stats
+
+    def scrub_all(self, stats: stats_lib.Stats, *,
+                  trigger: str = "reactive") -> stats_lib.Stats:
+        """Whole-pool in-place scrub (the ``repair="whole"`` baseline)."""
+        plan = self.space.plan_for(self.tree, scope="tree", trigger=trigger)
+        if plan.scope == "none" or plan.bytes_per_run == 0:
+            return stats
+        self.tree, stats = self.space.scrub(self.tree, stats, trigger=trigger)
+        self.page_scrubs += 1
+        self.scrubbed_bytes += plan.bytes_per_run
+        self.scrub_calls += 1
+        self.mark_clean(range(self.cfg.n_pages + 1))
+        return stats
+
+    def scrub_scope(self, scope: str, page_ids: Sequence[int],
+                    stats: stats_lib.Stats, *,
+                    trigger: str = "reactive") -> stats_lib.Stats:
+        """Run one planned repair pass by plan scope."""
+        if scope == "pages":
+            return self.scrub_pages(page_ids, stats, trigger=trigger)
+        if scope == "tree":
+            return self.scrub_all(stats, trigger=trigger)
+        assert scope == "none", f"bad plan scope {scope!r}"
+        return stats
+
+    def attribute(self, page_ids: Sequence[int], n_events: int) -> None:
+        """Charge ``n_events`` repair events to the pages a step touched."""
+        if n_events and len(page_ids):
+            ids = sorted(set(page_ids))
+            self.page_events[ids] += n_events

@@ -1,0 +1,121 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
+without one.  The file imports neither JAX nor the reference, so it also
+runs on a machine without JAX; there, skip the JAX-importing conftest:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerances: f32 1e-4 (kernel and plain version sum in different orders);
+bf16 2e-2 (bf16 outputs, and softmax weights rounded to bf16 before the
+value product, where a last-place f32 difference can flip one rounding).
+Integer outputs (slot counts, AT counts, scrub counts, repaired bits) must
+be identical.
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import detect  # noqa: E402
+from repro_torch.kernels import common, paged_attention as pa, scrub  # noqa: E402
+from repro_torch.models import TransformerLM  # noqa: E402
+from repro_torch.runtime import ApproxConfig  # noqa: E402
+from repro_torch.serving import Engine, ServingConfig  # noqa: E402
+
+P, L, PG, KH, DH, H = 9, 2, 4, 2, 16, 4
+NULL = P - 1
+BT = [[0, 2, 8, 8], [5, 3, 1, 8], [8, 8, 8, 8]]
+POS = [9, 13, 0]
+QSTART = [4, 8, 0]
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _pool(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = torch.randn((P, L, PG, KH, DH), generator=gen, device=dev)
+    v = torch.randn((P, L, PG, KH, DH), generator=gen, device=dev)
+    k[2, 1, 1, 0, 3] = float("nan")
+    v[5, 1, 0, 1, 0] = float("inf")
+    k[3, 1, 2, 1, 7] = float("-inf")
+    v[NULL, 1, 0, 0, 1] = float("nan")
+    return k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_versions(cuda, dtype):
+    tol = TOL[dtype]
+    k, v = _pool(cuda, dtype)
+    bt = torch.tensor(BT, dtype=torch.int32, device=cuda)
+    pos = torch.tensor(POS, dtype=torch.int32, device=cuda)
+    qs = torch.tensor(QSTART, dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((3, H, DH), generator=gen, device=cuda).to(dtype)
+    qc = torch.randn((3, 6, H, DH), generator=gen, device=cuda).to(dtype)
+    common.reset_launches()
+    for splits in (1, 2, 4):
+        got = pa.paged_attention_splitk_raw(q, k, v, bt, pos, 1, splits=splits,
+                                            policy_v="constant", constant_v=0.5)
+        want = pa.paged_decode_plain(q, k, v, bt, pos, 1, splits=splits,
+                                     policy_v="constant", constant_v=0.5)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol, atol=tol)
+    got = pa.paged_prefill_raw(qc, k, v, bt, qs, 1)
+    want = pa.paged_prefill_plain(qc, k, v, bt, qs, 1)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol, atol=tol)
+    a, b = k.clone(), k.clone()
+    ids = [2, 3, NULL, 2]
+    assert torch.equal(scrub.scrub_pages(a, ids, n_valid=3)[1],
+                       scrub.scrub_pages_plain(b, ids, n_valid=3)[1])
+    assert torch.equal(detect.bits_of(a), detect.bits_of(b))
+    a, b = v.clone(), v.clone()
+    assert torch.equal(scrub.scrub(a)[1], scrub.scrub_plain(b)[1])
+    assert torch.equal(detect.bits_of(a), detect.bits_of(b))
+    assert common.LAUNCHES == {"paged_decode": 3, "paged_prefill": 1, "scrub": 2}
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_matches_the_cpu(cuda):
+    """The tiny f32 engine: kernels on the card, plain versions on the CPU,
+    the same weights and planted faults — identical tokens and counters."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(
+        get_config("qwen2-1.5b").reduced(), n_layers=2, d_model=64, n_heads=4,
+        n_kv=2, head_dim=16, d_ff=128, vocab=97, repair=ApproxConfig(mode="off"),
+    )
+    gpu = TransformerLM(cfg, device=cuda, seed=0)
+    cpu = TransformerLM(cfg, device="cpu", seed=1)
+    cpu.load_state_dict({n: p.cpu() for n, p in gpu.state_dict().items()})
+    scfg = ServingConfig(page_size=2, n_pages=24, max_batch=3, max_pages_per_request=8)
+    outs = []
+    for model, dev in ((gpu, cuda), (cpu, "cpu")):
+        eng = Engine(model, scfg, device=dev)
+        for i in range(5):
+            eng.add_request(list(range(1 + i, 6 + 2 * i)), max_new=5)
+        step = 0
+        while eng.has_work:
+            eng.step()
+            step += 1
+            if step == 3:
+                page = eng.sched.running[0].pages[0]
+                eng.pool.tree["layers/k"][page, 1, 0, 0, 2] = float("nan")
+                eng.pool.tree["layers/v"][page, 0, 0, 1, 4] = float("inf")
+        outs.append((
+            {r: res["tokens"] for r, res in eng.results.items()},
+            eng.pool.page_events.tolist(), eng.stats_dict(),
+            eng.kernel_counts.tolist(),
+        ))
+    assert outs[0] == outs[1]
+    assert outs[0][2]["nan_found"] == 1 and outs[0][2]["inf_found"] == 1

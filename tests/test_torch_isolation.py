@@ -1,0 +1,67 @@
+"""The port stands alone: no file of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or the reference package ``repro``, and
+``import repro_torch`` (with every submodule) works where JAX cannot be
+imported and no card is present."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_without_jax_in_a_fresh_process():
+    modules = sorted(
+        "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py"
+    )
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib, repro_torch\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Copied alone (no package beside it) and with no visible card, the
+    script exits non-zero and prints no result line."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, str(alone)], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
