@@ -14,6 +14,17 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      card (integer outputs exactly equal, floats within the stated
      tolerance), then timed (median of CUDA-event timings) beside its plain
      version, its bound and a library yardstick
+  2b. ops: the paper's fused-repair ops at Qwen2-1.5B width — repair_matmul
+     on the MLP projections of a 2,048-token prefill (f32, bf16, and A bf16
+     with B f32) and flash_attention at B=1, H=12, Kh=2, S=T=2048, D=128
+     (causal f32 and bf16, non-causal, causal S=1024), planted lanes in
+     both operands under two detectors: counts equal to the plain version's
+     on the card, outputs within the stated tolerance, memory mode's origin
+     scrub bit-equal to the plain scrub and its second call counting 0;
+     the same checks at the quickstart's shapes and blocks (512³ matmul,
+     blocks (128, 128, 256); attention 1×4×256×64 over Kh=2, blocks
+     (64, 64)); then the quickstart twin (``examples/torch_quickstart.py``) on the
+     card with its Table-3 asserts, and both kernels timed
   3. the engine at full width (28 layers, bf16, random weights from seed
      0): 6 requests, faults planted after step 3, repair and launch checks
   4. parity at full width with 2 layers in f32: the same engine and faults
@@ -131,7 +142,11 @@ KERNEL_NAMES = {
     "scrub": ("scrub_tiles", "scrub_finalize"),
     "paged_decode": ("decode_partials", "lse_merge"),
     "paged_prefill": ("prefill_partials",),
+    "repair_matmul": ("repair_mm_tiles", "repair_mm_counts"),
+    "flash_attention": ("flash_repair_fwd", "flash_count_tiles", "flash_counts"),
 }
+# the attention kernel's counting pass, timed apart (its extra K/V read)
+COUNT_PASS = ("flash_count_tiles", "flash_counts")
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -145,7 +160,6 @@ def kernel_phase(report: dict) -> None:
     import torch
 
     from repro_torch.core import detect
-    from repro_torch.core.rules import Detector
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import scrub as sk
 
@@ -183,13 +197,6 @@ def kernel_phase(report: dict) -> None:
         qc = torch.randn((B, C, H, DH), generator=g, device=dev).to(dtype)
         return kp, vp, q, qc
 
-    def det2(dtype):
-        lay = detect.layout_of(dtype)
-        three = int(detect.bits_of(torch.tensor([3.0], dtype=dtype))[0])
-        return Detector(max_magnitude=1e3, bitpatterns=(
-            (None, (1 << lay.width) - 1, three & ((1 << lay.width) - 1)),
-        ))
-
     def errs(a, b):
         return float((a.float() - b.float()).abs().nan_to_num(0.0).max())
 
@@ -204,7 +211,7 @@ def kernel_phase(report: dict) -> None:
         configs = [
             ("default", dict(detector_k="default", detector_v="default",
                              policy="zero")),
-            ("range+bitpattern", dict(detector_k=det2(dtype), detector_v=det2(dtype),
+            ("range+bitpattern", dict(detector_k=_det2(dtype), detector_v=_det2(dtype),
                                       policy_k="zero", policy_v="constant",
                                       constant_v=0.5)),
         ]
@@ -352,6 +359,289 @@ def kernel_phase(report: dict) -> None:
         "scrub_pages 2 pages bf16 (one Qwen2-1.5B layer each for attention); "
         "ms = CUDA events around one wrapper call (host work included), "
         "device = profiler kernel time per call")
+
+
+# -------------------------------------------------------------- phase 2b
+# ops-phase geometry (Qwen2-1.5B): the MLP projections of a 2,048-token
+# prefill as (M, K, N), and one layer's attention
+MM_SHAPES = {"gate_up": (2048, 1536, 8960), "down": (2048, 8960, 1536)}
+AT_B, AT_H, AT_KH, AT_S, AT_D = 1, 12, 2, 2048, 128
+# output tolerances (rtol, atol), kernel vs plain version on the same card:
+#   f32 matmul — both sum K products in f32 in different orders (the plain
+#     version through cuBLAS with TF32 off); at K = 8960 and |C| ~ 100 the
+#     order alone moves the last few bits
+#   bf16 matmul output — one bf16 ulp is 2^-8 of |C|, and an f32 difference
+#     in the last place can flip one rounding
+#   attention — as the kernel phase's TOL: outputs are convex combinations
+#     of V rows (|out| <= max |v|)
+MM_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (1e-2, 1e-2)}
+
+
+def _plant_lanes(x, gen, dtype, big: bool = False):
+    """NaN, ±Inf and a bit-pattern value (3.0) at random positions of ``x``
+    (in place, before the cast to ``dtype``); with ``big`` also two finite
+    values the range guard catches (3e4, -5e3).  Under the default detector
+    those would pass into the output and swamp its absolute error."""
+    import torch
+
+    flat = x.view(-1)
+    vals = [float("nan"), float("inf"), float("-inf"), 3.0, float("nan"), 3.0]
+    vals += [3.0e4, -5.0e3] if big else []
+    idx = torch.randperm(flat.numel(), generator=gen, device=x.device)
+    for i, val in zip(idx[:len(vals)].tolist(), vals):
+        flat[i] = val
+    return x.to(dtype)
+
+
+def _det2(dtype):
+    """The range-guard + bit-pattern detector of the kernel and ops phases."""
+    import torch
+
+    from repro_torch.core import detect
+    from repro_torch.core.rules import Detector
+
+    lay = detect.layout_of(dtype)
+    three = int(detect.bits_of(torch.tensor([3.0], dtype=dtype))[0])
+    mask = (1 << lay.width) - 1
+    return Detector(max_magnitude=1e3, bitpatterns=((None, mask, three & mask),))
+
+
+def _check_memory_mode(op, operands, kw, slots, what):
+    """Memory mode on clones: the operands end bit-equal to the plain scrub
+    of the same input, and a second call counts nothing."""
+    from repro_torch.core import detect
+    from repro_torch.kernels import scrub as sk
+
+    mine = [x.clone() for x in operands[-2:]]
+    plain = [x.clone() for x in operands[-2:]]
+    res = op(*operands[:-2], *mine, mode="memory", **kw)
+    counts = res.counts.tolist()
+    for x, slot in zip(plain, slots):
+        if counts[slot] > 0:
+            sk.scrub_plain(x, detector=kw.get("detector"))
+    for x, y in zip(mine, plain):
+        if not bool((detect.bits_of(x) == detect.bits_of(y)).all()):
+            raise AssertionError(f"{what}: memory-mode operand differs from "
+                                 f"the plain scrub")
+    again = op(*operands[:-2], *mine, mode="memory", **kw).counts.tolist()
+    if again != [0] * 8:
+        raise AssertionError(f"{what}: second memory-mode call counted {again}")
+
+
+def ops_phase(report: dict) -> None:
+    import math
+
+    import torch
+
+    from repro_torch.kernels import common, ops
+    from repro_torch.kernels import repair_attention as ra
+    from repro_torch.kernels import repair_matmul as rm
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_quickstart
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    max_err = {"repair_matmul": 0.0, "flash_attention": 0.0}
+
+    def compare(what, got, want, tol):
+        if not torch.equal(got[1].cpu(), want[1].cpu()):
+            raise AssertionError(f"{what}: counts differ {got[1].tolist()} vs "
+                                 f"{want[1].tolist()}")
+        rtol, atol = tol
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=rtol, atol=atol, msg=what)
+        return float((got[0].float() - want[0].float()).abs()
+                     .nan_to_num(0.0).max())
+
+    # ---- repair_matmul at the MLP shapes
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [(s, da, db) for s in MM_SHAPES for da, db in ((f32, f32), (bf16, bf16))]
+    cases.append(("gate_up", bf16, f32))
+    for shape, da, db in cases:
+        M, K, N = MM_SHAPES[shape]
+        base_a = torch.randn((M, K), generator=gen, device=dev)
+        base_b = torch.randn((K, N), generator=gen, device=dev)
+        out = str(da).split(".")[-1]
+        for label, det in (("default", None), ("range+bitpattern", _det2(da))):
+            a = _plant_lanes(base_a.clone(), gen, da, big=det is not None)
+            b = _plant_lanes(base_b.clone(), gen, db, big=det is not None)
+            what = f"repair_matmul {shape} {da}x{db} {label}"
+            got = rm.repair_matmul_raw(a, b, detector=det)
+            want = rm.repair_matmul_plain(a, b, detector=det)
+            err = compare(what, got, want, MM_TOL[out])
+            max_err["repair_matmul"] = max(max_err["repair_matmul"], err)
+            if int(got[1][rm.EV_TOTAL]) == 0:
+                raise AssertionError(f"{what}: saw none of the planted lanes")
+            log(f"ops ok  {what}: counts={got[1].tolist()} max_abs_err={err:.3g} "
+                f"(rtol, atol)={MM_TOL[out]}")
+        _check_memory_mode(ops.repair_matmul, (a, b), dict(detector=_det2(da)),
+                           (rm.EV_A, rm.EV_B), f"repair_matmul {shape} {da}")
+        del a, b, base_a, base_b, got, want
+
+    # ---- flash_attention at one layer's attention width
+    def qkv(dtype, S=AT_S, big=False):
+        q = torch.randn((AT_B, AT_H, S, AT_D), generator=gen, device=dev)
+        k = torch.randn((AT_B, AT_KH, AT_S, AT_D), generator=gen, device=dev)
+        v = torch.randn((AT_B, AT_KH, AT_S, AT_D), generator=gen, device=dev)
+        return (q.to(dtype), _plant_lanes(k, gen, dtype, big),
+                _plant_lanes(v, gen, dtype, big))
+
+    at_cases = [(f32, True, AT_S, "default"), (f32, True, AT_S, "range+bitpattern"),
+                (bf16, True, AT_S, "default"), (bf16, True, AT_S, "range+bitpattern"),
+                (bf16, False, AT_S, "default"), (bf16, True, AT_S // 2, "default")]
+    for dtype, causal, S, label in at_cases:
+        name = str(dtype).split(".")[-1]
+        det = None if label == "default" else _det2(dtype)
+        q, k, v = qkv(dtype, S, big=det is not None)
+        kw = dict(causal=causal, detector=det)
+        what = f"flash_attention {name} causal={causal} S={S} T={AT_S} {label}"
+        got = ra.flash_attention_raw(q, k, v, **kw)
+        want = ra.flash_attention_plain(q, k, v, **kw)
+        err = compare(what, got, want, (TOL[name], TOL[name]))
+        max_err["flash_attention"] = max(max_err["flash_attention"], err)
+        if int(got[1][ra.EV_TOTAL]) == 0:
+            raise AssertionError(f"{what}: saw none of the planted lanes")
+        log(f"ops ok  {what}: counts={got[1].tolist()} max_abs_err={err:.3g} "
+            f"tol={TOL[name]}")
+        if S == AT_S and causal:
+            _check_memory_mode(ops.flash_attention, (q, k, v), kw,
+                               (ra.EV_K, ra.EV_V), what)
+    del q, k, v, got, want
+
+    # ---- both kernels at the quickstart's shapes and blocks, which the
+    # main path below runs: A, B (512, 512) with blocks (128, 128, 256), and
+    # head dim 64 (its own instantiation of the attention kernel)
+    qn, qbm = torch_quickstart.N, torch_quickstart.BLOCKS
+    for dtype in (f32, bf16):
+        name = str(dtype).split(".")[-1]
+        for label, det in (("default", None), ("range+bitpattern", _det2(dtype))):
+            big = det is not None
+            a = _plant_lanes(torch.randn((qn, qn), generator=gen, device=dev),
+                             gen, dtype, big)
+            b = _plant_lanes(torch.randn((qn, qn), generator=gen, device=dev),
+                             gen, dtype, big)
+            kw = dict(blocks=qbm, detector=det)
+            what = f"repair_matmul quickstart {name} {label}"
+            got = rm.repair_matmul_raw(a, b, **kw)
+            want = rm.repair_matmul_plain(a, b, **kw)
+            err = compare(what, got, want, MM_TOL[name])
+            max_err["repair_matmul"] = max(max_err["repair_matmul"], err)
+            if int(got[1][rm.EV_TOTAL]) == 0:
+                raise AssertionError(f"{what}: saw none of the planted lanes")
+            _check_memory_mode(ops.repair_matmul, (a, b), kw,
+                               (rm.EV_A, rm.EV_B), what)
+            log(f"ops ok  {what}: counts={got[1].tolist()} max_abs_err={err:.3g} "
+                f"(rtol, atol)={MM_TOL[name]}")
+            q = torch.randn((1, 4, 256, 64), generator=gen, device=dev).to(dtype)
+            k, v = (_plant_lanes(torch.randn((1, 2, 256, 64), generator=gen,
+                                             device=dev), gen, dtype, big)
+                    for _ in range(2))
+            for causal in (True, False):
+                kw = dict(causal=causal, blocks=(64, 64), detector=det)
+                what = f"flash_attention quickstart D=64 {name} causal={causal} {label}"
+                got = ra.flash_attention_raw(q, k, v, **kw)
+                want = ra.flash_attention_plain(q, k, v, **kw)
+                err = compare(what, got, want, (TOL[name], TOL[name]))
+                max_err["flash_attention"] = max(max_err["flash_attention"], err)
+                if int(got[1][ra.EV_TOTAL]) == 0:
+                    raise AssertionError(f"{what}: saw none of the planted lanes")
+                _check_memory_mode(ops.flash_attention, (q, k, v), kw,
+                                   (ra.EV_K, ra.EV_V), what)
+                log(f"ops ok  {what}: counts={got[1].tolist()} "
+                    f"max_abs_err={err:.3g} tol={TOL[name]}")
+    del a, b, q, k, v, got, want
+
+    # ---- the quickstart twin on the card: the slice's main path
+    common.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qs = torch_quickstart.main(device="cuda")
+    torch.cuda.synchronize()
+    qs_wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    for k_name in ("repair_matmul", "flash_attention", "scrub"):
+        if launches.get(k_name, 0) < 1:
+            raise AssertionError(f"kernel {k_name} never launched by the quickstart")
+    log(f"quickstart ok: register {qs['register']}, memory {qs['memory']}, "
+        f"attention register {qs['attention_register']}, memory "
+        f"{qs['attention_memory']}, stats {qs['stats']}, launches {launches}, "
+        f"{qs_wall:.2f} s")
+
+    # ---- timings, bf16: the gate/up projection and causal S = T = 2048
+    M, K, N = MM_SHAPES["gate_up"]
+    a = _plant_lanes(torch.randn((M, K), generator=gen, device=dev), gen, bf16)
+    b = _plant_lanes(torch.randn((K, N), generator=gen, device=dev), gen, bf16)
+    fa, fb = ops.scrub(a.clone())[0], ops.scrub(b.clone())[0]
+    mm = dict(
+        ms=cuda_ms(lambda: rm.repair_matmul_raw(a, b)),
+        plain_ms=cuda_ms(lambda: rm.repair_matmul_plain(a, b)),
+        library_ms=cuda_ms(lambda: torch.matmul(fa, fb)),
+        device_ms=kernel_device_ms(lambda: rm.repair_matmul_raw(a, b),
+                                   KERNEL_NAMES["repair_matmul"], iters=10),
+    )
+    mm["bound_ms"], mm["bound_by"] = bound(
+        2 * (M * K + K * N + M * N) + 32, 2.0 * M * N * K, "bfloat16")
+    del a, b, fa, fb
+    # the down projection, off the JSON line (a prediction in PERF.md)
+    Md, Kd, Nd = MM_SHAPES["down"]
+    a = _plant_lanes(torch.randn((Md, Kd), generator=gen, device=dev), gen, bf16)
+    b = _plant_lanes(torch.randn((Kd, Nd), generator=gen, device=dev), gen, bf16)
+    down_ms = cuda_ms(lambda: rm.repair_matmul_raw(a, b), iters=10)
+    down_dev = kernel_device_ms(lambda: rm.repair_matmul_raw(a, b),
+                                KERNEL_NAMES["repair_matmul"], iters=5)
+    del a, b
+    q, k, v = qkv(bf16)
+    fk, fv = ops.scrub(k.clone())[0], ops.scrub(v.clone())[0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    at = dict(
+        ms=cuda_ms(lambda: ra.flash_attention_raw(q, k, v)),
+        plain_ms=cuda_ms(lambda: ra.flash_attention_plain(q, k, v), iters=10),
+        library_ms=cuda_ms(lambda: sdpa(q, fk, fv, is_causal=True,
+                                        enable_gqa=True)),
+    )
+    per = device_profile(lambda: [ra.flash_attention_raw(q, k, v) for _ in range(10)])
+    at["device_ms"] = sum(ms for key, ms in per.items()
+                          if any(n in key for n in KERNEL_NAMES["flash_attention"])
+                          ) / 10 or None
+    count_ms = sum(ms for key, ms in per.items()
+                   if any(n in key for n in COUNT_PASS)) / 10 or None
+    kv_bytes = 2 * AT_B * AT_KH * AT_S * AT_D * 2
+    at["bound_ms"], at["bound_by"] = bound(
+        2 * (2 * AT_B * AT_H * AT_S * AT_D) + kv_bytes + 32,
+        2.0 * AT_B * AT_H * AT_S * AT_S * AT_D, "bfloat16")
+    count_bound = kv_bytes / HBM_BYTES_PER_S * 1e3
+    del q, k, v, fk, fv
+    torch.cuda.empty_cache()
+
+    rows = {
+        "repair_matmul": dict(
+            route="cuda", source="src/repro_torch/csrc/repair_matmul.cu",
+            replaces="src/repro/kernels/repair_matmul.py:60 (_mm_kernel)",
+            max_abs_err=max_err["repair_matmul"], **mm),
+        "flash_attention": dict(
+            route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/repair_attention.py:44 (_flash_kernel)",
+            max_abs_err=max_err["flash_attention"], **at),
+    }
+    for name, row in rows.items():
+        row["launches"] = int(launches.get(name, 0))
+        report["kernels"][name] = row
+        log(f"timing {name}: call {row['ms']:.4f} ms (device {row['device_ms']}), "
+            f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), library {row['library_ms']:.4f} ms, "
+            f"max_abs_err {row['max_abs_err']}, launches per quickstart run "
+            f"{row['launches']}")
+    log(f"timing repair_matmul down ({Md}, {Kd}) @ ({Kd}, {Nd}) bf16: call "
+        f"{down_ms:.4f} ms (device {down_dev})")
+    log(f"timing flash_attention counting pass: device {count_ms} ms per call, "
+        f"{kv_bytes} bytes of K/V read again (floor {count_bound:.5f} ms)")
+    log(f"timing shapes: repair_matmul A ({M}, {K}) @ B ({K}, {N}) bf16; "
+        f"flash_attention B={AT_B} H={AT_H} Kh={AT_KH} S=T={AT_S} D={AT_D} "
+        f"causal bf16; library = torch.matmul / SDPA (enable_gqa) on the "
+        f"repaired operands")
 
 
 # ------------------------------------------------------------ phases 3-5
@@ -560,14 +850,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     report: dict = {}
-    kernel_phase(report)
-    engine_phase(report)
-    parity_phase(report)
-    injection_phase(report)
+    for phase in (kernel_phase, ops_phase, engine_phase, parity_phase,
+                  injection_phase):
+        t0 = time.perf_counter()
+        phase(report)
+        log(f"{phase.__name__}: {time.perf_counter() - t0:.2f} s")
     kernels = []
     for name, row in report["kernels"].items():
-        kernels.append(dict(name=name, **row,
-                            launches=int(report["launches"].get(name, 0))))
+        row.setdefault("launches", int(report["launches"].get(name, 0)))
+        kernels.append(dict(name=name, **row))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

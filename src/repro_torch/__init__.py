@@ -10,6 +10,10 @@ run through hand-written CUDA kernels for Hopper (``csrc/``):
   repair once at the origin    the reactive page scrub writes repaired
                                values back into the pool (``kernels.scrub``)
 
+The paper's own demonstration runs through ``kernels.ops``: the fused-
+repair ``repair_matmul`` and ``flash_attention`` in register and memory
+mode (``examples/torch_quickstart.py`` reproduces Fig. 1 and Table 3).
+
 Every kernel wrapper sends CPU tensors to its plain PyTorch version and
 CUDA tensors to its kernel.  Importing the package needs neither CUDA nor a
 compiler: kernels are built with ``nvcc`` at first use.

@@ -1,0 +1,91 @@
+"""Reactive NaN repair at the tensor level — the paper's two mechanisms
+(§3.3 / §3.4):
+
+* **register mode** (``use``): repair at the point of use, every use; the
+  stored tensor keeps its NaN and each read pays a detect and select.
+* **memory mode**: repair once and write back to memory, so later reads
+  are clean (``runtime.ApproxSpace.scrub`` and the kernels' origin scrub
+  in ``kernels.ops``).
+
+``repair_tensor`` and ``fatal_masks`` are the primitives shared with the
+runtime.  The reference's deprecated pytree shims (``scrub_pytree``,
+``inject_pytree``) are not ported: ``ApproxSpace.scrub``/``inject`` are
+their replacements there too.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from . import policies, rules as rules_lib, stats as stats_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class RepairConfig:
+    """The scalar repair switch.  ``max_magnitude``: also treat |x| >= this
+    value as fatal (counted in the Inf bucket); None is paper-faithful."""
+
+    mode: str = "memory"          # "off" | "register" | "memory"
+    policy: Any = "neighbor_mean"  # name | float | RepairPolicy
+    include_inf: bool = True
+    max_magnitude: Optional[float] = None
+
+    def resolved_policy(self) -> policies.RepairPolicy:
+        return policies.get(self.policy)
+
+    def __post_init__(self):
+        if self.mode not in ("off", "register", "memory"):
+            raise ValueError(f"bad repair mode {self.mode!r}")
+
+
+def fatal_masks(
+    x: torch.Tensor,
+    *,
+    include_inf: bool = True,
+    max_magnitude: Optional[float] = None,
+    detector: Optional[rules_lib.Detector] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nan_mask, inf_mask) of the fatal lanes of ``x``: ``detector``, or
+    the one the scalar knobs lift into."""
+    if detector is None:
+        detector = rules_lib.Detector(
+            nan=True, inf=include_inf, max_magnitude=max_magnitude
+        )
+    return detector.masks(x)
+
+
+def repair_tensor(
+    x: torch.Tensor,
+    *,
+    policy: policies.RepairPolicy,
+    include_inf: bool = True,
+    max_magnitude: Optional[float] = None,
+    detector: Optional[rules_lib.Detector] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(repaired copy, nan_count, inf_count) of one tensor; non-fatal lanes
+    are bit-identical to ``x``."""
+    nan_m, inf_m = fatal_masks(
+        x, include_inf=include_inf, max_magnitude=max_magnitude,
+        detector=detector,
+    )
+    mask = nan_m | inf_m
+    fixed = torch.where(mask, policy(x, mask), x)
+    return fixed, nan_m.sum(), inf_m.sum()
+
+
+def use(
+    x: torch.Tensor,
+    cfg: Any,
+    stats: Optional[stats_lib.Stats] = None,
+    path: str = "",
+):
+    """Register-mode read through ``runtime.ApproxSpace(cfg).use``: the
+    repaired tensor, or ``(repaired, stats')`` when ``stats`` is given."""
+    from ..runtime import ApproxSpace  # deferred: runtime builds on core
+
+    if stats is None:
+        fixed, _ = ApproxSpace(cfg).use(x, stats_lib.zeros(), path=path)
+        return fixed
+    return ApproxSpace(cfg).use(x, stats, path=path)

@@ -230,6 +230,17 @@ class RuleSet:
                 return i, rule
         return len(self.entries), DEFAULT_RULE
 
+    def read_rule(self) -> RepairRule:
+        """The rule a pathless ``use()`` read applies: the first non-exact
+        on-read rule, else the first non-exact rule, else the fallback."""
+        for _, rule in self.entries:
+            if rule.trigger == "on-read" and not rule.exact:
+                return rule
+        for _, rule in self.entries:
+            if not rule.exact:
+                return rule
+        return DEFAULT_RULE
+
     def assign(
         self, tree: Mapping[str, Any]
     ) -> Tuple[Dict[str, RepairRule], Dict[str, int]]:

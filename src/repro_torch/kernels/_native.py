@@ -19,7 +19,9 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("scrub", "paged_decode", "paged_prefill")
+SOURCES = (
+    "scrub", "paged_decode", "paged_prefill", "repair_matmul", "flash_attention",
+)
 _HEADERS = ("repair.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -99,6 +101,15 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def function(name: str, fn: str, signature) -> ctypes._CFuncPtr:
+    """The entry point ``fn`` of the library ``name``, with its argument
+    types set; every entry point returns ``cudaGetLastError()`` as int."""
+    entry = getattr(library(name), fn)
+    entry.argtypes = signature
+    entry.restype = I
+    return entry
+
+
 def build_log(name: str) -> str:
     """The compiler output of the last build of one source."""
     return _paths(name)[2].read_text()
@@ -120,3 +131,4 @@ HOST_INTS = ctypes.POINTER(ctypes.c_int)
 I = ctypes.c_int
 LL = ctypes.c_longlong
 U = ctypes.c_uint
+F = ctypes.c_float

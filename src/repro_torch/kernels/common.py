@@ -21,6 +21,17 @@ from ..core import detect, policies as policies_lib, rules as rules_lib
 
 KERNEL_POLICIES = ("zero", "constant", "clamp_finite_max")
 
+# kernel fills of the reference that have no port yet
+NOT_PORTED = {
+    "neighbor_mean": "ROADMAP 'Modules still to port': the in-kernel "
+    "neighbor_mean fill (src/repro/kernels/common.py:153-159, a mean over "
+    "the logical tile)",
+}
+
+# storage dtypes the kernels take, by the code of ``repro::DType``
+# (csrc/repair.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 # launches per kernel wrapper: bumped only where a CUDA kernel is launched
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -107,10 +118,9 @@ def fill_value(policy: str, constant: float, dtype: torch.dtype) -> float:
         v = constant
     elif policy == "clamp_finite_max":
         v = torch.finfo(dtype).max
-    elif policy in policies_lib.NOT_PORTED:
+    elif policy in NOT_PORTED:
         raise NotImplementedError(
-            f"kernel fill {policy!r} is not ported: "
-            f"{policies_lib.NOT_PORTED[policy]}"
+            f"kernel fill {policy!r} is not ported: {NOT_PORTED[policy]}"
         )
     else:
         raise ValueError(

@@ -39,8 +39,6 @@ NAN_K, INF_K, EV_K, NAN_V, INF_V, EV_V, EV_TOTAL = range(7)
 # ``None`` means detection off for that operand.
 DEFAULT_DETECTOR = "default"
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
 
 def _consts(det, dtype, include_inf):
     if det == DEFAULT_DETECTOR:
@@ -179,13 +177,6 @@ _PREFILL_SIG = [
 ]
 
 
-def _lib(name, fn, signature):
-    lib = _native.library(name)
-    getattr(lib, fn).argtypes = signature
-    getattr(lib, fn).restype = _native.I
-    return getattr(lib, fn)
-
-
 def _check_operands(q, k_pages, v_pages, bt, vec, what):
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("block_tables", bt), ("positions", vec)):
@@ -195,7 +186,7 @@ def _check_operands(q, k_pages, v_pages, bt, vec, what):
             raise ValueError(f"{what}: {name} must be contiguous")
     if k_pages.shape != v_pages.shape or k_pages.dtype != v_pages.dtype:
         raise ValueError(f"{what}: k/v pages differ in shape or dtype")
-    if q.dtype != k_pages.dtype or q.dtype not in _DTYPE_CODES:
+    if q.dtype != k_pages.dtype or q.dtype not in common.DTYPE_CODES:
         raise TypeError(f"{what}: q and pages must share an f32/bf16/f16 dtype")
     if bt.dtype != torch.int32 or vec.dtype != torch.int32:
         raise TypeError(f"{what}: block tables and positions must be int32")
@@ -214,9 +205,10 @@ def _decode_kernel(q, k_pages, v_pages, bt, pos, layer, splits, spec):
     slot_counts = torch.empty((B, M), dtype=torch.int32, device=dev)
     counts = torch.zeros(8, dtype=torch.int32, device=dev)
     out = torch.empty_like(q)
-    err = _lib("paged_decode", "repro_paged_decode", _DECODE_SIG)(
+    err = _native.function("paged_decode", "repro_paged_decode",
+                           _DECODE_SIG)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        pos.data_ptr(), _DTYPE_CODES[q.dtype], B, H, Dh, L, pg, Kh, M, splits,
+        pos.data_ptr(), common.DTYPE_CODES[q.dtype], B, H, Dh, L, pg, Kh, M, splits,
         int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
         _fill_bits(*fill_k, q.dtype), _fill_bits(*fill_v, q.dtype),
         o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
@@ -240,9 +232,10 @@ def _prefill_kernel(q, k_pages, v_pages, bt, q_start, layer, spec):
     l = torch.empty((B, C * H), dtype=torch.float32, device=dev)
     slot_counts = torch.empty((B, M), dtype=torch.int32, device=dev)
     counts = torch.zeros(8, dtype=torch.int32, device=dev)
-    err = _lib("paged_prefill", "repro_paged_prefill", _PREFILL_SIG)(
+    err = _native.function("paged_prefill", "repro_paged_prefill",
+                           _PREFILL_SIG)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        q_start.data_ptr(), _DTYPE_CODES[q.dtype], B, C, H, Dh, L, pg, Kh, M,
+        q_start.data_ptr(), common.DTYPE_CODES[q.dtype], B, C, H, Dh, L, pg, Kh, M,
         int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
         _fill_bits(*fill_k, q.dtype), _fill_bits(*fill_v, q.dtype),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), slot_counts.data_ptr(),

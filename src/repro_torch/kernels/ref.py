@@ -60,6 +60,66 @@ def scrub_ref(x, *, policy="zero", constant=0.0, include_inf=True, block=None):
     return fixed, torch.tensor([n, i, ev], dtype=torch.int32)
 
 
+def repair_matmul_ref(
+    a, b, *, policy="zero", constant=0.0, include_inf=True,
+    blocks: Optional[Tuple[int, int, int]] = None, out_dtype=None,
+):
+    """Oracle of ``repair_matmul_raw``: (c, counts[8]).  Each A tile is
+    visited N/bn times and each B tile M/bm times; ``ev_total`` takes the
+    closed form over the joint (i, j, k) schedule (the reference's oracle
+    leaves it 0).  ``blocks=None`` means one tile per operand."""
+    (M, K), N = a.shape, b.shape[1]
+    bm, bn, bk = blocks if blocks is not None else (M, N, K)
+    ni, nj = M // bm, N // bn
+    kw = dict(policy=policy, constant=constant, include_inf=include_inf)
+    fa, nan_a, inf_a, ta = repair_array_ref(a, block=(bm, bk), **kw)
+    fb, nan_b, inf_b, tb = repair_array_ref(b, block=(bk, bn), **kw)
+    c = torch.matmul(fa.float(), fb.float()).to(out_dtype or a.dtype)
+
+    def fatal_tiles(x, br, bc):
+        bits = detect.bits_of(x)
+        m = detect.is_nan_bits(bits, x.dtype)
+        if include_inf:
+            m = m | detect.is_inf_bits(bits, x.dtype)
+        R, C = x.shape
+        return m.reshape(R // br, br, C // bc, bc).any(dim=3).any(dim=1)
+
+    fa_k = fatal_tiles(a, bm, bk).sum(dim=0)        # fatal A tiles per k
+    fb_k = fatal_tiles(b, bk, bn).sum(dim=1)        # fatal B tiles per k
+    ev_total = int((fa_k * nj + fb_k * ni - fa_k * fb_k).sum())
+    counts = torch.tensor([
+        nan_a * nj, inf_a * nj, ta * nj, nan_b * ni, inf_b * ni, tb * ni,
+        ev_total, 0,
+    ], dtype=torch.int32)
+    return c, counts
+
+
+def flash_attention_ref(
+    q, k, v, *, causal=True, policy="zero", constant=0.0, include_inf=True,
+    kv_block: Optional[int] = None,
+):
+    """Oracle of ``flash_attention_raw`` as the reference writes it: full
+    softmax over the tile-repaired K/V.  Its causal mask is aligned
+    bottom-right (``tril(k=T-S)``), the kernels' top-left: the two agree
+    only for S == T."""
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    G = H // k.shape[1]
+    blk = (kv_block, D) if kv_block else None
+    kw = dict(policy=policy, constant=constant, include_inf=include_inf,
+              block=blk)
+    fk = repair_array_ref(k.reshape(-1, D), **kw)[0].reshape(k.shape)
+    fv = repair_array_ref(v.reshape(-1, D), **kw)[0].reshape(v.shape)
+    kx = fk.float().repeat_interleave(G, dim=1)
+    vx = fv.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kx) / math.sqrt(D)
+    if causal:
+        mask = torch.ones((S, T), dtype=torch.bool, device=q.device).tril(T - S)
+        s = torch.where(mask, s, NEG_INF)
+    out = torch.einsum("bhst,bhtd->bhsd", torch.softmax(s, dim=-1), vx)
+    return out.to(q.dtype)
+
+
 def _paged_masks(x, detector, include_inf):
     if detector is None:
         z = torch.zeros(x.shape, dtype=torch.bool, device=x.device)

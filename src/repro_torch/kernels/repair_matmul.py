@@ -1,0 +1,175 @@
+"""``C = repair(A) @ repair(B)`` with f32 accumulation and event counters:
+the paper's register-repairing mechanism fused into the operand load
+(Fig. 1 / Table 3).  Kernel: ``csrc/repair_matmul.cu``.
+
+Counts (int32[8], the reference's MM layout) are defined on the logical
+``blocks = (bm, bn, bk)`` grid of the reference call, whatever tile the
+CUDA kernel runs on.  With ``ni = M/bm``, ``nj = N/bn``, ``nk = K/bk``, an
+A tile is visited ``nj`` times and a B tile ``ni`` times, so
+
+  nan_a, inf_a   nj · (NaN / Inf lanes of A)
+  ev_a           nj · (A tiles with a fatal lane)
+  nan_b … ev_b   the same for B with ni
+  ev_total       Σ_k (FA_k·nj + FB_k·ni − FA_k·FB_k): the (i, j, k) visits
+                 where either operand's tile had a fatal lane, FA_k / FB_k
+                 the fatal A tiles of column k / B tiles of row k
+
+The operands may differ in dtype (f32, bf16, f16); each is classified
+with its own detector row.  Fills are the kernel subset (zero, constant,
+``clamp_finite_max``).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..core import tiling
+from . import _native, common
+from .scrub import _fill_bits
+
+# counts layout (int32[8])
+NAN_A, INF_A, EV_A, NAN_B, INF_B, EV_B, EV_TOTAL = range(7)
+
+
+def _default_blocks(M: int, N: int, K: int) -> Tuple[int, int, int]:
+    """The reference's default logical blocks."""
+    return tiling.fit(M, 256), tiling.fit(N, 256), tiling.fit(K, 512)
+
+
+def _spec(a, b, include_inf, blocks, out_dtype, detector):
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"repair_matmul needs (M, K) @ (K, N), got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    (M, K), N = a.shape, b.shape[1]
+    bm, bn, bk = blocks if blocks is not None else _default_blocks(M, N, K)
+    if M % bm or N % bn or K % bk:
+        raise ValueError(f"blocks {(bm, bn, bk)} must divide (M, N, K) = "
+                         f"{(M, N, K)}")
+    det = common.resolve_detector(detector, include_inf)
+    consts_a = common.detector_operand(det, a.dtype)
+    consts_b = common.detector_operand(det, b.dtype)
+    return (bm, bn, bk), consts_a, consts_b, out_dtype or a.dtype
+
+
+def _mm_counts(tile_a: torch.Tensor, tile_b: torch.Tensor) -> torch.Tensor:
+    """The int32[8] counts from per-logical-tile lane counts: ``tile_a``
+    (ni, nk, 2) and ``tile_b`` (nk, nj, 2), last axis [NaN, Inf]."""
+    ni, nj = tile_a.shape[0], tile_b.shape[1]
+    tile_a, tile_b = tile_a.to(torch.int64), tile_b.to(torch.int64)
+    fa = (tile_a.sum(-1) > 0).to(torch.int64)            # (ni, nk)
+    fb = (tile_b.sum(-1) > 0).to(torch.int64)            # (nk, nj)
+    fa_k, fb_k = fa.sum(0), fb.sum(1)                     # (nk,)
+    zero = tile_a.new_zeros(())
+    return torch.stack([
+        nj * tile_a[..., 0].sum(), nj * tile_a[..., 1].sum(), nj * fa.sum(),
+        ni * tile_b[..., 0].sum(), ni * tile_b[..., 1].sum(), ni * fb.sum(),
+        (fa_k * nj + fb_k * ni - fa_k * fb_k).sum(), zero,
+    ]).to(torch.int32)
+
+
+def _tile_sums(nan_m, inf_m, br, bc):
+    """(R/br, C/bc, 2) NaN and Inf lanes per logical tile."""
+    R, C = nan_m.shape
+
+    def per_tile(m):
+        return m.reshape(R // br, br, C // bc, bc).sum(dim=(1, 3))
+
+    return torch.stack([per_tile(nan_m), per_tile(inf_m)], dim=-1)
+
+
+def repair_matmul_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    policy: str = "zero",
+    constant: float = 0.0,
+    include_inf: bool = True,
+    blocks: Optional[Tuple[int, int, int]] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    detector=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`repair_matmul_raw` (any
+    device): repair both operands, then ``torch.matmul`` in f32 per logical
+    k block, accumulated in f32 in k order as the reference kernel does;
+    counts by the closed forms."""
+    (bm, bn, bk), consts_a, consts_b, out_dtype = _spec(
+        a, b, include_inf, blocks, out_dtype, detector
+    )
+    fa, nan_a, inf_a = common.repair_tile(a, consts_a, policy, constant)
+    fb, nan_b, inf_b = common.repair_tile(b, consts_b, policy, constant)
+    counts = _mm_counts(_tile_sums(nan_a, inf_a, bm, bk),
+                       _tile_sums(nan_b, inf_b, bk, bn))
+    fa, fb = fa.float(), fb.float()
+    acc = torch.matmul(fa[:, :bk], fb[:bk])
+    for k0 in range(bk, a.shape[1], bk):
+        acc += torch.matmul(fa[:, k0:k0 + bk], fb[k0:k0 + bk])
+    return acc.to(out_dtype), counts
+
+
+_SIGNATURE = [
+    _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.HOST_INTS, _native.HOST_INTS, _native.U, _native.U,
+    _native.P, _native.P, _native.P, _native.P,
+]
+
+
+def _kernel(a, b, blocks, consts_a, consts_b, out_dtype, policy, constant):
+    if b.device != a.device:
+        raise ValueError(f"repair_matmul: b is on {b.device}, a on {a.device}")
+    for name, t in (("a", a), ("b", b)):
+        if not t.is_contiguous():
+            raise ValueError(f"repair_matmul kernel: {name} must be contiguous")
+    for t in (a.dtype, b.dtype, out_dtype):
+        if t not in common.DTYPE_CODES:
+            raise TypeError(f"repair_matmul kernel supports f32/bf16/f16, got {t}")
+    (M, K), N = a.shape, b.shape[1]
+    bm, bn, bk = blocks
+    ni, nj, nk = M // bm, N // bn, K // bk
+    dev = a.device
+    scratch = torch.zeros(8 + 2 * (ni * nk + nk * nj), dtype=torch.int32,
+                          device=dev)
+    counts, tiles_a = scratch[:8], scratch[8:8 + 2 * ni * nk]
+    tiles_b = scratch[8 + 2 * ni * nk:]
+    c = torch.empty((M, N), dtype=out_dtype, device=dev)
+    codes = common.DTYPE_CODES
+    err = _native.function("repair_matmul", "repro_repair_matmul",
+                           _SIGNATURE)(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), codes[a.dtype],
+        codes[b.dtype], codes[out_dtype], M, N, K, bm, bn, bk,
+        _native.int8_array(consts_a), _native.int8_array(consts_b),
+        _fill_bits(policy, constant, a.dtype),
+        _fill_bits(policy, constant, b.dtype),
+        tiles_a.data_ptr(), tiles_b.data_ptr(), counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _native.check(err, "repair_matmul")
+    common.LAUNCHES["repair_matmul"] += 1
+    return c, counts
+
+
+def repair_matmul_raw(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    policy: str = "zero",
+    constant: float = 0.0,
+    include_inf: bool = True,
+    blocks: Optional[Tuple[int, int, int]] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    detector=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(C, counts)``: C = repair(a) @ repair(b) in ``out_dtype`` (default
+    a's), counts int32[8].  The operands are not modified (register-mode
+    core; ``ops.repair_matmul`` adds the memory-mode origin scrub)."""
+    if common.require_device(a, "repair_matmul") == "cpu":
+        return repair_matmul_plain(
+            a, b, policy=policy, constant=constant, include_inf=include_inf,
+            blocks=blocks, out_dtype=out_dtype, detector=detector,
+        )
+    blocks, consts_a, consts_b, out_dtype = _spec(
+        a, b, include_inf, blocks, out_dtype, detector
+    )
+    return _kernel(a, b, blocks, consts_a, consts_b, out_dtype, policy,
+                   constant)

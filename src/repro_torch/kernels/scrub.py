@@ -24,13 +24,6 @@ _SIGNATURE = [
 ]
 
 
-def _lib():
-    lib = _native.library("scrub")
-    lib.repro_scrub.argtypes = _SIGNATURE
-    lib.repro_scrub.restype = _native.I
-    return lib
-
-
 def _view2d(x: torch.Tensor) -> Tuple[int, int]:
     if x.dim() == 0:
         return 1, 1
@@ -77,7 +70,7 @@ def _kernel(
     n_tiles = -(-rows_process // br) * (cols // bc)
     tile_counts = torch.zeros(max(2 * n_tiles, 2), dtype=torch.int32, device=x.device)
     counts = torch.empty(3, dtype=torch.int32, device=x.device)
-    err = _lib().repro_scrub(
+    err = _native.function("scrub", "repro_scrub", _SIGNATURE)(
         x.data_ptr(), x.element_size(),
         ids.data_ptr() if ids is not None else None,
         rows_per_page, page_stride, cols, rows_process, count_rows, br, bc,

@@ -6,9 +6,10 @@ and the per-rule ledger.
 State is a flat ``{path: tensor}`` dict (``core.regions``); passes update
 its tensors in place and return the same dict.  Every mechanism has a pure
 form (pass ``stats``, get ``(tree, stats')`` back) and a convenience form
-(omit ``stats``; deltas accumulate in ``self.stats``).  Not ported yet:
-register-mode ``use``, reference repair, the step decorators and meshes
-(ROADMAP).
+(omit ``stats``; deltas accumulate in ``self.stats``).  ``use`` is the
+register-mode read of one tensor; unlike the passes it returns a repaired
+copy and leaves its input as it was.  Not ported yet: reference repair,
+the step decorators and meshes (ROADMAP).
 """
 from __future__ import annotations
 
@@ -22,9 +23,31 @@ from ..core import rules as rules_lib
 from ..core import stats as stats_lib
 from .config import ApproxConfig
 
-__all__ = ["ApproxSpace"]
+__all__ = ["ApproxSpace", "use_tensor"]
 
 Tree = Dict[str, torch.Tensor]
+
+
+def use_tensor(
+    x: torch.Tensor, cfg: Any, stats: stats_lib.Stats, path: str = ""
+) -> Tuple[torch.Tensor, stats_lib.Stats]:
+    """Register-mode read (paper §3.3): repair at the consumption site.
+
+    The identity outside register mode, except for a bound *on-read* rule,
+    which repairs here in every mode.  ``path`` binds the ruleset's rule
+    for that path; a pathless read takes ``RuleSet.read_rule``.  An
+    exact-island rule is the identity.  Returns ``(repaired, stats')``;
+    ``x`` itself is not modified."""
+    if cfg.mode == "off":
+        return x, stats
+    ruleset = rules_lib.ruleset_of(cfg)
+    rule = ruleset.rule_for(path)[1] if path else ruleset.read_rule()
+    if rule.exact:
+        return x, stats
+    if cfg.mode != "register" and rule.trigger != "on-read":
+        return x, stats
+    fixed, n, i = rule.apply(x)
+    return fixed, stats_lib.record_repair(stats, n, i)
 
 
 class ApproxSpace:
@@ -92,6 +115,16 @@ class ApproxSpace:
         return hit
 
     # ------------------------------------------------------------- mechanisms
+    def use(self, x: torch.Tensor, stats: Optional[stats_lib.Stats] = None,
+            *, path: str = ""):
+        """Register-mode read of one tensor (see ``use_tensor``).  With
+        ``stats``: ``(repaired, stats')``; otherwise the repaired tensor,
+        its counts recorded into ``self.stats``."""
+        if stats is not None:
+            return use_tensor(x, self.config, stats, path)
+        fixed, self.stats = use_tensor(x, self.config, self.stats, path)
+        return fixed
+
     def scrub(self, tree: Tree, stats: Optional[stats_lib.Stats] = None, *,
               trigger: str = "forced"):
         """Memory-mode repair of every approximate float leaf, in place."""

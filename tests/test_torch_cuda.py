@@ -9,8 +9,8 @@ runs on a machine without JAX; there, skip the JAX-importing conftest:
 Tolerances: f32 1e-4 (kernel and plain version sum in different orders);
 bf16 2e-2 (bf16 outputs, and softmax weights rounded to bf16 before the
 value product, where a last-place f32 difference can flip one rounding).
-Integer outputs (slot counts, AT counts, scrub counts, repaired bits) must
-be identical.
+Integer outputs (slot counts, AT and MM counts, scrub counts, repaired
+bits) must be identical.
 """
 import dataclasses
 
@@ -20,7 +20,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import detect  # noqa: E402
-from repro_torch.kernels import common, paged_attention as pa, scrub  # noqa: E402
+from repro_torch.core.rules import Detector  # noqa: E402
+from repro_torch.kernels import common, ops, paged_attention as pa, scrub  # noqa: E402
+from repro_torch.kernels import repair_attention as ra  # noqa: E402
+from repro_torch.kernels import repair_matmul as rm  # noqa: E402
 from repro_torch.models import TransformerLM  # noqa: E402
 from repro_torch.runtime import ApproxConfig  # noqa: E402
 from repro_torch.serving import Engine, ServingConfig  # noqa: E402
@@ -119,3 +122,86 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         ))
     assert outs[0] == outs[1]
     assert outs[0][2]["nan_found"] == 1 and outs[0][2]["inf_found"] == 1
+
+
+def _plant(x, seed):
+    """NaN, ±Inf, a range-guard value (3e4) and a bit-pattern value (3.0)
+    at seeded positions of ``x`` (in place)."""
+    gen = torch.Generator().manual_seed(seed)
+    flat = x.view(-1)
+    idx = torch.randperm(flat.numel(), generator=gen)[:5].tolist()
+    for i, val in zip(idx, (float("nan"), float("inf"), float("-inf"), 3.0e4, 3.0)):
+        flat[i] = val
+    return x
+
+
+def _detectors(dtype):
+    lay = detect.layout_of(dtype)
+    three = int(detect.bits_of(torch.tensor([3.0], dtype=dtype))[0])
+    mask = (1 << lay.width) - 1
+    return [None, Detector(max_magnitude=1e3,
+                           bitpatterns=((None, mask, three & mask),))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32, torch.float32, None),
+    (torch.bfloat16, torch.bfloat16, None),
+    (torch.bfloat16, torch.float32, torch.float32),
+])
+@pytest.mark.parametrize("blocks", [None, (32, 64, 88)])
+def test_repair_matmul_kernel_matches_plain(cuda, dtypes, blocks):
+    """Ragged physical edges (96 x 320 x 264) under both detectors; memory
+    mode leaves the operands bit-equal to the plain scrub, and a second
+    call counts nothing."""
+    da, db, out = dtypes
+    tol = TOL[out or da]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = _plant(torch.randn((96, 264), generator=gen, device=cuda), 3).to(da)
+    b = _plant(torch.randn((264, 320), generator=gen, device=cuda), 4).to(db)
+    for det in _detectors(da):
+        common.reset_launches()
+        kw = dict(blocks=blocks, out_dtype=out, detector=det)
+        got = rm.repair_matmul_raw(a, b, **kw)
+        want = rm.repair_matmul_plain(a, b, **kw)
+        assert common.LAUNCHES == {"repair_matmul": 1}
+        assert torch.equal(got[1], want[1]) and int(got[1][rm.EV_TOTAL]) > 0
+        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol, atol=tol)
+        ka, kb, pa_, pb = a.clone(), b.clone(), a.clone(), b.clone()
+        res = ops.repair_matmul(ka, kb, mode="memory", **kw)
+        assert res.a is ka and torch.equal(res.counts, want[1])
+        scrub.scrub_plain(pa_, detector=det)
+        scrub.scrub_plain(pb, detector=det)
+        assert torch.equal(detect.bits_of(ka), detect.bits_of(pa_))
+        assert torch.equal(detect.bits_of(kb), detect.bits_of(pb))
+        again = ops.repair_matmul(ka, kb, mode="memory", **kw)
+        assert again.counts.tolist() == [0] * 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,blocks,causal", [
+    ((2, 4, 2, 128, 128, 64), (64, 32), True),
+    ((1, 4, 2, 64, 192, 128), (32, 64), True),      # S < T
+    ((1, 4, 1, 96, 64, 64), None, False),
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, dims, blocks, causal):
+    B, H, Kh, S, T, D = dims
+    tol = TOL[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((B, H, S, D), generator=gen, device=cuda).to(dtype)
+    k = _plant(torch.randn((B, Kh, T, D), generator=gen, device=cuda), 6).to(dtype)
+    v = _plant(torch.randn((B, Kh, T, D), generator=gen, device=cuda), 7).to(dtype)
+    for det in _detectors(dtype):
+        common.reset_launches()
+        kw = dict(causal=causal, blocks=blocks, detector=det)
+        got = ra.flash_attention_raw(q, k, v, **kw)
+        want = ra.flash_attention_plain(q, k, v, **kw)
+        assert common.LAUNCHES == {"flash_attention": 1}
+        assert torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol, atol=tol)
+        kk, vv = k.clone(), v.clone()
+        ops.flash_attention(q, kk, vv, mode="memory", **kw)
+        again = ops.flash_attention(q, kk, vv, mode="memory", **kw)
+        assert again.counts.tolist() == [0] * 8
+        assert torch.isfinite(again.out.float()).all()

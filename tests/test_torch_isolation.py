@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``, and
+"""The port stands alone: no file of ``src/repro_torch/``, no
+``examples/torch_*.py`` and not ``chip_smoke.py`` imports ``jax`` or the
+reference package ``repro``, and
 ``import repro_torch`` (with every submodule) works where JAX cannot be
 imported and no card is present."""
 import ast
@@ -13,7 +14,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py"))
+         + [ROOT / "chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
