@@ -30,6 +30,27 @@ Phases, in order; each raises on failure, so the run exits non-zero:
   4. parity at full width with 2 layers in f32: the same engine and faults
      on the card (kernels) and on the CPU (plain versions)
   5. the injection arm: ber=1e-7 for 4 steps
+  6. the mLSTM kernel at xlstm-1.3b width (B=1, H=4, S=2048: 16 chunks of
+     128, head dim 1024), f32 and bf16, NaN/±Inf planted in q, k and v,
+     fills zero and constant, include_inf on and off: counts equal to the
+     plain version's on the card, outputs within MLSTM_TOL; then timed in
+     bf16 beside its bound
+  7. the xLSTM forward at full xlstm-1.3b width (48 blocks, bf16, random
+     weights from seed 0), 2,048 prompt tokens: one kernel launch per mLSTM
+     block (42), zero counts, finite logits; the same forward with the
+     plain version beside the kernel in every mLSTM block, each block's y
+     within MLSTM_TOL; the end-to-end plain forward and a one-ulp control
+     measured (the bf16 stack amplifies rounding: see MLSTM_TOL's note)
+  8. xLSTM generate at full width: 4 prompts of 32 tokens, 16 new, the
+     cache scrubbed every 8 steps by the scrub kernel; NaN/Inf planted in
+     the mLSTM C and the sLSTM c before a scrub must be found exactly and
+     gone, every step's logits finite
+  8b. the xLSTM forward at full width and full depth in f32 (48 blocks,
+     TF32 off), 256 tokens: kernel in every mLSTM block against the plain
+     version in every mLSTM block, the logits' relative difference under
+     DEPTH_TOL and within DEPTH_CONTROL_X of a one-ulp control
+  9. xLSTM parity at full width, 8 blocks, f32: card (kernels) against CPU
+     (plain versions), the same weights and planted cache faults
 
 Prints the kernel report as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -129,6 +150,24 @@ def device_profile(fn, table: str = ""):
     return per
 
 
+def queued_ms(fn, iters: int = 10) -> float:
+    """Milliseconds per call of ``fn`` launched ``iters`` times back to
+    back between two CUDA events: with the queue kept full, the device
+    time per call (host work per call must be shorter than the kernel)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def kernel_device_ms(fn, names, iters: int = 20):
     """Device time per call of the named kernels (several launches of one
     wrapper summed), or None when the profiler records no device time."""
@@ -144,6 +183,7 @@ KERNEL_NAMES = {
     "paged_prefill": ("prefill_partials",),
     "repair_matmul": ("repair_mm_tiles", "repair_mm_counts"),
     "flash_attention": ("flash_repair_fwd", "flash_count_tiles", "flash_counts"),
+    "mlstm_chunk": ("mlstm_qk", "mlstm_scan"),
 }
 # the attention kernel's counting pass, timed apart (its extra K/V read)
 COUNT_PASS = ("flash_count_tiles", "flash_counts")
@@ -830,6 +870,476 @@ def injection_phase(report: dict) -> None:
     log(f"injection ok: 4 steps at ber=1e-7, stats {stats}")
 
 
+# ------------------------------------------------------------ phases 6-9
+# mLSTM kernel geometry: one xlstm-1.3b block's mLSTM over a 2,048-token
+# prompt (d_inner 4096 over 4 heads)
+ML_B, ML_H, ML_S, ML_Q, ML_P = 1, 4, 2048, 128, 1024
+# y tolerance (rtol = atol), kernel vs plain version on the same card, for
+# both input dtypes: both repair in the storage dtype and then compute in
+# f32, so only the summation order differs (tests/test_mlstm_kernel.py
+# holds the reference kernel to its oracle at 5e-4 in f32)
+MLSTM_TOL = 5e-4
+# The full-width bf16 forward holds the kernel against its plain version
+# block by block (each mLSTM block's y on that block's own inputs,
+# MLSTM_TOL), not at the logits: in bf16 one f32 ulp on one block's y flips
+# roundings that the random-weight stack carries to tens of percent of the
+# logits (the phase measures and prints that control).  The composed
+# blocks are held at the logits in f32, at full depth (DEPTH_TOL) and at
+# 8 blocks card against CPU (PARITY_TOL).
+# Full depth in f32, kernel vs plain version in every mLSTM block on the
+# same card, held on the relative norm of the logits' difference.  Each
+# block's y differs by summation order only, but the random-weight stack
+# amplifies: one f32 ulp on block 0's y alone moves the logits by ~5e-4
+# of their norm (the phase's one-ulp control), so an elementwise logits
+# tolerance measures the stack, not the kernel.  The kernel's divergence
+# must stay under DEPTH_TOL and within DEPTH_CONTROL_X times the control
+# (42 blocks, each a few ulps apart); a defect in how blocks compose
+# (state, layer order, weights) moves the logits by O(1).
+DEPTH_S = 256
+DEPTH_TOL = 1e-2
+DEPTH_CONTROL_X = 10.0
+# Card vs CPU at f32, 8 blocks (rtol = atol): the two mLSTM paths differ by
+# ~3e-6 of |y| per block (summation order), which the stack amplifies to a
+# few 1e-3 of |logit| <= ~10
+PARITY_TOL = 1e-2
+XL_PROMPTS, XL_PROMPT_LEN, XL_NEW, XL_SCRUB = 4, 32, 16, 8
+PROFILE_TOKENS = 256
+
+
+def _mlstm_inputs(gen, dtype):
+    """q, k, v (B, H, nc, Q, P) as tests/test_mlstm_kernel.py draws them,
+    NaN and ±Inf planted across chunks and heads; f32 gates."""
+    import torch
+
+    shape = (ML_B, ML_H, ML_S // ML_Q, ML_Q, ML_P)
+    dev = gen.device
+    q = torch.randn(shape, generator=gen, device=dev) / ML_P ** 0.5
+    k = torch.randn(shape, generator=gen, device=dev)
+    v = torch.randn(shape, generator=gen, device=dev)
+    li = torch.randn(shape[:4], generator=gen, device=dev) * 0.5
+    lf = torch.nn.functional.logsigmoid(
+        torch.randn(shape[:4], generator=gen, device=dev) + 2.0)
+    nan, inf = float("nan"), float("inf")
+    for x, spots in ((q, [((0, 1, 3, 5, 17), nan), ((0, 2, 9, 0, 1000), inf)]),
+                     (k, [((0, 0, 4, 127, 2), -inf), ((0, 3, 11, 64, 512), nan)]),
+                     (v, [((0, 1, 7, 3, 900), inf), ((0, 2, 15, 100, 0), nan),
+                          ((0, 3, 0, 0, 33), -inf)])):
+        for idx, val in spots:
+            x[tuple(i % n for i, n in zip(idx, shape))] = val
+    return q.to(dtype), k.to(dtype), v.to(dtype), li, lf
+
+
+def mlstm_phase(report: dict) -> None:
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import mlstm_chunk as mc
+
+    gc.collect()
+    torch.cuda.empty_cache()       # the engine's model is gone: free its pages
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _mlstm_inputs(gen, dtype)
+        for include_inf in (True, False):
+            for policy, constant in (("zero", 0.0), ("constant", 0.5)):
+                kw = dict(policy=policy, constant=constant, include_inf=include_inf)
+                what = f"mlstm_chunk {str(dtype)[6:]} {policy} include_inf={include_inf}"
+                got = mc.mlstm_chunk_raw(*x, **kw)
+                want = mc.mlstm_chunk_plain(*x, **kw)
+                if not torch.equal(got[1].cpu(), want[1].cpu()):
+                    raise AssertionError(f"{what}: counts {got[1].tolist()} vs "
+                                         f"{want[1].tolist()}")
+                n_inf = int(got[1][mc.INF_Q] + got[1][mc.INF_KV])
+                if int(got[1][mc.NAN_Q] + got[1][mc.NAN_KV]) != 3 or \
+                        n_inf != (4 if include_inf else 0):
+                    raise AssertionError(f"{what}: planted lanes miscounted "
+                                         f"{got[1].tolist()}")
+                torch.testing.assert_close(got[0], want[0], rtol=MLSTM_TOL,
+                                           atol=MLSTM_TOL, equal_nan=True, msg=what)
+                fin = torch.isfinite(got[0])
+                err = float((got[0] - want[0])[fin].abs().max())
+                max_err = max(max_err, err)
+                log(f"mlstm ok  {what}: counts={got[1].tolist()} "
+                    f"max_abs_err={err:.3g} finite={float(fin.float().mean()):.4f} "
+                    f"tol={MLSTM_TOL}")
+        del x, got, want
+
+    # ---- timing, bf16, at the forward's shapes
+    x = _mlstm_inputs(gen, torch.bfloat16)
+    nc = ML_S // ML_Q
+    # device ms from a full queue of launches: the profiler's per-call
+    # sums of these 5-ms kernels are not reliable late in this script
+    # (PERF.md §6); it still gives pass 1's share of the two kernels
+    row = dict(
+        ms=cuda_ms(lambda: mc.mlstm_chunk_raw(*x), iters=10),
+        plain_ms=cuda_ms(lambda: mc.mlstm_chunk_plain(*x), iters=5),
+        device_ms=queued_ms(lambda: mc.mlstm_chunk_raw(*x)),
+        library_ms=None,
+    )
+    per = device_profile(lambda: [mc.mlstm_chunk_raw(*x) for _ in range(5)])
+    both = sum(ms for key, ms in per.items()
+               if any(n in key for n in KERNEL_NAMES["mlstm_chunk"]))
+    qk_share = (sum(ms for key, ms in per.items() if "mlstm_qk" in key) / both
+                if both else None)
+    nbytes = (3 * ML_B * ML_H * ML_S * ML_P * 2 + 2 * ML_B * ML_H * ML_S * 4
+              + ML_B * ML_H * ML_S * ML_P * 4 + 32)
+    # W is causal (j <= t): q k^T and W v count their lower halves, as
+    # flash_attention's bound does; q C and the C update are dense
+    flops = nc * ML_B * ML_H * (2.0 * ML_Q * ML_Q * ML_P + 4.0 * ML_Q * ML_P * ML_P)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bfloat16")
+    row.update(route="cuda", source="src/repro_torch/csrc/mlstm_chunk.cu",
+               replaces="src/repro/kernels/mlstm_chunk.py:46 (_mlstm_kernel)",
+               max_abs_err=max_err)
+    report["kernels"]["mlstm_chunk"] = row
+    log(f"timing mlstm_chunk: call {row['ms']:.4f} ms (device {row['device_ms']:.4f}, "
+        f"pass 1's share {qk_share}), plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}; {flops:.4g} flop, "
+        f"{nbytes} bytes), library null (no single PyTorch call computes a "
+        f"chunked mLSTM), max_abs_err {max_err}")
+    log(f"timing shapes: mlstm_chunk B={ML_B} H={ML_H} nc={nc} Q={ML_Q} "
+        f"P={ML_P} bf16, NaN/Inf planted")
+
+
+def _xlstm_cfg(**changes):
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import ApproxConfig
+
+    # a kernel fill, so the serving scrub runs the scrub kernel on the cache
+    return dataclasses.replace(
+        get_config("xlstm-1.3b"),
+        repair=ApproxConfig(mode="memory", policy="zero"), **changes)
+
+
+def _plain_and_control(model, tokens):
+    """The forward's logits with the plain version in every mLSTM block,
+    and the control: the kernel, with block 0's y moved by one f32 ulp."""
+    from unittest import mock
+
+    from repro_torch.kernels import mlstm_chunk as mc
+
+    kernel = mc.mlstm_chunk_raw
+    with mock.patch.object(mc, "mlstm_chunk_raw", mc.mlstm_chunk_plain):
+        plain = model(tokens)
+    calls = []
+
+    def one_ulp(*a, **k):
+        y, c = kernel(*a, **k)
+        calls.append(1)
+        return (y * (1 + 2.0 ** -23) if len(calls) == 1 else y), c
+
+    with mock.patch.object(mc, "mlstm_chunk_raw", one_ulp):
+        control = model(tokens)
+    return plain, control
+
+
+def _divergence(x, ref) -> dict:
+    return dict(max_abs=float((x - ref).abs().max()),
+                rel=float((x - ref).norm() / ref.norm()),
+                argmax_agree=float((x.argmax(-1) == ref.argmax(-1))
+                                   .float().mean()))
+
+
+def xlstm_forward_phase(report: dict) -> None:
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels import mlstm_chunk as mc
+    from repro_torch.models import build_model
+
+    cfg = _xlstm_cfg()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"xlstm: {cfg.name} blocks={cfg.n_layers} d_model={cfg.d_model} "
+        f"{cfg.dtype_name} params={n_params} init {time.perf_counter() - t0:.2f} s")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(1, ML_S))).cuda()
+    n_mlstm = len(model.mlstm_layers)
+
+    common.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, counts = model(tokens, with_counts=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    if launches.get("mlstm_chunk", 0) != n_mlstm or n_mlstm != 42:
+        raise AssertionError(f"forward launched {launches}, expected "
+                             f"mlstm_chunk once per mLSTM block (42)")
+    if counts.tolist() != [0] * 8:
+        raise AssertionError(f"clean forward counted {counts.tolist()}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("forward logits are not finite")
+    report["kernels"]["mlstm_chunk"]["launches"] = launches["mlstm_chunk"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model(tokens)
+    torch.cuda.synchronize()
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    report["xlstm_model"] = model
+
+    # the plain version beside the kernel in every mLSTM block, on the
+    # block's own inputs
+    block_err = []
+    kernel = mc.mlstm_chunk_raw
+
+    def beside(*a, **k):
+        got, want = kernel(*a, **k), mc.mlstm_chunk_plain(*a, **k)
+        what = f"forward mLSTM block {len(block_err)}"
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"{what}: counts {got[1].tolist()} vs "
+                                 f"{want[1].tolist()}")
+        torch.testing.assert_close(got[0], want[0], rtol=MLSTM_TOL,
+                                   atol=MLSTM_TOL, msg=what)
+        block_err.append(float((got[0] - want[0]).abs().max()))
+        return got
+
+    with mock.patch.object(mc, "mlstm_chunk_raw", beside):
+        again = model(tokens)
+    if len(block_err) != n_mlstm or not torch.equal(again, logits):
+        raise AssertionError("forward with the plain version beside the kernel "
+                             "is not the kernel's forward")
+    # end to end: the plain version in every block, and the control — the
+    # kernel with block 0's y moved by one f32 ulp
+    plain, control = _plain_and_control(model, tokens)
+    if not bool(torch.isfinite(plain).all()):
+        raise AssertionError("the plain forward's logits are not finite")
+    # where the device time goes: a profiled forward over the first
+    # PROFILE_TOKENS tokens (every family is linear in the length; the
+    # whole prompt's ~3e5 launches take minutes to profile), device only
+    short = tokens[:, :PROFILE_TOKENS]
+    model(short)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model(short)
+    torch.cuda.synchronize()
+    short_ms = 1e3 * (time.perf_counter() - t0)
+    per = device_profile(lambda: model(short))
+    groups = {"mlstm_chunk": 0.0, "gemm": 0.0, "other": 0.0}
+    for key, ms in per.items():
+        if any(n in key for n in KERNEL_NAMES["mlstm_chunk"]):
+            groups["mlstm_chunk"] += ms
+        elif any(n in key.lower() for n in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+            groups["gemm"] += ms
+        else:
+            groups["other"] += ms
+    report["xlstm_forward"] = dict(
+        params=n_params, tokens=ML_S, first_ms=1e3 * first_s, warm_ms=warm_ms,
+        tokens_per_s=ML_S / (warm_ms / 1e3), launches=launches,
+        block_max_abs_err=max(block_err),
+        plain_vs_kernel=_divergence(plain, logits),
+        one_ulp_control_vs_kernel=_divergence(control, logits),
+        profiled_tokens=PROFILE_TOKENS, profiled_wall_ms=short_ms,
+        profiled_device_ms=groups,
+        profiled_idle_share=1.0 - sum(groups.values()) / short_ms,
+    )
+    log("xlstm forward: " + json.dumps(report["xlstm_forward"]))
+
+
+def _plant_before(space, scrub_no: int, plants, log_deltas: list):
+    """Wrap ``space.scrub``: before its ``scrub_no``-th call set
+    ``plants`` ([(path, index, value)]) in the cache; log every call's
+    [nan_found, inf_found, events] delta."""
+    inner = space.scrub
+
+    def scrub(cache, stats, *, trigger="forced"):
+        if len(log_deltas) + 1 == scrub_no:
+            for path, idx, val in plants:
+                cache[path][idx] = val
+        cache, out = inner(cache, stats, trigger=trigger)
+        log_deltas.append([out[k] - stats[k]
+                           for k in ("nan_found", "inf_found", "events")])
+        if len(log_deltas) == scrub_no:
+            for path, leaf in cache.items():
+                if not bool(torch.isfinite(leaf).all()):
+                    raise AssertionError(f"{path}: a fatal lane survived the scrub")
+        return cache, out
+
+    import torch
+
+    space.scrub = scrub
+
+
+def _checked_steps(model, seen: list):
+    """Wrap ``model.serve_step`` so every step's logits must be finite."""
+    import torch
+
+    inner = model.serve_step
+
+    def serve_step(cache, tokens, pos=None):
+        logits, cache = inner(cache, tokens, pos)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"step {pos}: logits are not finite")
+        seen.append(pos)
+        return logits, cache
+
+    model.serve_step = serve_step
+
+
+# faults planted before the 2nd interval scrub (step XL_SCRUB): NaN in the
+# matrix memory C of one mLSTM block, Inf in the cell state c of one sLSTM
+# block
+XL_PLANTS = [("mlstm_groups/C", (2, 3, 1, 0, 5, 7), float("nan")),
+             ("mlstm_groups/C", (0, 6, 3, 2, 1000, 1), float("nan")),
+             ("slstm_layers/c", (4, 2, 1, 100), float("inf"))]
+
+
+def xlstm_generate_phase(report: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve
+
+    model = report["xlstm_model"]
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, model.cfg.vocab, size=(XL_PROMPTS, XL_PROMPT_LEN)))
+    space = serve.serve_space(model, XL_SCRUB, memoize=False)
+    deltas, steps = [], []
+    _plant_before(space, 2, XL_PLANTS, deltas)
+    _checked_steps(model, steps)
+    common.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, stats = serve.generate(model, prompts, max_new=XL_NEW,
+                                   max_seq=XL_PROMPT_LEN + XL_NEW, space=space)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del model.serve_step                     # drop the checking wrapper
+    launches = dict(common.LAUNCHES)
+    n_steps = XL_PROMPT_LEN + XL_NEW - 1
+    if tokens.shape != (XL_PROMPTS, XL_PROMPT_LEN + XL_NEW) or len(steps) != n_steps:
+        raise AssertionError(f"generate: {tuple(tokens.shape)}, {len(steps)} steps")
+    if deltas[1][:2] != [2, 1] or any(d[:2] != [0, 0] for i, d in enumerate(deltas) if i != 1):
+        raise AssertionError(f"scrubs found {deltas}, planted [2, 1] before the 2nd")
+    if launches.get("scrub", 0) < len(deltas):
+        raise AssertionError(f"the cache scrub did not run the kernel: {launches}")
+    # the same run again, unchecked and unplanted: the warm timing
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve.generate(model, prompts, max_new=XL_NEW, max_seq=XL_PROMPT_LEN + XL_NEW,
+                   space=serve.serve_space(model, XL_SCRUB, memoize=False))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    cache_bytes = sum(
+        int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+        for shape, dt in model.cache_defs(XL_PROMPTS).values())
+    report["xlstm_generate"] = dict(
+        steps=n_steps, scrubs=len(deltas), scrub_deltas=deltas, stats=stats,
+        launches=launches, first_wall_s=wall, warm_wall_s=warm,
+        ms_per_step=1e3 * warm / n_steps,
+        new_tokens_per_s=XL_PROMPTS * XL_NEW / warm,
+        cache_bytes=cache_bytes,
+    )
+    log("xlstm generate: " + json.dumps(report["xlstm_generate"]))
+    del report["xlstm_model"]
+
+
+def xlstm_depth_phase(report: dict) -> None:
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()        # the bf16 model is gone
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _xlstm_cfg(dtype_name="float32")
+    model = build_model(cfg, device="cuda", seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(1, DEPTH_S))).cuda()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    logits, counts = model(tokens, with_counts=True)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    if launches.get("mlstm_chunk", 0) != 42:
+        raise AssertionError(f"f32 forward launched {launches}, expected "
+                             f"mlstm_chunk once per mLSTM block (42)")
+    if counts.tolist() != [0] * 8 or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"f32 forward: counts {counts.tolist()}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    plain, control = _plain_and_control(model, tokens)
+    div, ctl = _divergence(plain, logits), _divergence(control, logits)
+    report["xlstm_depth"] = dict(
+        blocks=cfg.n_layers, tokens=DEPTH_S, dtype="float32",
+        kernel_forward_s=kernel_s, max_abs_logit=float(logits.abs().max()),
+        plain_vs_kernel=div, one_ulp_control_vs_kernel=ctl,
+        tol=DEPTH_TOL, control_x=DEPTH_CONTROL_X,
+    )
+    log("xlstm depth: " + json.dumps(report["xlstm_depth"]))
+    if not div["rel"] <= min(DEPTH_TOL, DEPTH_CONTROL_X * ctl["rel"]):
+        raise AssertionError(
+            f"full-depth f32 logits, kernel vs plain: relative {div['rel']:.4g} "
+            f"over min({DEPTH_TOL}, {DEPTH_CONTROL_X} x control {ctl['rel']:.4g})")
+    del model, logits, plain, control
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def xlstm_parity_phase(report: dict) -> None:
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import XLSTMLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _xlstm_cfg(n_layers=8, dtype_name="float32")
+    gpu = XLSTMLM(cfg, device="cuda", seed=0)
+    cpu = XLSTMLM(cfg, device="cpu", seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, 256)))
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 16)))
+    outs = []
+    for model in (gpu, cpu):
+        t0 = time.perf_counter()
+        logits, counts = model(tokens.to(model.device), with_counts=True)
+        space = serve.serve_space(model, XL_SCRUB, memoize=False)
+        deltas = []
+        _plant_before(space, 2, [
+            ("mlstm_groups/C", (0, 3, 1, 0, 5, 7), float("nan")),
+            ("slstm_layers/c", (0, 1, 0, 10), float("inf"))], deltas)
+        tok, stats = serve.generate(model, prompts, max_new=8, max_seq=24,
+                                    space=space)
+        outs.append(dict(logits=logits.cpu(), counts=counts.tolist(),
+                         tokens=tok.tolist(), stats=stats, deltas=deltas,
+                         rule_stats=space.rule_stats()))
+        log(f"xlstm parity: {model.device} {time.perf_counter() - t0:.2f} s")
+    card, host = outs[0]["logits"], outs[1]["logits"]
+    diff = float((card - host).abs().max())
+    log(f"xlstm parity: 8 blocks f32, logits max |diff| {diff:.4g}, relative "
+        f"{float((card - host).norm() / host.norm()):.4g}, max |logit| "
+        f"{float(host.abs().max()):.4g} (tol {PARITY_TOL})")
+    torch.testing.assert_close(card, host, rtol=PARITY_TOL, atol=PARITY_TOL,
+                               msg="parity: forward logits card vs CPU")
+    for key in ("counts", "tokens", "stats", "deltas", "rule_stats"):
+        if outs[0][key] != outs[1][key]:
+            raise AssertionError(f"parity: {key} differs between card and CPU: "
+                                 f"{outs[0][key]} vs {outs[1][key]}")
+    log(f"xlstm parity ok: counts {outs[0]['counts']}, tokens equal, scrub "
+        f"deltas {outs[0]['deltas']}, stats {outs[0]['stats']}")
+
+
 def main() -> int:
     import torch
 
@@ -851,7 +1361,8 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
     report: dict = {}
     for phase in (kernel_phase, ops_phase, engine_phase, parity_phase,
-                  injection_phase):
+                  injection_phase, mlstm_phase, xlstm_forward_phase,
+                  xlstm_generate_phase, xlstm_depth_phase, xlstm_parity_phase):
         t0 = time.perf_counter()
         phase(report)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.2f} s")

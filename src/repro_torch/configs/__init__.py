@@ -1,10 +1,10 @@
 """Config registry of the ported architectures."""
 from __future__ import annotations
 
-from . import qwen2_1_5b
+from . import qwen2_1_5b, xlstm_1_3b
 from .base import ArchConfig  # noqa: F401
 
-_CONFIGS = {qwen2_1_5b.CONFIG.name: qwen2_1_5b.CONFIG}
+_CONFIGS = {m.CONFIG.name: m.CONFIG for m in (qwen2_1_5b, xlstm_1_3b)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,6 +1,7 @@
 """Architecture configuration: the fields of the reference's ``ArchConfig``
-that the ported dense decoder reads, with its ``reduced()`` test variant and
-a map from the dtype name to a torch dtype."""
+that the ported families read (the dense decoder and the xLSTM stack), with
+its ``reduced()`` test variant and a map from the dtype name to a torch
+dtype."""
 from __future__ import annotations
 
 import dataclasses
@@ -35,11 +36,13 @@ class ArchConfig:
     mlp: str = "swiglu"
     tie_embeddings: bool = True
     n_experts: int = 0
+    slstm_every: int = 8                # xlstm: every k-th block is sLSTM
 
     dtype_name: str = "bfloat16"
     repair: ApproxConfig = ApproxConfig(
         mode="memory", policy="neighbor_mean", max_magnitude=1e3
     )
+    ssm_chunk: int = 128                # xlstm: chunk length of the mLSTM
 
     @property
     def dtype(self) -> torch.dtype:
@@ -62,4 +65,6 @@ class ArchConfig:
             head_dim=32,
             d_ff=256 if self.d_ff else 0,
             vocab=512,
+            slstm_every=4,          # 4 reduced layers: 1 group of 3+1
+            ssm_chunk=16,
         )

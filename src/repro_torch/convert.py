@@ -1,17 +1,19 @@
-"""Carry weights and pool state between the JAX reference and the port.
+"""Carry weights and decode state between the JAX reference and the port.
 
 Both directions go through numpy, so this module needs no JAX:
 
   params_from_jax(tree, cfg)   the reference's parameter tree (nested dicts of
-                               numpy arrays, ``layers/...`` stacked on axis
-                               0) → a ``TransformerLM`` whose per-layer
-                               modules hold slice ``i``; the tied embedding
-                               stays one table
-  pool_from_jax(pool, tree)    the reference pool's ``{"layers": {"k", "v"}}``
-                               leaves (P, L, pg, Kh, Dh) → ``pool.tree``
-  pool_to_numpy(pool)          ``pool.tree`` → that nested numpy layout
+                               numpy arrays) → the port's model for
+                               ``cfg.family``: a ``TransformerLM``
+                               (``layers/...`` stacked on axis 0) or an
+                               ``XLSTMLM`` (``xlstm_params_from_jax``); the
+                               tied embedding stays one table
+  cache_from_jax(cache, tree)  a reference cache or pool tree → the port's
+                               flat ``{path: tensor}`` state, in place
+  cache_to_numpy(cache)        that flat state → the reference's nested layout
+                               (for a ``PagedKVPool``, pass ``pool.tree``)
 
-so tests can plant identical faults in both pools and compare them.
+so tests can plant identical faults on both sides and compare them.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from .configs.base import ArchConfig
 from .core.regions import flatten
-from .models import TransformerLM
+from .models import TransformerLM, XLSTMLM
 
 
 def to_torch(arr: Any, device=None) -> torch.Tensor:
@@ -61,8 +63,10 @@ _LAYER_PARAMS = {
 
 
 @torch.no_grad()
-def params_from_jax(tree: Any, cfg: ArchConfig, *, device=None) -> TransformerLM:
-    """A ``TransformerLM`` for ``cfg`` holding the reference's weights."""
+def params_from_jax(tree: Any, cfg: ArchConfig, *, device=None):
+    """The port's model for ``cfg`` holding the reference's weights."""
+    if cfg.family == "ssm":
+        return xlstm_params_from_jax(tree, cfg, device=device)
     model = TransformerLM(cfg, device=device)
     flat = flatten(tree)
     dev = model.device
@@ -91,24 +95,88 @@ def params_from_jax(tree: Any, cfg: ArchConfig, *, device=None) -> TransformerLM
     return model
 
 
+def _block_param(block, module: str, name: str, path: str) -> torch.nn.Parameter:
+    p = getattr(getattr(block, module, None), name, None)
+    if not isinstance(p, torch.nn.Parameter):
+        raise KeyError(f"no ported parameter for reference path {path!r}")
+    return p
+
+
 @torch.no_grad()
-def pool_from_jax(pool, tree: Any) -> None:
-    """Overwrite ``pool.tree`` with the reference pool's leaves."""
+def xlstm_params_from_jax(tree: Any, cfg: ArchConfig, *, device=None) -> XLSTMLM:
+    """An ``XLSTMLM`` for ``cfg`` holding the reference's weights: leaves
+    ``mlstm_groups/<module>/<name>`` stacked (n_groups, m_per_group, ...)
+    and ``slstm_layers/<module>/<name>`` stacked (n_groups, ...).  Raises
+    on a path it does not map and on a parameter left unset."""
+    model = XLSTMLM(cfg, device=device)
+    G, M = model.n_groups, model.m_per_group
+    dev = model.device
+    done = set()
+
+    def put(p, value, path):
+        if value.shape != p.shape:
+            raise ValueError(f"{path}: {tuple(value.shape)} vs the port's "
+                             f"{tuple(p.shape)}")
+        p.copy_(value)
+        done.add(id(p))
+
     for path, arr in flatten(tree).items():
-        leaf = pool.tree[path]
+        parts = path.split("/")
+        src = to_torch(arr, dev)
+        if path == "embed/table":
+            put(model.embed.table, src, path)
+        elif path == "final_norm/scale":
+            put(model.final_norm.scale, src, path)
+        elif parts[0] == "mlstm_groups" and len(parts) == 3:
+            if tuple(src.shape[:2]) != (G, M):
+                raise ValueError(f"{path}: stacked {tuple(src.shape[:2])}, "
+                                 f"model has ({G}, {M})")
+            for g in range(G):
+                for i in range(M):
+                    put(_block_param(model.mblock(g, i), *parts[1:], path),
+                        src[g, i], path)
+        elif parts[0] == "slstm_layers" and len(parts) == 3:
+            if src.shape[0] != G:
+                raise ValueError(f"{path}: {src.shape[0]} stacked groups, "
+                                 f"model has {G}")
+            for g in range(G):
+                put(_block_param(model.slstm_layers[g], *parts[1:], path),
+                    src[g], path)
+        else:
+            raise KeyError(f"no ported parameter for reference path {path!r}")
+    unset = [n for n, p in model.named_parameters() if id(p) not in done]
+    if unset:
+        raise KeyError(f"reference tree lacks {len(unset)} parameters, "
+                       f"e.g. {unset[:4]}")
+    return model
+
+
+@torch.no_grad()
+def cache_from_jax(cache: Dict[str, torch.Tensor], tree: Any) -> None:
+    """Overwrite the flat state ``cache`` with a reference tree's leaves
+    (the same paths, shapes and dtypes)."""
+    flat = flatten(tree)
+    if set(flat) != set(cache):
+        raise KeyError(f"paths differ: {sorted(set(flat) ^ set(cache))}")
+    for path, arr in flat.items():
+        leaf = cache[path]
         src = to_torch(arr, leaf.device)
         if src.shape != leaf.shape or src.dtype != leaf.dtype:
             raise ValueError(
-                f"{path}: {tuple(src.shape)} {src.dtype} vs pool "
+                f"{path}: {tuple(src.shape)} {src.dtype} vs "
                 f"{tuple(leaf.shape)} {leaf.dtype}"
             )
         leaf.copy_(src)
 
 
-def pool_to_numpy(pool) -> Dict[str, Dict[str, np.ndarray]]:
-    """``pool.tree`` in the reference's nested layout."""
-    out: Dict[str, Dict[str, np.ndarray]] = {}
-    for path, leaf in pool.tree.items():
-        head, name = path.split("/")
-        out.setdefault(head, {})[name] = to_numpy(leaf)
+def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The flat state in the reference's nested layout."""
+    out: Dict[str, Any] = {}
+    for path, leaf in cache.items():
+        *heads, name = path.split("/")
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[name] = to_numpy(leaf)
     return out
+

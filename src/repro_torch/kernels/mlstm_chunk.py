@@ -1,0 +1,218 @@
+"""Chunked mLSTM with stabilized exponential gating and reactive repair of
+the q/k/v tiles.  Kernel: ``csrc/mlstm_chunk.cu``.
+
+Per (b, h) the chunks run in order; within a chunk (after repairing its
+q, k and v tiles), with F = cumsum(log_f) and b_j = log_i_j − F_j::
+
+    m*     = max(m_prev, max_j b_j)
+    W_tj   = (q_t·k_j)·exp(b_j − m*)                     (j ≤ t)
+    y_t    = (W v + exp(m_prev − m*)·q_t C)_t
+             / max(|Σ_j W_tj + exp(m_prev − m*)·q_t·n|, exp(−F_t − m*))
+    C, n   ← exp(m_prev − m*)·(C, n) + Σ_j exp(b_j − m*)·k_j (v_jᵀ, 1)
+    m      ← F_end + m*
+
+with C, n, m starting at 0, 0, −1e30.  Products take f32 operands after
+the repair and accumulate in f32; ``W v`` uses ``W`` in f32 (the oracle
+``nn.xlstm._chunked_mlstm`` casts it to the value dtype first).
+
+Repair uses the legacy detector: NaN, plus ±Inf with ``include_inf``.
+Counts (int32[8], slot 7 always 0) are per logical (b, h, c) tile, as the
+reference kernel counts them::
+
+    NAN_Q, INF_Q   fatal q lanes
+    EV_Q           q tiles with a fatal lane
+    NAN_KV, INF_KV fatal k plus v lanes
+    EV_KV          chunks whose k or v tile had a fatal lane
+    EV_TOTAL       chunks with any fatal lane
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _native, common
+from .scrub import _fill_bits
+
+NEG = -1e30
+
+# counts layout (int32[8])
+NAN_Q, INF_Q, EV_Q, NAN_KV, INF_KV, EV_KV, EV_TOTAL = range(7)
+
+# the kernel's longest chunk (QMAX in csrc/mlstm_chunk.cu); a head dim P
+# whose (P, 32) f32 slab of C overflows shared memory fails at launch
+MAX_CHUNK = 128
+
+
+def _check_shapes(q, k, v, log_i, log_f):
+    if q.dim() != 5 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"mlstm_chunk needs q, k, v of one (B, H, nc, Q, P) shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if log_i.shape != q.shape[:4] or log_f.shape != q.shape[:4]:
+        raise ValueError(
+            f"mlstm_chunk gates must be (B, H, nc, Q) = {tuple(q.shape[:4])}, "
+            f"got {tuple(log_i.shape)}, {tuple(log_f.shape)}"
+        )
+
+
+def mlstm_chunk_plain(
+    q: torch.Tensor,         # (B, H, nc, Q, P)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    log_i: torch.Tensor,     # (B, H, nc, Q)
+    log_f: torch.Tensor,
+    *,
+    policy: str = "zero",
+    constant: float = 0.0,
+    include_inf: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`mlstm_chunk_raw` (any device):
+    the reference kernel's steps chunk by chunk, batched over (B, H)."""
+    _check_shapes(q, k, v, log_i, log_f)
+    B, H, nc, Q, P = q.shape
+    det = common.resolve_detector(None, include_inf)
+    dev = q.device
+    counts = torch.zeros(8, dtype=torch.int64, device=dev)
+    C = torch.zeros((B, H, P, P), dtype=torch.float32, device=dev)
+    n = torch.zeros((B, H, P), dtype=torch.float32, device=dev)
+    m = torch.full((B, H), NEG, dtype=torch.float32, device=dev)
+    tril = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()
+    ys = []
+    for c in range(nc):
+        fixed, lanes = [], []
+        for x in (q, k, v):
+            t, nan_m, inf_m = common.repair_tile(
+                x[:, :, c], common.detector_operand(det, x.dtype), policy,
+                constant,
+            )
+            fixed.append(t.float())
+            lanes.append((nan_m.sum(dim=(-2, -1)), inf_m.sum(dim=(-2, -1))))
+        (nq, iq), (nk, ik), (nv, iv) = lanes          # each (B, H)
+        ev_q = (nq + iq) > 0
+        ev_kv = (nk + ik + nv + iv) > 0
+        counts[:7] += torch.stack([
+            nq.sum(), iq.sum(), ev_q.sum(), (nk + nv).sum(), (ik + iv).sum(),
+            ev_kv.sum(), (ev_q | ev_kv).sum(),
+        ])
+        qf, kf, vf = fixed
+
+        li = log_i[:, :, c].float()                   # (B, H, Q)
+        lf = log_f[:, :, c].float()
+        F = torch.cumsum(lf, dim=-1)
+        bsrc = li - F
+        m_star = torch.maximum(m, bsrc.amax(dim=-1))  # (B, H)
+        src = torch.exp(bsrc - m_star[..., None])     # (B, H, Q)
+        resc = torch.exp(m - m_star)                  # (B, H)
+
+        qk = torch.matmul(qf, kf.transpose(-1, -2))   # (B, H, Q, Q)
+        W = torch.where(tril, qk * src[..., None, :], 0.0)
+        num = torch.matmul(W, vf)
+        den = W.sum(dim=-1)
+        num = num + resc[..., None, None] * torch.matmul(qf, C)
+        den = den + resc[..., None] * (qf * n[..., None, :]).sum(dim=-1)
+        clamp = torch.exp(-F - m_star[..., None])
+        ys.append(num / torch.maximum(den.abs(), clamp)[..., None])
+
+        ks = kf * src[..., None]
+        C = resc[..., None, None] * C + torch.matmul(ks.transpose(-1, -2), vf)
+        n = resc[..., None] * n + ks.sum(dim=-2)
+        m = F[..., -1] + m_star
+    return torch.stack(ys, dim=2), counts.to(torch.int32)
+
+
+_SIGNATURE = [
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.HOST_INTS, _native.U, _native.P, _native.P, _native.P, _native.P,
+]
+
+
+def _kernel(q, k, v, log_i, log_f, policy, constant, include_inf):
+    dev = q.device
+    for name, t in (("k", k), ("v", v), ("log_i", log_i), ("log_f", log_f)):
+        if t.device != dev:
+            raise ValueError(f"mlstm_chunk: {name} is on {t.device}, q on {dev}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"mlstm_chunk kernel: {name} must be contiguous")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"mlstm_chunk kernel needs one dtype for q, k, v, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in common.DTYPE_CODES:
+        raise TypeError(f"mlstm_chunk kernel supports f32/bf16/f16, got {q.dtype}")
+    B, H, nc, Q, P = q.shape
+    if not 1 <= Q <= MAX_CHUNK:
+        raise ValueError(f"mlstm_chunk kernel takes chunks of 1..{MAX_CHUNK}, "
+                         f"got Q = {Q}")
+    # the reference kernel reads the gates as f32
+    li = log_i.float().contiguous()
+    lf = log_f.float().contiguous()
+    y = torch.empty((B, H, nc, Q, P), dtype=torch.float32, device=dev)
+    qk = torch.empty((B, H, nc, Q, Q), dtype=torch.float32, device=dev)
+    counts = torch.zeros(8, dtype=torch.int32, device=dev)
+    consts = common.detector_operand(
+        common.resolve_detector(None, include_inf), q.dtype
+    )
+    err = _native.function("mlstm_chunk", "repro_mlstm_chunk", _SIGNATURE)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(), lf.data_ptr(),
+        common.DTYPE_CODES[q.dtype], B, H, nc, Q, P,
+        _native.int8_array(consts), _fill_bits(policy, constant, q.dtype),
+        qk.data_ptr(), y.data_ptr(), counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _native.check(err, "mlstm_chunk")
+    common.LAUNCHES["mlstm_chunk"] += 1
+    return y, counts
+
+
+def mlstm_chunk_raw(
+    q: torch.Tensor,         # (B, H, nc, Q, P)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    log_i: torch.Tensor,     # (B, H, nc, Q)
+    log_f: torch.Tensor,
+    *,
+    policy: str = "zero",
+    constant: float = 0.0,
+    include_inf: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked mLSTM.  Returns ``(y (B, H, nc, Q, P) f32, counts int32[8])``;
+    the inputs are not modified."""
+    if common.require_device(q, "mlstm_chunk") == "cpu":
+        return mlstm_chunk_plain(
+            q, k, v, log_i, log_f, policy=policy, constant=constant,
+            include_inf=include_inf,
+        )
+    _check_shapes(q, k, v, log_i, log_f)
+    return _kernel(q, k, v, log_i, log_f, policy, constant, include_inf)
+
+
+def mlstm_chunked(
+    q: torch.Tensor,         # (B, S, H, P) — the nn.xlstm layout
+    k: torch.Tensor,
+    v: torch.Tensor,
+    log_i: torch.Tensor,     # (B, S, H)
+    log_f: torch.Tensor,
+    *,
+    chunk: int = 128,
+    policy: str = "zero",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layout adapter over :func:`mlstm_chunk_raw` for ``nn.xlstm``.
+    Returns ``(y (B, S, H, P) f32, counts)``."""
+    B, S, H, P = q.shape
+    Q = min(chunk, S)
+    assert S % Q == 0, (S, Q)
+    nc = S // Q
+
+    def to5(x):
+        return x.reshape(B, nc, Q, H, P).permute(0, 3, 1, 2, 4).contiguous()
+
+    def gates(x):
+        return x.reshape(B, nc, Q, H).permute(0, 3, 1, 2).contiguous()
+
+    y, counts = mlstm_chunk_raw(
+        to5(q), to5(k), to5(v), gates(log_i), gates(log_f), policy=policy,
+    )
+    return y.permute(0, 2, 3, 1, 4).reshape(B, S, H, P), counts

@@ -16,6 +16,7 @@ from torch import nn
 
 from .. import device as device_lib
 from ..configs.base import ArchConfig
+from ..nn import initializers as ini
 from ..nn.attention import Attention
 from ..nn.layers import Embedding, RMSNorm
 from ..nn.mlp import SwiGLU
@@ -67,16 +68,11 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.table.device
 
-    @torch.no_grad()
     def init_weights(self, seed: int) -> None:
         """Random weights under the reference's init scheme, drawn in module
         order from one generator seeded with ``seed`` on the weights'
         device."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        for module in self.modules():
-            for name, init in getattr(module, "inits", {}).items():
-                p = getattr(module, name)
-                p.copy_(init(tuple(p.shape), p.dtype, gen, p.device))
+        ini.init_weights(self, seed, self.device)
 
     def paged_cache_defs(self, n_pages: int, page_size: int):
         """``{"layers/k": (shape, dtype), "layers/v": ...}``."""

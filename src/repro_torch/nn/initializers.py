@@ -5,6 +5,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch import nn
 
 
 def normal(stddev: float = 0.02):
@@ -31,3 +32,14 @@ def fan_in(scale: float = 1.0):
         std = scale / math.sqrt(max(fi, 1))
         return normal(std)(shape, dtype, generator, device)
     return init
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int, device: torch.device) -> None:
+    """Draw every module's ``inits`` (``{parameter name: initializer}``) in
+    module order from one generator seeded with ``seed`` on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for module in model.modules():
+        for name, init in getattr(module, "inits", {}).items():
+            p = getattr(module, name)
+            p.copy_(init(tuple(p.shape), p.dtype, gen, p.device))

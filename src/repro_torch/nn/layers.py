@@ -1,7 +1,7 @@
 """Basic layers: RMSNorm and the token embedding with its tied readout.
 
 Every module declares ``inits`` — ``{parameter name: initializer}`` — which
-``models.TransformerLM.init_weights`` draws from one generator.  Weights
+``nn.initializers.init_weights`` draws from one generator.  Weights
 keep the reference's (in, out) layout, so a product is ``x @ w`` and the
 weights carry across from the JAX package without transposes.
 """

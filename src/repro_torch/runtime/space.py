@@ -8,8 +8,9 @@ its tensors in place and return the same dict.  Every mechanism has a pure
 form (pass ``stats``, get ``(tree, stats')`` back) and a convenience form
 (omit ``stats``; deltas accumulate in ``self.stats``).  ``use`` is the
 register-mode read of one tensor; unlike the passes it returns a repaired
-copy and leaves its input as it was.  Not ported yet: reference repair,
-the step decorators and meshes (ROADMAP).
+copy and leaves its input as it was.  ``wrap_serve_step`` installs the
+boundary scrub around a serve step.  Not ported yet: reference repair, the
+train-step decorator and meshes (ROADMAP).
 """
 from __future__ import annotations
 
@@ -171,7 +172,29 @@ class ApproxSpace:
         self.stats = stats_lib.record_flips(self.stats, flips)
         return tree, flips
 
+    def wrap_serve_step(self, fn):
+        """Install the boundary scrub around a raw serve step
+        ``fn(cache, tokens, pos) -> (*outs, cache)``.  The wrapped step
+        threads an explicit stats stream::
+
+            step(cache, tokens, pos, stats) -> (*outs, cache, stats)
+
+        In memory mode with a boundary schedule the resident cache is
+        scrubbed before the step, so the step reads it clean."""
+
+        def step(cache, tokens, pos, stats):
+            if self.config.mode == "memory" and self.config.scrub.boundary:
+                cache, stats = self.scrub(cache, stats, trigger="boundary")
+            return (*fn(cache, tokens, pos), stats)
+
+        return step
+
     # ------------------------------------------------------------------ stats
+    def record(self, delta: stats_lib.Stats) -> stats_lib.Stats:
+        """Merge a stats delta (e.g. a wrapped step's) into the stream."""
+        self.stats = stats_lib.merge(self.stats, delta)
+        return self.stats
+
     def record_kernel(self, counts) -> stats_lib.Stats:
         """Fold a kernel counter vector (int32[8]) into the stream."""
         self.stats = stats_lib.record_kernel_counts(self.stats, counts)

@@ -9,8 +9,10 @@ runs on a machine without JAX; there, skip the JAX-importing conftest:
 Tolerances: f32 1e-4 (kernel and plain version sum in different orders);
 bf16 2e-2 (bf16 outputs, and softmax weights rounded to bf16 before the
 value product, where a last-place f32 difference can flip one rounding).
-Integer outputs (slot counts, AT and MM counts, scrub counts, repaired
-bits) must be identical.
+The mLSTM kernel takes 1e-4 for both input dtypes: its arithmetic is f32
+after the repair, so only the summation order differs.  Integer outputs
+(slot counts, AT, MM and mLSTM counts, scrub counts, repaired bits) must be
+identical.
 """
 import dataclasses
 
@@ -23,8 +25,10 @@ from repro_torch.core import detect  # noqa: E402
 from repro_torch.core.rules import Detector  # noqa: E402
 from repro_torch.kernels import common, ops, paged_attention as pa, scrub  # noqa: E402
 from repro_torch.kernels import repair_attention as ra  # noqa: E402
+from repro_torch.kernels import mlstm_chunk as mc  # noqa: E402
 from repro_torch.kernels import repair_matmul as rm  # noqa: E402
-from repro_torch.models import TransformerLM  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import TransformerLM, XLSTMLM  # noqa: E402
 from repro_torch.runtime import ApproxConfig  # noqa: E402
 from repro_torch.serving import Engine, ServingConfig  # noqa: E402
 
@@ -205,3 +209,65 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, dims, blocks, causal)
         again = ops.flash_attention(q, kk, vv, mode="memory", **kw)
         assert again.counts.tolist() == [0] * 8
         assert torch.isfinite(again.out.float()).all()
+
+
+def _mlstm_inputs(dev, dtype, nc, Q, P, B=2, H=2):
+    """q, k, v (B, H, nc, Q, P) with NaN and ±Inf planted, f32 gates."""
+    gen = torch.Generator(device=dev).manual_seed(7 + nc)
+    q = _plant(torch.randn((B, H, nc, Q, P), generator=gen, device=dev) / P ** 0.5, 8)
+    k = _plant(torch.randn((B, H, nc, Q, P), generator=gen, device=dev), 9)
+    v = _plant(torch.randn((B, H, nc, Q, P), generator=gen, device=dev), 10)
+    li = torch.randn((B, H, nc, Q), generator=gen, device=dev) * 0.5
+    lf = torch.nn.functional.logsigmoid(
+        torch.randn((B, H, nc, Q), generator=gen, device=dev) + 2.0)
+    return q.to(dtype), k.to(dtype), v.to(dtype), li, lf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nc,Q,P", [(1, 128, 64), (5, 32, 96), (3, 48, 100)])
+def test_mlstm_chunk_kernel_matches_plain(cuda, dtype, nc, Q, P):
+    """One chunk of the longest length, five short ones, and three ragged
+    ones (P = 100 not a multiple of the 32-column slab, Q = 48 not a
+    multiple of the 32-row tile), under both detectors and fills."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _mlstm_inputs(cuda, dtype, nc, Q, P)
+    for include_inf in (True, False):
+        for policy, constant in (("zero", 0.0), ("constant", 0.5)):
+            kw = dict(policy=policy, constant=constant, include_inf=include_inf)
+            common.reset_launches()
+            got = mc.mlstm_chunk_raw(*x, **kw)
+            want = mc.mlstm_chunk_plain(*x, **kw)
+            assert common.LAUNCHES == {"mlstm_chunk": 1}
+            assert torch.equal(got[1], want[1]) and int(got[1][mc.EV_TOTAL]) > 0
+            assert int(got[1][mc.INF_Q] + got[1][mc.INF_KV]) == (6 if include_inf else 0)
+            torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4,
+                                       equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_xlstm_on_the_card_matches_the_cpu(cuda):
+    """The reduced f32 xLSTM: kernels on the card, plain versions on the
+    CPU, the same weights — forward logits within 1e-4, one kernel launch
+    per mLSTM block, and identical tokens and stats from ``generate`` with
+    the scrub kernel on the cache."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("xlstm-1.3b").reduced(),
+                              repair=ApproxConfig(mode="memory", policy="zero"))
+    gpu = XLSTMLM(cfg, device=cuda, seed=0)
+    cpu = XLSTMLM(cfg, device="cpu", seed=1)
+    cpu.load_state_dict({n: p.cpu() for n, p in gpu.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab, (2, 48), generator=torch.Generator().manual_seed(0))
+    common.reset_launches()
+    lg, cg = gpu(tokens.to(cuda), with_counts=True)
+    assert common.LAUNCHES == {"mlstm_chunk": 3}
+    lc, cc = cpu(tokens, with_counts=True)
+    assert cg.tolist() == cc.tolist() == [0] * 8
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    outs = []
+    for model in (gpu, cpu):
+        space = serve.serve_space(model, 4, memoize=False)
+        tok, stats = serve.generate(model, tokens[:, :8], max_new=6, max_seq=16,
+                                    space=space)
+        outs.append((tok.cpu().tolist(), stats, space.rule_stats()))
+    assert outs[0] == outs[1]

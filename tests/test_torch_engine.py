@@ -60,7 +60,7 @@ def _plant(je, te, step):
     """The same faults in both pools: a K NaN and a V Inf in the first
     running request's pages, a NaN in the null page, and one in a cold
     page only the sweep (or the whole-pool scrub) can see."""
-    tree = convert.pool_to_numpy(te.pool)
+    tree = convert.cache_to_numpy(te.pool.tree)
     jtree = jax.tree.map(np.array, je.pool.tree)
     for name in ("k", "v"):
         np.testing.assert_allclose(tree["layers"][name], jtree["layers"][name],
@@ -76,7 +76,7 @@ def _plant(je, te, step):
     if cold:
         jtree["layers"]["k"][cold[-1], 1, 0, 0, step] = -np.inf
     je.pool.tree = jax.tree.map(jnp.asarray, jtree)
-    convert.pool_from_jax(te.pool, jtree)
+    convert.cache_from_jax(te.pool.tree, jtree)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
