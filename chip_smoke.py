@@ -20,11 +20,16 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      (causal f32 and bf16, non-causal, causal S=1024), planted lanes in
      both operands under two detectors: counts equal to the plain version's
      on the card, outputs within the stated tolerance, memory mode's origin
-     scrub bit-equal to the plain scrub and its second call counting 0;
+     scrub bit-equal to the plain scrub and its second call counting 0
+     (bf16 x bf16 products take repair_matmul's wgmma route, the others its
+     FFMA route: ``kernels.repair_matmul.route``);
      the same checks at the quickstart's shapes and blocks (512³ matmul,
      blocks (128, 128, 256); attention 1×4×256×64 over Kh=2, blocks
      (64, 64)); then the quickstart twin (``examples/torch_quickstart.py``) on the
-     card with its Table-3 asserts, and both kernels timed
+     card with its Table-3 asserts, and both kernels timed: repair_matmul
+     at gate/up in bf16 on planted and on clean operands (the wgmma kernel
+     must show in the profile; scan, main kernel and counts apart), in f32
+     (the FFMA route) and at the down projection
   3. the engine at full width (28 layers, bf16, random weights from seed
      0): 6 requests, faults planted after step 3, repair and launch checks
   4. parity at full width with 2 layers in f32: the same engine and faults
@@ -71,7 +76,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 TC / f32 non-TC
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,  # dense 16-bit TC
+              "float32": 67e12}                        # f32 non-TC
 
 # kernel-phase geometry: the Qwen2-1.5B pool of the serving config
 P, L, PG, KH, DH, H, B, M, C = 65, 28, 16, 2, 128, 12, 4, 8, 64
@@ -171,17 +177,25 @@ def queued_ms(fn, iters: int = 10) -> float:
 def kernel_device_ms(fn, names, iters: int = 20):
     """Device time per call of the named kernels (several launches of one
     wrapper summed), or None when the profiler records no device time."""
+    total = sum(kernel_breakdown(fn, names, iters).values())
+    return total or None
+
+
+def kernel_breakdown(fn, names, iters: int = 20) -> dict:
+    """Device ms per call of each named kernel (0.0 where none ran)."""
     fn()
     per = device_profile(lambda: [fn() for _ in range(iters)])
-    total = sum(ms for key, ms in per.items() if any(n in key for n in names))
-    return total / iters if total else None
+    return {n: sum(ms for key, ms in per.items() if n in key) / iters
+            for n in names}
 
 
 KERNEL_NAMES = {
     "scrub": ("scrub_tiles", "scrub_finalize"),
     "paged_decode": ("decode_partials", "lse_merge"),
     "paged_prefill": ("prefill_partials",),
-    "repair_matmul": ("repair_mm_tiles", "repair_mm_counts"),
+    # FFMA route: tiles + counts; wgmma route: scan + wgmma + counts
+    "repair_matmul": ("repair_mm_tiles", "repair_mm_scan", "repair_mm_wgmma",
+                      "repair_mm_counts"),
     "flash_attention": ("flash_repair_fwd", "flash_count_tiles", "flash_counts"),
     "mlstm_chunk": ("mlstm_qk", "mlstm_scan"),
 }
@@ -499,7 +513,7 @@ def ops_phase(report: dict) -> None:
     # ---- repair_matmul at the MLP shapes
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = [(s, da, db) for s in MM_SHAPES for da, db in ((f32, f32), (bf16, bf16))]
-    cases.append(("gate_up", bf16, f32))
+    cases += [(s, bf16, f32) for s in MM_SHAPES]
     for shape, da, db in cases:
         M, K, N = MM_SHAPES[shape]
         base_a = torch.randn((M, K), generator=gen, device=dev)
@@ -508,7 +522,7 @@ def ops_phase(report: dict) -> None:
         for label, det in (("default", None), ("range+bitpattern", _det2(da))):
             a = _plant_lanes(base_a.clone(), gen, da, big=det is not None)
             b = _plant_lanes(base_b.clone(), gen, db, big=det is not None)
-            what = f"repair_matmul {shape} {da}x{db} {label}"
+            what = f"repair_matmul {shape} {da}x{db} {label} ({rm.route(a, b)})"
             got = rm.repair_matmul_raw(a, b, detector=det)
             want = rm.repair_matmul_plain(a, b, detector=det)
             err = compare(what, got, want, MM_TOL[out])
@@ -564,7 +578,7 @@ def ops_phase(report: dict) -> None:
             b = _plant_lanes(torch.randn((qn, qn), generator=gen, device=dev),
                              gen, dtype, big)
             kw = dict(blocks=qbm, detector=det)
-            what = f"repair_matmul quickstart {name} {label}"
+            what = f"repair_matmul quickstart {name} {label} ({rm.route(a, b)})"
             got = rm.repair_matmul_raw(a, b, **kw)
             want = rm.repair_matmul_plain(a, b, **kw)
             err = compare(what, got, want, MM_TOL[name])
@@ -612,27 +626,66 @@ def ops_phase(report: dict) -> None:
 
     # ---- timings, bf16: the gate/up projection and causal S = T = 2048
     M, K, N = MM_SHAPES["gate_up"]
-    a = _plant_lanes(torch.randn((M, K), generator=gen, device=dev), gen, bf16)
-    b = _plant_lanes(torch.randn((K, N), generator=gen, device=dev), gen, bf16)
+    names = KERNEL_NAMES["repair_matmul"]
+    flops = 2.0 * M * N * K
+    clean_a = torch.randn((M, K), generator=gen, device=dev)
+    clean_b = torch.randn((K, N), generator=gen, device=dev)
+    a = _plant_lanes(clean_a.clone(), gen, bf16)
+    b = _plant_lanes(clean_b.clone(), gen, bf16)
+    if rm.route(a, b) != "wgmma":
+        raise AssertionError("gate/up bf16 is not on the wgmma route")
     fa, fb = ops.scrub(a.clone())[0], ops.scrub(b.clone())[0]
+    parts = kernel_breakdown(lambda: rm.repair_matmul_raw(a, b), names, iters=10)
+    if not parts["repair_mm_wgmma"] > 0:
+        raise AssertionError(f"gate/up bf16 ran no wgmma kernel: {parts}")
     mm = dict(
         ms=cuda_ms(lambda: rm.repair_matmul_raw(a, b)),
         plain_ms=cuda_ms(lambda: rm.repair_matmul_plain(a, b)),
         library_ms=cuda_ms(lambda: torch.matmul(fa, fb)),
-        device_ms=kernel_device_ms(lambda: rm.repair_matmul_raw(a, b),
-                                   KERNEL_NAMES["repair_matmul"], iters=10),
+        device_ms=sum(parts.values()),
     )
     mm["bound_ms"], mm["bound_by"] = bound(
-        2 * (M * K + K * N + M * N) + 32, 2.0 * M * N * K, "bfloat16")
-    del a, b, fa, fb
-    # the down projection, off the JSON line (a prediction in PERF.md)
+        2 * (M * K + K * N + M * N) + 32, flops, "bfloat16")
+    scan_bound = 2 * (M * K + K * N) / HBM_BYTES_PER_S * 1e3
+    ca, cb = clean_a.to(bf16), clean_b.to(bf16)
+    clean = kernel_breakdown(lambda: rm.repair_matmul_raw(ca, cb), names, iters=10)
+    clean_call = cuda_ms(lambda: rm.repair_matmul_raw(ca, cb))
+    clean_lib = cuda_ms(lambda: torch.matmul(ca, cb))
+    lib_dev = kernel_device_ms(lambda: torch.matmul(ca, cb), ("",), iters=10)
+    for label, pr in (("planted", parts), ("clean", clean)):
+        dev_ms = sum(pr.values())
+        log(f"timing repair_matmul gate/up bf16 {label} (wgmma route): device "
+            f"{dev_ms:.4f} ms = scan {pr['repair_mm_scan']:.4f} (floor "
+            f"{scan_bound:.5f}) + wgmma {pr['repair_mm_wgmma']:.4f} + counts "
+            f"{pr['repair_mm_counts']:.4f}; {flops / dev_ms / 1e9:.1f} TFLOP/s, "
+            f"{mm['bound_ms'] / dev_ms:.3f} of the bound; main loop "
+            f"{flops / pr['repair_mm_wgmma'] / 1e9:.1f} TFLOP/s")
+    log(f"timing repair_matmul gate/up bf16 clean: call {clean_call:.4f} ms; "
+        f"torch.matmul call {clean_lib:.4f} ms, device {lib_dev}")
+    del a, b, fa, fb, ca, cb
+    # the f32 product (the FFMA route, which the quickstart takes)
+    a, b = clean_a, clean_b
+    if rm.route(a, b) != "ffma":
+        raise AssertionError("gate/up f32 is not on the FFMA route")
+    f32_parts = kernel_breakdown(lambda: rm.repair_matmul_raw(a, b), names, iters=3)
+    f32_ms = cuda_ms(lambda: rm.repair_matmul_raw(a, b), iters=5)
+    log(f"timing repair_matmul gate/up f32 (ffma route): call {f32_ms:.4f} ms, "
+        f"device {sum(f32_parts.values()):.4f} ms "
+        f"({f32_parts['repair_mm_tiles']:.4f} in repair_mm_tiles), "
+        f"{flops / sum(f32_parts.values()) / 1e9:.1f} TFLOP/s")
+    del a, b, clean_a, clean_b
+    # the down projection, off the JSON line
     Md, Kd, Nd = MM_SHAPES["down"]
     a = _plant_lanes(torch.randn((Md, Kd), generator=gen, device=dev), gen, bf16)
     b = _plant_lanes(torch.randn((Kd, Nd), generator=gen, device=dev), gen, bf16)
+    if rm.route(a, b) != "wgmma":
+        raise AssertionError("down bf16 is not on the wgmma route")
     down_ms = cuda_ms(lambda: rm.repair_matmul_raw(a, b), iters=10)
-    down_dev = kernel_device_ms(lambda: rm.repair_matmul_raw(a, b),
-                                KERNEL_NAMES["repair_matmul"], iters=5)
-    del a, b
+    down = kernel_breakdown(lambda: rm.repair_matmul_raw(a, b), names, iters=5)
+    down_dev = sum(down.values())
+    fa, fb = ops.scrub(a.clone())[0], ops.scrub(b.clone())[0]
+    down_lib = cuda_ms(lambda: torch.matmul(fa, fb))
+    del a, b, fa, fb
     q, k, v = qkv(bf16)
     fk, fv = ops.scrub(k.clone())[0], ops.scrub(v.clone())[0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -674,8 +727,11 @@ def ops_phase(report: dict) -> None:
             f"({row['bound_by']}), library {row['library_ms']:.4f} ms, "
             f"max_abs_err {row['max_abs_err']}, launches per quickstart run "
             f"{row['launches']}")
-    log(f"timing repair_matmul down ({Md}, {Kd}) @ ({Kd}, {Nd}) bf16: call "
-        f"{down_ms:.4f} ms (device {down_dev})")
+    log(f"timing repair_matmul down ({Md}, {Kd}) @ ({Kd}, {Nd}) bf16 (wgmma "
+        f"route): call {down_ms:.4f} ms, device {down_dev:.4f} ms (scan "
+        f"{down['repair_mm_scan']:.4f}, wgmma {down['repair_mm_wgmma']:.4f}), "
+        f"{2.0 * Md * Nd * Kd / down_dev / 1e9:.1f} TFLOP/s; torch.matmul "
+        f"call {down_lib:.4f} ms")
     log(f"timing flash_attention counting pass: device {count_ms} ms per call, "
         f"{kv_bytes} bytes of K/V read again (floor {count_bound:.5f} ms)")
     log(f"timing shapes: repair_matmul A ({M}, {K}) @ B ({K}, {N}) bf16; "

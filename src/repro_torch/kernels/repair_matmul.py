@@ -1,6 +1,6 @@
 """``C = repair(A) @ repair(B)`` with f32 accumulation and event counters:
 the paper's register-repairing mechanism fused into the operand load
-(Fig. 1 / Table 3).  Kernel: ``csrc/repair_matmul.cu``.
+(Fig. 1 / Table 3).  Kernels: ``csrc/repair_matmul.cu``.
 
 Counts (int32[8], the reference's MM layout) are defined on the logical
 ``blocks = (bm, bn, bk)`` grid of the reference call, whatever tile the
@@ -17,9 +17,29 @@ A tile is visited ``nj`` times and a B tile ``ni`` times, so
 The operands may differ in dtype (f32, bf16, f16); each is classified
 with its own detector row.  Fills are the kernel subset (zero, constant,
 ``clamp_finite_max``).
+
+Routes on the card (:func:`route`, a pure function of the operands'
+dtypes, shapes and data pointers, decided before any launch):
+
+  ``"wgmma"``  A and B both bf16 or both f16; M, N, K > 0;
+               K % 8 == 0 and N % 8 == 0 (TMA's 16-byte row strides); both
+               data pointers 16-byte aligned; fewer than 2³⁵ lanes in A
+               and B together (the scan's 32-bit vector index).  A scan
+               kernel reads each operand once, counts every fatal lane and
+               flags the main kernel's ``WGMMA_TILE`` operand tiles that
+               hold one; the main kernel (persistent, TMA ring, ``wgmma``
+               on the tensor cores) repairs only the flagged tiles, in
+               shared memory.
+  ``"ffma"``   every other product: any f32 operand (exact f32, never
+               TF32), mixed dtypes, unaligned shapes or views.  Each tile
+               is repaired as it is loaded and multiplied on the FP32 pipe.
+
+A failure on either route raises; neither falls back to the other.
 """
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Optional, Tuple
 
 import torch
@@ -31,10 +51,40 @@ from .scrub import _fill_bits
 # counts layout (int32[8])
 NAN_A, INF_A, EV_A, NAN_B, INF_B, EV_B, EV_TOTAL = range(7)
 
+# (BM, BN, BK) of the wgmma route's main kernel (csrc/repair_matmul.cu,
+# namespace wg): the scan flags A tiles of BM x BK and B tiles of BK x BN
+WGMMA_TILE = (128, 256, 64)
+_WGMMA_DTYPES = (torch.bfloat16, torch.float16)
+_WGMMA_MAX_LANES = 8 * ((1 << 32) - 4096)     # csrc: wgmma_shape_ok
+
+
+def route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """``"wgmma"`` or ``"ffma"``: which CUDA kernels take ``a @ b`` (the
+    rule in the module docstring)."""
+    (M, K), N = a.shape, b.shape[1]
+    if (a.dtype == b.dtype and a.dtype in _WGMMA_DTYPES
+            and M > 0 and N > 0 and K > 0 and K % 8 == 0 and N % 8 == 0
+            and M * K + K * N < _WGMMA_MAX_LANES
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "ffma"
+
+
+def _flag_shapes(M: int, N: int, K: int):
+    """Shapes of the wgmma route's A and B tile flags."""
+    tm, tn, tk = WGMMA_TILE
+    return (-(-M // tm), -(-K // tk)), (-(-K // tk), -(-N // tn))
+
 
 def _default_blocks(M: int, N: int, K: int) -> Tuple[int, int, int]:
     """The reference's default logical blocks."""
     return tiling.fit(M, 256), tiling.fit(N, 256), tiling.fit(K, 512)
+
+
+# host-side constants of a call, by value
+_fill = functools.lru_cache(maxsize=None)(_fill_bits)
+_operand = functools.lru_cache(maxsize=None)(common.detector_operand)
+_host_ints = functools.lru_cache(maxsize=None)(_native.int8_array)
 
 
 def _spec(a, b, include_inf, blocks, out_dtype, detector):
@@ -47,8 +97,7 @@ def _spec(a, b, include_inf, blocks, out_dtype, detector):
         raise ValueError(f"blocks {(bm, bn, bk)} must divide (M, N, K) = "
                          f"{(M, N, K)}")
     det = common.resolve_detector(detector, include_inf)
-    consts_a = common.detector_operand(det, a.dtype)
-    consts_b = common.detector_operand(det, b.dtype)
+    consts_a, consts_b = _operand(det, a.dtype), _operand(det, b.dtype)
     return (bm, bn, bk), consts_a, consts_b, out_dtype or a.dtype
 
 
@@ -76,6 +125,38 @@ def _tile_sums(nan_m, inf_m, br, bc):
         return m.reshape(R // br, br, C // bc, bc).sum(dim=(1, 3))
 
     return torch.stack([per_tile(nan_m), per_tile(inf_m)], dim=-1)
+
+
+def _tile_flags(fatal: torch.Tensor, tr: int, tc: int) -> torch.Tensor:
+    """int32 (ceil(R/tr), ceil(C/tc)): 1 where the tile holds a fatal lane."""
+    R, C = fatal.shape
+    f = torch.nn.functional.pad(fatal.to(torch.int32), (0, -C % tc, 0, -R % tr))
+    return f.reshape(f.shape[0] // tr, tr, f.shape[1] // tc, tc).amax(dim=(1, 3))
+
+
+def scan_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    include_inf: bool = True,
+    blocks: Optional[Tuple[int, int, int]] = None,
+    detector=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the wgmma route's scan kernel: ``(tiles_a,
+    tiles_b, flags_a, flags_b)``, int32.  ``tiles_a`` (ni, nk, 2) and
+    ``tiles_b`` (nk, nj, 2) are the [NaN, Inf] lanes per logical tile (the
+    input of the closed forms); ``flags_a`` (ceil(M/BM), ceil(K/BK)) and
+    ``flags_b`` (ceil(K/BK), ceil(N/BN)) mark the ``WGMMA_TILE`` operand
+    tiles that hold a fatal lane."""
+    (bm, bn, bk), consts_a, consts_b, _ = _spec(
+        a, b, include_inf, blocks, None, detector
+    )
+    nan_a, inf_a = common.fatal_masks(a, consts_a)
+    nan_b, inf_b = common.fatal_masks(b, consts_b)
+    tm, tn, tk = WGMMA_TILE
+    return (_tile_sums(nan_a, inf_a, bm, bk).to(torch.int32),
+            _tile_sums(nan_b, inf_b, bk, bn).to(torch.int32),
+            _tile_flags(nan_a | inf_a, tm, tk), _tile_flags(nan_b | inf_b, tk, tn))
 
 
 def repair_matmul_plain(
@@ -113,6 +194,49 @@ _SIGNATURE = [
     _native.HOST_INTS, _native.HOST_INTS, _native.U, _native.U,
     _native.P, _native.P, _native.P, _native.P,
 ]
+_SCAN_SIGNATURE = [
+    _native.P, _native.P, _native.I, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.I, _native.HOST_INTS, _native.HOST_INTS,
+    _native.P, _native.P, _native.P, _native.P, _native.P,
+]
+_WGMMA_SIGNATURE = [
+    _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.HOST_INTS, _native.HOST_INTS, _native.U, _native.U,
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
+]
+
+
+def _scratch_sizes(M, N, K, blocks):
+    """int32 lengths of (counts, tiles_a, tiles_b, flags_a, flags_b)."""
+    bm, bn, bk = blocks
+    ni, nj, nk = M // bm, N // bn, K // bk
+    (fa0, fa1), (fb0, fb1) = _flag_shapes(M, N, K)
+    return [8, 2 * ni * nk, 2 * nk * nj, fa0 * fa1, fb0 * fb1]
+
+
+def _scratch(M, N, K, blocks, dev):
+    """One zeroed int32 buffer and the data pointers of its parts (counts,
+    tiles_a, tiles_b, flags_a, flags_b); the flags are tiny and there on
+    either route."""
+    sizes = _scratch_sizes(M, N, K, blocks)
+    buf = torch.zeros(sum(sizes), dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    return buf, [base + 4 * o for o in itertools.accumulate([0] + sizes[:-1])]
+
+
+def _scan_kernel(a, b, blocks, consts_a, consts_b, ptrs):
+    """The wgmma route's scan alone, into the parts at ``ptrs`` (from
+    :func:`_scratch`): the kernel twin of :func:`scan_plain`, which the
+    wgmma route's entry point launches itself."""
+    (M, K), N = a.shape, b.shape[1]
+    err = _native.function("repair_matmul", "repro_repair_mm_scan",
+                           _SCAN_SIGNATURE)(
+        a.data_ptr(), b.data_ptr(), common.DTYPE_CODES[a.dtype], M, N, K,
+        *blocks, _host_ints(consts_a), _host_ints(consts_b), *ptrs[1:],
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    _native.check(err, "repair_matmul scan")
 
 
 def _kernel(a, b, blocks, consts_a, consts_b, out_dtype, policy, constant):
@@ -125,28 +249,30 @@ def _kernel(a, b, blocks, consts_a, consts_b, out_dtype, policy, constant):
         if t not in common.DTYPE_CODES:
             raise TypeError(f"repair_matmul kernel supports f32/bf16/f16, got {t}")
     (M, K), N = a.shape, b.shape[1]
-    bm, bn, bk = blocks
-    ni, nj, nk = M // bm, N // bn, K // bk
     dev = a.device
-    scratch = torch.zeros(8 + 2 * (ni * nk + nk * nj), dtype=torch.int32,
-                          device=dev)
-    counts, tiles_a = scratch[:8], scratch[8:8 + 2 * ni * nk]
-    tiles_b = scratch[8 + 2 * ni * nk:]
+    buf, (counts, tiles_a, tiles_b, flags_a, flags_b) = _scratch(M, N, K, blocks, dev)
     c = torch.empty((M, N), dtype=out_dtype, device=dev)
     codes = common.DTYPE_CODES
-    err = _native.function("repair_matmul", "repro_repair_matmul",
-                           _SIGNATURE)(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), codes[a.dtype],
-        codes[b.dtype], codes[out_dtype], M, N, K, bm, bn, bk,
-        _native.int8_array(consts_a), _native.int8_array(consts_b),
-        _fill_bits(policy, constant, a.dtype),
-        _fill_bits(policy, constant, b.dtype),
-        tiles_a.data_ptr(), tiles_b.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _native.check(err, "repair_matmul")
+    head = (a.data_ptr(), b.data_ptr(), c.data_ptr())
+    dets = (_host_ints(consts_a), _host_ints(consts_b),
+            _fill(policy, constant, a.dtype), _fill(policy, constant, b.dtype))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    path = route(a, b)
+    if path == "wgmma":          # scan, main kernel and counts
+        err = _native.function("repair_matmul", "repro_repair_mm_wgmma",
+                               _WGMMA_SIGNATURE)(
+            *head, codes[a.dtype], codes[out_dtype], M, N, K, *blocks, *dets,
+            tiles_a, tiles_b, flags_a, flags_b, counts, stream,
+        )
+    else:
+        err = _native.function("repair_matmul", "repro_repair_matmul",
+                               _SIGNATURE)(
+            *head, codes[a.dtype], codes[b.dtype], codes[out_dtype], M, N, K,
+            *blocks, *dets, tiles_a, tiles_b, counts, stream,
+        )
+    _native.check(err, f"repair_matmul ({path})")
     common.LAUNCHES["repair_matmul"] += 1
-    return c, counts
+    return c, buf[:8]
 
 
 def repair_matmul_raw(

@@ -8,7 +8,9 @@ runs on a machine without JAX; there, skip the JAX-importing conftest:
 
 Tolerances: f32 1e-4 (kernel and plain version sum in different orders);
 bf16 2e-2 (bf16 outputs, and softmax weights rounded to bf16 before the
-value product, where a last-place f32 difference can flip one rounding).
+value product, where a last-place f32 difference can flip one rounding);
+f16 1e-2 (f16 matmul outputs: exact products summed in f32 in different
+orders, then one rounding to f16, whose ulp is 2^-10 relative).
 The mLSTM kernel takes 1e-4 for both input dtypes: its arithmetic is f32
 after the repair, so only the summation order differs.  Integer outputs
 (slot counts, AT, MM and mLSTM counts, scrub counts, repaired bits) must be
@@ -37,7 +39,7 @@ NULL = P - 1
 BT = [[0, 2, 8, 8], [5, 3, 1, 8], [8, 8, 8, 8]]
 POS = [9, 13, 0]
 QSTART = [4, 8, 0]
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 1e-2}
 
 
 @pytest.fixture
@@ -147,25 +149,78 @@ def _detectors(dtype):
                            bitpatterns=((None, mask, three & mask),))]
 
 
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+# logical blocks that split each shape, besides the default fit
+MM_SPLIT = {(96, 264, 320): (32, 64, 88), (96, 260, 324): (32, 108, 130),
+            (200, 1032, 328): (50, 82, 86)}
+# id: (M, K, N), (a, b, out dtypes), expected route, extra plants
+MM_CASES = {
+    "f32": ((96, 264, 320), (F32, F32, None), "ffma", None),
+    "bf16": ((96, 264, 320), (BF16, BF16, None), "wgmma", None),
+    "bf16xf32": ((96, 264, 320), (BF16, F32, F32), "ffma", None),
+    "f16": ((96, 264, 320), (F16, F16, None), "wgmma", None),
+    "bf16-out-f32": ((96, 264, 320), (BF16, BF16, F32), "wgmma", None),
+    "bf16-unaligned": ((96, 260, 324), (BF16, BF16, None), "ffma", None),
+    "ring-corners": ((200, 1032, 328), (BF16, BF16, None), "wgmma", "corners"),
+    "all-fatal-tile": ((200, 1032, 328), (BF16, BF16, None), "wgmma", "tile"),
+    "zero-pattern": ((200, 1032, 328), (BF16, BF16, None), "wgmma", "zeros"),
+}
+# corners of the wgmma route's 128 x 64 A tiles and 64 x 256 B tiles, and
+# lanes of the last, partial k stage (k >= 1024 of K = 1032)
+A_CORNERS = [(0, 0), (127, 63), (128, 64), (199, 1031), (5, 1030)]
+B_CORNERS = [(0, 0), (63, 255), (64, 256), (1031, 327), (1028, 3)]
+
+
+def _mm_operands(dev, shape, dtypes, extra):
+    M, K, N = shape
+    da, db, _ = dtypes
+    gen = torch.Generator(device=dev).manual_seed(2)
+    a = _plant(torch.randn((M, K), generator=gen, device=dev), 3)
+    b = _plant(torch.randn((K, N), generator=gen, device=dev), 4)
+    vals = [float("nan"), float("inf"), float("-inf"), 3.0e4, 3.0]
+    if extra == "corners":
+        for (x, corners) in ((a, A_CORNERS), (b, B_CORNERS)):
+            for (r, c), val in zip(corners, vals):
+                x[r, c] = val
+    elif extra == "tile":         # one whole A tile and one whole B tile
+        a[:128, 64:128] = float("nan")
+        b[64:128, :256] = float("-inf")
+    elif extra == "zeros":        # the bit pattern of +0.0, which TMA pads with
+        for (x, corners) in ((a, A_CORNERS), (b, B_CORNERS)):
+            for r, c in corners:
+                x[r, c] = 0.0
+    return a.to(da), b.to(db)
+
+
+def _mm_detectors(dtype, extra):
+    """(detector, policy kwargs) pairs of one case.  The zero-pattern case
+    fills with 0.5, so a padding lane repaired by mistake would show."""
+    if extra == "zeros":
+        mask = (1 << detect.layout_of(dtype).width) - 1
+        return [(Detector(bitpatterns=((None, mask, 0),)),
+                 dict(policy="constant", constant=0.5))]
+    return [(det, {}) for det in _detectors(dtype)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtypes", [
-    (torch.float32, torch.float32, None),
-    (torch.bfloat16, torch.bfloat16, None),
-    (torch.bfloat16, torch.float32, torch.float32),
-])
-@pytest.mark.parametrize("blocks", [None, (32, 64, 88)])
-def test_repair_matmul_kernel_matches_plain(cuda, dtypes, blocks):
-    """Ragged physical edges (96 x 320 x 264) under both detectors; memory
-    mode leaves the operands bit-equal to the plain scrub, and a second
-    call counts nothing."""
+@pytest.mark.parametrize("case", list(MM_CASES))
+@pytest.mark.parametrize("split", [False, True])
+def test_repair_matmul_kernel_matches_plain(cuda, case, split):
+    """Both routes against the plain version: ragged physical edges, the
+    wgmma ring wrapped several times with ragged M, N and a partial last k
+    stage, planted lanes at tile corners, a whole fatal tile, and a
+    detector that matches TMA's zero padding; under both detectors (one for
+    the zero-pattern case).  Memory mode leaves the operands bit-equal to
+    the plain scrub, and a second call counts nothing."""
+    shape, dtypes, want_route, extra = MM_CASES[case]
     da, db, out = dtypes
     tol = TOL[out or da]
-    gen = torch.Generator(device=cuda).manual_seed(2)
-    a = _plant(torch.randn((96, 264), generator=gen, device=cuda), 3).to(da)
-    b = _plant(torch.randn((264, 320), generator=gen, device=cuda), 4).to(db)
-    for det in _detectors(da):
+    blocks = MM_SPLIT[shape] if split else None
+    a, b = _mm_operands(cuda, shape, dtypes, extra)
+    assert rm.route(a, b) == want_route
+    for det, pkw in _mm_detectors(da, extra):
         common.reset_launches()
-        kw = dict(blocks=blocks, out_dtype=out, detector=det)
+        kw = dict(blocks=blocks, out_dtype=out, detector=det, **pkw)
         got = rm.repair_matmul_raw(a, b, **kw)
         want = rm.repair_matmul_plain(a, b, **kw)
         assert common.LAUNCHES == {"repair_matmul": 1}
@@ -174,12 +229,32 @@ def test_repair_matmul_kernel_matches_plain(cuda, dtypes, blocks):
         ka, kb, pa_, pb = a.clone(), b.clone(), a.clone(), b.clone()
         res = ops.repair_matmul(ka, kb, mode="memory", **kw)
         assert res.a is ka and torch.equal(res.counts, want[1])
-        scrub.scrub_plain(pa_, detector=det)
-        scrub.scrub_plain(pb, detector=det)
+        scrub.scrub_plain(pa_, detector=det, **pkw)
+        scrub.scrub_plain(pb, detector=det, **pkw)
         assert torch.equal(detect.bits_of(ka), detect.bits_of(pa_))
         assert torch.equal(detect.bits_of(kb), detect.bits_of(pb))
         again = ops.repair_matmul(ka, kb, mode="memory", **kw)
         assert again.counts.tolist() == [0] * 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c, v in MM_CASES.items() if v[2] == "wgmma"])
+def test_repair_matmul_scan_matches_plain(cuda, case):
+    """The wgmma route's scan kernel: per-logical-tile lane counts and
+    per-physical-tile flags equal to its plain version's."""
+    shape, dtypes, _, extra = MM_CASES[case]
+    M, K, N = shape
+    a, b = _mm_operands(cuda, shape, dtypes, extra)
+    for det, _ in _mm_detectors(dtypes[0], extra):
+        for blocks in (None, MM_SPLIT[shape]):
+            blk, consts_a, consts_b, _ = rm._spec(a, b, True, blocks, None, det)
+            buf, ptrs = rm._scratch(M, N, K, blk, cuda)
+            rm._scan_kernel(a, b, blk, consts_a, consts_b, ptrs)
+            want = rm.scan_plain(a, b, blocks=blocks, detector=det)
+            got = torch.split(buf, rm._scratch_sizes(M, N, K, blk))[1:]
+            for g, w in zip(got, want):
+                assert torch.equal(g.view(w.shape), w)
+            assert int(want[2].sum()) > 0 and int(want[3].sum()) > 0
 
 
 @pytest.mark.cuda
