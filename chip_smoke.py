@@ -17,19 +17,27 @@ Phases, in order; each raises on failure, so the run exits non-zero:
   2b. ops: the paper's fused-repair ops at Qwen2-1.5B width — repair_matmul
      on the MLP projections of a 2,048-token prefill (f32, bf16, and A bf16
      with B f32) and flash_attention at B=1, H=12, Kh=2, S=T=2048, D=128
-     (causal f32 and bf16, non-causal, causal S=1024), planted lanes in
+     (causal f32, bf16 and f16, non-causal, causal S=1024, causal bf16 2
+     bytes off 16-byte alignment), planted lanes in
      both operands under two detectors: counts equal to the plain version's
-     on the card, outputs within the stated tolerance, memory mode's origin
+     on the card, outputs within the stated tolerance (attention also by
+     the late-row relative norm against a dropped-tile control), memory mode's origin
      scrub bit-equal to the plain scrub and its second call counting 0
      (bf16 x bf16 products take repair_matmul's wgmma route, the others its
-     FFMA route: ``kernels.repair_matmul.route``);
+     FFMA route: ``kernels.repair_matmul.route``; 16-bit attention takes
+     flash_attention's wgmma route, f32 and unaligned views its FFMA route:
+     ``kernels.repair_attention.route``; every ``ops ok`` line names it);
      the same checks at the quickstart's shapes and blocks (512³ matmul,
      blocks (128, 128, 256); attention 1×4×256×64 over Kh=2, blocks
      (64, 64)); then the quickstart twin (``examples/torch_quickstart.py``) on the
      card with its Table-3 asserts, and both kernels timed: repair_matmul
      at gate/up in bf16 on planted and on clean operands (the wgmma kernel
      must show in the profile; scan, main kernel and counts apart), in f32
-     (the FFMA route) and at the down projection
+     (the FFMA route) and at the down projection; flash_attention causal
+     bf16 at S=T=2048 on planted and on clean operands (the wgmma kernel
+     must show in the profile; scan, main kernel and counts apart, beside
+     SDPA's call; the clean call also replayed from a CUDA graph) and in
+     f32 (the FFMA route)
   3. the engine at full width (28 layers, bf16, random weights from seed
      0): 6 requests, faults planted after step 3, repair and launch checks
   4. parity at full width with 2 layers in f32: the same engine and faults
@@ -89,7 +97,9 @@ LAYER = 5
 #   bf16 — outputs are bf16 (one ulp near 1 is 2^-8), and softmax weights
 #          are rounded to bf16 before the value product, where an f32
 #          difference in the last place can flip one rounding
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#   f16  — f16 outputs (one ulp near 1 is 2^-10) and weights rounded to
+#          f16 on flash_attention's wgmma route (tests/test_torch_cuda.py's)
+TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 1e-2}
 
 
 def log(*a):
@@ -196,11 +206,13 @@ KERNEL_NAMES = {
     # FFMA route: tiles + counts; wgmma route: scan + wgmma + counts
     "repair_matmul": ("repair_mm_tiles", "repair_mm_scan", "repair_mm_wgmma",
                       "repair_mm_counts"),
-    "flash_attention": ("flash_repair_fwd", "flash_count_tiles", "flash_counts"),
+    # FFMA route: count_tiles + counts + fwd; wgmma route: scan + wgmma + counts
+    "flash_attention": ("flash_repair_fwd", "flash_count_tiles", "flash_scan",
+                        "flash_repair_wgmma", "flash_counts"),
     "mlstm_chunk": ("mlstm_qk", "mlstm_scan"),
 }
-# the attention kernel's counting pass, timed apart (its extra K/V read)
-COUNT_PASS = ("flash_count_tiles", "flash_counts")
+# the attention wgmma route's fault scan, timed apart (its extra K/V read)
+COUNT_PASS = ("flash_scan",)
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -429,6 +441,18 @@ AT_B, AT_H, AT_KH, AT_S, AT_D = 1, 12, 2, 2048, 128
 #   attention — as the kernel phase's TOL: outputs are convex combinations
 #     of V rows (|out| <= max |v|)
 MM_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (1e-2, 1e-2)}
+# attention, beside the elementwise check: the relative norm
+# ||out - plain|| / ||plain|| of each (b, h) over the last LATE_ROWS query
+# rows, whose outputs (|out| ~ 0.04 at S = 2048) sit far inside the
+# elementwise atol, must stay under LATE_REL_TOL; a control, the plain
+# version with the K/V keys DROP_KEYS (one 128-key tile that every late
+# row sees) left out, must exceed it.  Limits 3-4x the highest reading of
+# the sound kernels on the H100 (f32 1.2e-6; bf16 2.5e-3 on the wgmma
+# route, from P rounded to bf16, 1.5e-4 on the FFMA route; f16 3.1e-4),
+# against the control's 0.23-0.39 (PERF.md §6, PR 15).
+LATE_ROWS = 128
+DROP_KEYS = (128, 256)
+LATE_REL_TOL = {"float32": 5e-6, "bfloat16": 1e-2, "float16": 1e-3}
 
 
 def _plant_lanes(x, gen, dtype, big: bool = False):
@@ -460,13 +484,57 @@ def _det2(dtype):
     return Detector(max_magnitude=1e3, bitpatterns=((None, mask, three & mask),))
 
 
+def _at_offset(x, off: int):
+    """A contiguous copy of ``x`` that starts ``off`` elements into its
+    storage (off 16-byte alignment for a 16-bit ``x`` and odd ``off``)."""
+    import torch
+
+    buf = torch.empty(off + x.numel(), dtype=x.dtype, device=x.device)
+    return buf[off:].view(x.shape).copy_(x)
+
+
+def _late_rel(out, ref):
+    """||out - ref|| / ||ref|| of each (b, h) over the last LATE_ROWS query
+    rows, as a flat f32 tensor."""
+    d = (out[..., -LATE_ROWS:, :].float() - ref[..., -LATE_ROWS:, :].float())
+    return (d.flatten(2).norm(dim=-1)
+            / ref[..., -LATE_ROWS:, :].float().flatten(2).norm(dim=-1)).flatten()
+
+
+def _dropped_tile_plain(q, k, v, causal, detector):
+    """The late rows of the plain attention (repair as the zero fill does)
+    with the keys DROP_KEYS left out of every row's softmax: what a kernel
+    that skipped that K/V tile would give there."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels import repair_attention as ra
+
+    _, ck, cv = ra._spec(q, k, v, True, None, detector)
+    S, T, G = q.shape[2], k.shape[2], q.shape[1] // k.shape[1]
+    kx, vx = (common.repair_tile(x, c, "zero", 0.0)[0].float()
+              .repeat_interleave(G, dim=1) for x, c in ((k, ck), (v, cv)))
+    s = (q[..., -LATE_ROWS:, :].float() @ kx.transpose(-1, -2)
+         / math.sqrt(q.shape[-1]))
+    pos_q = torch.arange(S - LATE_ROWS, S, device=q.device)[:, None]
+    pos_k = torch.arange(T, device=q.device)[None, :]
+    keep = (pos_k < DROP_KEYS[0]) | (pos_k >= DROP_KEYS[1])
+    if causal:
+        keep = keep & (pos_q >= pos_k)
+    s = torch.where(keep, s, ra.NEG_INF)
+    return (torch.softmax(s, dim=-1) @ vx).to(q.dtype)
+
+
 def _check_memory_mode(op, operands, kw, slots, what):
-    """Memory mode on clones: the operands end bit-equal to the plain scrub
-    of the same input, and a second call counts nothing."""
+    """Memory mode on copies at the operands' offsets: they end bit-equal
+    to the plain scrub of the same input, and a second call counts
+    nothing."""
     from repro_torch.core import detect
     from repro_torch.kernels import scrub as sk
 
-    mine = [x.clone() for x in operands[-2:]]
+    mine = [_at_offset(x, x.storage_offset()) for x in operands[-2:]]
     plain = [x.clone() for x in operands[-2:]]
     res = op(*operands[:-2], *mine, mode="memory", **kw)
     counts = res.counts.tolist()
@@ -497,7 +565,7 @@ def ops_phase(report: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     max_err = {"repair_matmul": 0.0, "flash_attention": 0.0}
 
     def compare(what, got, want, tol):
@@ -543,23 +611,39 @@ def ops_phase(report: dict) -> None:
         return (q.to(dtype), _plant_lanes(k, gen, dtype, big),
                 _plant_lanes(v, gen, dtype, big))
 
-    at_cases = [(f32, True, AT_S, "default"), (f32, True, AT_S, "range+bitpattern"),
-                (bf16, True, AT_S, "default"), (bf16, True, AT_S, "range+bitpattern"),
-                (bf16, False, AT_S, "default"), (bf16, True, AT_S // 2, "default")]
-    for dtype, causal, S, label in at_cases:
+    # (dtype, causal, S, detector, offset in elements: 1 puts the 16-bit
+    # q, k, v 2 bytes off 16-byte alignment, on the FFMA route)
+    at_cases = [(f32, True, AT_S, "default", 0),
+                (f32, True, AT_S, "range+bitpattern", 0),
+                (bf16, True, AT_S, "default", 0),
+                (bf16, True, AT_S, "range+bitpattern", 0),
+                (bf16, False, AT_S, "default", 0),
+                (bf16, True, AT_S // 2, "default", 0),
+                (f16, True, AT_S, "default", 0),
+                (bf16, True, AT_S, "default", 1)]
+    for dtype, causal, S, label, off in at_cases:
         name = str(dtype).split(".")[-1]
         det = None if label == "default" else _det2(dtype)
-        q, k, v = qkv(dtype, S, big=det is not None)
+        q, k, v = (_at_offset(t, off) for t in qkv(dtype, S, big=det is not None))
         kw = dict(causal=causal, detector=det)
-        what = f"flash_attention {name} causal={causal} S={S} T={AT_S} {label}"
+        what = (f"flash_attention {name} causal={causal} S={S} T={AT_S} {label}"
+                f"{f' offset={off * q.element_size()}B' if off else ''} "
+                f"({ra.route(q, k, v)})")
         got = ra.flash_attention_raw(q, k, v, **kw)
         want = ra.flash_attention_plain(q, k, v, **kw)
         err = compare(what, got, want, (TOL[name], TOL[name]))
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
         if int(got[1][ra.EV_TOTAL]) == 0:
             raise AssertionError(f"{what}: saw none of the planted lanes")
+        rel = float(_late_rel(got[0], want[0]).max())
+        ctl = float(_late_rel(_dropped_tile_plain(q, k, v, causal, det), want[0]).min())
+        if not rel <= LATE_REL_TOL[name] < ctl:
+            raise AssertionError(
+                f"{what}: late-row relative norm {rel:.4g} must be <= "
+                f"{LATE_REL_TOL[name]} < the dropped-tile control's {ctl:.4g}")
         log(f"ops ok  {what}: counts={got[1].tolist()} max_abs_err={err:.3g} "
-            f"tol={TOL[name]}")
+            f"tol={TOL[name]}; late-row rel norm max {rel:.4g} <= "
+            f"{LATE_REL_TOL[name]} < control min {ctl:.4g}")
         if S == AT_S and causal:
             _check_memory_mode(ops.flash_attention, (q, k, v), kw,
                                (ra.EV_K, ra.EV_V), what)
@@ -595,7 +679,8 @@ def ops_phase(report: dict) -> None:
                     for _ in range(2))
             for causal in (True, False):
                 kw = dict(causal=causal, blocks=(64, 64), detector=det)
-                what = f"flash_attention quickstart D=64 {name} causal={causal} {label}"
+                what = (f"flash_attention quickstart D=64 {name} causal={causal} "
+                        f"{label} ({ra.route(q, k, v)})")
                 got = ra.flash_attention_raw(q, k, v, **kw)
                 want = ra.flash_attention_plain(q, k, v, **kw)
                 err = compare(what, got, want, (TOL[name], TOL[name]))
@@ -686,27 +771,74 @@ def ops_phase(report: dict) -> None:
     fa, fb = ops.scrub(a.clone())[0], ops.scrub(b.clone())[0]
     down_lib = cuda_ms(lambda: torch.matmul(fa, fb))
     del a, b, fa, fb
+    # flash_attention, causal bf16 at S = T = 2048: planted, then the same
+    # K/V scrubbed clean (the operands SDPA is timed on)
+    names = KERNEL_NAMES["flash_attention"]
+    flops = 2.0 * AT_B * AT_H * AT_S * AT_S * AT_D     # causal QK^T and PV
     q, k, v = qkv(bf16)
+    if ra.route(q, k, v) != "wgmma":
+        raise AssertionError("flash_attention bf16 is not on the wgmma route")
     fk, fv = ops.scrub(k.clone())[0], ops.scrub(v.clone())[0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sdpa(q, fk, fv, is_causal=True, enable_gqa=True)
+
+    parts = kernel_breakdown(lambda: ra.flash_attention_raw(q, k, v), names, iters=10)
+    if not parts["flash_repair_wgmma"] > 0:
+        raise AssertionError(f"flash_attention bf16 ran no wgmma kernel: {parts}")
     at = dict(
         ms=cuda_ms(lambda: ra.flash_attention_raw(q, k, v)),
         plain_ms=cuda_ms(lambda: ra.flash_attention_plain(q, k, v), iters=10),
-        library_ms=cuda_ms(lambda: sdpa(q, fk, fv, is_causal=True,
-                                        enable_gqa=True)),
+        library_ms=cuda_ms(library),
+        device_ms=sum(parts.values()),
     )
-    per = device_profile(lambda: [ra.flash_attention_raw(q, k, v) for _ in range(10)])
-    at["device_ms"] = sum(ms for key, ms in per.items()
-                          if any(n in key for n in KERNEL_NAMES["flash_attention"])
-                          ) / 10 or None
-    count_ms = sum(ms for key, ms in per.items()
-                   if any(n in key for n in COUNT_PASS)) / 10 or None
     kv_bytes = 2 * AT_B * AT_KH * AT_S * AT_D * 2
     at["bound_ms"], at["bound_by"] = bound(
-        2 * (2 * AT_B * AT_H * AT_S * AT_D) + kv_bytes + 32,
-        2.0 * AT_B * AT_H * AT_S * AT_S * AT_D, "bfloat16")
-    count_bound = kv_bytes / HBM_BYTES_PER_S * 1e3
+        2 * (2 * AT_B * AT_H * AT_S * AT_D) + kv_bytes + 32, flops, "bfloat16")
+    scan_bound = kv_bytes / HBM_BYTES_PER_S * 1e3
+    clean = kernel_breakdown(lambda: ra.flash_attention_raw(q, fk, fv), names, iters=10)
+    clean_call = cuda_ms(lambda: ra.flash_attention_raw(q, fk, fv))
+    lib_dev = kernel_device_ms(library, ("",), iters=10)
+    # the same call captured once in a CUDA graph and replayed: what a
+    # caller pays without the wrapper's host path (Python, ctypes, launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ra.flash_attention_raw(q, fk, fv)
+    graph_ms = cuda_ms(graph.replay)
+    del graph
+    # host time of the eager wrapper: 20 calls issued back to back (the
+    # device, at a fraction of that, never holds the host up)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        ra.flash_attention_raw(q, fk, fv)
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
+    for label, pr, call in (("planted", parts, at["ms"]), ("clean", clean, clean_call)):
+        dev_ms = sum(pr.values())
+        log(f"timing flash_attention causal bf16 {label} (wgmma route): device "
+            f"{dev_ms:.4f} ms = scan {sum(pr[n] for n in COUNT_PASS):.4f} (floor "
+            f"{scan_bound:.5f}) + wgmma {pr['flash_repair_wgmma']:.4f} + counts "
+            f"{pr['flash_counts']:.4f}; {flops / dev_ms / 1e9:.1f} TFLOP/s, "
+            f"{at['bound_ms'] / dev_ms:.3f} of the bound; main loop "
+            f"{flops / pr['flash_repair_wgmma'] / 1e9:.1f} TFLOP/s; call "
+            f"{call:.4f} ms; SDPA call {at['library_ms']:.4f} ms, device {lib_dev}")
+    log(f"timing flash_attention causal bf16 clean (wgmma route): one call "
+        f"replayed from a CUDA graph {graph_ms:.4f} ms; the eager wrapper's "
+        f"host time {host_us:.1f} us per call")
     del q, k, v, fk, fv
+    # the f32 call (the FFMA route, which the quickstart takes)
+    q, k, v = qkv(f32)
+    if ra.route(q, k, v) != "ffma":
+        raise AssertionError("flash_attention f32 is not on the FFMA route")
+    f32_parts = kernel_breakdown(lambda: ra.flash_attention_raw(q, k, v), names, iters=3)
+    f32_ms = cuda_ms(lambda: ra.flash_attention_raw(q, k, v), iters=5)
+    log(f"timing flash_attention causal f32 (ffma route): call {f32_ms:.4f} ms, "
+        f"device {sum(f32_parts.values()):.4f} ms ({f32_parts['flash_repair_fwd']:.4f} "
+        f"in flash_repair_fwd, {f32_parts['flash_count_tiles']:.4f} in "
+        f"flash_count_tiles), {flops / sum(f32_parts.values()) / 1e9:.1f} TFLOP/s")
+    del q, k, v
     torch.cuda.empty_cache()
 
     rows = {
@@ -732,8 +864,6 @@ def ops_phase(report: dict) -> None:
         f"{down['repair_mm_scan']:.4f}, wgmma {down['repair_mm_wgmma']:.4f}), "
         f"{2.0 * Md * Nd * Kd / down_dev / 1e9:.1f} TFLOP/s; torch.matmul "
         f"call {down_lib:.4f} ms")
-    log(f"timing flash_attention counting pass: device {count_ms} ms per call, "
-        f"{kv_bytes} bytes of K/V read again (floor {count_bound:.5f} ms)")
     log(f"timing shapes: repair_matmul A ({M}, {K}) @ B ({K}, {N}) bf16; "
         f"flash_attention B={AT_B} H={AT_H} Kh={AT_KH} S=T={AT_S} D={AT_D} "
         f"causal bf16; library = torch.matmul / SDPA (enable_gqa) on the "

@@ -2,35 +2,78 @@
 // the AT event counts.
 //
 // Replaces src/repro/kernels/repair_attention.py::_flash_kernel (:44, behind
-// `flash_attention_raw`).  One block per (b, h, 64-row q tile).  It walks the
-// K/V tiles of KV head h / G (G = H / Kh) in order from position 0, repairs
-// each 64-key tile into shared memory as f32 (a fatal lane takes the fill's
-// bit pattern, precomputed by the host in the storage dtype), and keeps the
-// online-softmax state (m, l, acc) across tiles:
+// `flash_attention_raw`).  What every route computes: per (b, h) query
+// head, over KV head h / G (G = H / Kh), with every fatal K/V lane taking
+// the fill's bit pattern (precomputed by the host in the storage dtype):
 //   s = q . k^T * (1 / sqrt(D)) in f32; masked positions get -1e30 (the
 //   reference's mask value, not -inf); m_new = max(m, rowmax s);
 //   p = exp(s - m_new); alpha = exp(m - m_new); l = l * alpha + rowsum p;
-//   acc = acc * alpha + p . v   (p stays f32, unlike the paged kernels)
-//   out = acc / max(l, 1e-30), cast to q's dtype.
+//   acc = acc * alpha + p . v;  out = acc / max(l, 1e-30), in q's dtype.
 // Causal masking is the reference kernel's top-left alignment (query s sees
-// keys t <= s, also for S != T); tiles past the q tile's last row are
-// skipped.  q is not repaired, as in the reference.
+// keys t <= s, also for S != T).  q is not repaired, as in the reference.
+// Two routes, chosen by the wrapper from dtypes, shapes and alignment alone
+// (kernels/repair_attention.py::route):
 //
-// Counts: defined on the reference's logical (bq, bk) grid, whose tiles this
-// kernel does not share, so a counting pass reads the live K/V tiles once
-// more: flash_count_tiles adds each logical tile's NaN/Inf lanes of K and V
-// into per-tile counters (a tile may span several blocks, integer atomics),
-// and a one-block epilogue weights every tile by its visit count G * L(kj)
+// FFMA route (`flash_count_tiles`, `flash_counts`, `flash_repair_fwd`): any
+// f32/bf16/f16 operands, D 64 or 128.  One block per (b, h, 64-row q tile)
+// walks the K/V tiles from position 0, repairs each 64-key tile into shared
+// memory as f32 and multiplies on the FP32 pipe (padded shared memory, row
+// stride D + 1; 4 x 4 scores and 4 x D/16 outputs per thread; p stays
+// f32).  Tiles past the q tile's last row are skipped; heavy (late) causal
+// q tiles are launched first.  It is the exact-f32 path (no TF32).
+//
+// wgmma route (`flash_scan`, `flash_repair_wgmma`, `flash_counts`): q, k, v
+// all bf16 or all f16, D 64 or 128, 16-byte aligned.  What bounds it on an
+// H100: operations, 2*B*H*S*T*D flops of causal work at S = T against the
+// 16-bit tensor-core peak (989 TFLOP/s).  A 128 x 128 score tile is ~2,000
+// clocks of tensor work on one SM; classifying its 32K K/V lanes inside the
+// loop (~10 integer operations each on 64 INT32 lanes: ~5,000 clocks), on
+// each of the G * L visits of a K/V tile, would cost twice that.
+// So detection leaves the main loop, as in repair_matmul.cu:
+//   * `flash_scan` reads K and V once (16-byte loads, the exponent-floor
+//     prefilter; `classify` only on suspect vectors), adds each fatal lane
+//     of the logical live prefix into its logical tile's counters (each
+//     lane exactly once) and raises one K and one V flag per physical
+//     128-row tile that holds a fatal lane, over every row the main kernel
+//     loads: a causal q tile loads keys up to min(T, q0 + 128), keys that
+//     can be masked for every row or lie past the live prefix, and a fatal
+//     lane there would still poison P . V (0 * NaN).  Floor: bytes, the
+//     K/V read over 3.35 TB/s.
+//   * `flash_repair_wgmma`: one block per (b, h, 128-row q tile), heavy
+//     causal tiles first.  A producer warp loads the Q tile once and keeps
+//     a ring of K/V stages (2 for D = 128, 3 for D = 64) in flight by TMA
+//     (3D tensor maps over (B * heads, rows, D): a box never reads the next
+//     head's rows, and rows past S or T are zeros), 128-byte swizzle,
+//     full/empty mbarriers.  Two consumer warpgroups own 64 q rows each:
+//     S = Q K^T by wgmma m64n128k16 (both K-major), the mask and the online
+//     softmax on the accumulator fragment (exp2 with a log2(e) prescale;
+//     row max and sum over the four lanes of a quad), P rounded to the
+//     operand dtype and fed from registers to O += P V by wgmma m64n{D}k16
+//     (V MN-major through the transposed-B bit).  A stage whose K or V
+//     tile is flagged is repaired in shared memory first by both consumer
+//     warpgroups: every fatal lane of a row before T takes the fill (rows
+//     at or past T are TMA's zero padding and are never touched), then
+//     fence.proxy.async and a named barrier hand the tile to wgmma.
+//     Unflagged stages go straight to wgmma, with no integer work at all.
+//     Out is written from the accumulators with the S edge guarded.
+//   Unlike the reference and the FFMA route, P is rounded to bf16/f16
+//   before the value product, as every tensor-core flash kernel does.
+//   On the H100 the main loop is held by the K/V tiles that every block
+//   reads from L2 (64 KB per 128-key step and block), not by the tensor
+//   cores: running P . V in flight under the next tile's softmax measured
+//   no faster (PERF.md §6), so the loop stays serial.
+//
+// Counts (both routes): defined on the reference's logical (bq, bk) grid,
+// whose tiles no route shares.  Per logical (b, kh, kj) tile of the live
+// prefix, [NaN K, Inf K, NaN V, Inf V] lanes are added into per-tile
+// counters (by `flash_count_tiles`, a pass that reads the live K/V tiles
+// once more, or by `flash_scan`), and a one-block epilogue
+// (`flash_counts`) weights every tile by its visit count G * L(kj)
 // (L(kj) = q tiles with kj*bk <= qi*bq + bq - 1 when causal, S / bq
 // otherwise) into the seven AT counts.
-//
-// What bounds it on an H100: operations (2*B*H*S*T*D flops at causal
-// S = T, against the bf16 tensor-core peak).  This first form multiplies on
-// the FP32 pipe from padded shared memory (row stride D + 1, so the score
-// loop reads are conflict-free), 4 x 4 scores and 4 x D/16 outputs per
-// thread; heavy (late) causal q tiles are launched first.  wgmma and a
-// TMA-fed K/V ring are the later redesign.
-#include "repair.cuh"
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -41,6 +84,12 @@ using repro::Storage;
 constexpr int BQ = 64, BKV = 64, kThreads = 256;
 constexpr int PS = BKV + 1;       // row stride of the score tile
 constexpr long long kChunk = 8192;  // lanes per counting block
+
+// The live logical K/V tiles form a prefix: kj*bk <= S - 1 when causal.
+inline int live_tiles(int S, int T, int bk, int causal) {
+  const int nk = T / bk, s_tiles = (S + bk - 1) / bk;
+  return causal && s_tiles < nk ? s_tiles : nk;
+}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -279,9 +328,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const Detector dk = repro::detector_from(det_k);
   const Detector dv = repro::detector_from(det_v);
   const int nk = T / bk, nq = S / bq;
-  // live logical K/V tiles form a prefix: kj*bk <= S - 1 when causal
-  const int s_tiles = (S + bk - 1) / bk;
-  const int n_live = causal && s_tiles < nk ? s_tiles : nk;
+  const int n_live = live_tiles(S, T, bk, causal);
+  cudaError_t err = cudaMemsetAsync(
+      tiles, 0, sizeof(int) * 4 * (size_t)B * Kh * nk, stream);
+  if (err != cudaSuccess) return err;
   if (n_live > 0 && B * Kh > 0) {
     const dim3 cgrid(B * Kh * n_live,
                      (unsigned)(((long long)bk * D + kChunk - 1) / kChunk));
@@ -292,7 +342,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_counts<<<1, kThreads, 0, stream>>>(tiles, B * Kh, nk, n_live, H / Kh,
                                            nq, bq, bk, causal, counts);
   const size_t smem = smem_bytes<D>();
-  cudaError_t err = repro::allow_smem((const void*)flash_repair_fwd<DT, D>, smem);
+  err = repro::allow_smem((const void*)flash_repair_fwd<DT, D>, smem);
   if (err != cudaSuccess) return err;
   if (S > 0 && B * H > 0)
     flash_repair_fwd<DT, D><<<dim3((S + BQ - 1) / BQ, H, B), kThreads, smem,
@@ -321,6 +371,505 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------- wgmma route
+namespace fw {
+
+using namespace hopper;
+
+constexpr int BQ = 128, BKV = 128, THREADS = 384, CONSUMERS = 256;
+constexpr int BOX_BYTES = 128 * 128;  // one TMA box: 128 rows of 64 lanes
+constexpr double LOG2E = 1.4426950408889634;
+
+template <int D>
+struct Tile {
+  static constexpr int BOXES = D / 64;  // 64-lane boxes per row
+  static constexpr int STAGES = D == 128 ? 2 : 3;
+  static constexpr int OPERAND_BYTES = BOXES * BOX_BYTES;  // a Q, K or V tile
+  static constexpr int STAGE_BYTES = 2 * OPERAND_BYTES;    // K, then V
+  // Q, the ring, its 1024-byte alignment slack, the barriers (Q; K full,
+  // V full and empty per stage) and the stage flags
+  static constexpr int SMEM_BYTES = 1024 + OPERAND_BYTES +
+                                    STAGES * STAGE_BYTES +
+                                    (1 + 3 * STAGES) * 8 + STAGES;
+};
+
+#define REPRO_D64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63}"
+#define REPRO_D32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define REPRO_ACC64(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+  "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+  "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define REPRO_ACC32(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+  "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31])
+
+// S(64 x 128) = Q(64 x 16, K-major) . K(128 x 16, K-major)^T, added to S
+// unless `accumulate` is 0.
+template <int DT>
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_q,
+                                         uint64_t desc_k, int accumulate) {
+#define REPRO_WGMMA_QK(TY)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
+               REPRO_D64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"                  \
+               : REPRO_ACC64(d)                                              \
+               : "l"(desc_q), "l"(desc_k), "r"(accumulate))
+  if constexpr (DT == repro::DT_BF16)
+    REPRO_WGMMA_QK("bf16");
+  else
+    REPRO_WGMMA_QK("f16");
+#undef REPRO_WGMMA_QK
+}
+
+// O(64 x D) += P(64 x 16, four registers a thread) . V(16 x D, MN-major).
+template <int DT>
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t desc_v) {
+#define REPRO_WGMMA_PV128(TY)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
+               REPRO_D64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"    \
+               : REPRO_ACC64(d)                                              \
+               : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_v), "r"(1))
+  if constexpr (DT == repro::DT_BF16)
+    REPRO_WGMMA_PV128("bf16");
+  else
+    REPRO_WGMMA_PV128("f16");
+#undef REPRO_WGMMA_PV128
+}
+
+template <int DT>
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t desc_v) {
+#define REPRO_WGMMA_PV64(TY)                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "   \
+               REPRO_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"    \
+               : REPRO_ACC32(d)                                              \
+               : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_v), "r"(1))
+  if constexpr (DT == repro::DT_BF16)
+    REPRO_WGMMA_PV64("bf16");
+  else
+    REPRO_WGMMA_PV64("f16");
+#undef REPRO_WGMMA_PV64
+}
+
+// Two f32 values rounded (to nearest even) into one register of the
+// operand dtype, `lo` in the low half.
+template <int DT>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (DT == repro::DT_BF16) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Both consumer warpgroups repair a flagged K or V stage: every consumer
+// thread takes its share of the tile's 16-byte chunks (all D lanes of a row
+// are in bounds); rows at or past T are TMA's zero padding and are never
+// touched.  Then the tile is handed to the async proxy.
+template <int D>
+__device__ __forceinline__ void repair_stage(uint8_t* tile, int k0, int T,
+                                             const Detector& det,
+                                             uint32_t fill) {
+  const int rows = min(BKV, T - k0);
+  for (int c = threadIdx.x; c < Tile<D>::BOXES * BKV * 8; c += CONSUMERS)
+    if (((c >> 3) & (BKV - 1)) < rows)
+      repair_chunk(reinterpret_cast<uint4*>(tile) + c, 8, det, fill);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+}
+
+// One block per (b, h, 128-row q tile): blocks [i * BH, (i + 1) * BH) take
+// q tile nqt - 1 - i of every head, so heavy causal tiles go first.
+template <int DT, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_repair_wgmma(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       uint16_t* __restrict__ out, int BH, int H, int Kh,
+                       int S, int T, int causal, float scale_log2,
+                       Detector det_k, Detector det_v, uint32_t fill_k,
+                       uint32_t fill_v, const int* __restrict__ flags) {
+  using C = Tile<D>;
+  constexpr int ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: align the tiles to it
+  uint8_t* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = q_s + C::OPERAND_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + ST * C::STAGE_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + ST;
+  uint64_t* empty = v_full + ST;
+  // per stage: bit 0 its K tile is flagged, bit 1 its V tile (written by
+  // the producer before the stage's K barrier, which publishes it)
+  uint8_t* stage_flags = reinterpret_cast<uint8_t*>(empty + ST);
+
+  const int nqt = (S + BQ - 1) / BQ;
+  const int bh = blockIdx.x % BH, q0 = (nqt - 1 - blockIdx.x / BH) * BQ;
+  const int kvh = bh / H * Kh + bh % H / (H / Kh);
+  const int n_kv = ((causal ? min(T, q0 + BQ) : T) + BKV - 1) / BKV;
+  const int* tile_flags = flags + 2ll * kvh * ((T + BKV - 1) / BKV);
+
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(q_full), 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(smem_u32(&k_full[s]), 1);
+      mbar_init(smem_u32(&v_full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer warpgroup: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == CONSUMERS) {
+      const uint32_t qb = smem_u32(q_full);
+      mbar_expect_tx(qb, C::OPERAND_BYTES);
+#pragma unroll
+      for (int x = 0; x < C::BOXES; ++x)
+        tma_load_3d(smem_u32(q_s + x * BOX_BYTES), &map_q, x * 64, q0, bh, qb);
+      for (int it = 0; it < n_kv; ++it) {
+        const int s = it % ST;
+        const int fl = (tile_flags[2 * it] ? 1 : 0) |
+                       (tile_flags[2 * it + 1] ? 2 : 0);
+        mbar_wait(smem_u32(&empty[s]), ((it / ST) & 1) ^ 1);
+        stage_flags[s] = (uint8_t)fl;
+        uint8_t* kt = ring + s * C::STAGE_BYTES;
+        const uint32_t kb = smem_u32(&k_full[s]), vb = smem_u32(&v_full[s]);
+        mbar_expect_tx(kb, C::OPERAND_BYTES);
+#pragma unroll
+        for (int x = 0; x < C::BOXES; ++x)
+          tma_load_3d(smem_u32(kt + x * BOX_BYTES), &map_k, x * 64, it * BKV,
+                      kvh, kb);
+        mbar_expect_tx(vb, C::OPERAND_BYTES);
+#pragma unroll
+        for (int x = 0; x < C::BOXES; ++x)
+          tma_load_3d(smem_u32(kt + C::OPERAND_BYTES + x * BOX_BYTES), &map_v,
+                      x * 64, it * BKV, kvh, vb);
+      }
+    }
+  } else {
+    // ---- two consumer warpgroups, 64 q rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wgi = threadIdx.x >> 7;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    // accumulator layout of m64nNk16: warp w of the warpgroup holds rows
+    // 16w + lane/4 (+8); d[4j..4j+3] columns 8j + 2*(lane%4) (+1), the
+    // second pair on row + 8
+    const int row_lo = q0 + wgi * 64;
+    const int row = row_lo + warp * 16 + (lane >> 2);
+    const int col = 2 * (lane & 3);
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    const uint32_t q_base = smem_u32(q_s) + wgi * 64 * 128;
+    mbar_wait(smem_u32(q_full), 0);
+    for (int it = 0; it < n_kv; ++it) {
+      const int s = it % ST, k0 = it * BKV;
+      const uint32_t parity = (it / ST) & 1;
+      uint8_t* kt = ring + s * C::STAGE_BYTES;
+      uint8_t* vt = kt + C::OPERAND_BYTES;
+      mbar_wait(smem_u32(&k_full[s]), parity);
+      const int fl = stage_flags[s];
+      if (fl & 1) repair_stage<D>(kt, k0, T, det_k, fill_k);
+
+      float sc[64];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * BOX_BYTES + (kk & 3) * 32;
+        wgmma_qk<DT>(sc, sw128_desc(q_base + off, 16, 1024),
+                     sw128_desc(smem_u32(kt) + off, 16, 1024), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // masked positions at -1e30: a key is masked for a row at or past
+      // its limit (T, or the row + 1 when causal), a test against a
+      // constant per lane; tiles wholly before the limits skip it
+      if (k0 + BKV > T || (causal && k0 + BKV - 1 > row_lo)) {
+        const int lim0 = (causal ? min(T, row + 1) : T) - k0 - col;
+        const int lim1 = (causal ? min(T, row + 9) : T) - k0 - col;
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = 8 * j + (e & 1) >= ((e >> 1) ? lim1 : lim0)
+                                ? NEG_INF
+                                : sc[4 * j + e];
+      }
+      // online softmax in the log2 domain: m is the running max of
+      // s * scale_log2, p = 2^(s * scale_log2 - m) by one FFMA and ex2
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]) * scale_log2);
+        alpha[i] = ex2(m[i] - m_new);
+        m[i] = m_new;
+        neg_m[i] = -m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        sc[i] = ex2(fmaf(sc[i], scale_log2, neg_m[(i >> 1) & 1]));
+        sum[(i >> 1) & 1] += sc[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      // k-step t of P . V takes n-blocks 2t and 2t+1 of the score
+      // accumulator as its four A registers
+      uint32_t pa[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pa[i] = pack2<DT>(sc[2 * i], sc[2 * i + 1]);
+
+      mbar_wait(smem_u32(&v_full[s]), parity);
+      if (fl & 2) repair_stage<D>(vt, k0, T, det_v, fill_v);
+      const uint32_t v_base = smem_u32(vt);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < BKV / 16; ++t)
+        wgmma_pv<DT>(o, pa[4 * t], pa[4 * t + 1], pa[4 * t + 2], pa[4 * t + 3],
+                     sw128_desc(v_base + t * 16 * 128, BOX_BYTES, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(smem_u32(&empty[s]));
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float inv = 1.f / fmaxf(quad_sum(l[i]), 1e-30f);
+      const int r = row + 8 * i;
+      if (r >= S) continue;
+      uint16_t* dst = out + ((long long)bh * S + r) * D + col;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack2<DT>(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+    }
+  }
+}
+
+constexpr int SCAN_THREADS = 256, SCAN_VECS = 2;
+
+// The scan's view of K and V: (B * Kh, T, D) 16-bit lanes, of which the
+// first `vecs` 16-byte vectors (`rows` rows) of each (b, kh) are read.
+struct KVScan {
+  const uint4* k;
+  const uint4* v;
+  unsigned vecs;    // rows * D / 8
+  unsigned stride;  // T * D / 8
+  int row_vecs;     // D / 8
+  int live_rows;    // the logical live prefix: the rows that are counted
+  int bk, nk, nkv;  // logical tile rows and tiles; physical tiles
+  Detector det_k, det_v;
+  uint32_t floor_k, floor_v;  // fatal_floor of each detector
+  int* tiles;  // [(b * Kh + kh) * nk + kj][NaN K, Inf K, NaN V, Inf V]
+  int* flags;  // [(b * Kh + kh) * nkv + p][K, V]
+};
+
+// The full test of a suspect vector vi of K (which = 0) or V (1) of head
+// bh: classify, count, flag (out of line: clean data never calls it).  The
+// 8 lanes share one row, so one logical and one physical tile.
+__device__ __noinline__ void scan_vec(const KVScan s, int which, long long bh,
+                                      unsigned vi, const uint4 q) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+  int n_nan = 0, n_inf = 0;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int cls = repro::classify((w[e >> 1] >> ((e & 1) * 16)) & 0xFFFFu,
+                                    which ? s.det_v : s.det_k);
+    n_nan += cls & 1;
+    n_inf += cls >> 1;
+  }
+  if (!(n_nan | n_inf)) return;
+  const int r = (int)(vi / (unsigned)s.row_vecs);
+  if (r < s.live_rows) {
+    int* t = s.tiles + 4 * (bh * s.nk + r / s.bk) + 2 * which;
+    if (n_nan) atomicAdd(t, n_nan);
+    if (n_inf) atomicAdd(t + 1, n_inf);
+  }
+  s.flags[2 * (bh * s.nkv + r / BKV) + which] = 1;
+}
+
+// One block per (b, kh, SCAN_THREADS * SCAN_VECS vectors): each thread has
+// SCAN_VECS vectors of K and of V in flight, coalesced.
+__global__ void __launch_bounds__(SCAN_THREADS) flash_scan(const KVScan s) {
+  constexpr unsigned per_block = SCAN_THREADS * SCAN_VECS;
+  const unsigned chunks = (s.vecs + per_block - 1) / per_block;
+  const long long bh = blockIdx.x / chunks;
+  const unsigned base = blockIdx.x % chunks * per_block + threadIdx.x;
+  const uint4* k = s.k + bh * s.stride;
+  const uint4* v = s.v + bh * s.stride;
+  uint4 qk[SCAN_VECS], qv[SCAN_VECS];
+#pragma unroll
+  for (int i = 0; i < SCAN_VECS; ++i) {
+    const unsigned vi = base + i * SCAN_THREADS;
+    if (vi < s.vecs) {
+      qk[i] = __ldg(k + vi);
+      qv[i] = __ldg(v + vi);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < SCAN_VECS; ++i) {
+    const unsigned vi = base + i * SCAN_THREADS;
+    if (vi >= s.vecs) continue;
+    if (may_be_fatal(qk[i], s.det_k.exp_mask, s.floor_k))
+      scan_vec(s, 0, bh, vi, qk[i]);
+    if (may_be_fatal(qv[i], s.det_v.exp_mask, s.floor_v))
+      scan_vec(s, 1, bh, vi, qv[i]);
+  }
+}
+
+// Rows of each (b, kh) that the scan reads: the live prefix, which it
+// counts, and every row that some q tile of the main kernel loads, which
+// it flags.
+inline int scan_rows(int S, int T, int bk, int causal) {
+  const long long loaded =
+      causal ? std::min<long long>(T, (S + BQ - 1LL) / BQ * BQ) : T;
+  return (int)std::max<long long>(loaded,
+                                  (long long)live_tiles(S, T, bk, causal) * bk);
+}
+
+bool scan_shape_ok(int dt, int B, int Kh, int S, int T, int D, int bk) {
+  return (dt == repro::DT_BF16 || dt == repro::DT_F16) &&
+         (D == 64 || D == 128) && B > 0 && Kh > 0 && S > 0 && T > 0 &&
+         bk >= 1 && T % bk == 0 && (long long)B * Kh * T * D < (1ll << 31);
+}
+
+cudaError_t launch_scan(const void* k, const void* v, int dt, int B, int Kh,
+                        int S, int T, int D, int bk, int causal,
+                        const int* det_k, const int* det_v, int* tiles,
+                        int* flags, cudaStream_t stream) {
+  if (!scan_shape_ok(dt, B, Kh, S, T, D, bk)) return cudaErrorInvalidValue;
+  const int nkv = (T + BKV - 1) / BKV;
+  cudaError_t err = cudaMemsetAsync(
+      tiles, 0, sizeof(int) * 4 * (size_t)B * Kh * (T / bk), stream);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(flags, 0, sizeof(int) * 2 * (size_t)B * Kh * nkv,
+                          stream);
+  if (err != cudaSuccess) return err;
+  const Detector dk = repro::detector_from(det_k),
+                 dv = repro::detector_from(det_v);
+  const KVScan s{static_cast<const uint4*>(k),
+                 static_cast<const uint4*>(v),
+                 (unsigned)(scan_rows(S, T, bk, causal) * D / 8),
+                 (unsigned)(T * D / 8),
+                 D / 8,
+                 live_tiles(S, T, bk, causal) * bk,
+                 bk,
+                 T / bk,
+                 nkv,
+                 dk,
+                 dv,
+                 fatal_floor(dk),
+                 fatal_floor(dv),
+                 tiles,
+                 flags};
+  const unsigned per_block = SCAN_THREADS * SCAN_VECS;
+  flash_scan<<<(unsigned)B * Kh * ((s.vecs + per_block - 1) / per_block),
+               SCAN_THREADS, 0, stream>>>(s);
+  return cudaGetLastError();
+}
+
+template <int DT, int D>
+cudaError_t launch_main(const void* q, const void* k, const void* v,
+                        void* out, int B, int H, int Kh, int S, int T,
+                        int causal, float sm_scale, const int* det_k,
+                        const int* det_v, unsigned int fill_k,
+                        unsigned int fill_v, const int* flags,
+                        cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v;
+  if (!tensor_map_3d(&map_q, q, DT, B * H, S, D, BQ, 64) ||
+      !tensor_map_3d(&map_k, k, DT, B * Kh, T, D, BKV, 64) ||
+      !tensor_map_3d(&map_v, v, DT, B * Kh, T, D, BKV, 64))
+    return cudaErrorInvalidValue;
+  static bool smem_set = false;  // the attribute is set once per kernel
+  if (!smem_set) {
+    const cudaError_t err = repro::allow_smem(
+        (const void*)flash_repair_wgmma<DT, D>, Tile<D>::SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const unsigned blocks = (unsigned)B * H * ((S + BQ - 1) / BQ);
+  flash_repair_wgmma<DT, D><<<blocks, THREADS, Tile<D>::SMEM_BYTES, stream>>>(
+      map_q, map_k, map_v, static_cast<uint16_t*>(out), B * H, H, Kh, S, T,
+      causal, (float)(sm_scale * LOG2E), repro::detector_from(det_k),
+      repro::detector_from(det_v), fill_k, fill_v, flags);
+  return cudaGetLastError();
+}
+
+template <int DT>
+cudaError_t launch_main_d(int D, const void* q, const void* k, const void* v,
+                          void* out, int B, int H, int Kh, int S, int T,
+                          int causal, float sm_scale, const int* det_k,
+                          const int* det_v, unsigned int fill_k,
+                          unsigned int fill_v, const int* flags,
+                          cudaStream_t s) {
+  if (D == 64)
+    return launch_main<DT, 64>(q, k, v, out, B, H, Kh, S, T, causal, sm_scale,
+                               det_k, det_v, fill_k, fill_v, flags, s);
+  return launch_main<DT, 128>(q, k, v, out, B, H, Kh, S, T, causal, sm_scale,
+                              det_k, det_v, fill_k, fill_v, flags, s);
+}
+
+}  // namespace fw
+
 }  // namespace
 
 // q (B, H, S, D), k/v (B, Kh, T, D), out (B, H, S, D), all in `dtype`
@@ -328,7 +877,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 // (bq, bk) the logical blocks, which must divide (S, T); sm_scale
 // 1/sqrt(D) rounded once from double; det_k/det_v host int32[8];
 // fill_k/fill_v the repaired lanes' bit patterns; tiles int32[4 * B * Kh *
-// (T / bk)] zeroed scratch; counts int32[8] out.  Returns
+// (T / bk)] scratch (zeroed here, on the stream); counts int32[8] out.
+// Returns
 // cudaGetLastError() after the launches.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, int dtype, int B,
@@ -354,4 +904,49 @@ extern "C" int repro_flash_attention(
                                           fill_k, fill_v, tiles, counts, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The wgmma route's scan alone: k/v (B, Kh, T, D) bf16 (dtype 1) or f16 (2),
+// 16-byte aligned, D 64 or 128, bk the logical K/V block (it must divide
+// T).  Adds [NaN K, Inf K, NaN V, Inf V] lane counts of the logical live
+// prefix into tiles (int32[4 * B * Kh * (T / bk)]) and sets flags
+// (int32[2 * B * Kh * ceil(T / 128)], [K, V] per physical 128-row tile)
+// for every tile that a q tile of flash_repair_wgmma loads and that holds
+// a fatal lane; both are zeroed first, on the stream.
+extern "C" int repro_flash_scan(const void* k, const void* v, int dtype,
+                                int B, int Kh, int S, int T, int D, int bk,
+                                int causal, const int* det_k, const int* det_v,
+                                int* tiles, int* flags, void* stream) {
+  return (int)fw::launch_scan(k, v, dtype, B, Kh, S, T, D, bk, causal, det_k,
+                              det_v, tiles, flags,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The wgmma route: repro_flash_scan, flash_repair_wgmma and the counts.
+// Arguments as in repro_flash_attention, with q, k, v and out all bf16 or
+// all f16 and 16-byte aligned, and flags as for the scan.
+extern "C" int repro_flash_attention_wgmma(
+    const void* q, const void* k, const void* v, void* out, int dtype, int B,
+    int H, int Kh, int S, int T, int D, int bq, int bk, int causal,
+    float sm_scale, const int* det_k, const int* det_v, unsigned int fill_k,
+    unsigned int fill_v, int* tiles, int* flags, int* counts, void* stream) {
+  if (H < 1 || Kh < 1 || H % Kh || bq < 1 || S % bq ||
+      (long long)B * H * S * D >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = fw::launch_scan(k, v, dtype, B, Kh, S, T, D, bk, causal,
+                                    det_k, det_v, tiles, flags, s);
+  if (err != cudaSuccess) return (int)err;
+  err = dtype == repro::DT_BF16
+            ? fw::launch_main_d<repro::DT_BF16>(D, q, k, v, out, B, H, Kh, S,
+                                                T, causal, sm_scale, det_k,
+                                                det_v, fill_k, fill_v, flags, s)
+            : fw::launch_main_d<repro::DT_F16>(D, q, k, v, out, B, H, Kh, S, T,
+                                               causal, sm_scale, det_k, det_v,
+                                               fill_k, fill_v, flags, s);
+  if (err != cudaSuccess) return (int)err;
+  flash_counts<<<1, kThreads, 0, s>>>(tiles, B * Kh, T / bk,
+                                      live_tiles(S, T, bk, causal), H / Kh,
+                                      S / bq, bq, bk, causal, counts);
+  return (int)cudaGetLastError();
 }

@@ -62,9 +62,7 @@
 // turns the per-tile counters into the seven MM counts by the closed forms
 // (nj x A lanes, ni x B lanes, and
 // ev_total = sum_k FA_k*nj + FB_k*ni - FA_k*FB_k).
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-
-#include "repair.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -221,6 +219,8 @@ __global__ void repair_mm_counts(const int* tiles_a, const int* tiles_b,
 // ---------------------------------------------------------------- wgmma route
 namespace wg {
 
+using namespace hopper;
+
 constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4, THREADS = 384;
 constexpr int CONSUMER_THREADS = 256;         // warpgroups 0 and 1
 constexpr int A_BYTES = BM * BK * 2;          // 16 KB, rows of 128 bytes
@@ -230,60 +230,6 @@ constexpr int STAGE_BYTES = A_BYTES + BN / B_BOX * B_BOX_BYTES;
 constexpr int RING_BYTES = STAGES * STAGE_BYTES;
 // the ring, its 1024-byte alignment slack, the barriers and stage flags
 constexpr int SMEM_BYTES = 1024 + RING_BYTES + 2 * STAGES * 8 + STAGES;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.  A (K-major): 8-row
-// groups 1024 bytes apart (SBO), LBO unused.  B (MN-major): 8-row groups
-// of k 1024 bytes apart (SBO), 64-column boxes 8 KB apart (LBO).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
 
 // d += A(64 x 16, K-major) * B(16 x 256, MN-major), f32 accumulators.
 #define REPRO_WGMMA_M64N256K16(TY)                                            \
@@ -346,32 +292,6 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t desc_a,
 }
 #undef REPRO_WGMMA_M64N256K16
 
-// Keeps the compiler from touching an accumulator across wgmma's async
-// window (it sees only the issuing asm as writing it).
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Repairs the fatal lanes of one 16-byte chunk (8 lanes) in shared memory;
-// only the first `n_in` lanes are in bounds.
-__device__ __forceinline__ void repair_chunk(uint4* p, int n_in,
-                                             const Detector& det,
-                                             uint32_t fill) {
-  uint4 v = *p;
-  uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  bool hit = false;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int sh = (e & 1) * 16;
-    if (e < n_in && repro::classify((w[e >> 1] >> sh) & 0xFFFFu, det)) {
-      w[e >> 1] = (w[e >> 1] & ~(0xFFFFu << sh)) | (fill << sh);
-      hit = true;
-    }
-  }
-  if (hit) *p = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
 // Every consumer thread takes its share of a flagged stage's 16-byte
 // chunks.  Under the 128-byte swizzle, chunk c of smem row r holds the
 // operand's logical chunk c ^ (r & 7) of that row.
@@ -423,29 +343,6 @@ struct ScanOperand {
   int* flags;      // [ceil(rows/fr)][ceil(cols/fc)]
 };
 
-// A lane whose exponent field is below this cannot be fatal under `d`
-// (NaN and Inf need it all ones, the range guard at least `range`); a
-// bit-pattern detector admits any lane.
-inline uint32_t fatal_floor(const Detector& d) {
-  if (d.flags & repro::FLAG_BITPATTERN) return 0;
-  uint32_t t = 0xFFFFFFFFu;
-  if (d.flags & (repro::FLAG_NAN | repro::FLAG_INF)) t = d.exp_mask;
-  if ((d.flags & repro::FLAG_RANGE) && d.range < t) t = d.range;
-  return t;
-}
-
-// The cheap test of a clean vector: the largest exponent field of its 8
-// lanes against the floor, ~4 integer operations per pair of lanes.
-__device__ __forceinline__ bool may_be_fatal(const uint4& q,
-                                             const ScanOperand& op) {
-  const uint32_t em = op.det.exp_mask;
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-  uint32_t m = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m = max(m, max(w[i] & em, (w[i] >> 16) & em));
-  return m >= op.floor;
-}
-
 // The full test of a suspect vector v of `op`: classify, count, flag (out
 // of line: clean data never calls it).
 __device__ __noinline__ void scan_vec(const ScanOperand op, unsigned v,
@@ -488,9 +385,10 @@ __global__ void __launch_bounds__(SCAN_THREADS)
   for (int i = 0; i < SCAN_VECS; ++i) {
     const unsigned v = base + i * SCAN_THREADS;
     if (v < a.vecs) {
-      if (may_be_fatal(q[i], a)) scan_vec(a, v, q[i]);
+      if (may_be_fatal(q[i], a.det.exp_mask, a.floor)) scan_vec(a, v, q[i]);
     } else if (v - a.vecs < b.vecs) {
-      if (may_be_fatal(q[i], b)) scan_vec(b, v - a.vecs, q[i]);
+      if (may_be_fatal(q[i], b.det.exp_mask, b.floor))
+        scan_vec(b, v - a.vecs, q[i]);
     }
   }
 }
@@ -575,14 +473,14 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
         const uint32_t a_base = smem_u32(a_tile) + wgi * 64 * 128;
         const uint32_t b_base = smem_u32(a_tile + A_BYTES);
-        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
           wgmma_256<DT>(d, sw128_desc(a_base + kk * 32, 16, 1024),
                         sw128_desc(b_base + kk * 16 * 128, B_BOX_BYTES, 1024));
-        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-        fence_acc(d);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(d);
         mbar_arrive(smem_u32(&empty[s]));
       }
       // accumulator layout of m64nNk16: warp w of the warpgroup holds rows
@@ -601,42 +499,6 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
   }
-}
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// The driver's tensor-map encoder, fetched through the runtime so that the
-// library needs no link against libcuda.
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A TMA map of a (rows, cols) row-major 16-bit matrix in boxes of
-// (box_rows, box_cols), 128-byte swizzle, zeros outside the matrix.
-bool tensor_map(CUtensorMap* map, const void* ptr, int dt, int rows, int cols,
-                int box_rows, int box_cols) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map,
-                dt == repro::DT_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                2, const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DT>
@@ -776,10 +638,10 @@ extern "C" int repro_repair_mm_scan(const void* a, const void* b, int dt,
                  db = repro::detector_from(det_b);
   const wg::ScanOperand sa{static_cast<const uint4*>(a),
                            (unsigned)((long long)M * K / 8), K, bm, bk, wg::BM,
-                           wg::BK, da, wg::fatal_floor(da), tiles_a, flags_a};
+                           wg::BK, da, hopper::fatal_floor(da), tiles_a, flags_a};
   const wg::ScanOperand sb{static_cast<const uint4*>(b),
                            (unsigned)((long long)K * N / 8), N, bk, bn, wg::BK,
-                           wg::BN, db, wg::fatal_floor(db), tiles_b, flags_b};
+                           wg::BN, db, hopper::fatal_floor(db), tiles_b, flags_b};
   const unsigned per_block = wg::SCAN_THREADS * wg::SCAN_VECS;
   const unsigned total = sa.vecs + sb.vecs;
   wg::repair_mm_scan<<<(total + per_block - 1) / per_block, wg::SCAN_THREADS,

@@ -4,7 +4,7 @@ Each source under ``repro_torch/csrc/`` has a plain C interface and is
 compiled on its own (``-gencode arch=compute_90a,code=sm_90a``) into
 ``build/repro_torch_kernels/`` at the root of the checkout, at first use or
 all together (in parallel) through :func:`build`.  A library is rebuilt
-when its source or the shared header is newer than it.  Nothing here runs
+when its source or a shared header is newer than it.  Nothing here runs
 at import time.
 """
 from __future__ import annotations
@@ -15,7 +15,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -23,13 +23,14 @@ SOURCES = (
     "scrub", "paged_decode", "paged_prefill", "repair_matmul", "flash_attention",
     "mlstm_chunk",
 )
-_HEADERS = ("repair.cuh",)
+_HEADERS = ("repair.cuh", "hopper.cuh")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -104,10 +105,14 @@ def library(name: str) -> ctypes.CDLL:
 
 def function(name: str, fn: str, signature) -> ctypes._CFuncPtr:
     """The entry point ``fn`` of the library ``name``, with its argument
-    types set; every entry point returns ``cudaGetLastError()`` as int."""
-    entry = getattr(library(name), fn)
-    entry.argtypes = signature
-    entry.restype = I
+    types set once (a wrapper's host path calls this on every launch);
+    every entry point returns ``cudaGetLastError()`` as int."""
+    entry = _entries.get((name, fn))
+    if entry is None:
+        entry = getattr(library(name), fn)
+        entry.argtypes = signature
+        entry.restype = I
+        _entries[(name, fn)] = entry
     return entry
 
 

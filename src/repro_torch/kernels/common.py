@@ -13,11 +13,13 @@ Kernel fills are the value-independent subset: zero, constant and
 from __future__ import annotations
 
 import collections
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..core import detect, policies as policies_lib, rules as rules_lib
+from . import _native
 
 KERNEL_POLICIES = ("zero", "constant", "clamp_finite_max")
 
@@ -129,6 +131,20 @@ def fill_value(policy: str, constant: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(v, dtype=dtype).to(torch.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def fill_bits(policy: str, constant: float, dtype: torch.dtype) -> int:
+    """Bit pattern of the repaired lane in ``dtype`` (unsigned)."""
+    v = torch.tensor(fill_value(policy, constant, dtype), dtype=dtype)
+    lay = detect.layout_of(dtype)
+    return int(detect.bits_of(v.reshape(1))[0]) & ((1 << lay.width) - 1)
+
+
+# the wgmma routes' host path: detector operands and their ctypes int32[8]
+# by value (their detectors must be hashable)
+cached_operand = functools.lru_cache(maxsize=None)(detector_operand)
+host_ints = functools.lru_cache(maxsize=None)(_native.int8_array)
+
+
 def repair_tile(
     x: torch.Tensor, consts: Sequence[int], policy: str, constant: float
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -137,6 +153,15 @@ def repair_tile(
     nan_m, inf_m = fatal_masks(x, consts)
     fill = torch.full_like(x, fill_value(policy, constant, x.dtype))
     return torch.where(nan_m | inf_m, fill, x), nan_m, inf_m
+
+
+def raw_stream(device: torch.device) -> int:
+    """The handle of the current CUDA stream on ``device``, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it but without
+    building a ``Stream`` object (which switches the current device twice:
+    ~9 µs of a wrapper's host path on the H100's host)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require_device(x: torch.Tensor, what: str) -> str:

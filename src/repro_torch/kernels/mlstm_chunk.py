@@ -32,7 +32,6 @@ from typing import Tuple
 import torch
 
 from . import _native, common
-from .scrub import _fill_bits
 
 NEG = -1e30
 
@@ -158,7 +157,7 @@ def _kernel(q, k, v, log_i, log_f, policy, constant, include_inf):
     err = _native.function("mlstm_chunk", "repro_mlstm_chunk", _SIGNATURE)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(), lf.data_ptr(),
         common.DTYPE_CODES[q.dtype], B, H, nc, Q, P,
-        _native.int8_array(consts), _fill_bits(policy, constant, q.dtype),
+        _native.int8_array(consts), common.fill_bits(policy, constant, q.dtype),
         qk.data_ptr(), y.data_ptr(), counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

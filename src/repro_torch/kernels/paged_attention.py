@@ -28,7 +28,6 @@ from typing import Optional, Tuple
 import torch
 
 from . import _native, common
-from .scrub import _fill_bits
 
 NEG_INF = -1e30
 
@@ -210,7 +209,7 @@ def _decode_kernel(q, k_pages, v_pages, bt, pos, layer, splits, spec):
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
         pos.data_ptr(), common.DTYPE_CODES[q.dtype], B, H, Dh, L, pg, Kh, M, splits,
         int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
-        _fill_bits(*fill_k, q.dtype), _fill_bits(*fill_v, q.dtype),
+        common.fill_bits(*fill_k, q.dtype), common.fill_bits(*fill_v, q.dtype),
         o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
         slot_counts.data_ptr(), counts.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -237,7 +236,7 @@ def _prefill_kernel(q, k_pages, v_pages, bt, q_start, layer, spec):
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
         q_start.data_ptr(), common.DTYPE_CODES[q.dtype], B, C, H, Dh, L, pg, Kh, M,
         int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
-        _fill_bits(*fill_k, q.dtype), _fill_bits(*fill_v, q.dtype),
+        common.fill_bits(*fill_k, q.dtype), common.fill_bits(*fill_v, q.dtype),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), slot_counts.data_ptr(),
         counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -18,9 +18,30 @@ L(kj) = #{qi : kj·bk <= qi·bq + bq - 1} when causal (S / bq otherwise), so
   ev_total       that weight times (K tile fatal or V tile fatal)
 
 and tiles that are never live count 0.
+
+Routes on the card (:func:`route`, a pure function of the operands'
+dtypes, shapes and data pointers, decided before any launch):
+
+  ``"wgmma"``  q, k and v all bf16 or all f16, contiguous, head dim 64 or
+               128, non-empty, each data pointer 16-byte aligned, fewer
+               than 2³¹ lanes in q and in k (the kernels' int offsets).  A
+               scan kernel reads K and V once, counts every fatal lane of
+               the logical live prefix and flags the main kernel's
+               ``WGMMA_TILE`` K/V tiles that hold one, over every row the
+               main kernel loads; the main kernel (TMA ring, ``wgmma`` on
+               the tensor cores, online softmax in registers) repairs only
+               the flagged tiles, in shared memory.  It rounds the softmax
+               weights to the operand dtype before the value product.
+  ``"ffma"``   everything else: f32 (exact f32, never TF32), unaligned or
+               empty operands.  Each tile is repaired as it is loaded and
+               multiplied on the FP32 pipe, the weights kept in f32.
+
+A failure on either route raises; neither falls back to the other.
 """
 from __future__ import annotations
 
+import functools
+import itertools
 import math
 from typing import Optional, Tuple
 
@@ -28,7 +49,6 @@ import torch
 
 from ..core import tiling
 from . import _native, common
-from .scrub import _fill_bits
 
 NEG_INF = -1e30
 
@@ -37,6 +57,25 @@ NAN_K, INF_K, EV_K, NAN_V, INF_V, EV_V, EV_TOTAL = range(7)
 
 KERNEL_HEAD_DIMS = (64, 128)
 
+# (BQ, BKV) of the wgmma route's main kernel (csrc/flash_attention.cu,
+# namespace fw): q tiles of BQ rows, K/V tiles of BKV rows, which the scan
+# flags
+WGMMA_TILE = (128, 128)
+_WGMMA_DTYPES = (torch.bfloat16, torch.float16)
+_WGMMA_MAX_LANES = 1 << 31     # csrc: repro_flash_attention_wgmma
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"wgmma"`` or ``"ffma"``: which CUDA kernels take the call (the
+    rule in the module docstring)."""
+    ops = (q, k, v)
+    if (q.dtype == k.dtype == v.dtype and q.dtype in _WGMMA_DTYPES
+            and q.dim() == 4 and q.shape[-1] in KERNEL_HEAD_DIMS
+            and all(0 < t.numel() < _WGMMA_MAX_LANES for t in ops)
+            and all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops)):
+        return "wgmma"
+    return "ffma"
+
 
 def _default_blocks(S: int, T: int) -> Tuple[int, int]:
     """The reference's default logical blocks."""
@@ -44,20 +83,35 @@ def _default_blocks(S: int, T: int) -> Tuple[int, int]:
 
 
 def _spec(q, k, v, include_inf, blocks, detector):
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    """The logical blocks and the K and V detector operands of a call,
+    after checking the shapes (cached by value: the wrapper's host path)."""
+    return _shape_spec(q.shape, k.shape, v.shape, k.dtype, v.dtype, include_inf,
+                       None if blocks is None else tuple(blocks), detector)
+
+
+@functools.lru_cache(maxsize=256)
+def _shape_spec(q_shape, k_shape, v_shape, k_dtype, v_dtype, include_inf,
+                blocks, detector):
+    if len(q_shape) != 4 or len(k_shape) != 4 or k_shape != v_shape:
         raise ValueError("flash_attention needs q (B, H, S, D) and k, v "
                          "(B, Kh, T, D) of one shape")
-    B, H, S, D = q.shape
-    Bk, Kh, T, Dk = k.shape
+    B, H, S, D = q_shape
+    Bk, Kh, T, Dk = k_shape
     if Bk != B or Dk != D or H % Kh:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
-                         f"k/v {tuple(k.shape)}")
+        raise ValueError(f"flash_attention: q {tuple(q_shape)} does not fit "
+                         f"k/v {tuple(k_shape)}")
+    return _blocks_and_consts(S, T, k_dtype, v_dtype, include_inf, blocks,
+                              detector)
+
+
+def _blocks_and_consts(S, T, k_dtype, v_dtype, include_inf, blocks, detector):
+    """The logical blocks and the K and V detector operands."""
     bq, bk = blocks if blocks is not None else _default_blocks(S, T)
     if S % bq or T % bk:
         raise ValueError(f"blocks {(bq, bk)} must divide (S, T) = {(S, T)}")
     det = common.resolve_detector(detector, include_inf)
-    return ((bq, bk), common.detector_operand(det, k.dtype),
-            common.detector_operand(det, v.dtype))
+    return ((bq, bk), common.cached_operand(det, k_dtype),
+            common.cached_operand(det, v_dtype))
 
 
 def _live_visits(S: int, T: int, bq: int, bk: int, causal: bool) -> torch.Tensor:
@@ -82,6 +136,49 @@ def _at_counts(tiles: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         (w * t[..., 2]).sum(), (w * t[..., 3]).sum(), (w * fv).sum(),
         (w * (fk | fv)).sum(), zero,
     ]).to(torch.int32)
+
+
+def _scan_rows(S: int, T: int, bk: int, causal: bool) -> Tuple[int, int]:
+    """(rows counted, rows read) per (b, kh) by the wgmma route's scan: the
+    logical live prefix, and beyond it every row that some ``WGMMA_TILE``
+    q tile of the main kernel loads (csrc: live_tiles, scan_rows)."""
+    nk = T // bk
+    live = (min(nk, -(-S // bk)) if causal else nk) * bk
+    tq = WGMMA_TILE[0]
+    loaded = min(T, -(-S // tq) * tq) if causal else T
+    return live, max(live, loaded)
+
+
+def scan_plain(
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    S: int,
+    causal: bool = True,
+    include_inf: bool = True,
+    blocks: Optional[Tuple[int, int]] = None,
+    detector=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the wgmma route's scan kernel for k, v
+    (B, Kh, T, D) and S query rows: ``(tiles, flags)``, int32.  ``tiles``
+    (B, Kh, T/bk, 4) are the [NaN K, Inf K, NaN V, Inf V] lanes of each
+    logical tile of the live prefix (0 past it), the input of the closed
+    forms; ``flags`` (B, Kh, ceil(T/BKV), 2) mark the [K, V] tiles of
+    ``WGMMA_TILE`` rows that hold a fatal lane in a row the scan reads."""
+    B, Kh, T, D = k.shape
+    (_, bk), consts_k, consts_v = _blocks_and_consts(
+        S, T, k.dtype, v.dtype, include_inf, blocks, detector)
+    live, rows = _scan_rows(S, T, bk, causal)
+    nan_k, inf_k = common.fatal_masks(k, consts_k)
+    nan_v, inf_v = common.fatal_masks(v, consts_v)
+    pos = torch.arange(T, device=k.device)[:, None]
+    lanes = torch.stack([nan_k, inf_k, nan_v, inf_v], dim=-1) & (pos < live)[..., None]
+    tiles = lanes.reshape(B, Kh, T // bk, bk * D, 4).sum(dim=3)
+    fatal = torch.stack([(nan_k | inf_k).any(-1), (nan_v | inf_v).any(-1)], dim=-1)
+    tk = WGMMA_TILE[1]
+    fatal = torch.nn.functional.pad((fatal & (pos < rows)).to(torch.int32),
+                                    (0, 0, 0, -T % tk))
+    return tiles.to(torch.int32), fatal.reshape(B, Kh, -1, tk, 2).amax(dim=3)
 
 
 def flash_attention_plain(
@@ -125,6 +222,42 @@ _SIGNATURE = [
     _native.I, _native.I, _native.F, _native.HOST_INTS, _native.HOST_INTS,
     _native.U, _native.U, _native.P, _native.P, _native.P,
 ]
+_WGMMA_SIGNATURE = _SIGNATURE[:-3] + [_native.P] * 4
+_SCAN_SIGNATURE = [
+    _native.P, _native.P, _native.I, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.HOST_INTS,
+    _native.HOST_INTS, _native.P, _native.P, _native.P,
+]
+
+
+def _scratch_sizes(B: int, Kh: int, T: int, bk: int):
+    """int32 lengths of (counts, tiles, flags)."""
+    return [8, 4 * B * Kh * (T // bk), 2 * B * Kh * -(-T // WGMMA_TILE[1])]
+
+
+def _scratch(B, Kh, T, bk, dev):
+    """One int32 buffer and the data pointers of its parts (counts, tiles,
+    flags), which the native calls zero or write in full on the stream; the
+    flags are tiny and there on either route."""
+    sizes = _scratch_sizes(B, Kh, T, bk)
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    return buf, [base + 4 * o for o in itertools.accumulate([0] + sizes[:-1])]
+
+
+def _scan_kernel(k, v, S, causal, blocks, consts_k, consts_v, ptrs):
+    """The wgmma route's scan alone, into the parts at ``ptrs`` (from
+    :func:`_scratch`): the kernel twin of :func:`scan_plain`, which the
+    wgmma route's entry point launches itself."""
+    B, Kh, T, D = k.shape
+    err = _native.function("flash_attention", "repro_flash_scan",
+                           _SCAN_SIGNATURE)(
+        k.data_ptr(), v.data_ptr(), common.DTYPE_CODES[k.dtype], B, Kh, S, T,
+        D, blocks[1], int(causal), common.host_ints(consts_k),
+        common.host_ints(consts_v),
+        *ptrs[1:], common.raw_stream(k.device),
+    )
+    _native.check(err, "flash_attention scan")
 
 
 def _kernel(q, k, v, causal, blocks, consts_k, consts_v, policy, constant):
@@ -132,34 +265,39 @@ def _kernel(q, k, v, causal, blocks, consts_k, consts_v, policy, constant):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on "
                              f"{q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention kernel: {name} must be contiguous")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in common.DTYPE_CODES:
-        raise TypeError("flash_attention kernel: q, k and v must share an "
-                        "f32/bf16/f16 dtype")
     B, H, S, D = q.shape
     Kh, T = k.shape[1], k.shape[2]
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel supports head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {D}")
-    bq, bk = blocks
-    scratch = torch.zeros(8 + 4 * B * Kh * (T // bk), dtype=torch.int32,
-                          device=q.device)
-    counts, tiles = scratch[:8], scratch[8:]
+    path = route(q, k, v)
+    if path == "ffma":           # what the wgmma route's rule already holds
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if not t.is_contiguous():
+                raise ValueError(f"flash_attention kernel: {name} must be "
+                                 f"contiguous")
+        if not (q.dtype == k.dtype == v.dtype) or q.dtype not in common.DTYPE_CODES:
+            raise TypeError("flash_attention kernel: q, k and v must share an "
+                            "f32/bf16/f16 dtype")
+        if D not in KERNEL_HEAD_DIMS:
+            raise ValueError(f"flash_attention kernel supports head dims "
+                             f"{KERNEL_HEAD_DIMS}, got {D}")
+    buf, (counts, tiles, flags) = _scratch(B, Kh, T, blocks[1], q.device)
     out = torch.empty_like(q)
-    err = _native.function("flash_attention", "repro_flash_attention",
-                           _SIGNATURE)(
+    head = (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        common.DTYPE_CODES[q.dtype], B, H, Kh, S, T, D, bq, bk, int(causal),
-        1.0 / math.sqrt(D), _native.int8_array(consts_k),
-        _native.int8_array(consts_v), _fill_bits(policy, constant, k.dtype),
-        _fill_bits(policy, constant, v.dtype), tiles.data_ptr(),
-        counts.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
+        common.DTYPE_CODES[q.dtype], B, H, Kh, S, T, D, *blocks, int(causal),
+        1.0 / math.sqrt(D), common.host_ints(consts_k), common.host_ints(consts_v),
+        common.fill_bits(policy, constant, k.dtype),
+        common.fill_bits(policy, constant, v.dtype),
     )
-    _native.check(err, "flash_attention")
+    stream = common.raw_stream(q.device)
+    if path == "wgmma":          # scan, main kernel and counts
+        err = _native.function("flash_attention", "repro_flash_attention_wgmma",
+                               _WGMMA_SIGNATURE)(*head, tiles, flags, counts, stream)
+    else:
+        err = _native.function("flash_attention", "repro_flash_attention",
+                               _SIGNATURE)(*head, tiles, counts, stream)
+    _native.check(err, f"flash_attention ({path})")
     common.LAUNCHES["flash_attention"] += 1
-    return out, counts
+    return out, buf[:8]
 
 
 def flash_attention_raw(

@@ -38,7 +38,6 @@ A failure on either route raises; neither falls back to the other.
 """
 from __future__ import annotations
 
-import functools
 import itertools
 from typing import Optional, Tuple
 
@@ -46,7 +45,6 @@ import torch
 
 from ..core import tiling
 from . import _native, common
-from .scrub import _fill_bits
 
 # counts layout (int32[8])
 NAN_A, INF_A, EV_A, NAN_B, INF_B, EV_B, EV_TOTAL = range(7)
@@ -81,12 +79,6 @@ def _default_blocks(M: int, N: int, K: int) -> Tuple[int, int, int]:
     return tiling.fit(M, 256), tiling.fit(N, 256), tiling.fit(K, 512)
 
 
-# host-side constants of a call, by value
-_fill = functools.lru_cache(maxsize=None)(_fill_bits)
-_operand = functools.lru_cache(maxsize=None)(common.detector_operand)
-_host_ints = functools.lru_cache(maxsize=None)(_native.int8_array)
-
-
 def _spec(a, b, include_inf, blocks, out_dtype, detector):
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"repair_matmul needs (M, K) @ (K, N), got "
@@ -97,7 +89,8 @@ def _spec(a, b, include_inf, blocks, out_dtype, detector):
         raise ValueError(f"blocks {(bm, bn, bk)} must divide (M, N, K) = "
                          f"{(M, N, K)}")
     det = common.resolve_detector(detector, include_inf)
-    consts_a, consts_b = _operand(det, a.dtype), _operand(det, b.dtype)
+    consts_a = common.cached_operand(det, a.dtype)
+    consts_b = common.cached_operand(det, b.dtype)
     return (bm, bn, bk), consts_a, consts_b, out_dtype or a.dtype
 
 
@@ -233,7 +226,8 @@ def _scan_kernel(a, b, blocks, consts_a, consts_b, ptrs):
     err = _native.function("repair_matmul", "repro_repair_mm_scan",
                            _SCAN_SIGNATURE)(
         a.data_ptr(), b.data_ptr(), common.DTYPE_CODES[a.dtype], M, N, K,
-        *blocks, _host_ints(consts_a), _host_ints(consts_b), *ptrs[1:],
+        *blocks, common.host_ints(consts_a), common.host_ints(consts_b),
+        *ptrs[1:],
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     _native.check(err, "repair_matmul scan")
@@ -254,8 +248,9 @@ def _kernel(a, b, blocks, consts_a, consts_b, out_dtype, policy, constant):
     c = torch.empty((M, N), dtype=out_dtype, device=dev)
     codes = common.DTYPE_CODES
     head = (a.data_ptr(), b.data_ptr(), c.data_ptr())
-    dets = (_host_ints(consts_a), _host_ints(consts_b),
-            _fill(policy, constant, a.dtype), _fill(policy, constant, b.dtype))
+    dets = (common.host_ints(consts_a), common.host_ints(consts_b),
+            common.fill_bits(policy, constant, a.dtype),
+            common.fill_bits(policy, constant, b.dtype))
     stream = torch.cuda.current_stream(dev).cuda_stream
     path = route(a, b)
     if path == "wgmma":          # scan, main kernel and counts

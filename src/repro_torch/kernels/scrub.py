@@ -32,13 +32,6 @@ def _view2d(x: torch.Tensor) -> Tuple[int, int]:
     return x.numel() // x.shape[-1], x.shape[-1]
 
 
-def _fill_bits(policy: str, constant: float, dtype: torch.dtype) -> int:
-    """Bit pattern of the repaired lane in ``dtype`` (unsigned)."""
-    v = torch.tensor(common.fill_value(policy, constant, dtype), dtype=dtype)
-    lay = detect.layout_of(dtype)
-    return int(detect.bits_of(v.reshape(1))[0]) & ((1 << lay.width) - 1)
-
-
 def _plain(
     x2: torch.Tensor, consts, policy: str, constant: float,
     block: Tuple[int, int], count_rows: int,
@@ -74,7 +67,7 @@ def _kernel(
         x.data_ptr(), x.element_size(),
         ids.data_ptr() if ids is not None else None,
         rows_per_page, page_stride, cols, rows_process, count_rows, br, bc,
-        _native.int8_array(consts), _fill_bits(policy, constant, x.dtype),
+        _native.int8_array(consts), common.fill_bits(policy, constant, x.dtype),
         tile_counts.data_ptr(), counts.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

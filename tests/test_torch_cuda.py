@@ -257,33 +257,145 @@ def test_repair_matmul_scan_matches_plain(cuda, case):
             assert int(want[2].sum()) > 0 and int(want[3].sum()) > 0
 
 
+# id: (B, H, Kh, S, T, D), blocks, causal, dtype, expected route, extra plants
+FA_CASES = {
+    "f32-causal": ((2, 4, 2, 128, 128, 64), (64, 32), True, F32, "ffma", None),
+    "f32-S<T": ((1, 4, 2, 64, 192, 128), (32, 64), True, F32, "ffma", None),
+    "f32-noncausal": ((1, 4, 1, 96, 64, 64), None, False, F32, "ffma", None),
+    "bf16-causal": ((2, 4, 2, 128, 128, 64), (64, 32), True, BF16, "wgmma", None),
+    "bf16-S<T": ((1, 4, 2, 64, 192, 128), (32, 64), True, BF16, "wgmma", None),
+    "bf16-noncausal": ((1, 4, 1, 96, 64, 64), None, False, BF16, "wgmma", None),
+    "f16-causal": ((2, 4, 2, 128, 128, 64), (64, 32), True, F16, "wgmma", None),
+    "f16-S<T": ((1, 4, 2, 64, 192, 128), (32, 64), True, F16, "wgmma", None),
+    "f16-noncausal": ((1, 4, 1, 96, 64, 64), None, False, F16, "wgmma", None),
+    # three q tiles, the two-stage ring (D = 128) and the three-stage one
+    # (D = 64) wrapped
+    "bf16-causal-D128-long": ((1, 6, 2, 384, 384, 128), (128, 128), True, BF16,
+                              "wgmma", None),
+    "f16-causal-D64-long": ((1, 4, 2, 512, 512, 64), (64, 128), True, F16,
+                            "wgmma", None),
+    "f16-noncausal-D128-S<T": ((1, 4, 2, 128, 320, 128), (64, 64), False, F16,
+                               "wgmma", None),
+    # T = 192: the last K/V tile is ragged, and NaN fills the next KV
+    # head's first rows, right past the end of this one
+    "bf16-ragged-T": ((1, 4, 2, 192, 192, 128), (64, 64), True, BF16, "wgmma",
+                      "next-head"),
+    "f16-ragged-T-D64": ((1, 4, 2, 192, 192, 64), (64, 64), True, F16, "wgmma",
+                         "next-head"),
+    # S = 64 < T: keys 64..127 are loaded, masked for every row and past the
+    # live prefix; a NaN in V there would still poison P . V
+    "bf16-masked-key": ((1, 4, 2, 64, 384, 128), (32, 64), True, BF16, "wgmma",
+                        "masked"),
+    "bf16-all-fatal-tile": ((1, 4, 2, 256, 256, 128), (64, 64), True, BF16,
+                            "wgmma", "tile"),
+    "bf16-zero-pattern": ((1, 4, 2, 192, 192, 128), (64, 64), True, BF16,
+                          "wgmma", "zeros"),
+    "f16-zero-pattern-D64": ((1, 4, 2, 192, 192, 64), (64, 64), True, F16,
+                             "wgmma", "zeros"),
+    "bf16-clean": ((1, 4, 2, 256, 256, 128), None, True, BF16, "wgmma", "clean"),
+    # contiguous views 2 and 8 bytes off 16-byte alignment: 16-bit operands
+    # that only the FFMA kernel takes
+    "bf16-unaligned": ((1, 4, 2, 64, 192, 128), (32, 64), True, BF16, "ffma",
+                       "offset-2B"),
+    "f16-unaligned-D64": ((1, 4, 2, 64, 192, 64), (32, 64), True, F16, "ffma",
+                          "offset-8B"),
+}
+# elements into their storage at which the "offset" cases' q, k, v start
+FA_OFFSETS = {"offset-2B": 1, "offset-8B": 4}
+
+
+def _at_offset(x, off):
+    """A contiguous copy of ``x`` that starts ``off`` elements into its
+    storage."""
+    buf = torch.empty(off + x.numel(), dtype=x.dtype, device=x.device)
+    return buf[off:].view(x.shape).copy_(x)
+
+
+def _fa_operands(dev, case):
+    """q, k, v of one FA_CASES entry: NaN, ±Inf, range and bit-pattern
+    values planted in K and V (none for "clean"), the case's extra plants,
+    at the case's offset into their storage."""
+    (B, H, Kh, S, T, D), _, _, dtype, _, extra = case
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((B, H, S, D), generator=gen, device=dev)
+    k = torch.randn((B, Kh, T, D), generator=gen, device=dev)
+    v = torch.randn((B, Kh, T, D), generator=gen, device=dev)
+    if extra != "clean":
+        _plant(k, 6)
+        _plant(v, 7)
+    nan = float("nan")
+    if extra == "next-head":
+        k[0, 1, :8] = nan
+        v[0, 1, :8] = nan
+    elif extra == "masked":
+        k[0, 0, 100, 5] = nan
+        v[0, 0, 100, 3] = nan
+        k[0, 1, 5, 9] = float("inf")   # and one lane the live prefix counts
+    elif extra == "tile":         # one whole K tile and one whole V tile
+        k[0, 0, 128:256] = nan
+        v[0, 1, :128] = float("-inf")
+    elif extra == "zeros":        # the bit pattern of +0.0, which TMA pads with
+        for r, c in ((0, 0), (127, D - 1), (128, 1), (T - 1, D - 1)):
+            k[0, 0, r, c] = 0.0
+            v[0, 1, r, c] = 0.0
+    off = FA_OFFSETS.get(extra, 0)
+    return tuple(_at_offset(t.to(dtype), off) for t in (q, k, v))
+
+
+def _fa_detectors(dtype, extra):
+    """As for the matmul; clean operands take the default detector only
+    (random bf16 values round to the bit-pattern detector's 3.0)."""
+    return [(None, {})] if extra == "clean" else _mm_detectors(dtype, extra)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dims,blocks,causal", [
-    ((2, 4, 2, 128, 128, 64), (64, 32), True),
-    ((1, 4, 2, 64, 192, 128), (32, 64), True),      # S < T
-    ((1, 4, 1, 96, 64, 64), None, False),
-])
-def test_flash_attention_kernel_matches_plain(cuda, dtype, dims, blocks, causal):
-    B, H, Kh, S, T, D = dims
+@pytest.mark.parametrize("case", list(FA_CASES))
+def test_flash_attention_kernel_matches_plain(cuda, case):
+    """Both routes against the plain version: causal S = T, S < T and
+    non-causal, a ragged last K/V tile with NaN in the next head's rows, a
+    fatal V lane in a loaded but masked key, whole fatal tiles, a detector
+    that matches TMA's zero padding (fill 0.5), clean operands, and 16-bit
+    views off 16-byte alignment (FFMA); under both detectors (one for the
+    zero-pattern case).  Memory mode, on copies at the same offsets, leaves
+    K and V clean: a second call counts nothing."""
+    (B, H, Kh, S, T, D), blocks, causal, dtype, want_route, extra = FA_CASES[case]
     tol = TOL[dtype]
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    q = torch.randn((B, H, S, D), generator=gen, device=cuda).to(dtype)
-    k = _plant(torch.randn((B, Kh, T, D), generator=gen, device=cuda), 6).to(dtype)
-    v = _plant(torch.randn((B, Kh, T, D), generator=gen, device=cuda), 7).to(dtype)
-    for det in _detectors(dtype):
+    q, k, v = _fa_operands(cuda, FA_CASES[case])
+    assert ra.route(q, k, v) == want_route
+    for det, pkw in _fa_detectors(dtype, extra):
         common.reset_launches()
-        kw = dict(causal=causal, blocks=blocks, detector=det)
+        kw = dict(causal=causal, blocks=blocks, detector=det, **pkw)
         got = ra.flash_attention_raw(q, k, v, **kw)
         want = ra.flash_attention_plain(q, k, v, **kw)
         assert common.LAUNCHES == {"flash_attention": 1}
         assert torch.equal(got[1], want[1])
+        assert (int(got[1][ra.EV_TOTAL]) > 0) == (extra != "clean")
         torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol, atol=tol)
-        kk, vv = k.clone(), v.clone()
+        kk, vv = (_at_offset(t, t.storage_offset()) for t in (k, v))
+        assert ra.route(q, kk, vv) == want_route
         ops.flash_attention(q, kk, vv, mode="memory", **kw)
         again = ops.flash_attention(q, kk, vv, mode="memory", **kw)
         assert again.counts.tolist() == [0] * 8
         assert torch.isfinite(again.out.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c, v in FA_CASES.items() if v[4] == "wgmma"])
+def test_flash_attention_scan_matches_plain(cuda, case):
+    """The wgmma route's scan kernel: per-logical-tile lane counts and
+    per-physical-tile K/V flags equal to its plain version's."""
+    (B, H, Kh, S, T, D), blocks, causal, dtype, _, extra = FA_CASES[case]
+    q, k, v = _fa_operands(cuda, FA_CASES[case])
+    for det, _ in _fa_detectors(dtype, extra):
+        for blk in {blocks, None}:
+            spec, consts_k, consts_v = ra._spec(q, k, v, True, blk, det)
+            buf, ptrs = ra._scratch(B, Kh, T, spec[1], cuda)
+            ra._scan_kernel(k, v, S, causal, spec, consts_k, consts_v, ptrs)
+            want = ra.scan_plain(k, v, S=S, causal=causal, blocks=blk, detector=det)
+            got = torch.split(buf, ra._scratch_sizes(B, Kh, T, spec[1]))[1:]
+            for g, w in zip(got, want):
+                assert torch.equal(g.view(w.shape), w)
+            assert (int(want[1].sum()) > 0) == (extra != "clean")
 
 
 def _mlstm_inputs(dev, dtype, nc, Q, P, B=2, H=2):
