@@ -8,12 +8,19 @@ Phases, in order; each raises on failure, so the run exits non-zero:
   1. the card's name and power limit; build the CUDA kernels (one ``nvcc``
      per source, in parallel) and print the build time
   2. kernels at the serving shapes (Qwen2-1.5B pool: P=65, L=28, pg=16,
-     Kh=2, Dh=128; H=12, B=4, M=8, splits 1 and 4, prefill chunk C=64), f32
-     and bf16, with NaN/±Inf/range/bit-pattern lanes planted in resident
-     pages and the null page: each kernel against its plain version on the
-     card (integer outputs exactly equal, floats within the stated
-     tolerance), then timed (median of CUDA-event timings) beside its plain
-     version, its bound and a library yardstick
+     Kh=2, Dh=128; H=12, B=4, M=8, splits 1 and 4, prefill chunks C=64 and
+     C=100), f32, bf16 and f16, with NaN/±Inf/range/bit-pattern lanes
+     planted in resident pages, in a page dead for the early prefill row
+     blocks and in the null page: each kernel against its plain version on
+     the card (integer outputs exactly equal, floats within the stated
+     tolerance; 16-bit prefill on its wgmma route, f32 and a 16-bit q 2
+     bytes off alignment on its FFMA route, ``kernels.paged_attention.route``,
+     named on each ``kernels ok`` line; prefill also with V detection off,
+     where the planted V lanes' NaN must land where the plain version's
+     do), then timed (median of CUDA-event timings) beside its plain version,
+     its bound and SDPA's call and device times (the prefill's wgmma route
+     split into scan, main kernel and memset at C=64 and C=100, and its FFMA
+     kernel on the same bf16 operands)
   2b. ops: the paper's fused-repair ops at Qwen2-1.5B width — repair_matmul
      on the MLP projections of a 2,048-token prefill (f32, bf16, and A bf16
      with B f32) and flash_attention at B=1, H=12, Kh=2, S=T=2048, D=128
@@ -87,8 +94,10 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,  # dense 16-bit TC
               "float32": 67e12}                        # f32 non-TC
 
-# kernel-phase geometry: the Qwen2-1.5B pool of the serving config
+# kernel-phase geometry: the Qwen2-1.5B pool of the serving config; prefill
+# chunks of C and C_LONG rows (the engine's prompts are 20-100 tokens)
 P, L, PG, KH, DH, H, B, M, C = 65, 28, 16, 2, 128, 12, 4, 8, 64
+C_LONG = 100
 NULL = P - 1
 LAYER = 5
 # float tolerances, kernel vs plain version on the same card:
@@ -202,7 +211,8 @@ def kernel_breakdown(fn, names, iters: int = 20) -> dict:
 KERNEL_NAMES = {
     "scrub": ("scrub_tiles", "scrub_finalize"),
     "paged_decode": ("decode_partials", "lse_merge"),
-    "paged_prefill": ("prefill_partials",),
+    # FFMA route: partials; wgmma route: scan + wgmma
+    "paged_prefill": ("prefill_partials", "prefill_scan", "prefill_repair_wgmma"),
     # FFMA route: tiles + counts; wgmma route: scan + wgmma + counts
     "repair_matmul": ("repair_mm_tiles", "repair_mm_scan", "repair_mm_wgmma",
                       "repair_mm_counts"),
@@ -239,8 +249,8 @@ def kernel_phase(report: dict) -> None:
         cursor += n
     bt = torch.tensor(bt_rows, dtype=torch.int32, device=dev)
     pos = torch.tensor([n * PG - 3 for n in n_real], dtype=torch.int32, device=dev)
-    q_start = torch.tensor([max(0, n * PG - C) for n in n_real], dtype=torch.int32,
-                           device=dev)
+    q_starts = {c: torch.tensor([max(0, n * PG - c) for n in n_real],
+                                dtype=torch.int32, device=dev) for c in (C, C_LONG)}
     scrub_ids = [bt_rows[0][1], bt_rows[1][0], NULL]
 
     def fresh(dtype):
@@ -256,12 +266,17 @@ def kernel_phase(report: dict) -> None:
             (vp, (bt_rows[0][3], LAYER, 5, 0, 1), -5.0e3),  # range guard
             (kp, (bt_rows[3][0], LAYER, 1, 0, 2), 3.0),     # bit pattern
             (vp, (bt_rows[0][1], LAYER, 4, 1, 7), 3.0),     # bit pattern
+            # the last page of request 0: dead for its first prefill row
+            # blocks, live for the last
+            (kp, (bt_rows[0][7], LAYER, 0, 1, 11), float("nan")),
+            (vp, (bt_rows[0][7], LAYER, 1, 0, 12), float("nan")),
         ]
         for t, idx, val in plant:
             t[idx] = val
         q = torch.randn((B, H, DH), generator=g, device=dev).to(dtype)
-        qc = torch.randn((B, C, H, DH), generator=g, device=dev).to(dtype)
-        return kp, vp, q, qc
+        qcs = {c: torch.randn((B, c, H, DH), generator=g, device=dev).to(dtype)
+               for c in (C, C_LONG)}
+        return kp, vp, q, qcs
 
     def errs(a, b):
         return float((a.float() - b.float()).abs().nan_to_num(0.0).max())
@@ -270,8 +285,57 @@ def kernel_phase(report: dict) -> None:
         if not torch.equal(a.cpu(), b.cpu()):
             raise AssertionError(f"{what}: integer outputs differ\n{a}\n{b}")
 
+    # 16-bit pools take the prefill's wgmma route, f32 its FFMA route; a
+    # 16-bit q off 16-byte alignment takes the FFMA route
+    want_route = {torch.float32: "ffma", torch.bfloat16: "wgmma",
+                  torch.float16: "wgmma"}
     max_err = {"scrub": 0.0, "paged_decode": 0.0, "paged_prefill": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
+
+    def check_prefill(dtype, label, kw, kp, vp, qcs):
+        """Prefill against its plain version at C and C_LONG, and for
+        16-bit pools with q 2 bytes off alignment at C: integer outputs
+        equal, outputs within the tolerance (NaN where the plain version's
+        are), on the expected route.  Returns the ``kernels ok`` parts."""
+        name = str(dtype).split(".")[-1]
+        cases = [(f"C={c}", qc, q_starts[c], want_route[dtype])
+                 for c, qc in qcs.items()]
+        if dtype != torch.float32:
+            cases.append((f"C={C} q-off", _at_offset(qcs[C], 1), q_starts[C],
+                          "ffma"))
+        parts = []
+        for what, qc, qs, want_r in cases:
+            prefill_route = pa.route(qc, kp, vp)
+            if prefill_route != want_r:
+                raise AssertionError(f"prefill {name} {what} took the "
+                                     f"{prefill_route} route")
+            got = pa.paged_prefill_raw(qc, kp, vp, bt, qs, LAYER, **kw)
+            want = pa.paged_prefill_plain(qc, kp, vp, bt, qs, LAYER, **kw)
+            same(got[1], want[1], f"prefill slot_counts {name} {label} {what}")
+            same(got[2], want[2], f"prefill counts {name} {label} {what}")
+            out, ref = got[0].float(), want[0].float()
+            # finite outputs unless V lanes were left non-finite
+            fin = ref.isfinite()
+            if bool(fin.all()) == (label == "v-off"):
+                raise AssertionError(f"prefill {name} {label} {what}: "
+                                     f"finite outputs not as expected")
+            # non-finite lanes exactly where the plain version's are, the
+            # finite ones within the tolerance; an infinite V lane gives Inf
+            # where p > 0 and NaN where p rounds to 0, and the wgmma route
+            # rounds p per tile, not per page, so NaN may meet ±Inf there
+            same(out.isfinite(), fin, f"prefill finite lanes {name} {label} {what}")
+            torch.testing.assert_close(out[fin], ref[fin], rtol=TOL[name],
+                                       atol=TOL[name])
+            both_inf = out.isinf() & ref.isinf()
+            same(out[both_inf], ref[both_inf], f"prefill Inf lanes {name} {label} {what}")
+            nan_inf = int((out.isnan() != ref.isnan()).sum())
+            max_err["paged_prefill"] = max(max_err["paged_prefill"],
+                                           errs(got[0], want[0]))
+            part = f"{what} ({prefill_route}) {got[2].tolist()}"
+            if label == "v-off":
+                part += f" non-finite {int((~fin).sum())}, NaN vs Inf {nan_inf}"
+            parts.append(part)
+        return parts
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         name = str(dtype).split(".")[-1]
         tol = TOL[name]
         configs = [
@@ -282,7 +346,7 @@ def kernel_phase(report: dict) -> None:
                                       constant_v=0.5)),
         ]
         for label, kw in configs:
-            kp, vp, q, qc = fresh(dtype)
+            kp, vp, q, qcs = fresh(dtype)
             for splits in (1, 4):
                 got = pa.paged_attention_splitk_raw(
                     q, kp, vp, bt, pos, LAYER, splits=splits, **kw)
@@ -296,14 +360,8 @@ def kernel_phase(report: dict) -> None:
                                               errs(got[0], want[0]))
                 if int(got[2][6]) == 0:
                     raise AssertionError("decode saw none of the planted lanes")
-            got = pa.paged_prefill_raw(qc, kp, vp, bt, q_start, LAYER, **kw)
-            want = pa.paged_prefill_plain(qc, kp, vp, bt, q_start, LAYER, **kw)
-            same(got[1], want[1], f"prefill slot_counts {name} {label}")
-            same(got[2], want[2], f"prefill counts {name} {label}")
-            torch.testing.assert_close(got[0].float(), want[0].float(),
-                                       rtol=tol, atol=tol)
-            max_err["paged_prefill"] = max(max_err["paged_prefill"],
-                                           errs(got[0], want[0]))
+            decode_counts = got[2].tolist()
+            routes = check_prefill(dtype, label, kw, kp, vp, qcs)
             # page scrub: 3 ids bucketed to 4 with a padding duplicate
             det = kw["detector_k"] if label != "default" else None
             skw = dict(policy="zero", detector=det, n_valid=3)
@@ -317,7 +375,15 @@ def kernel_phase(report: dict) -> None:
             if int(c_kernel[0] + c_kernel[1]) == 0:
                 raise AssertionError("scrub saw none of the planted lanes")
             log(f"kernels ok  dtype={name} detector={label} "
-                f"decode_counts={got[2].tolist()} scrub_counts={c_kernel.tolist()}")
+                f"decode_counts={decode_counts} prefill {'; '.join(routes)} "
+                f"scrub_counts={c_kernel.tolist()}")
+        # V detection off: the planted V lanes stay non-finite and reach
+        # every row of their KV head through 0 x NaN, rows that mask them
+        # too (request 0's last page, dead for its early row blocks, among
+        # them); every route must put them where the plain version does
+        kp, vp, _, qcs = fresh(dtype)
+        routes = check_prefill(dtype, "v-off", dict(detector_v=None), kp, vp, qcs)
+        log(f"kernels ok  dtype={name} detector=v-off prefill {'; '.join(routes)}")
         a, b = vp.clone(), vp.clone()
         same(sk.scrub(a)[1], sk.scrub_plain(b)[1], f"scrub counts {name}")
         same(detect.bits_of(a), detect.bits_of(b), f"scrub bits {name}")
@@ -325,11 +391,16 @@ def kernel_phase(report: dict) -> None:
     # ---- timings at the main path's shapes (bf16 pool, layer LAYER) ----
     dtype, name = torch.bfloat16, "bfloat16"
     es = 2
-    kp, vp, q, qc = fresh(dtype)
+    kp, vp, q, qcs = fresh(dtype)
     kw = dict(detector_k="default", detector_v="default", policy="zero")
     page_bytes = PG * KH * DH * es
     visited = len({p for row in bt_rows for p in row})
     t_keys = M * PG
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library_times(fn):
+        """(call ms, device ms) of one PyTorch call."""
+        return cuda_ms(fn), kernel_device_ms(fn, ("",))
 
     decode_ms = cuda_ms(lambda: pa.paged_attention_splitk_raw(
         q, kp, vp, bt, pos, LAYER, splits=4, **kw))
@@ -356,22 +427,56 @@ def kernel_phase(report: dict) -> None:
     kg, vg = kg.nan_to_num(0.0), vg.nan_to_num(0.0)
     mask = (torch.arange(t_keys, device=dev)[None, :] <= pos[:, None].long())
     mask = mask[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    decode_lib_ms = cuda_ms(lambda: sdpa(q[:, :, None, :], kg, vg, attn_mask=mask))
+    decode_lib_ms, decode_lib_dev = library_times(
+        lambda: sdpa(q[:, :, None, :], kg, vg, attn_mask=mask))
 
-    qs1 = q_start[:1]
-    prefill_ms = cuda_ms(lambda: pa.paged_prefill_raw(
-        qc[:1], kp, vp, bt[:1], qs1, LAYER, **kw))
-    prefill_plain_ms = cuda_ms(lambda: pa.paged_prefill_plain(
-        qc[:1], kp, vp, bt[:1], qs1, LAYER, **kw))
-    qs0 = int(qs1[0])
-    p_valid = sum(min(qs0 + c + 1, t_keys) for c in range(C)) * H
-    nbytes = (2 * C * H * DH * es + 2 * M * page_bytes + M * 4 * 2 + 4 + 32)
-    p_bound, p_by = bound(nbytes, 4.0 * DH * p_valid, name)
-    cmask = (torch.arange(t_keys, device=dev)[None, :]
-             <= (qs0 + torch.arange(C, device=dev))[:, None])
-    prefill_lib_ms = cuda_ms(lambda: sdpa(
-        qc[:1].transpose(1, 2), kg[:1], vg[:1], attn_mask=cmask))
+    # prefill, request 0 alone (B = 1: 8 pages, the chunk ending at its
+    # context's end), at C and C_LONG: the wgmma route's device time split
+    # into scan, main kernel and the counts' memset, on the planted pool
+    # (3 of the 8 pages flagged: K of slots 1 and 7, V of slot 7) and on a
+    # clean copy, beside SDPA's device and call times; the FFMA kernel on
+    # the same bf16 operands (q 2 bytes off alignment) at C
+    pnames = ("prefill_scan", "prefill_repair_wgmma", "Memset")
+    kc, vc = (x.nan_to_num(0.0, 0.0, 0.0) for x in (kp, vp))
+    prefill = {}
+    for c, qc in qcs.items():
+        qc1, qs1 = qc[:1], q_starts[c][:1]
+        if pa.route(qc1, kp, vp) != "wgmma":
+            raise AssertionError(f"prefill bf16 C={c} is not on the wgmma route")
+
+        def call(qc1=qc1, qs1=qs1, k=kp, v=vp):
+            return pa.paged_prefill_raw(qc1, k, v, bt[:1], qs1, LAYER, **kw)
+
+        parts = kernel_breakdown(call, pnames)
+        if not parts["prefill_repair_wgmma"] > 0:
+            raise AssertionError(f"prefill bf16 C={c} ran no wgmma kernel: {parts}")
+        clean = kernel_breakdown(lambda: call(k=kc, v=vc), pnames)
+        qs0 = int(qs1[0])
+        p_valid = sum(min(qs0 + r + 1, t_keys) for r in range(c)) * H
+        nbytes = (2 * c * H * DH * es + 2 * M * page_bytes + M * 4 * 2 + 4 + 32)
+        p_bound, p_by = bound(nbytes, 4.0 * DH * p_valid, name)
+        cmask = (torch.arange(t_keys, device=dev)[None, :]
+                 <= (qs0 + torch.arange(c, device=dev))[:, None])
+        lib_ms, lib_dev = library_times(lambda qc1=qc1, cmask=cmask: sdpa(
+            qc1.transpose(1, 2), kg[:1], vg[:1], attn_mask=cmask))
+        prefill[c] = dict(
+            ms=cuda_ms(call), plain_ms=cuda_ms(lambda qc1=qc1, qs1=qs1:
+                                               pa.paged_prefill_plain(
+                                                   qc1, kp, vp, bt[:1], qs1, LAYER,
+                                                   **kw)),
+            device_ms=sum(parts.values()), parts=parts, clean=clean,
+            clean_ms=cuda_ms(lambda: call(k=kc, v=vc)), bound_ms=p_bound,
+            bound_by=p_by, library_ms=lib_ms, library_device_ms=lib_dev)
+    qc_off = _at_offset(qcs[C][:1], 1)
+    if pa.route(qc_off, kp, vp) != "ffma":
+        raise AssertionError("prefill bf16 q view off alignment is not on FFMA")
+
+    def ffma_call():
+        return pa.paged_prefill_raw(qc_off, kp, vp, bt[:1], q_starts[C][:1],
+                                    LAYER, **kw)
+
+    ffma = dict(ms=cuda_ms(ffma_call),
+                device_ms=kernel_device_ms(ffma_call, KERNEL_NAMES["paged_prefill"]))
 
     ids2 = [bt_rows[0][1], bt_rows[1][0]]
     scr = kp.clone()
@@ -386,9 +491,8 @@ def kernel_phase(report: dict) -> None:
                                   KERNEL_NAMES["scrub"]),
         "paged_decode": kernel_device_ms(lambda: pa.paged_attention_splitk_raw(
             q, kp, vp, bt, pos, LAYER, splits=4, **kw), KERNEL_NAMES["paged_decode"]),
-        "paged_prefill": kernel_device_ms(lambda: pa.paged_prefill_raw(
-            qc[:1], kp, vp, bt[:1], qs1, LAYER, **kw), KERNEL_NAMES["paged_prefill"]),
     }
+    pc = prefill[C]
     report["kernels"] = {
         "scrub": dict(
             route="cuda", source="src/repro_torch/csrc/scrub.cu",
@@ -403,28 +507,44 @@ def kernel_phase(report: dict) -> None:
                       "and :633 (_paged_splitk_kernel, merge _lse_merge :131)"),
             max_abs_err=max_err["paged_decode"], ms=decode_ms,
             plain_ms=decode_plain_ms, bound_ms=d_bound, bound_by=d_by,
-            library_ms=decode_lib_ms, device_ms=dev_ms["paged_decode"],
+            library_ms=decode_lib_ms, library_device_ms=decode_lib_dev,
+            device_ms=dev_ms["paged_decode"],
         ),
         "paged_prefill": dict(
             route="cuda", source="src/repro_torch/csrc/paged_prefill.cu",
             replaces="src/repro/kernels/paged_attention.py:362 (_paged_prefill_kernel)",
-            max_abs_err=max_err["paged_prefill"], ms=prefill_ms,
-            plain_ms=prefill_plain_ms, bound_ms=p_bound, bound_by=p_by,
-            library_ms=prefill_lib_ms, device_ms=dev_ms["paged_prefill"],
+            max_abs_err=max_err["paged_prefill"], ms=pc["ms"],
+            plain_ms=pc["plain_ms"], bound_ms=pc["bound_ms"],
+            bound_by=pc["bound_by"], library_ms=pc["library_ms"],
+            library_device_ms=pc["library_device_ms"], device_ms=pc["device_ms"],
         ),
     }
     for k, v in report["kernels"].items():
         log(f"timing {k}: call {v['ms']:.4f} ms (device {v['device_ms']}), "
             f"plain {v['plain_ms']:.4f} ms, "
-            f"bound {v['bound_ms']:.5f} ms ({v['bound_by']}), library "
-            f"{v['library_ms']}, max_abs_err {v['max_abs_err']}")
+            f"bound {v['bound_ms']:.5f} ms ({v['bound_by']}), library call "
+            f"{v['library_ms']} ms (device {v.get('library_device_ms')}), "
+            f"max_abs_err {v['max_abs_err']}")
     log(f"timing paged_decode splits=1: call {serial['ms']:.4f} ms (device "
         f"{serial['device_ms']}), plain {serial['plain_ms']:.4f} ms, bound and "
         f"library as at splits=4")
-    log("timing shapes: decode B=4 M=8 splits=4 bf16; prefill B=1 C=64 bf16; "
-        "scrub_pages 2 pages bf16 (one Qwen2-1.5B layer each for attention); "
-        "ms = CUDA events around one wrapper call (host work included), "
-        "device = profiler kernel time per call")
+    for c, pr in prefill.items():
+        for label, pt, ms in (("planted", pr["parts"], pr["ms"]),
+                              ("clean", pr["clean"], pr["clean_ms"])):
+            log(f"timing paged_prefill C={c} bf16 {label} (wgmma route): device "
+                f"{sum(pt.values()):.4f} ms = scan {pt['prefill_scan']:.4f} + "
+                f"wgmma {pt['prefill_repair_wgmma']:.4f} + memset "
+                f"{pt['Memset']:.4f}; call {ms:.4f} ms; bound "
+                f"{pr['bound_ms']:.6f} ms ({pr['bound_by']}); SDPA device "
+                f"{pr['library_device_ms']} ms, call {pr['library_ms']:.4f} ms; "
+                f"plain {pr['plain_ms']:.4f} ms")
+    log(f"timing paged_prefill C={C} bf16 (ffma route, q 2 bytes off "
+        f"alignment): device {ffma['device_ms']} ms, call {ffma['ms']:.4f} ms")
+    log(f"timing shapes: decode B=4 M=8 splits=4 bf16; prefill B=1 M=8 "
+        f"C={C} and C={C_LONG} bf16; scrub_pages 2 pages bf16 (one Qwen2-1.5B "
+        f"layer each for attention); ms = CUDA events around one wrapper call "
+        f"(host work included), device = profiler kernel time per call; "
+        f"library = SDPA over the gathered, repaired view")
 
 
 # -------------------------------------------------------------- phase 2b

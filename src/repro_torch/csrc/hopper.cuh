@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the wgmma kernels (repair_matmul.cu,
-// flash_attention.cu): shared-memory addresses, mbarriers, TMA loads and
-// their tensor maps, wgmma shared-memory descriptors, the in-smem chunk
-// repair of a flagged tile, and the fault scan's exponent-floor prefilter.
+// flash_attention.cu, paged_prefill.cu): shared-memory addresses,
+// mbarriers, TMA loads and their tensor maps, wgmma shared-memory
+// descriptors, the in-smem chunk repair of a flagged tile, and the fault
+// scan's exponent-floor prefilter.
 // sm_90a only (wgmma, setmaxnreg); TMA descriptors come from
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint so that
 // no library links against libcuda.

@@ -19,9 +19,31 @@ are read, repaired and counted on every visit.
 The plain versions replay the kernels' page walk (online softmax over the
 pages, ``p`` cast to the cache dtype before the value product), vectorised
 over the batch; ``kernels.ref`` holds the gather-then-softmax oracles.
+
+Prefill routes on the card (:func:`route`, a pure function of the
+operands' dtypes, shapes and data pointers, decided before any launch):
+
+  ``"wgmma"``  q and both pools all bf16 or all f16, head dim 64 or 128,
+               page size a multiple of 16 up to 128, each contiguous,
+               non-empty, 16-byte aligned and under 2³¹ lanes.  A scan
+               kernel reads every slot's K and V once (the counts, and one
+               K and one V flag per slot); the main kernel takes 64 of one
+               KV head's rows in (C, G) order per block, loads only the
+               block's live slots (:func:`live_slots`) by TMA, repairs only
+               flagged pages in shared memory, runs the online softmax on
+               the tensor cores over tiles of whole pages (up to 128 keys)
+               and writes the normalised output.  It rounds the softmax
+               weights to the cache dtype before the value product as the
+               reference does, but per tile, not per page.
+  ``"ffma"``   everything else (f32; the tests' small pages and head dims;
+               offset views): unnormalised partials on the FP32 pipe, then
+               :func:`prefill_normalize`.
+
+A failure on either route raises; neither falls back to the other.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -39,6 +61,17 @@ NAN_K, INF_K, EV_K, NAN_V, INF_V, EV_V, EV_TOTAL = range(7)
 DEFAULT_DETECTOR = "default"
 
 
+# the wgmma prefill route's main kernel (csrc/paged_prefill.cu, namespace
+# pw): blocks of WGMMA_ROWS of one KV head's (C, G) rows, K/V tiles of
+# WGMMA_KEYS keys (whole pages)
+WGMMA_ROWS = 64
+WGMMA_KEYS = 128
+_WGMMA_DTYPES = (torch.bfloat16, torch.float16)
+_WGMMA_HEAD_DIMS = (64, 128)
+_WGMMA_MAX_LANES = 1 << 31     # csrc: pw::shape_ok
+
+
+@functools.lru_cache(maxsize=None)
 def _consts(det, dtype, include_inf):
     if det == DEFAULT_DETECTOR:
         det = common.resolve_detector(None, include_inf)
@@ -159,6 +192,67 @@ def _prefill_plain(q, k_pages, v_pages, bt, q_start, layer, spec):
     return acc, rows(m), rows(l), slot_counts, counts
 
 
+def route(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor) -> str:
+    """``"wgmma"`` or ``"ffma"``: which CUDA kernels take a prefill call
+    (the rule in the module docstring)."""
+    ops = (q, k_pages, v_pages)
+    if (q.dtype == k_pages.dtype == v_pages.dtype and q.dtype in _WGMMA_DTYPES
+            and q.dim() == 4 and k_pages.dim() == 5
+            and q.shape[-1] in _WGMMA_HEAD_DIMS
+            and k_pages.shape[2] % 16 == 0 and k_pages.shape[2] <= WGMMA_KEYS
+            and all(0 < t.numel() < _WGMMA_MAX_LANES for t in ops)
+            and all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops)):
+        return "wgmma"
+    return "ffma"
+
+
+def live_slots(q_start, C: int, G: int, pg: int, M: int,
+               flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """How many leading block-table slots each row block of the wgmma
+    route loads, (B, ceil(C·G / WGMMA_ROWS)) int64: slot j is live for a
+    block iff ``j·pg <= q_start[b] + c``, c the chunk row of the block's
+    last row.  The other slots' keys are masked for every row of the
+    block.  With the scan's ``flags`` (:func:`prefill_scan_plain`), a block
+    also loads every slot up to its request's last one whose V stays
+    non-finite after the repair (bit 1 of the V flag): its 0 × NaN reaches
+    the masked rows, as in the reference (csrc: ``key_end``)."""
+    n = -(-C * G // WGMMA_ROWS)
+    last = torch.clamp((torch.arange(n) + 1) * WGMMA_ROWS, max=C * G) - 1
+    qs = torch.as_tensor(q_start).long().cpu().reshape(-1, 1)
+    live = torch.clamp((qs + last[None] // G) // pg + 1, max=M)
+    if flags is None:
+        return live
+    poison = (flags[..., 1].long().cpu() >> 1) & 1               # (B, M)
+    end = (poison * torch.arange(1, M + 1)).amax(dim=1, keepdim=True)
+    return torch.maximum(live, end)
+
+
+def prefill_scan_plain(
+    k_pages, v_pages, block_tables, layer, *, include_inf: bool = True,
+    detector_k=DEFAULT_DETECTOR, detector_v=DEFAULT_DETECTOR,
+    policy_v: str = "zero", constant_v: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the wgmma route's scan kernel: every (b, j)
+    slot's K and V tiles at ``layer`` classified, null-padded slots and
+    slots past every row's causal limit included.  Returns ``(slot_counts
+    (B, M), counts int32[8], flags (B, M, 2))``, ``flags`` [K, V] int32:
+    bit 0 where the slot's tile holds a fatal lane, and bit 1 of V where
+    the V tile stays non-finite after the repair with the V fill (a lane
+    the V detector lets through, or a non-finite fill)."""
+    bt, layer = block_tables, int(layer)
+    _, nk, ik = _repair_visits(k_pages, bt, layer,
+                               _consts(detector_k, k_pages.dtype, include_inf),
+                               ("zero", 0.0))
+    fixed_v, nv, iv = _repair_visits(
+        v_pages, bt, layer, _consts(detector_v, v_pages.dtype, include_inf),
+        (policy_v, constant_v))
+    slot_counts, counts = _visit_counts(nk, ik, nv, iv)
+    poison = (~torch.isfinite(fixed_v)).flatten(2).any(dim=-1)
+    flags = torch.stack([(nk + ik > 0).int(),
+                         (nv + iv > 0).int() | (poison.int() << 1)], dim=-1)
+    return slot_counts, counts, flags.to(torch.int32)
+
+
 # ---------------------------------------------------------------- kernels
 _DECODE_SIG = [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
@@ -172,6 +266,20 @@ _PREFILL_SIG = [
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.I, _native.HOST_INTS, _native.HOST_INTS,
     _native.U, _native.U, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P,
+]
+
+_PREFILL_WGMMA_SIG = [
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.HOST_INTS,
+    _native.HOST_INTS, _native.U, _native.U, _native.P, _native.P,
+    _native.P, _native.P, _native.P,
+]
+_SCAN_SIG = [
+    _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.HOST_INTS, _native.HOST_INTS, _native.U, _native.P, _native.P,
     _native.P, _native.P,
 ]
 
@@ -243,6 +351,92 @@ def _prefill_kernel(q, k_pages, v_pages, bt, q_start, layer, spec):
     _native.check(err, "paged prefill")
     common.LAUNCHES["paged_prefill"] += 1
     return acc, m, l, slot_counts, counts
+
+
+@functools.lru_cache(maxsize=64)
+def _wgmma_pool(k_shape, v_shape, dtype, include_inf, policy, constant,
+                detector_k, detector_v, policy_k, constant_k, policy_v,
+                constant_v):
+    """What repeats across the wgmma route's calls on one pool, cached by
+    value: the pool's shape, then the detector operands and fill bits."""
+    if v_shape != k_shape:
+        raise ValueError(f"paged prefill: k pages {tuple(k_shape)}, v pages "
+                         f"{tuple(v_shape)}")
+    ck, cv, fill_k, fill_v = _operand_spec(
+        dtype, include_inf, policy, constant, detector_k, detector_v,
+        policy_k, constant_k, policy_v, constant_v)
+    return k_shape, (common.host_ints(ck), common.host_ints(cv),
+                     common.fill_bits(*fill_k, dtype),
+                     common.fill_bits(*fill_v, dtype))
+
+
+def _check_tables(q, bt, q_start):
+    for name, t in (("block_tables", bt), ("q_start", q_start)):
+        if t.device != q.device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"paged prefill: {name} must be contiguous int32 "
+                             f"on {q.device}")
+
+
+def _prefill_wgmma(q, k_pages, v_pages, bt, q_start, layer, include_inf, fills):
+    """The wgmma route: one native call zeroes the counts and launches the
+    scan and the main kernel.  One int32 buffer holds counts (8), the
+    scan's per-request poison ends (B), slot_counts (B, M) and its flags
+    (B, M, 2)."""
+    _check_tables(q, bt, q_start)
+    (P, L, pg, Kh, Dk), tail = _wgmma_pool(k_pages.shape, v_pages.shape,
+                                           q.dtype, include_inf, **fills)
+    B, C, H, Dh = q.shape
+    if (Dk != Dh or H % Kh or bt.dim() != 2 or bt.shape[0] != B
+            or bt.shape[1] < 1 or q_start.shape != (B,)):
+        raise ValueError(f"paged prefill: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}, block tables "
+                         f"{tuple(bt.shape)} and q_start "
+                         f"{tuple(q_start.shape)} do not fit")
+    layer, M = int(layer), bt.shape[1]
+    if not 0 <= layer < L:
+        raise IndexError(f"paged prefill: layer {layer} of a {L}-layer pool")
+    head = 8 + B
+    buf = torch.empty(head + 3 * B * M, dtype=torch.int32, device=q.device)
+    out = torch.empty_like(q)
+    base = buf.data_ptr()
+    err = _native.function("paged_prefill", "repro_paged_prefill_wgmma",
+                           _PREFILL_WGMMA_SIG)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
+        q_start.data_ptr(), common.DTYPE_CODES[q.dtype], B, C, H, Dh, P, L,
+        pg, Kh, M, layer, *tail, out.data_ptr(), base + 4 * head,
+        base + 4 * (head + B * M), base, common.raw_stream(q.device),
+    )
+    _native.check(err, "paged prefill (wgmma)")
+    common.LAUNCHES["paged_prefill"] += 1
+    return out, buf[head:head + B * M].view(B, M), buf[:8]
+
+
+def _scan_kernel(k_pages, v_pages, block_tables, layer, *, include_inf=True,
+                 detector_k=DEFAULT_DETECTOR, detector_v=DEFAULT_DETECTOR,
+                 policy_v="zero", constant_v=0.0):
+    """The wgmma route's scan kernel alone, the twin of
+    :func:`prefill_scan_plain` (which the route's entry point launches
+    itself): ``(slot_counts, counts, flags, poison_end)``, ``poison_end``
+    (B,) the end of each request's last slot with bit 1 of its V flag."""
+    bt = block_tables
+    P, L, pg, Kh, Dh = k_pages.shape
+    B, M = bt.shape
+    dev = k_pages.device
+    slot_counts = torch.empty((B, M), dtype=torch.int32, device=dev)
+    flags = torch.empty((B, M, 2), dtype=torch.int32, device=dev)
+    counts = torch.empty(8 + B, dtype=torch.int32, device=dev)
+    err = _native.function("paged_prefill", "repro_paged_prefill_scan",
+                           _SCAN_SIG)(
+        k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
+        common.DTYPE_CODES[k_pages.dtype], B, M, P, L, pg, Kh, Dh, int(layer),
+        common.host_ints(_consts(detector_k, k_pages.dtype, include_inf)),
+        common.host_ints(_consts(detector_v, v_pages.dtype, include_inf)),
+        common.fill_bits(policy_v, constant_v, v_pages.dtype),
+        slot_counts.data_ptr(), flags.data_ptr(), counts.data_ptr(),
+        common.raw_stream(dev),
+    )
+    _native.check(err, "paged prefill scan")
+    return slot_counts, counts[:8], flags, counts[8:]
 
 
 # --------------------------------------------------------------- wrappers
@@ -377,6 +571,9 @@ def paged_prefill_raw(
             q, k_pages, v_pages, block_tables, q_start, layer,
             include_inf=include_inf, **fills,
         )
+    if route(q, k_pages, v_pages) == "wgmma":
+        return _prefill_wgmma(q, k_pages, v_pages, block_tables, q_start,
+                              layer, include_inf, fills)
     spec = _prefill_spec(q, k_pages, include_inf, fills)
     acc, m, l, slot_counts, counts = _prefill_kernel(
         q, k_pages, v_pages, block_tables, q_start, layer, spec

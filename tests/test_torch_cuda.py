@@ -398,6 +398,138 @@ def test_flash_attention_scan_matches_plain(cuda, case):
             assert (int(want[1].sum()) > 0) == (extra != "clean")
 
 
+# id: (B, C, H, Kh, Dh, pg, M), dtype, expected route, q offset in elements
+PF_CASES = {
+    "bf16-C64-D128": ((3, 64, 12, 2, 128, 16, 8), BF16, "wgmma", 0),
+    "f16-C64-D128": ((3, 64, 12, 2, 128, 16, 8), F16, "wgmma", 0),
+    "bf16-C20-D64": ((3, 20, 4, 2, 64, 16, 8), BF16, "wgmma", 0),
+    "f16-C20-D64": ((3, 20, 12, 2, 64, 16, 8), F16, "wgmma", 0),
+    "bf16-C100-D64": ((3, 100, 12, 2, 64, 16, 8), BF16, "wgmma", 0),
+    "f16-C100-D128": ((3, 100, 12, 2, 128, 16, 8), F16, "wgmma", 0),
+    # 256 keys: two 128-key tiles
+    "bf16-C100-M16-D128": ((3, 100, 12, 2, 128, 16, 16), BF16, "wgmma", 0),
+    "f16-C64-M16-D64": ((3, 64, 8, 1, 64, 16, 16), F16, "wgmma", 0),
+    # 512 keys in four tiles: the 2-stage (Dh 128) and 3-stage (Dh 64)
+    # rings wrap
+    "bf16-pg32-M16-D128": ((2, 100, 12, 2, 128, 32, 16), BF16, "wgmma", 0),
+    "f16-pg32-M16-D64": ((2, 64, 12, 2, 64, 32, 16), F16, "wgmma", 0),
+    # two 48-key pages a tile (96 keys), one 128-key page a tile
+    "bf16-pg48": ((3, 64, 12, 2, 128, 48, 5), BF16, "wgmma", 0),
+    "f16-pg128-D64": ((2, 100, 12, 2, 64, 128, 2), F16, "wgmma", 0),
+    "f32-C64": ((3, 64, 12, 2, 128, 16, 8), F32, "ffma", 0),
+    # q 2 bytes off 16-byte alignment; pages of 8 keys
+    "bf16-unaligned": ((3, 64, 12, 2, 128, 16, 8), BF16, "ffma", 1),
+    "bf16-pg8": ((3, 20, 12, 2, 64, 8, 8), BF16, "ffma", 0),
+}
+
+
+def _pf_operands(dev, case):
+    """q, pools (P, 3, pg, Kh, Dh), block tables and q_start of one
+    PF_CASES entry, read at layer 1.  Request b holds n_b real pages, then
+    NULL slots; its chunk ends at its context's end (or starts at 0).  NaN,
+    ±Inf, a range-guard value and a bit-pattern value are planted in live
+    pages, NaN in K and V of the last real page of request 0 (dead for its
+    early row blocks, live for its last one) and in the NULL page (live
+    for the short requests' late rows, dead for their early ones)."""
+    (B, C, H, Kh, Dh, pg, M), dtype, _, off = case
+    n_real = [M, M // 2 + 1, 3][:B]
+    P = sum(n_real) + 2
+    null = P - 1
+    gen = torch.Generator(device=dev).manual_seed(11)
+    perm = torch.randperm(P - 1, generator=gen, device=dev).tolist()
+    rows, cursor = [], 0
+    for n in n_real:
+        rows.append(perm[cursor:cursor + n] + [null] * (M - n))
+        cursor += n
+    k = torch.randn((P, 3, pg, Kh, Dh), generator=gen, device=dev)
+    v = torch.randn((P, 3, pg, Kh, Dh), generator=gen, device=dev)
+    nan, inf = float("nan"), float("inf")
+    for t, (page, off_, kh, d), val in (
+            (k, (rows[0][0], 3, 0, 10), nan), (v, (rows[0][0], 5, Kh - 1, 7), inf),
+            (k, (rows[1][1], 1, 0, 2), 3.0e4), (v, (rows[0][1], 2, Kh - 1, 9), 3.0),
+            (k, (rows[1][0], 0, Kh - 1, 4), -inf),
+            (k, (rows[0][-1], 0, Kh - 1, 1), nan), (v, (rows[0][-1], 0, 0, 3), -inf),
+            (k, (null, 0, 0, 0), nan), (v, (null, 0, Kh - 1, 5), nan)):
+        t[page, 1, off_, kh, d] = val
+    q = torch.randn((B, C, H, Dh), generator=gen, device=dev)
+    bt = torch.tensor(rows, dtype=torch.int32, device=dev)
+    qs = torch.tensor([max(0, n * pg - C) for n in n_real], dtype=torch.int32,
+                      device=dev)
+    return _at_offset(q.to(dtype), off), k.to(dtype), v.to(dtype), bt, qs
+
+
+def _pf_configs(dtype):
+    """(kwargs) of the two detectors: the default one with the zero fill,
+    and range guard + bit pattern with a constant V fill; then the two ways
+    a V lane stays non-finite after the repair, which reach every row of
+    its KV head in the reference (0 × NaN), the rows that mask it too: V
+    detection off, and an infinite V fill."""
+    det = _detectors(dtype)[1]
+    return [dict(), dict(detector_k=det, detector_v=det, policy_k="zero",
+                         policy_v="constant", constant_v=0.5),
+            dict(detector_v=None),
+            dict(policy_v="constant", constant_v=float("inf"))]
+
+
+def _pf_poisoned(kw):
+    """Whether a _pf_configs entry leaves V lanes non-finite."""
+    return ("detector_v" in kw and kw["detector_v"] is None) or \
+        kw.get("constant_v") == float("inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PF_CASES))
+def test_paged_prefill_kernel_matches_plain(cuda, case):
+    """Both prefill routes against the plain version: C 20, 64, 100; Dh 64
+    and 128; one, two and four 128-key tiles (the rings wrapped); pages of
+    16, 32, 48 and 128 keys; planted lanes in live pages, in a page dead
+    for some row blocks and in the NULL slots' K and V; both detectors and
+    a constant V fill; V lanes left non-finite (detection off, an infinite
+    fill), whose NaN and Inf must land where the plain version's do.  Slot
+    counts and AT counts equal, outputs within the file's tolerances, one
+    launch a call, on the expected route."""
+    _, dtype, want_route, _ = PF_CASES[case]
+    q, k, v, bt, qs = _pf_operands(cuda, PF_CASES[case])
+    assert pa.route(q, k, v) == want_route
+    for kw in _pf_configs(dtype):
+        common.reset_launches()
+        got = pa.paged_prefill_raw(q, k, v, bt, qs, 1, **kw)
+        want = pa.paged_prefill_plain(q, k, v, bt, qs, 1, **kw)
+        assert common.LAUNCHES == {"paged_prefill": 1}
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        assert int(got[2][pa.EV_TOTAL]) > 0
+        assert got[0].dtype == q.dtype and got[0].shape == q.shape
+        # non-finite V lanes reach whole columns, the NULL page's too
+        assert bool((~want[0].isfinite()).any()) == _pf_poisoned(kw)
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype],
+                                   equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c, v in PF_CASES.items() if v[2] == "wgmma"])
+def test_paged_prefill_scan_matches_plain(cuda, case):
+    """The wgmma route's scan kernel: slot counts, AT counts and per-slot
+    K/V flags equal to its plain version's, NULL and dead slots included;
+    each request's poison end is one past its last slot whose V stays
+    non-finite after the repair."""
+    _, dtype, _, _ = PF_CASES[case]
+    _, k, v, bt, _ = _pf_operands(cuda, PF_CASES[case])
+    for kw in _pf_configs(dtype):
+        poisoned = _pf_poisoned(kw)
+        kw = {n: kw[n] for n in ("detector_k", "detector_v", "policy_v",
+                                 "constant_v") if n in kw}
+        *got, poison_end = pa._scan_kernel(k, v, bt, 1, **kw)
+        want = pa.prefill_scan_plain(k, v, bt, 1, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert int(want[2].sum()) > 0
+        poison = (want[2][..., 1] >> 1) & 1
+        end = (poison * torch.arange(1, bt.shape[1] + 1, device=cuda)).amax(1)
+        assert torch.equal(poison_end, end.int())
+        assert bool(poison.any()) == poisoned
+
+
 def _mlstm_inputs(dev, dtype, nc, Q, P, B=2, H=2):
     """q, k, v (B, H, nc, Q, P) with NaN and ±Inf planted, f32 gates."""
     gen = torch.Generator(device=dev).manual_seed(7 + nc)
