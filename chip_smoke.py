@@ -13,12 +13,16 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      planted in resident pages, in a page dead for the early prefill row
      blocks and in the null page: each kernel against its plain version on
      the card (integer outputs exactly equal, floats within the stated
-     tolerance; 16-bit prefill on its wgmma route, f32 and a 16-bit q 2
-     bytes off alignment on its FFMA route, ``kernels.paged_attention.route``,
-     named on each ``kernels ok`` line; prefill also with V detection off,
-     where the planted V lanes' NaN must land where the plain version's
-     do), then timed (median of CUDA-event timings) beside its plain version,
-     its bound and SDPA's call and device times (the prefill's wgmma route
+     tolerance; decode on its fused route at splits 1 and 4 and a q 2 bytes
+     off alignment on its walk route, ``kernels.paged_attention.decode_route``;
+     16-bit prefill on its wgmma route, f32 and a 16-bit q 2 bytes off
+     alignment on its FFMA route, ``kernels.paged_attention.route``; each
+     ``kernels ok`` line names the routes; decode and prefill also with V
+     detection off, where the planted V lanes' NaN and Inf must land where
+     the plain version's do), then timed (median of CUDA-event timings)
+     beside its plain version, its bound and SDPA's call and device times
+     (the decode's fused route split into kernel and memset at splits 4 and
+     1, planted and clean, beside its walk route; the prefill's wgmma route
      split into scan, main kernel and memset at C=64 and C=100, and its FFMA
      kernel on the same bf16 operands)
   2b. ops: the paper's fused-repair ops at Qwen2-1.5B width — repair_matmul
@@ -142,11 +146,12 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, table: str = ""):
+def device_profile(fn, table: str = "", counts: dict | None = None):
     """Device milliseconds by kernel name for one call of ``fn`` under
     ``torch.profiler`` (empty when the profiler records no device time).
     With ``table``, host and device activity are both recorded and their
-    summary tables written to ``chiprun_out/<table>``."""
+    summary tables written to ``chiprun_out/<table>``; with ``counts``, the
+    number of launches recorded per name is added to it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -172,6 +177,8 @@ def device_profile(fn, table: str = ""):
             us = getattr(evt, "self_cuda_time_total", 0)
         if us:
             per[evt.key] = per.get(evt.key, 0.0) + us / 1e3
+            if counts is not None:
+                counts[evt.key] = counts.get(evt.key, 0) + evt.count
     return per
 
 
@@ -200,17 +207,26 @@ def kernel_device_ms(fn, names, iters: int = 20):
     return total or None
 
 
-def kernel_breakdown(fn, names, iters: int = 20) -> dict:
-    """Device ms per call of each named kernel (0.0 where none ran)."""
+def kernel_breakdown(fn, names, iters: int = 20, tries: int = 3) -> dict:
+    """Device ms per call of each named kernel (0.0 where none ran).  The
+    profiler can drop a window's device events: a window counts only when
+    it recorded some and every kernel's launches are a multiple of
+    ``iters``; otherwise it is taken again, up to ``tries`` times."""
     fn()
-    per = device_profile(lambda: [fn() for _ in range(iters)])
-    return {n: sum(ms for key, ms in per.items() if n in key) / iters
-            for n in names}
+    for _ in range(tries):
+        counts: dict = {}
+        per = device_profile(lambda: [fn() for _ in range(iters)], counts=counts)
+        if counts and all(c % iters == 0 for c in counts.values()):
+            return {n: sum(ms for key, ms in per.items() if n in key) / iters
+                    for n in names}
+    raise AssertionError(f"the profiler dropped device events in {tries} "
+                         f"windows of {iters} calls: {counts}")
 
 
 KERNEL_NAMES = {
     "scrub": ("scrub_tiles", "scrub_finalize"),
-    "paged_decode": ("decode_partials", "lse_merge"),
+    # walk route: partials + merge; fused route: one kernel (+ a memset)
+    "paged_decode": ("decode_partials", "lse_merge", "decode_fused"),
     # FFMA route: partials; wgmma route: scan + wgmma
     "paged_prefill": ("prefill_partials", "prefill_scan", "prefill_repair_wgmma"),
     # FFMA route: tiles + counts; wgmma route: scan + wgmma + counts
@@ -285,11 +301,27 @@ def kernel_phase(report: dict) -> None:
         if not torch.equal(a.cpu(), b.cpu()):
             raise AssertionError(f"{what}: integer outputs differ\n{a}\n{b}")
 
+    def close_nonfinite(out, ref, tol, what):
+        """Non-finite lanes exactly where the plain version's are, the
+        finite ones within the tolerance, equal Inf where both are Inf;
+        returns how many lanes are NaN in one and ±Inf in the other (an
+        infinite V lane gives Inf where p > 0 and NaN where p rounds to 0,
+        and p may be rounded against another running max than the plain
+        version's)."""
+        out, ref = out.float(), ref.float()
+        fin = ref.isfinite()
+        same(out.isfinite(), fin, f"finite lanes {what}")
+        torch.testing.assert_close(out[fin], ref[fin], rtol=tol, atol=tol)
+        both_inf = out.isinf() & ref.isinf()
+        same(out[both_inf], ref[both_inf], f"Inf lanes {what}")
+        return int((out.isnan() != ref.isnan()).sum())
+
     # 16-bit pools take the prefill's wgmma route, f32 its FFMA route; a
     # 16-bit q off 16-byte alignment takes the FFMA route
     want_route = {torch.float32: "ffma", torch.bfloat16: "wgmma",
                   torch.float16: "wgmma"}
-    max_err = {"scrub": 0.0, "paged_decode": 0.0, "paged_prefill": 0.0}
+    max_err = {"scrub": 0.0, "paged_decode": 0.0, "paged_prefill": 0.0,
+               "decode_own_partition": 0.0}
 
     def check_prefill(dtype, label, kw, kp, vp, qcs):
         """Prefill against its plain version at C and C_LONG, and for
@@ -312,22 +344,14 @@ def kernel_phase(report: dict) -> None:
             want = pa.paged_prefill_plain(qc, kp, vp, bt, qs, LAYER, **kw)
             same(got[1], want[1], f"prefill slot_counts {name} {label} {what}")
             same(got[2], want[2], f"prefill counts {name} {label} {what}")
-            out, ref = got[0].float(), want[0].float()
             # finite outputs unless V lanes were left non-finite
-            fin = ref.isfinite()
+            fin = want[0].float().isfinite()
             if bool(fin.all()) == (label == "v-off"):
                 raise AssertionError(f"prefill {name} {label} {what}: "
                                      f"finite outputs not as expected")
-            # non-finite lanes exactly where the plain version's are, the
-            # finite ones within the tolerance; an infinite V lane gives Inf
-            # where p > 0 and NaN where p rounds to 0, and the wgmma route
-            # rounds p per tile, not per page, so NaN may meet ±Inf there
-            same(out.isfinite(), fin, f"prefill finite lanes {name} {label} {what}")
-            torch.testing.assert_close(out[fin], ref[fin], rtol=TOL[name],
-                                       atol=TOL[name])
-            both_inf = out.isinf() & ref.isinf()
-            same(out[both_inf], ref[both_inf], f"prefill Inf lanes {name} {label} {what}")
-            nan_inf = int((out.isnan() != ref.isnan()).sum())
+            # the wgmma route rounds p per tile, not per page
+            nan_inf = close_nonfinite(got[0], want[0], TOL[name],
+                                      f"prefill {name} {label} {what}")
             max_err["paged_prefill"] = max(max_err["paged_prefill"],
                                            errs(got[0], want[0]))
             part = f"{what} ({prefill_route}) {got[2].tolist()}"
@@ -335,9 +359,55 @@ def kernel_phase(report: dict) -> None:
                 part += f" non-finite {int((~fin).sum())}, NaN vs Inf {nan_inf}"
             parts.append(part)
         return parts
+
+    def check_decode(dtype, label, kw, kp, vp, q):
+        """Decode against its plain version at splits 1 and 4 on the fused
+        route, and with q 2 bytes off alignment (4 for f32) at splits 4 on
+        the walk route: integer outputs equal, outputs within the tolerance
+        (non-finite lanes where the plain version's are).  Returns the
+        ``kernels ok`` parts."""
+        name = str(dtype).split(".")[-1]
+        parts = []
+        for what, qd, splits, want_r in (("s=1", q, 1, "fused"),
+                                         ("s=4", q, 4, "fused"),
+                                         ("s=4 q-off", _at_offset(q, 1), 4, "walk")):
+            decode_route = pa.decode_route(qd, kp, vp)
+            if decode_route != want_r:
+                raise AssertionError(f"decode {name} {what} took the "
+                                     f"{decode_route} route")
+            got = pa.paged_attention_splitk_raw(qd, kp, vp, bt, pos, LAYER,
+                                                splits=splits, **kw)
+            want = pa.paged_decode_plain(qd, kp, vp, bt, pos, LAYER,
+                                         splits=splits, **kw)
+            same(got[1], want[1], f"decode slot_counts {name} {label} {what}")
+            same(got[2], want[2], f"decode counts {name} {label} {what}")
+            if int(got[2][6]) == 0:
+                raise AssertionError("decode saw none of the planted lanes")
+            fin = want[0].float().isfinite()
+            if bool(fin.all()) == (label == "v-off"):
+                raise AssertionError(f"decode {name} {label} {what}: finite "
+                                     f"outputs not as expected")
+            nan_inf = close_nonfinite(got[0], want[0], TOL[name],
+                                      f"decode {name} {label} {what}")
+            max_err["paged_decode"] = max(max_err["paged_decode"],
+                                          errs(got[0], want[0]))
+            if decode_route == "fused":
+                # the plain twin of the kernel's own partition rounds p
+                # against the same running maxima
+                twin = pa.paged_decode_fused_plain(qd, kp, vp, bt, pos, LAYER, **kw)
+                same(got[1], twin[1], f"decode twin slot_counts {name} {label}")
+                close_nonfinite(got[0], twin[0], TOL[name],
+                                f"decode twin {name} {label} {what}")
+                max_err["decode_own_partition"] = max(
+                    max_err["decode_own_partition"], errs(got[0], twin[0]))
+            part = f"{what} ({decode_route})"
+            if label == "v-off":
+                part += f" non-finite {int((~fin).sum())}, NaN vs Inf {nan_inf}"
+            parts.append(part)
+        return parts, got[2].tolist()
+
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         name = str(dtype).split(".")[-1]
-        tol = TOL[name]
         configs = [
             ("default", dict(detector_k="default", detector_v="default",
                              policy="zero")),
@@ -347,20 +417,7 @@ def kernel_phase(report: dict) -> None:
         ]
         for label, kw in configs:
             kp, vp, q, qcs = fresh(dtype)
-            for splits in (1, 4):
-                got = pa.paged_attention_splitk_raw(
-                    q, kp, vp, bt, pos, LAYER, splits=splits, **kw)
-                want = pa.paged_decode_plain(
-                    q, kp, vp, bt, pos, LAYER, splits=splits, **kw)
-                same(got[1], want[1], f"decode slot_counts {name} {label} s={splits}")
-                same(got[2], want[2], f"decode counts {name} {label} s={splits}")
-                torch.testing.assert_close(got[0].float(), want[0].float(),
-                                           rtol=tol, atol=tol)
-                max_err["paged_decode"] = max(max_err["paged_decode"],
-                                              errs(got[0], want[0]))
-                if int(got[2][6]) == 0:
-                    raise AssertionError("decode saw none of the planted lanes")
-            decode_counts = got[2].tolist()
+            decode_parts, decode_counts = check_decode(dtype, label, kw, kp, vp, q)
             routes = check_prefill(dtype, label, kw, kp, vp, qcs)
             # page scrub: 3 ids bucketed to 4 with a padding duplicate
             det = kw["detector_k"] if label != "default" else None
@@ -374,16 +431,19 @@ def kernel_phase(report: dict) -> None:
             max_err["scrub"] = max(max_err["scrub"], errs(a, b))
             if int(c_kernel[0] + c_kernel[1]) == 0:
                 raise AssertionError("scrub saw none of the planted lanes")
-            log(f"kernels ok  dtype={name} detector={label} "
-                f"decode_counts={decode_counts} prefill {'; '.join(routes)} "
-                f"scrub_counts={c_kernel.tolist()}")
+            log(f"kernels ok  dtype={name} detector={label} decode "
+                f"{'; '.join(decode_parts)} {decode_counts} prefill "
+                f"{'; '.join(routes)} scrub_counts={c_kernel.tolist()}")
         # V detection off: the planted V lanes stay non-finite and reach
         # every row of their KV head through 0 x NaN, rows that mask them
         # too (request 0's last page, dead for its early row blocks, among
         # them); every route must put them where the plain version does
-        kp, vp, _, qcs = fresh(dtype)
+        kp, vp, q, qcs = fresh(dtype)
+        decode_parts, _ = check_decode(dtype, "v-off", dict(detector_v=None),
+                                       kp, vp, q)
         routes = check_prefill(dtype, "v-off", dict(detector_v=None), kp, vp, qcs)
-        log(f"kernels ok  dtype={name} detector=v-off prefill {'; '.join(routes)}")
+        log(f"kernels ok  dtype={name} detector=v-off decode "
+            f"{'; '.join(decode_parts)} prefill {'; '.join(routes)}")
         a, b = vp.clone(), vp.clone()
         same(sk.scrub(a)[1], sk.scrub_plain(b)[1], f"scrub counts {name}")
         same(detect.bits_of(a), detect.bits_of(b), f"scrub bits {name}")
@@ -402,19 +462,37 @@ def kernel_phase(report: dict) -> None:
         """(call ms, device ms) of one PyTorch call."""
         return cuda_ms(fn), kernel_device_ms(fn, ("",))
 
-    decode_ms = cuda_ms(lambda: pa.paged_attention_splitk_raw(
-        q, kp, vp, bt, pos, LAYER, splits=4, **kw))
-    decode_plain_ms = cuda_ms(lambda: pa.paged_decode_plain(
-        q, kp, vp, bt, pos, LAYER, splits=4, **kw))
-    # the serial walk (splits = 1): off the main path at M = 8, timed apart
-    serial = dict(
-        ms=cuda_ms(lambda: pa.paged_attention_splitk_raw(
-            q, kp, vp, bt, pos, LAYER, splits=1, **kw)),
-        plain_ms=cuda_ms(lambda: pa.paged_decode_plain(
-            q, kp, vp, bt, pos, LAYER, splits=1, **kw)),
-        device_ms=kernel_device_ms(lambda: pa.paged_attention_splitk_raw(
-            q, kp, vp, bt, pos, LAYER, splits=1, **kw), KERNEL_NAMES["paged_decode"]),
-    )
+    # decode at splits 4 (the engine's) and 1 (the serial entry point, off
+    # the main path at M = 8), on the fused route: device time split into
+    # the kernel and the counts' memset, on the planted pool (K of slots 1
+    # of request 0 and 0 of request 1, V of slot 2 of request 2 and of the
+    # null page hold NaN/Inf) and on a clean copy; the walk route on the
+    # same operands (q 2 bytes off alignment)
+    kc, vc = (x.nan_to_num(0.0, 0.0, 0.0) for x in (kp, vp))
+    q_off = _at_offset(q, 1)
+    if pa.decode_route(q, kp, vp) != "fused" or pa.decode_route(q_off, kp, vp) != "walk":
+        raise AssertionError("decode bf16 timing operands are not on the "
+                             "fused and walk routes")
+    dnames, wnames = ("decode_fused", "Memset"), ("decode_partials", "lse_merge")
+    decode = {}
+    for splits in (4, 1):
+        def dcall(k=kp, v=vp, qd=q, splits=splits):
+            return pa.paged_attention_splitk_raw(qd, k, v, bt, pos, LAYER,
+                                                 splits=splits, **kw)
+
+        parts = kernel_breakdown(dcall, dnames)
+        clean = kernel_breakdown(lambda: dcall(k=kc, v=vc), dnames)
+        if not (parts["decode_fused"] > 0 and clean["decode_fused"] > 0):
+            raise AssertionError(f"decode splits={splits} ran no fused kernel: "
+                                 f"{parts} {clean}")
+        decode[splits] = dict(
+            ms=cuda_ms(dcall), device_ms=sum(parts.values()), parts=parts,
+            clean=clean,
+            clean_ms=cuda_ms(lambda: dcall(k=kc, v=vc)),
+            walk=kernel_breakdown(lambda: dcall(qd=q_off), wnames),
+            walk_ms=cuda_ms(lambda: dcall(qd=q_off)),
+            plain_ms=cuda_ms(lambda splits=splits: pa.paged_decode_plain(
+                q, kp, vp, bt, pos, LAYER, splits=splits, **kw)))
     valid_keys = sum(min(int(p) + 1, t_keys) for p in pos.tolist())
     nbytes = (2 * B * H * DH * es + 2 * visited * page_bytes + B * M * 4 * 2
               + B * 4 + 32)
@@ -437,7 +515,6 @@ def kernel_phase(report: dict) -> None:
     # clean copy, beside SDPA's device and call times; the FFMA kernel on
     # the same bf16 operands (q 2 bytes off alignment) at C
     pnames = ("prefill_scan", "prefill_repair_wgmma", "Memset")
-    kc, vc = (x.nan_to_num(0.0, 0.0, 0.0) for x in (kp, vp))
     prefill = {}
     for c, qc in qcs.items():
         qc1, qs1 = qc[:1], q_starts[c][:1]
@@ -489,8 +566,6 @@ def kernel_phase(report: dict) -> None:
     dev_ms = {
         "scrub": kernel_device_ms(lambda: sk.scrub_pages(scr, ids2, n_valid=2),
                                   KERNEL_NAMES["scrub"]),
-        "paged_decode": kernel_device_ms(lambda: pa.paged_attention_splitk_raw(
-            q, kp, vp, bt, pos, LAYER, splits=4, **kw), KERNEL_NAMES["paged_decode"]),
     }
     pc = prefill[C]
     report["kernels"] = {
@@ -505,10 +580,11 @@ def kernel_phase(report: dict) -> None:
             route="cuda", source="src/repro_torch/csrc/paged_decode.cu",
             replaces=("src/repro/kernels/paged_attention.py:147 (_paged_kernel) "
                       "and :633 (_paged_splitk_kernel, merge _lse_merge :131)"),
-            max_abs_err=max_err["paged_decode"], ms=decode_ms,
-            plain_ms=decode_plain_ms, bound_ms=d_bound, bound_by=d_by,
+            max_abs_err=max_err["paged_decode"], ms=decode[4]["ms"],
+            plain_ms=decode[4]["plain_ms"], bound_ms=d_bound, bound_by=d_by,
             library_ms=decode_lib_ms, library_device_ms=decode_lib_dev,
-            device_ms=dev_ms["paged_decode"],
+            device_ms=decode[4]["device_ms"], kernel_route="fused",
+            max_abs_err_own_partition=max_err["decode_own_partition"],
         ),
         "paged_prefill": dict(
             route="cuda", source="src/repro_torch/csrc/paged_prefill.cu",
@@ -517,6 +593,7 @@ def kernel_phase(report: dict) -> None:
             plain_ms=pc["plain_ms"], bound_ms=pc["bound_ms"],
             bound_by=pc["bound_by"], library_ms=pc["library_ms"],
             library_device_ms=pc["library_device_ms"], device_ms=pc["device_ms"],
+            kernel_route="wgmma",
         ),
     }
     for k, v in report["kernels"].items():
@@ -525,9 +602,23 @@ def kernel_phase(report: dict) -> None:
             f"bound {v['bound_ms']:.5f} ms ({v['bound_by']}), library call "
             f"{v['library_ms']} ms (device {v.get('library_device_ms')}), "
             f"max_abs_err {v['max_abs_err']}")
-    log(f"timing paged_decode splits=1: call {serial['ms']:.4f} ms (device "
-        f"{serial['device_ms']}), plain {serial['plain_ms']:.4f} ms, bound and "
-        f"library as at splits=4")
+    log(f"paged_decode max_abs_err against the plain version at the same "
+        f"splits {max_err['paged_decode']}, against the plain twin of the fused "
+        f"route's own partition {max_err['decode_own_partition']}")
+    for splits, dc in decode.items():
+        for label, pt, ms in (("planted", dc["parts"], dc["ms"]),
+                              ("clean", dc["clean"], dc["clean_ms"])):
+            log(f"timing paged_decode splits={splits} bf16 {label} (fused route): "
+                f"device {sum(pt.values()):.4f} ms = decode_fused "
+                f"{pt['decode_fused']:.4f} + memset {pt['Memset']:.4f}; call "
+                f"{ms:.4f} ms; bound {d_bound:.6f} ms ({d_by}); SDPA device "
+                f"{decode_lib_dev} ms, call {decode_lib_ms:.4f} ms; plain "
+                f"{dc['plain_ms']:.4f} ms")
+        wk = dc["walk"]
+        log(f"timing paged_decode splits={splits} bf16 planted (walk route, q 2 "
+            f"bytes off alignment): device {sum(wk.values()):.4f} ms = "
+            f"decode_partials {wk['decode_partials']:.4f} + lse_merge "
+            f"{wk['lse_merge']:.4f}; call {dc['walk_ms']:.4f} ms")
     for c, pr in prefill.items():
         for label, pt, ms in (("planted", pr["parts"], pr["ms"]),
                               ("clean", pr["clean"], pr["clean_ms"])):
@@ -1101,10 +1192,13 @@ def engine_phase(report: dict) -> None:
         table="engine_profile.txt")
     groups = {"repair_kernels": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
     ours = tuple(n for names in KERNEL_NAMES.values() for n in names)
+    by_kernel = {k: 0.0 for k in KERNEL_NAMES}
     for key, ms in per.items():
         low = key.lower()
         if any(n in key for n in ours):
             groups["repair_kernels"] += ms
+            by_kernel[next(k for k, names in KERNEL_NAMES.items()
+                           if any(n in key for n in names))] += ms
         elif any(n in low for n in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
             groups["gemm"] += ms
         elif "memcpy" in low or "memset" in low:
@@ -1120,6 +1214,7 @@ def engine_phase(report: dict) -> None:
         first_run_ms_per_step=1e3 * wall / steps,
         launches_per_step={k: v / steps for k, v in launches.items()},
         device_ms_per_step={k: v / wm["steps"] for k, v in groups.items()},
+        repair_ms_per_step={k: v / wm["steps"] for k, v in by_kernel.items() if v},
         device_idle_share=(1.0 - busy / (1e3 * warm_wall)) if busy else None,
         top_kernels_ms=[(k[:60], v) for k, v in top],
         stats=engine.stats_dict(), kernel_counts=engine.kernel_counts.tolist(),

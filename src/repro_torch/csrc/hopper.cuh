@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the wgmma kernels (repair_matmul.cu,
-// flash_attention.cu, paged_prefill.cu): shared-memory addresses,
-// mbarriers, TMA loads and their tensor maps, wgmma shared-memory
-// descriptors, the in-smem chunk repair of a flagged tile, and the fault
-// scan's exponent-floor prefilter.
+// flash_attention.cu, paged_prefill.cu) and the fused paged decode
+// (paged_decode.cu): shared-memory addresses, mbarriers, TMA and bulk
+// loads, tensor maps, wgmma shared-memory descriptors, the in-smem chunk
+// repair of a flagged tile, and the fault scan's exponent-floor prefilter.
 // sm_90a only (wgmma, setmaxnreg); TMA descriptors come from
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint so that
 // no library links against libcuda.
@@ -68,6 +68,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// A contiguous run of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory by the bulk-copy engine, reported
+// to `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

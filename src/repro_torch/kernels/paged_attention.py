@@ -20,6 +20,28 @@ The plain versions replay the kernels' page walk (online softmax over the
 pages, ``p`` cast to the cache dtype before the value product), vectorised
 over the batch; ``kernels.ref`` holds the gather-then-softmax oracles.
 
+Decode routes on the card (:func:`decode_route`, a pure function of the
+operands' dtypes, shapes and data pointers, decided before any launch):
+
+  ``"fused"``  q and both pools all f32, bf16 or f16, head dim 64 or 128,
+               each contiguous, non-empty and 16-byte aligned, and one
+               slot's K and V tiles within a block's shared memory.  One
+               native call: a memset of the counts and one launch.  The
+               partition is the kernel's own (:func:`fused_partition`):
+               request b's M slots go to ceil(M / spb) blocks of spb =
+               ceil(M / 8) consecutive slots, which form one thread-block
+               cluster.  A block loads all its slots' K and V tiles at once
+               (one bulk copy each), repairs them in shared memory and runs
+               one warp per query head over its pages; the other blocks
+               push their partials into the cluster leader's shared memory,
+               which merges them and writes the normalised output.  The
+               page walk is the reference's; ``splits`` keeps its
+               meaning for the plain version only; the plain twin of the
+               kernel's partition is :func:`paged_decode_fused_plain`.
+  ``"walk"``   everything else (the tests' small head dims; offset views):
+               one block per (request, split) walks its slots one after
+               another, then a second launch merges the partials.
+
 Prefill routes on the card (:func:`route`, a pure function of the
 operands' dtypes, shapes and data pointers, decided before any launch):
 
@@ -71,6 +93,14 @@ _WGMMA_HEAD_DIMS = (64, 128)
 _WGMMA_MAX_LANES = 1 << 31     # csrc: pw::shape_ok
 
 
+# the fused decode route (csrc/paged_decode.cu, namespace fd): clusters of
+# at most FUSED_MAX_CLUSTER blocks, a block's dynamic shared memory
+FUSED_MAX_CLUSTER = 8
+_FUSED_SMEM = 232448
+_FUSED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_FUSED_HEAD_DIMS = (64, 128)
+
+
 @functools.lru_cache(maxsize=None)
 def _consts(det, dtype, include_inf):
     if det == DEFAULT_DETECTOR:
@@ -119,15 +149,24 @@ def _online_step(s, m, l, acc, v, out_dtype_p):
     return m_new, l, acc * alpha[..., None] + pv
 
 
-def _decode_plain(q, k_pages, v_pages, bt, pos, layer, splits, spec):
+def _decode_plain(q, k_pages, v_pages, bt, pos, layer, ns, spec):
+    """The page walk in groups of ``ns`` consecutive slots (the last group
+    may be shorter), each an online softmax page by page from its own
+    running max, merged by :func:`lse_merge`.  ``ns = M // splits`` is the
+    reference's split-K walk; a short last group is padded with slots that
+    are masked, hold zeros and are not counted, so it leaves (m, l, acc)
+    exactly as they were."""
     consts_k, consts_v, fill_k, fill_v = spec
     B, H, Dh = q.shape
     P, L, pg, Kh, _ = k_pages.shape
     G, M = H // Kh, bt.shape[1]
-    ns = M // splits
+    splits = -(-M // ns)
     fk, nk, ik = _repair_visits(k_pages, bt, layer, consts_k, fill_k)
     fv, nv, iv = _repair_visits(v_pages, bt, layer, consts_v, fill_v)
     slot_counts, counts = _visit_counts(nk, ik, nv, iv)
+    if splits * ns > M:
+        pad = fk.new_zeros((B, splits * ns - M) + fk.shape[2:])
+        fk, fv = torch.cat([fk, pad], dim=1), torch.cat([fv, pad], dim=1)
     # (B, S, ns, Kh, pg, Dh): split s walks slots s*ns .. s*ns + ns - 1
     fk = fk.reshape(B, splits, ns, pg, Kh, Dh).transpose(3, 4).float()
     fv = fv.reshape(B, splits, ns, pg, Kh, Dh).transpose(3, 4)
@@ -136,11 +175,13 @@ def _decode_plain(q, k_pages, v_pages, bt, pos, layer, splits, spec):
     acc = q.new_zeros((B, splits, Kh, G, Dh), dtype=torch.float32)
     m = torch.full((B, splits, Kh, G), NEG_INF, device=q.device)
     l = torch.zeros((B, splits, Kh, G), device=q.device)
-    base = torch.arange(splits, device=q.device)[:, None] * ns * pg
+    base = torch.arange(splits, device=q.device)[:, None] * ns
     for jj in range(ns):
         s = torch.matmul(qg, fk[:, :, jj].transpose(-1, -2)) * sm_scale
-        t = base + jj * pg + torch.arange(pg, device=q.device)   # (S, pg)
-        valid = t[None, :, None, None, :] <= pos.long()[:, None, None, None, None]
+        j = base + jj                                            # (S, 1)
+        t = j * pg + torch.arange(pg, device=q.device)           # (S, pg)
+        valid = ((t[None, :, None, None, :] <= pos.long()[:, None, None, None, None])
+                 & (j < M)[None, :, None, None, :])
         s = torch.where(valid, s, NEG_INF)
         m, l, acc = _online_step(s, m, l, acc, fv[:, :, jj], v_pages.dtype)
     out = lse_merge(q.dtype, acc.reshape(B, splits, H, Dh),
@@ -204,6 +245,43 @@ def route(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor) -> str:
             and all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops)):
         return "wgmma"
     return "ffma"
+
+
+def fused_partition(M: int) -> Tuple[int, int]:
+    """``(nb, spb)``: the fused decode route's blocks per request and slots
+    per block, ``spb = ceil(M / 8)`` consecutive slots a block and ``nb =
+    ceil(M / spb)`` blocks (one thread-block cluster a request; the last
+    block may hold fewer slots)."""
+    spb = -(-M // min(M, FUSED_MAX_CLUSTER))
+    return -(-M // spb), spb
+
+
+def fused_smem(H: int, Dh: int, pg: int, Kh: int, itemsize: int) -> int:
+    """Dynamic shared-memory bytes of a fused decode block that stages one
+    slot in a full cluster: q, the slot's K and V tiles, its own and seven
+    other blocks' partials (acc, m, l), a page's scores per head and the
+    slot's counts (csrc: ``fd::Layout``)."""
+    tile = pg * Kh * Dh * itemsize
+    return (16 + H * Dh * itemsize + 2 * tile
+            + 4 * FUSED_MAX_CLUSTER * H * (Dh + 2) + 4 * H * pg + 16)
+
+
+def decode_route(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor) -> str:
+    """``"fused"`` or ``"walk"``: which CUDA kernels take a decode call
+    (the rule in the module docstring)."""
+    ops = (q, k_pages, v_pages)
+    if (q.dtype == k_pages.dtype == v_pages.dtype and q.dtype in _FUSED_DTYPES
+            and q.dim() == 3 and k_pages.dim() == 5
+            and k_pages.shape == v_pages.shape
+            and q.shape[-1] == k_pages.shape[-1] in _FUSED_HEAD_DIMS
+            and all(t.numel() > 0 for t in ops)
+            and all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops)):
+        H, Dh = q.shape[1:]
+        pg, Kh = k_pages.shape[2:4]
+        if fused_smem(H, Dh, pg, Kh, q.element_size()) <= _FUSED_SMEM:
+            return "fused"
+    return "walk"
 
 
 def live_slots(q_start, C: int, G: int, pg: int, M: int,
@@ -275,6 +353,12 @@ _PREFILL_WGMMA_SIG = [
     _native.I, _native.I, _native.I, _native.I, _native.HOST_INTS,
     _native.HOST_INTS, _native.U, _native.U, _native.P, _native.P,
     _native.P, _native.P, _native.P,
+]
+_DECODE_FUSED_SIG = [
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.I, _native.HOST_INTS, _native.HOST_INTS,
+    _native.U, _native.U, _native.P, _native.P, _native.P, _native.P,
 ]
 _SCAN_SIG = [
     _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
@@ -354,13 +438,14 @@ def _prefill_kernel(q, k_pages, v_pages, bt, q_start, layer, spec):
 
 
 @functools.lru_cache(maxsize=64)
-def _wgmma_pool(k_shape, v_shape, dtype, include_inf, policy, constant,
-                detector_k, detector_v, policy_k, constant_k, policy_v,
-                constant_v):
-    """What repeats across the wgmma route's calls on one pool, cached by
-    value: the pool's shape, then the detector operands and fill bits."""
+def _pool_constants(what, k_shape, v_shape, dtype, include_inf, policy,
+                    constant, detector_k, detector_v, policy_k, constant_k,
+                    policy_v, constant_v):
+    """What repeats across the wgmma prefill's and the fused decode's calls
+    on one pool, cached by value: the pool's shape, then the detector
+    operands and fill bits."""
     if v_shape != k_shape:
-        raise ValueError(f"paged prefill: k pages {tuple(k_shape)}, v pages "
+        raise ValueError(f"{what}: k pages {tuple(k_shape)}, v pages "
                          f"{tuple(v_shape)}")
     ck, cv, fill_k, fill_v = _operand_spec(
         dtype, include_inf, policy, constant, detector_k, detector_v,
@@ -370,10 +455,10 @@ def _wgmma_pool(k_shape, v_shape, dtype, include_inf, policy, constant,
                      common.fill_bits(*fill_v, dtype))
 
 
-def _check_tables(q, bt, q_start):
-    for name, t in (("block_tables", bt), ("q_start", q_start)):
+def _check_tables(q, bt, vec, what="paged prefill", vec_name="q_start"):
+    for name, t in (("block_tables", bt), (vec_name, vec)):
         if t.device != q.device or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"paged prefill: {name} must be contiguous int32 "
+            raise ValueError(f"{what}: {name} must be contiguous int32 "
                              f"on {q.device}")
 
 
@@ -383,8 +468,9 @@ def _prefill_wgmma(q, k_pages, v_pages, bt, q_start, layer, include_inf, fills):
     scan's per-request poison ends (B), slot_counts (B, M) and its flags
     (B, M, 2)."""
     _check_tables(q, bt, q_start)
-    (P, L, pg, Kh, Dk), tail = _wgmma_pool(k_pages.shape, v_pages.shape,
-                                           q.dtype, include_inf, **fills)
+    (P, L, pg, Kh, Dk), tail = _pool_constants(
+        "paged prefill", k_pages.shape, v_pages.shape, q.dtype, include_inf,
+        **fills)
     B, C, H, Dh = q.shape
     if (Dk != Dh or H % Kh or bt.dim() != 2 or bt.shape[0] != B
             or bt.shape[1] < 1 or q_start.shape != (B,)):
@@ -409,6 +495,39 @@ def _prefill_wgmma(q, k_pages, v_pages, bt, q_start, layer, include_inf, fills):
     _native.check(err, "paged prefill (wgmma)")
     common.LAUNCHES["paged_prefill"] += 1
     return out, buf[head:head + B * M].view(B, M), buf[:8]
+
+
+def _decode_fused(q, k_pages, v_pages, bt, pos, layer, include_inf, fills):
+    """The fused route: one native call zeroes the counts and launches
+    ``decode_fused``.  One int32 buffer holds counts (8) and slot_counts
+    (B, M)."""
+    _check_tables(q, bt, pos, "paged decode", "positions")
+    (P, L, pg, Kh, Dk), tail = _pool_constants(
+        "paged decode", k_pages.shape, v_pages.shape, q.dtype, include_inf,
+        **fills)
+    B, H, Dh = q.shape
+    if (Dk != Dh or H % Kh or bt.dim() != 2 or bt.shape[0] != B
+            or bt.shape[1] < 1 or pos.shape != (B,)):
+        raise ValueError(f"paged decode: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}, block tables "
+                         f"{tuple(bt.shape)} and positions "
+                         f"{tuple(pos.shape)} do not fit")
+    layer, M = int(layer), bt.shape[1]
+    if not 0 <= layer < L:
+        raise IndexError(f"paged decode: layer {layer} of a {L}-layer pool")
+    buf = torch.empty(8 + B * M, dtype=torch.int32, device=q.device)
+    out = torch.empty_like(q)
+    base = buf.data_ptr()
+    err = _native.function("paged_decode", "repro_paged_decode_fused",
+                           _DECODE_FUSED_SIG)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
+        pos.data_ptr(), common.DTYPE_CODES[q.dtype], B, H, Dh, P, L, pg, Kh,
+        M, layer, *tail, out.data_ptr(), base + 32, base,
+        common.raw_stream(q.device),
+    )
+    _native.check(err, "paged decode (fused)")
+    common.LAUNCHES["paged_decode"] += 1
+    return out, buf[8:].view(B, M), buf[:8]
 
 
 def _scan_kernel(k_pages, v_pages, block_tables, layer, *, include_inf=True,
@@ -440,12 +559,17 @@ def _scan_kernel(k_pages, v_pages, block_tables, layer, *, include_inf=True,
 
 
 # --------------------------------------------------------------- wrappers
-def _decode_spec(q, k_pages, block_tables, splits, include_inf, fills):
-    H, M = q.shape[1], block_tables.shape[1]
-    if H % k_pages.shape[3]:
-        raise ValueError(f"H={H} is not a multiple of Kh={k_pages.shape[3]}")
+def _check_splits(block_tables, splits):
+    M = block_tables.shape[1]
     if splits < 1 or M % splits:
         raise ValueError(f"splits={splits} must divide the block-table width M={M}")
+
+
+def _decode_spec(q, k_pages, block_tables, splits, include_inf, fills):
+    H = q.shape[1]
+    if H % k_pages.shape[3]:
+        raise ValueError(f"H={H} is not a multiple of Kh={k_pages.shape[3]}")
+    _check_splits(block_tables, splits)
     return _operand_spec(q.dtype, include_inf, **fills)
 
 
@@ -463,7 +587,27 @@ def paged_decode_plain(
         policy_v=policy_v, constant_v=constant_v,
     ))
     return _decode_plain(q, k_pages, v_pages, block_tables, positions,
-                         int(layer), splits, spec)
+                         int(layer), block_tables.shape[1] // splits, spec)
+
+
+def paged_decode_fused_plain(
+    q, k_pages, v_pages, block_tables, positions, layer, *,
+    policy: str = "zero", constant: float = 0.0, include_inf: bool = True,
+    detector_k=DEFAULT_DETECTOR, detector_v=DEFAULT_DETECTOR,
+    policy_k: Optional[str] = None, constant_k: Optional[float] = None,
+    policy_v: Optional[str] = None, constant_v: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain twin of the fused decode route's partition
+    (:func:`fused_partition`): the same page walk as
+    :func:`paged_decode_plain`, in groups of ``spb`` consecutive slots."""
+    spec = _decode_spec(q, k_pages, block_tables, 1, include_inf, dict(
+        policy=policy, constant=constant, detector_k=detector_k,
+        detector_v=detector_v, policy_k=policy_k, constant_k=constant_k,
+        policy_v=policy_v, constant_v=constant_v,
+    ))
+    spb = fused_partition(block_tables.shape[1])[1]
+    return _decode_plain(q, k_pages, v_pages, block_tables, positions,
+                         int(layer), spb, spec)
 
 
 def _decode(q, k_pages, v_pages, block_tables, positions, layer, splits,
@@ -473,6 +617,10 @@ def _decode(q, k_pages, v_pages, block_tables, positions, layer, splits,
             q, k_pages, v_pages, block_tables, positions, layer,
             splits=splits, include_inf=include_inf, **fills,
         )
+    if decode_route(q, k_pages, v_pages) == "fused":
+        _check_splits(block_tables, splits)
+        return _decode_fused(q, k_pages, v_pages, block_tables, positions,
+                             layer, include_inf, fills)
     spec = _decode_spec(q, k_pages, block_tables, splits, include_inf, fills)
     return _decode_kernel(q, k_pages, v_pages, block_tables, positions, layer,
                           splits, spec)

@@ -530,6 +530,107 @@ def test_paged_prefill_scan_matches_plain(cuda, case):
         assert bool(poison.any()) == poisoned
 
 
+# id: (B, H, Kh, Dh, pg, M), dtype, expected route, q offset in elements
+DC_CASES = {
+    "bf16-main": ((4, 12, 2, 128, 16, 8), BF16, "fused", 0),
+    "f16-main": ((4, 12, 2, 128, 16, 8), F16, "fused", 0),
+    "f32-main": ((4, 12, 2, 128, 16, 8), F32, "fused", 0),
+    # G = 8, pages of 32 keys, five slots (five one-slot blocks)
+    "bf16-pg32-D64-G8": ((4, 8, 1, 64, 32, 5), BF16, "fused", 0),
+    # two slots a block, eight blocks; B = 1
+    "f16-M16-B1": ((1, 12, 2, 128, 16, 16), F16, "fused", 0),
+    # G = 1, head dim 64, two slots a block
+    "bf16-M16-D64-G1": ((4, 4, 4, 64, 16, 16), BF16, "fused", 0),
+    "f32-pg32-D64": ((2, 12, 2, 64, 32, 8), F32, "fused", 0),
+    # three slots a block, seven blocks, the last holding two
+    "bf16-M20": ((2, 12, 2, 128, 16, 20), BF16, "fused", 0),
+    # f32 pages of 32 keys at Dh 128: a block's four slots in two rounds
+    # of two
+    "f32-pg32-M32-rounds": ((2, 12, 2, 128, 32, 32), F32, "fused", 0),
+    # 28 query heads on 16 head warps (a second pass over heads), G = 7
+    "bf16-H28-G7": ((2, 28, 4, 128, 16, 8), BF16, "fused", 0),
+    # pages of 48 keys: three 16-key score passes, two softmax lane passes
+    "f16-pg48-D64": ((2, 8, 2, 64, 48, 6), F16, "fused", 0),
+    # q 2 bytes off 16-byte alignment
+    "bf16-unaligned": ((4, 12, 2, 128, 16, 8), BF16, "walk", 1),
+}
+
+
+def _dc_operands(dev, case):
+    """q (B, H, Dh), pools (P, 3, pg, Kh, Dh), block tables and positions of
+    one DC_CASES entry, read at layer 1.  Request b holds n_b real pages,
+    then NULL slots; request 0's position ends inside its second-to-last
+    page, so its last real page lies past it.  NaN, ±Inf, a range-guard
+    value and a bit-pattern value are planted in live pages, NaN and Inf in
+    K and V of request 0's last page, and NaN in the NULL page's K and V."""
+    (B, H, Kh, Dh, pg, M), dtype, _, off = case
+    n_real = [M, M // 2 + 1, 3, 1][:B]
+    P = sum(n_real) + 2
+    null = P - 1
+    gen = torch.Generator(device=dev).manual_seed(13)
+    perm = torch.randperm(P - 1, generator=gen, device=dev).tolist()
+    rows, cursor = [], 0
+    for n in n_real:
+        rows.append(perm[cursor:cursor + n] + [null] * (M - n))
+        cursor += n
+    k = torch.randn((P, 3, pg, Kh, Dh), generator=gen, device=dev)
+    v = torch.randn((P, 3, pg, Kh, Dh), generator=gen, device=dev)
+    nan, inf = float("nan"), float("inf")
+    for t, (page, off_, kh, d), val in (
+            (k, (rows[0][0], 3, 0, 10), nan), (v, (rows[0][0], 5, Kh - 1, 7), inf),
+            (k, (rows[-1][0], 1, 0, 2), 3.0e4), (v, (rows[0][1 % M], 2, Kh - 1, 9), 3.0),
+            (k, (rows[-1][0], 0, Kh - 1, 4), -inf),
+            (k, (rows[0][-1], 0, Kh - 1, 1), nan), (v, (rows[0][-1], 0, 0, 3), -inf),
+            (k, (null, 0, 0, 0), nan), (v, (null, 0, Kh - 1, 5), nan)):
+        t[page, 1, off_, kh, d] = val
+    q = torch.randn((B, H, Dh), generator=gen, device=dev)
+    bt = torch.tensor(rows, dtype=torch.int32, device=dev)
+    pos = [n * pg - 2 for n in n_real]
+    pos[0] = max(0, (n_real[0] - 1) * pg - 1)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    return _at_offset(q.to(dtype), off), k.to(dtype), v.to(dtype), bt, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DC_CASES))
+def test_paged_decode_kernel_matches_plain(cuda, case):
+    """Both decode routes against the plain version at every ``splits``
+    that divides M (1, 2, 4): pages of 16, 32 and 48 keys; Dh 64 and 128;
+    G = 1, 6, 7, 8 (28 heads: more than one head a warp); B = 1, 2, 4; M =
+    5, 6, 8, 16, 20, 32 (one, two and three slots a block, a short last
+    block, slots in two rounds); planted lanes in live
+    pages, in a page past the position and in the NULL slots; both
+    detectors and a constant V fill; V lanes left non-finite (detection
+    off, an infinite fill), whose NaN and Inf must land where the plain
+    version's do.  Slot counts and AT counts equal, outputs within the
+    file's tolerances (the fused route also against the plain twin of its
+    own partition), one launch a call, on the expected route."""
+    (_, _, _, _, _, M), dtype, want_route, _ = DC_CASES[case]
+    q, k, v, bt, pos = _dc_operands(cuda, DC_CASES[case])
+    assert pa.decode_route(q, k, v) == want_route
+    tol = TOL[dtype]
+    for kw in _pf_configs(dtype):
+        for splits in [s for s in (1, 2, 4) if M % s == 0]:
+            common.reset_launches()
+            got = pa.paged_attention_splitk_raw(q, k, v, bt, pos, 1,
+                                                splits=splits, **kw)
+            assert common.LAUNCHES == {"paged_decode": 1}
+            wants = [pa.paged_decode_plain(q, k, v, bt, pos, 1, splits=splits, **kw)]
+            if want_route == "fused":
+                wants.append(pa.paged_decode_fused_plain(q, k, v, bt, pos, 1, **kw))
+            for want in wants:
+                assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+                out, ref = got[0].float(), want[0].float()
+                fin = ref.isfinite()
+                assert bool((~fin).any()) == _pf_poisoned(kw)
+                assert torch.equal(out.isfinite(), fin)
+                torch.testing.assert_close(out[fin], ref[fin], rtol=tol, atol=tol)
+                both_inf = out.isinf() & ref.isinf()
+                assert torch.equal(out[both_inf], ref[both_inf])
+            assert int(got[2][pa.EV_TOTAL]) > 0
+            assert got[0].dtype == q.dtype and got[0].shape == q.shape
+
+
 def _mlstm_inputs(dev, dtype, nc, Q, P, B=2, H=2):
     """q, k, v (B, H, nc, Q, P) with NaN and ±Inf planted, f32 gates."""
     gen = torch.Generator(device=dev).manual_seed(7 + nc)
