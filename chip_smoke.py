@@ -6,7 +6,8 @@
 Phases, in order; each raises on failure, so the run exits non-zero:
 
   1. the card's name and power limit; build the CUDA kernels (one ``nvcc``
-     per source, in parallel) and print the build time
+     per source, in parallel) and print the build time and, per kernel,
+     ptxas's registers, stack frame, spills and injected warpgroup.arrive
   2. kernels at the serving shapes (Qwen2-1.5B pool: P=65, L=28, pg=16,
      Kh=2, Dh=128; H=12, B=4, M=8, splits 1 and 4, prefill chunks C=64 and
      C=100), f32, bf16 and f16, with NaN/±Inf/range/bit-pattern lanes
@@ -55,10 +56,12 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      on the card (kernels) and on the CPU (plain versions)
   5. the injection arm: ber=1e-7 for 4 steps
   6. the mLSTM kernel at xlstm-1.3b width (B=1, H=4, S=2048: 16 chunks of
-     128, head dim 1024), f32 and bf16, NaN/±Inf planted in q, k and v,
-     fills zero and constant, include_inf on and off: counts equal to the
-     plain version's on the card, outputs within MLSTM_TOL; then timed in
-     bf16 beside its bound
+     128, head dim 1024), f32 (FFMA route) and bf16 (wgmma route, and the
+     same values 2 bytes off alignment on the FFMA route,
+     ``kernels.mlstm_chunk.route``), NaN/±Inf planted in q, k and v, fills
+     zero and constant, include_inf on and off: counts equal to the plain
+     version's on the card, outputs within MLSTM_TOL; then the bf16
+     operands timed on both routes beside the bound
   7. the xLSTM forward at full xlstm-1.3b width (48 blocks, bf16, random
      weights from seed 0), 2,048 prompt tokens: one kernel launch per mLSTM
      block (42), zero counts, finite logits; the same forward with the
@@ -85,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -207,18 +211,27 @@ def kernel_device_ms(fn, names, iters: int = 20):
     return total or None
 
 
-def kernel_breakdown(fn, names, iters: int = 20, tries: int = 3) -> dict:
-    """Device ms per call of each named kernel (0.0 where none ran).  The
-    profiler can drop a window's device events: a window counts only when
-    it recorded some and every kernel's launches are a multiple of
-    ``iters``; otherwise it is taken again, up to ``tries`` times."""
+def kernel_breakdown(fn, names, iters: int = 20, tries: int = 3,
+                     per_launch: bool = False) -> dict:
+    """Device ms per call of each named kernel (0.0 where none ran), or with
+    ``per_launch`` per launch of it.  The profiler can drop a window's
+    device events (it does for millisecond kernels).  Per call, a window
+    counts only when it recorded some and every kernel's launches are a
+    multiple of ``iters``; per launch, the average over the launches it
+    recorded is unbiased, so a window counts when every named kernel
+    recorded one.  Otherwise it is taken again, up to ``tries`` times."""
     fn()
     for _ in range(tries):
         counts: dict = {}
         per = device_profile(lambda: [fn() for _ in range(iters)], counts=counts)
-        if counts and all(c % iters == 0 for c in counts.values()):
-            return {n: sum(ms for key, ms in per.items() if n in key) / iters
-                    for n in names}
+        keys = {n: [k for k in per if n in k] for n in names}
+        if per_launch:
+            launches = {n: sum(counts[k] for k in keys[n]) for n in names}
+            if all(launches.values()):
+                return {n: sum(per[k] for k in keys[n]) / launches[n]
+                        for n in names}
+        elif counts and all(c % iters == 0 for c in counts.values()):
+            return {n: sum(per[k] for k in keys[n]) / iters for n in names}
     raise AssertionError(f"the profiler dropped device events in {tries} "
                          f"windows of {iters} calls: {counts}")
 
@@ -235,8 +248,13 @@ KERNEL_NAMES = {
     # FFMA route: count_tiles + counts + fwd; wgmma route: scan + wgmma + counts
     "flash_attention": ("flash_repair_fwd", "flash_count_tiles", "flash_scan",
                         "flash_repair_wgmma", "flash_counts"),
-    "mlstm_chunk": ("mlstm_qk", "mlstm_scan"),
+    # FFMA route: qk + scan; wgmma route: prep + scan_wgmma ("mlstm_scan"
+    # matches both scans)
+    "mlstm_chunk": ("mlstm_qk", "mlstm_prep", "mlstm_scan"),
 }
+# the mLSTM routes' kernels, named apart for their device-time split
+MLSTM_KERNELS = {"ffma": ("mlstm_qk", "mlstm_scan<"),
+                 "wgmma": ("mlstm_prep_wgmma", "mlstm_scan_wgmma")}
 # the attention wgmma route's fault scan, timed apart (its extra K/V read)
 COUNT_PASS = ("flash_scan",)
 
@@ -1342,65 +1360,94 @@ def mlstm_phase(report: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
+
+    def off_by_one(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(
+            t.shape).copy_(t)
+
+    # f32 takes the FFMA route; bf16 the wgmma route, and the FFMA route on
+    # the same values 2 bytes off alignment.  The bf16 operands are timed
+    # below on both routes.
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         x = _mlstm_inputs(gen, dtype)
-        for include_inf in (True, False):
-            for policy, constant in (("zero", 0.0), ("constant", 0.5)):
-                kw = dict(policy=policy, constant=constant, include_inf=include_inf)
-                what = f"mlstm_chunk {str(dtype)[6:]} {policy} include_inf={include_inf}"
-                got = mc.mlstm_chunk_raw(*x, **kw)
-                want = mc.mlstm_chunk_plain(*x, **kw)
-                if not torch.equal(got[1].cpu(), want[1].cpu()):
-                    raise AssertionError(f"{what}: counts {got[1].tolist()} vs "
-                                         f"{want[1].tolist()}")
-                n_inf = int(got[1][mc.INF_Q] + got[1][mc.INF_KV])
-                if int(got[1][mc.NAN_Q] + got[1][mc.NAN_KV]) != 3 or \
-                        n_inf != (4 if include_inf else 0):
-                    raise AssertionError(f"{what}: planted lanes miscounted "
-                                         f"{got[1].tolist()}")
-                torch.testing.assert_close(got[0], want[0], rtol=MLSTM_TOL,
-                                           atol=MLSTM_TOL, equal_nan=True, msg=what)
-                fin = torch.isfinite(got[0])
-                err = float((got[0] - want[0])[fin].abs().max())
-                max_err = max(max_err, err)
-                log(f"mlstm ok  {what}: counts={got[1].tolist()} "
-                    f"max_abs_err={err:.3g} finite={float(fin.float().mean()):.4f} "
-                    f"tol={MLSTM_TOL}")
-        del x, got, want
+        if dtype == torch.float32:
+            ops = {"ffma": x}
+        else:
+            ops = {"wgmma": x, "ffma": [off_by_one(t) for t in x[:3]] + list(x[3:])}
+        for name, x in ops.items():
+            if mc.route(*x[:3]) != name:
+                raise AssertionError(f"mlstm {str(dtype)[6:]} operands take "
+                                     f"{mc.route(*x[:3])}, not {name}")
+            off = ", q/k/v 2 bytes off alignment" if x[0].data_ptr() % 16 else ""
+            for include_inf in (True, False):
+                for policy, constant in (("zero", 0.0), ("constant", 0.5)):
+                    kw = dict(policy=policy, constant=constant,
+                              include_inf=include_inf)
+                    what = (f"mlstm_chunk {str(dtype)[6:]} {policy} "
+                            f"include_inf={include_inf} ({name}{off})")
+                    got = mc.mlstm_chunk_raw(*x, **kw)
+                    want = mc.mlstm_chunk_plain(*x, **kw)
+                    if not torch.equal(got[1].cpu(), want[1].cpu()):
+                        raise AssertionError(f"{what}: counts {got[1].tolist()} vs "
+                                             f"{want[1].tolist()}")
+                    n_inf = int(got[1][mc.INF_Q] + got[1][mc.INF_KV])
+                    if int(got[1][mc.NAN_Q] + got[1][mc.NAN_KV]) != 3 or \
+                            n_inf != (4 if include_inf else 0):
+                        raise AssertionError(f"{what}: planted lanes miscounted "
+                                             f"{got[1].tolist()}")
+                    torch.testing.assert_close(got[0], want[0], rtol=MLSTM_TOL,
+                                               atol=MLSTM_TOL, equal_nan=True,
+                                               msg=what)
+                    fin = torch.isfinite(got[0])
+                    err = float((got[0] - want[0])[fin].abs().max())
+                    max_err = max(max_err, err)
+                    log(f"mlstm ok  {what}: counts={got[1].tolist()} "
+                        f"max_abs_err={err:.3g} finite={float(fin.float().mean()):.4f} "
+                        f"tol={MLSTM_TOL}")
+        del got, want
 
-    # ---- timing, bf16, at the forward's shapes
-    x = _mlstm_inputs(gen, torch.bfloat16)
+    # ---- timing, bf16, at the forward's shapes: the wgmma route (the main
+    # path's) and the FFMA route, on the operands checked above
     nc = ML_S // ML_Q
-    # device ms from a full queue of launches: the profiler's per-call
-    # sums of these 5-ms kernels are not reliable late in this script
-    # (PERF.md §6); it still gives pass 1's share of the two kernels
-    row = dict(
-        ms=cuda_ms(lambda: mc.mlstm_chunk_raw(*x), iters=10),
-        plain_ms=cuda_ms(lambda: mc.mlstm_chunk_plain(*x), iters=5),
-        device_ms=queued_ms(lambda: mc.mlstm_chunk_raw(*x)),
-        library_ms=None,
-    )
-    per = device_profile(lambda: [mc.mlstm_chunk_raw(*x) for _ in range(5)])
-    both = sum(ms for key, ms in per.items()
-               if any(n in key for n in KERNEL_NAMES["mlstm_chunk"]))
-    qk_share = (sum(ms for key, ms in per.items() if "mlstm_qk" in key) / both
-                if both else None)
     nbytes = (3 * ML_B * ML_H * ML_S * ML_P * 2 + 2 * ML_B * ML_H * ML_S * 4
               + ML_B * ML_H * ML_S * ML_P * 4 + 32)
     # W is causal (j <= t): q k^T and W v count their lower halves, as
     # flash_attention's bound does; q C and the C update are dense
     flops = nc * ML_B * ML_H * (2.0 * ML_Q * ML_Q * ML_P + 4.0 * ML_Q * ML_P * ML_P)
-    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bfloat16")
-    row.update(route="cuda", source="src/repro_torch/csrc/mlstm_chunk.cu",
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    timed = {}
+    for name in ("wgmma", "ffma", "ffma", "wgmma"):
+        x = ops[name]
+        # device ms from a full queue of launches; the profiler splits it
+        timed.setdefault(name, []).append(queued_ms(lambda: mc.mlstm_chunk_raw(*x)))
+    for name, x in ops.items():
+        # per launch: the profiler drops some of these kernels' events
+        split = kernel_breakdown(lambda: mc.mlstm_chunk_raw(*x), MLSTM_KERNELS[name],
+                                 iters=5, per_launch=True)
+        call = cuda_ms(lambda: mc.mlstm_chunk_raw(*x), iters=10)
+        off = ", q/k/v 2 bytes off alignment" if name == "ffma" else ""
+        log(f"timing mlstm_chunk ({name} route{off}): "
+            f"device {min(timed[name]):.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in timed[name])}; profiler "
+            + " + ".join(f"{k.rstrip('<')} {v:.4f}" for k, v in split.items())
+            + f"), call {call:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        if name == "wgmma":
+            row = dict(ms=call, device_ms=min(timed[name]),
+                       split={k.rstrip("<"): v for k, v in split.items()})
+    x = ops["wgmma"]
+    row.update(plain_ms=cuda_ms(lambda: mc.mlstm_chunk_plain(*x), iters=5),
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+               ffma_device_ms=min(timed["ffma"]), route="cuda",
+               source="src/repro_torch/csrc/mlstm_chunk.cu",
                replaces="src/repro/kernels/mlstm_chunk.py:46 (_mlstm_kernel)",
                max_abs_err=max_err)
     report["kernels"]["mlstm_chunk"] = row
     log(f"timing mlstm_chunk: call {row['ms']:.4f} ms (device {row['device_ms']:.4f}, "
-        f"pass 1's share {qk_share}), plain {row['plain_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.5f} ms ({row['bound_by']}; {flops:.4g} flop, "
-        f"{nbytes} bytes), library null (no single PyTorch call computes a "
-        f"chunked mLSTM), max_abs_err {max_err}")
+        f"wgmma route; FFMA route {row['ffma_device_ms']:.4f}), plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}; {flops:.4g} flop, {nbytes} bytes), library null "
+        f"(no single PyTorch call computes a chunked mLSTM), max_abs_err {max_err}")
     log(f"timing shapes: mlstm_chunk B={ML_B} H={ML_H} nc={nc} Q={ML_Q} "
         f"P={ML_P} bf16, NaN/Inf planted")
 
@@ -1499,7 +1546,8 @@ def xlstm_forward_phase(report: dict) -> None:
             raise AssertionError(f"{what}: counts {got[1].tolist()} vs "
                                  f"{want[1].tolist()}")
         torch.testing.assert_close(got[0], want[0], rtol=MLSTM_TOL,
-                                   atol=MLSTM_TOL, msg=what)
+                                   atol=MLSTM_TOL,
+                                   msg=lambda m: f"{what}: {m}")
         block_err.append(float((got[0] - want[0]).abs().max()))
         return got
 
@@ -1741,6 +1789,62 @@ def xlstm_parity_phase(report: dict) -> None:
         f"deltas {outs[0]['deltas']}, stats {outs[0]['stats']}")
 
 
+def _kernel_name(mangled: str) -> str:
+    """A mangled kernel's own name, the last component of its (nested)
+    name, with its template arguments: ``_ZN..2wg16mlstm_scan_wgmmaE..``
+    gives ``mlstm_scan_wgmma``, ``_ZN..20prefill_repair_wgmmaILi2ELi64EE..``
+    gives ``prefill_repair_wgmma<2,64>``."""
+    nested = mangled.startswith("_ZN")
+    i, name = 3 if nested else 2, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+        if not nested:
+            break
+    if mangled[i:i + 1] == "I":
+        args, i = [], i + 1
+        while i < len(mangled) and mangled[i] != "E":
+            m = re.match(r"L\w(\d+)E|(\d+)|(\w)", mangled[i:])
+            if m.group(2):           # a length-prefixed name
+                j = i + len(m.group(2))
+                args.append(mangled[j:j + int(m.group(2))])
+                i = j + int(m.group(2))
+            else:                    # a literal, or a builtin type's letter
+                args.append(m.group(1) or m.group(3))
+                i += m.end()
+        name += f"<{','.join(args)}>"
+    return name
+
+
+def ptxas_summary(text: str) -> dict:
+    """Per kernel of one ``-Xptxas -v`` build log, in build order: its
+    registers, stack frame and spills, and how many ``warpgroup.arrive``
+    ptxas injected between two ``wgmma`` (C7519: it serialises them)."""
+    found: dict = {}
+    current = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", line)
+        if m:
+            current = m.group(1)
+            found.setdefault(current, ([], [0]))
+            continue
+        m = re.search(r"\(C7519\).* in function '(\w+)'", line)
+        if m:
+            found.setdefault(m.group(1), ([], [0]))[1][0] += 1
+        elif current and ("stack frame" in line or "Used " in line):
+            found[current][0].append(line.split(" : ")[-1].strip())
+    out = {}
+    for mangled, (info, injected) in found.items():
+        name = _kernel_name(mangled)
+        while name in out:
+            name += "'"
+        out[name] = info + [f"{injected[0]} warpgroup.arrive injected (C7519)"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1757,9 +1861,8 @@ def main() -> int:
     built = _native.build(force=True)
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     for name in _native.SOURCES:
-        for line in _native.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        for kernel, info in ptxas_summary(_native.build_log(name)).items():
+            log(f"ptxas {name} {kernel}: " + ", ".join(info))
     report: dict = {}
     for phase in (kernel_phase, ops_phase, engine_phase, parity_phase,
                   injection_phase, mlstm_phase, xlstm_forward_phase,

@@ -11,8 +11,10 @@ bf16 2e-2 (bf16 outputs, and softmax weights rounded to bf16 before the
 value product, where a last-place f32 difference can flip one rounding);
 f16 1e-2 (f16 matmul outputs: exact products summed in f32 in different
 orders, then one rounding to f16, whose ulp is 2^-10 relative).
-The mLSTM kernel takes 1e-4 for both input dtypes: its arithmetic is f32
-after the repair, so only the summation order differs.  Integer outputs
+The mLSTM kernel takes 1e-4 for both input dtypes: on the FFMA route its
+arithmetic is f32 after the repair, so only the summation order differs;
+on the wgmma route (bf16) the f32 state C and src * v reach the tensor
+cores as bf16 hi/lo pairs (2^-17 relative) and W as three bf16 terms.  Integer outputs
 (slot counts, AT, MM and mLSTM counts, scrub counts, repaired bits) must be
 identical.
 """
@@ -631,8 +633,9 @@ def test_paged_decode_kernel_matches_plain(cuda, case):
             assert got[0].dtype == q.dtype and got[0].shape == q.shape
 
 
-def _mlstm_inputs(dev, dtype, nc, Q, P, B=2, H=2):
-    """q, k, v (B, H, nc, Q, P) with NaN and ±Inf planted, f32 gates."""
+def _mlstm_inputs(dev, dtype, nc, Q, P, B=2, H=2, off=0):
+    """q, k, v (B, H, nc, Q, P) with NaN and ±Inf planted, f32 gates; q, k
+    and v start ``off`` elements into their storage."""
     gen = torch.Generator(device=dev).manual_seed(7 + nc)
     q = _plant(torch.randn((B, H, nc, Q, P), generator=gen, device=dev) / P ** 0.5, 8)
     k = _plant(torch.randn((B, H, nc, Q, P), generator=gen, device=dev), 9)
@@ -640,29 +643,87 @@ def _mlstm_inputs(dev, dtype, nc, Q, P, B=2, H=2):
     li = torch.randn((B, H, nc, Q), generator=gen, device=dev) * 0.5
     lf = torch.nn.functional.logsigmoid(
         torch.randn((B, H, nc, Q), generator=gen, device=dev) + 2.0)
-    return q.to(dtype), k.to(dtype), v.to(dtype), li, lf
+
+    def placed(x):
+        out = torch.empty(x.numel() + off, dtype=dtype, device=dev)[off:]
+        return out.view(x.shape).copy_(x)
+
+    return placed(q), placed(k), placed(v), li, lf
+
+
+def _mlstm_check(got, wants, include_inf):
+    for want in wants:
+        assert torch.equal(got[1], want[1]) and int(got[1][mc.EV_TOTAL]) > 0
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4,
+                                   equal_nan=True)
+    assert int(got[1][mc.INF_Q] + got[1][mc.INF_KV]) == (6 if include_inf else 0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nc,Q,P", [(1, 128, 64), (5, 32, 96), (3, 48, 100)])
-def test_mlstm_chunk_kernel_matches_plain(cuda, dtype, nc, Q, P):
+@pytest.mark.parametrize("dtype,nc,Q,P,off,want_route", [
+    (torch.float32, 1, 128, 64, 0, "ffma"),
+    (torch.bfloat16, 1, 128, 64, 0, "wgmma"),
+    (torch.float32, 5, 32, 96, 0, "ffma"),
+    (torch.bfloat16, 5, 32, 96, 0, "wgmma"),
+    (torch.float32, 3, 48, 100, 0, "ffma"),
+    (torch.bfloat16, 3, 48, 100, 0, "ffma"),
+    (torch.bfloat16, 2, 48, 96, 0, "wgmma"),    # Q = 48: M padded to 64
+    (torch.bfloat16, 1, 128, 64, 1, "ffma"),    # the same data 2 bytes off
+    (torch.bfloat16, 5, 32, 96, 1, "ffma"),
+])
+def test_mlstm_chunk_kernel_matches_plain(cuda, dtype, nc, Q, P, off, want_route):
     """One chunk of the longest length, five short ones, and three ragged
     ones (P = 100 not a multiple of the 32-column slab, Q = 48 not a
-    multiple of the 32-row tile), under both detectors and fills."""
+    multiple of the 32-row tile), under both detectors and fills, on the
+    route the rule gives; the wgmma route also against the plain twin of
+    its own arithmetic."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    x = _mlstm_inputs(cuda, dtype, nc, Q, P)
+    x = _mlstm_inputs(cuda, dtype, nc, Q, P, off=off)
+    assert mc.route(*x[:3]) == want_route
     for include_inf in (True, False):
         for policy, constant in (("zero", 0.0), ("constant", 0.5)):
             kw = dict(policy=policy, constant=constant, include_inf=include_inf)
             common.reset_launches()
             got = mc.mlstm_chunk_raw(*x, **kw)
-            want = mc.mlstm_chunk_plain(*x, **kw)
             assert common.LAUNCHES == {"mlstm_chunk": 1}
-            assert torch.equal(got[1], want[1]) and int(got[1][mc.EV_TOTAL]) > 0
-            assert int(got[1][mc.INF_Q] + got[1][mc.INF_KV]) == (6 if include_inf else 0)
-            torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4,
-                                       equal_nan=True)
+            wants = [mc.mlstm_chunk_plain(*x, **kw)]
+            if want_route == "wgmma":
+                wants.append(mc.mlstm_chunk_split_plain(*x, **kw))
+            _mlstm_check(got, wants, include_inf)
+
+
+@pytest.mark.cuda
+def test_mlstm_chunk_wgmma_at_xlstm_width(cuda):
+    """xlstm-1.3b's head (P = 1024, Q = 128) over three chunks, bf16, on
+    the wgmma route: held against the plain version and the split twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _mlstm_inputs(cuda, torch.bfloat16, 3, 128, 1024, B=1, H=2)
+    assert mc.route(*x[:3]) == "wgmma"
+    for include_inf in (True, False):
+        kw = dict(include_inf=include_inf)
+        got = mc.mlstm_chunk_raw(*x, **kw)
+        _mlstm_check(got, [mc.mlstm_chunk_plain(*x, **kw),
+                           mc.mlstm_chunk_split_plain(*x, **kw)], include_inf)
+
+
+@pytest.mark.cuda
+def test_mlstm_chunk_wgmma_under_strong_forget_gates(cuda):
+    """Forget gates of log f ≈ −0.69 a step (the random-weight xLSTM-1.3b's
+    are ≈ −0.70) take a chunk's first rows into f32's subnormal range,
+    below any bf16 term: the wgmma route scales each row by a power of two
+    before its splits, and must agree with the plain version there."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _, _ = _mlstm_inputs(cuda, torch.bfloat16, 3, 128, 128, B=1, H=2)
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    li = torch.randn((1, 2, 3, 128), generator=gen, device=cuda) * 0.01
+    lf = torch.randn((1, 2, 3, 128), generator=gen, device=cuda) * 0.01 - 0.69
+    assert mc.route(q, k, v) == "wgmma"
+    for include_inf in (True, False):
+        kw = dict(include_inf=include_inf)
+        got = mc.mlstm_chunk_raw(q, k, v, li, lf, **kw)
+        _mlstm_check(got, [mc.mlstm_chunk_plain(q, k, v, li, lf, **kw),
+                           mc.mlstm_chunk_split_plain(q, k, v, li, lf, **kw)],
+                     include_inf)
 
 
 @pytest.mark.cuda
