@@ -25,7 +25,12 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      (the decode's fused route split into kernel and memset at splits 4 and
      1, planted and clean, beside its walk route; the prefill's wgmma route
      split into scan, main kernel and memset at C=64 and C=100, and its FFMA
-     kernel on the same bf16 operands)
+     kernel on the same bf16 operands); the scrub at two shapes: (a) the
+     engine's page scrub (2 pages of the bf16 pool), which must be one device
+     operation a call, and (b) the whole-buffer scrub of the xLSTM cache's
+     mLSTM C at xlstm-1.3b width, batch 4 (2.82 GB f32), held bit for bit
+     and count for count against ``scrub_plain`` on the same planted input,
+     then timed clean and planted beside its bound
   2b. ops: the paper's fused-repair ops at Qwen2-1.5B width — repair_matmul
      on the MLP projections of a 2,048-token prefill (f32, bf16, and A bf16
      with B f32) and flash_attention at B=1, H=12, Kh=2, S=T=2048, D=128
@@ -237,7 +242,7 @@ def kernel_breakdown(fn, names, iters: int = 20, tries: int = 3,
 
 
 KERNEL_NAMES = {
-    "scrub": ("scrub_tiles", "scrub_finalize"),
+    "scrub": ("scrub_stream",),
     # walk route: partials + merge; fused route: one kernel (+ a memset)
     "paged_decode": ("decode_partials", "lse_merge", "decode_fused"),
     # FFMA route: partials; wgmma route: scan + wgmma
@@ -259,6 +264,21 @@ MLSTM_KERNELS = {"ffma": ("mlstm_qk", "mlstm_scan<"),
 COUNT_PASS = ("flash_scan",)
 
 
+def device_ops(fn, iters: int = 20, tries: int = 3):
+    """(device ms, device operations) per call of ``fn`` over every kernel,
+    memset and copy the profiler records, and their names; a window counts
+    only when every operation's count is a multiple of ``iters``."""
+    fn()
+    for _ in range(tries):
+        counts: dict = {}
+        per = device_profile(lambda: [fn() for _ in range(iters)], counts=counts)
+        if counts and all(c % iters == 0 for c in counts.values()):
+            return (sum(per.values()) / iters, sum(counts.values()) / iters,
+                    sorted(per))
+    raise AssertionError(f"the profiler dropped device events in {tries} "
+                         f"windows of {iters} calls: {counts}")
+
+
 def bound(nbytes: float, flops: float, dtype_name: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -267,6 +287,7 @@ def bound(nbytes: float, flops: float, dtype_name: str):
 
 # ---------------------------------------------------------------- phase 2
 def kernel_phase(report: dict) -> None:
+    import numpy as np
     import torch
 
     from repro_torch.core import detect
@@ -573,18 +594,29 @@ def kernel_phase(report: dict) -> None:
     ffma = dict(ms=cuda_ms(ffma_call),
                 device_ms=kernel_device_ms(ffma_call, KERNEL_NAMES["paged_prefill"]))
 
+    # (a) the engine's page scrub: 2 pages of the bf16 pool, n_valid 2
     ids2 = [bt_rows[0][1], bt_rows[1][0]]
     scr = kp.clone()
-    scrub_ms = cuda_ms(lambda: sk.scrub_pages(scr, ids2, n_valid=2))
+
+    def page_scrub():
+        return sk.scrub_pages(scr, ids2, n_valid=2)
+
+    scrub_ms = cuda_ms(page_scrub)
     scrub_plain_ms = cuda_ms(lambda: sk.scrub_pages_plain(scr, ids2, n_valid=2))
     row_bytes = L * page_bytes
     s_bound, s_by = bound(len(ids2) * row_bytes + 12, len(ids2) * row_bytes / es,
                           name)
-
-    dev_ms = {
-        "scrub": kernel_device_ms(lambda: sk.scrub_pages(scr, ids2, n_valid=2),
-                                  KERNEL_NAMES["scrub"]),
-    }
+    s_dev, s_ops, s_names = device_ops(page_scrub)
+    if s_ops != 1 or not all("scrub_stream" in n for n in s_names):
+        raise AssertionError(f"the page scrub ran {s_ops} device operations a "
+                             f"call: {s_names}")
+    ids_np = np.asarray(ids2 + ids2[:1] * 2, np.int64)   # bucketed to 4
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        sk.live_ids(ids_np, 2)
+    check_us = (time.perf_counter() - t0) / 10000 * 1e6
+    del scr
+    cache = scrub_cache_timing()
     pc = prefill[C]
     report["kernels"] = {
         "scrub": dict(
@@ -592,7 +624,10 @@ def kernel_phase(report: dict) -> None:
             replaces="src/repro/kernels/scrub.py:38 (_scrub_kernel)",
             max_abs_err=max_err["scrub"], ms=scrub_ms, plain_ms=scrub_plain_ms,
             bound_ms=s_bound, bound_by=s_by, library_ms=None,
-            device_ms=dev_ms["scrub"],
+            device_ms=s_dev, device_ops_per_call=s_ops, id_check_us=check_us,
+            cache_device_ms=cache["clean_ms"],
+            cache_planted_device_ms=cache["planted_ms"],
+            cache_bound_ms=cache["bound_ms"], cache_gb_per_s=cache["gb_per_s"],
         ),
         "paged_decode": dict(
             route="cuda", source="src/repro_torch/csrc/paged_decode.cu",
@@ -620,6 +655,16 @@ def kernel_phase(report: dict) -> None:
             f"bound {v['bound_ms']:.5f} ms ({v['bound_by']}), library call "
             f"{v['library_ms']} ms (device {v.get('library_device_ms')}), "
             f"max_abs_err {v['max_abs_err']}")
+    log(f"timing scrub (a) engine page scrub, 2 pages bf16: device {s_dev:.4f} "
+        f"ms in {s_ops:g} device operation(s) a call ({', '.join(s_names)}), "
+        f"call {scrub_ms:.4f} ms, bound {s_bound:.6f} ms ({s_by}), id check "
+        f"{check_us:.2f} us; (b) mlstm_groups/C {CACHE_C} f32 whole buffer: "
+        f"device clean {cache['clean_ms']:.4f} ms (profiler "
+        f"{cache['clean_profiled_ms']:.4f}), planted "
+        f"{cache['planted_ms']:.4f} ms, call {cache['call_ms']:.4f} ms, bound "
+        f"{cache['bound_ms']:.4f} ms (bytes), {cache['bound_ms'] / cache['clean_ms']:.3f} "
+        f"of the bound, {cache['gb_per_s']:.1f} GB/s; planted counts "
+        f"{cache['counts']} equal to scrub_plain's, bits equal")
     log(f"paged_decode max_abs_err against the plain version at the same "
         f"splits {max_err['paged_decode']}, against the plain twin of the fused "
         f"route's own partition {max_err['decode_own_partition']}")
@@ -654,6 +699,71 @@ def kernel_phase(report: dict) -> None:
         f"layer each for attention); ms = CUDA events around one wrapper call "
         f"(host work included), device = profiler kernel time per call; "
         f"library = SDPA over the gathered, repaired view")
+
+
+# the xLSTM cache's mLSTM C at xlstm-1.3b width, batch 4 (6 groups of 7
+# blocks, 4 heads, head dim 1024), f32: the scrub's bandwidth-bound caller;
+# lanes planted in it: the first and last lane, two in one logical tile,
+# and a few more, NaN and ±Inf
+CACHE_C = (6, 7, 4, 4, 1024, 1024)
+CACHE_PLANTS = (0, 1, 513, 1 << 20, 123456789, 700000000, -1)
+
+
+def scrub_cache_timing() -> dict:
+    """Shape (b): the whole-buffer scrub of ``CACHE_C`` (2.82 GB, above L2)
+    held bit for bit and count for count against ``scrub_plain`` on the
+    same planted input, then timed clean (CUDA events around a queue of
+    calls, and the profiler per launch) and planted (the profiler per
+    launch of the kernel; each call re-plants first)."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import detect
+    from repro_torch.kernels import scrub as sk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    c = torch.randn(CACHE_C, generator=gen, device=dev)
+    flat = c.view(-1)
+    idx = torch.tensor([i % flat.numel() for i in CACHE_PLANTS], device=dev)
+    vals = torch.tensor([float("nan"), float("inf"), float("-inf")] * 3,
+                        device=dev)[:idx.numel()]
+
+    def plant():
+        flat[idx] = vals
+
+    plant()
+    ref = c.clone()
+    got = sk.scrub(c)[1]
+    want = sk.scrub_plain(ref)[1]
+    if not torch.equal(got.cpu(), want.cpu()) or int(got[0] + got[1]) != idx.numel():
+        raise AssertionError(f"cache scrub counts {got.tolist()}, plain "
+                             f"{want.tolist()}")
+    if not torch.equal(detect.bits_of(c), detect.bits_of(ref)):
+        raise AssertionError("cache scrub bits differ from scrub_plain's")
+    counts = got.tolist()
+    del ref, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    if sk.scrub(c)[1].tolist() != [0, 0, 0]:
+        raise AssertionError("the scrubbed cache still counts fatal lanes")
+    nbytes = c.numel() * c.element_size()
+    names = KERNEL_NAMES["scrub"]
+    clean_ms = min(queued_ms(lambda: sk.scrub(c)) for _ in range(2))
+    profiled = kernel_breakdown(lambda: sk.scrub(c), names, iters=5,
+                                per_launch=True)
+    planted = kernel_breakdown(lambda: (plant(), sk.scrub(c)), names, iters=5,
+                               per_launch=True)
+    out = dict(clean_ms=clean_ms, clean_profiled_ms=profiled[names[0]],
+               planted_ms=planted[names[0]], call_ms=cuda_ms(lambda: sk.scrub(c),
+                                                             iters=10),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               gb_per_s=nbytes / clean_ms / 1e6, counts=counts, bytes=nbytes)
+    del c, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # -------------------------------------------------------------- phase 2b

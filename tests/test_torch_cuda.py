@@ -20,6 +20,7 @@ identical.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -631,6 +632,140 @@ def test_paged_decode_kernel_matches_plain(cuda, case):
                 assert torch.equal(out[both_inf], ref[both_inf])
             assert int(got[2][pa.EV_TOTAL]) > 0
             assert got[0].dtype == q.dtype and got[0].shape == q.shape
+
+
+# scrub: (shape, first lane's offset in its storage, ids, n_valid, block,
+# n_valid_rows, tile with one planted lane in each, random lanes); the
+# first and last lanes are always planted
+SC_CASES = {
+    "width-7": ((40, 7), 0, None, None, None, 0, None, 12),
+    "width-129": ((12, 129), 0, None, None, None, 5, None, 12),
+    "offset": ((64, 32), 1, None, None, None, 0, None, 12),
+    "offset-pages": ((9, 5, 25), 3, [8, 2, 6, 1], None, None, None, None, 20),
+    "straddle": ((10, 3, 7), 0, [4, 1, 7, 2, 4, 4, 4, 4], 4, (2, 7), None, None, 20),
+    "straddle-129": ((6, 3, 129), 0, [5, 0, 3, 0], 3, (6, 129), None, None, 20),
+    "many-tiles": ((256, 96), 0, None, None, (2, 8), 0, (2, 8), 0),
+    "many-tiles-bound": ((256, 96), 0, None, None, (2, 8), 77, (2, 8), 0),
+    "mid-tile-bound": ((5, 8, 7), 0, None, None, (8, 7), 13, None, 12),
+    "staged": ((700, 2, 7), 0, "600+pad", 600, None, None, None, 200),
+    "staged-all": ((700, 2, 7), 0, "600", None, None, None, None, 200),
+    "pool-pages": ((64, 28, 16, 2, 128), 0, [5, 17, 40, 5], 3, None, None, None, 40),
+    "large": ((16384, 1024), 0, None, None, None, 0, None, 64),
+}
+
+
+def _sc_operand(dev, dtype, case, seed=0):
+    """The case's buffer on the card, its first lane ``offset`` lanes into
+    its storage, with NaN/±Inf lanes planted; and its page ids."""
+    shape, offset, ids, _, _, _, every, n_rand = SC_CASES[case]
+    rng = np.random.default_rng(seed + len(case))
+    x = rng.standard_normal(shape).astype(np.float32)
+    flat = x.reshape(-1, shape[-1])
+    faults = np.array([np.nan, np.inf, -np.inf], np.float32)
+    if every is not None:
+        br, bc = every
+        tiles = (flat.shape[0] // br, flat.shape[1] // bc)
+        rows = np.arange(0, flat.shape[0], br)[:, None] + rng.integers(br, size=tiles)
+        cols = np.arange(0, flat.shape[1], bc)[None, :] + rng.integers(bc, size=tiles)
+        flat[rows, cols] = faults[(rows + cols) % 3]
+    lanes = np.concatenate([[0, x.size - 1],
+                            rng.choice(np.arange(1, x.size - 1), n_rand, replace=False)])
+    x.reshape(-1)[lanes] = faults[np.arange(lanes.size) % 3]
+    buf = torch.empty(offset + x.size, dtype=dtype, device=dev)
+    buf[offset:] = torch.from_numpy(x.reshape(-1)).to(dev).to(dtype)
+    if isinstance(ids, str):
+        perm = rng.permutation(shape[0])[:600].tolist()
+        ids = perm + [perm[0]] * (1024 - 600) if ids.endswith("pad") else perm
+    return buf[offset:].view(shape), ids
+
+
+def _sc_call(fn, x, ids, case, **kw):
+    _, _, _, n_valid, block, n_valid_rows, _, _ = SC_CASES[case]
+    if ids is None:
+        return fn(x, block=block, n_valid_rows=n_valid_rows, **kw)[1]
+    return fn(x, ids, block=block, n_valid=n_valid, **kw)[1]
+
+
+def _sc_fns(ids):
+    if ids is None:
+        return scrub.scrub, scrub.scrub_plain
+    return scrub.scrub_pages, scrub.scrub_pages_plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
+@pytest.mark.parametrize("case", list(SC_CASES))
+def test_scrub_kernel_matches_plain(cuda, case, dtype):
+    """One launch; counts and repaired bits equal to the plain version's:
+    row widths off the vector width, views off 16-byte alignment, logical
+    tiles that straddle pages, more than 32 tiles with a fatal lane in each,
+    count bounds mid-tile, more ids than ride in the launch's parameters
+    (staged), the engine's pool, and a buffer of more chunks than blocks;
+    then the repaired buffer counts 0."""
+    x, ids = _sc_operand(cuda, dtype, case)
+    plain = x.clone()
+    kernel, plain_fn = _sc_fns(ids)
+    if ids is not None:
+        live = scrub.live_ids(np.asarray(ids), SC_CASES[case][3])
+        staged = scrub.launch_plan(2, len(live), 8, 1, 132).ids == "staged"
+        assert staged == case.startswith("staged")
+    common.reset_launches()
+    got = _sc_call(kernel, x, ids, case)
+    assert common.LAUNCHES == {"scrub": 1}
+    want = _sc_call(plain_fn, plain, ids, case)
+    assert torch.equal(got, want) and int(want[2]) > 0
+    assert torch.equal(detect.bits_of(x), detect.bits_of(plain))
+    if SC_CASES[case][6] is not None and not SC_CASES[case][5]:
+        assert int(got[2]) == x.numel() // 16      # every (2, 8) tile
+    assert _sc_call(kernel, x, ids, case).tolist() == [0, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
+@pytest.mark.parametrize("kind", ["inf-off", "range+bitpattern", "constant"])
+def test_scrub_kernel_detectors_match_plain(cuda, dtype, kind):
+    """The detector variants (Inf off; the range guard with a bit pattern)
+    and the constant fill, on a whole buffer off alignment and on pages."""
+    det, pol = None, {}
+    if kind == "inf-off":
+        det = Detector(inf=False)
+    elif kind == "range+bitpattern":
+        det = _detectors(dtype)[1]
+    else:
+        pol = dict(policy="constant", constant=0.5)
+    for case in ("offset", "straddle"):
+        x, ids = _sc_operand(cuda, dtype, case)
+        _plant(x, 3)
+        plain = x.clone()
+        kernel, plain_fn = _sc_fns(ids)
+        got = _sc_call(kernel, x, ids, case, detector=det, **pol)
+        want = _sc_call(plain_fn, plain, ids, case, detector=det, **pol)
+        assert torch.equal(got, want) and int(want[0] + want[1]) > 0
+        assert torch.equal(detect.bits_of(x), detect.bits_of(plain))
+
+
+@pytest.mark.cuda
+def test_scrub_kernel_back_to_back_on_one_workspace(cuda):
+    """Calls of different sizes on one stream share one workspace, which
+    each leaves zeroed: many tiles, then one, then many chunks, then many
+    tiles again, then staged ids; the last repaired buffer counts 0.  A
+    call on another stream gets a workspace of its own."""
+    for case in ("many-tiles", "width-7", "large", "many-tiles", "staged"):
+        x, ids = _sc_operand(cuda, BF16, case, seed=5)
+        plain = x.clone()
+        kernel, plain_fn = _sc_fns(ids)
+        got = _sc_call(kernel, x, ids, case)
+        want = _sc_call(plain_fn, plain, ids, case)
+        assert torch.equal(got, want) and int(want[2]) > 0
+    assert _sc_call(kernel, x, ids, case).tolist() == [0, 0, 0]
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        x, _ = _sc_operand(cuda, F32, "many-tiles", seed=6)
+        plain = x.clone()
+        got = scrub.scrub(x, block=(2, 8))[1]
+        want = scrub.scrub_plain(plain, block=(2, 8))[1]
+    stream.synchronize()
+    assert torch.equal(got, want) and int(want[2]) == x.numel() // 16
 
 
 def _mlstm_inputs(dev, dtype, nc, Q, P, B=2, H=2, off=0):
