@@ -57,8 +57,23 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      f32 (the FFMA route)
   3. the engine at full width (28 layers, bf16, random weights from seed
      0): 6 requests, faults planted after step 3, repair and launch checks
+  3b. the fallback arms on the same model and requests, each cold (its
+     checks) then warm (one ``timing engine arm=`` line: ms and host syncs,
+     gathers, scatters, launches and stage wall times a step, the device's
+     idle share): (a) ``paged_decode="off"`` (everything gathered, the
+     probe repair), (b) ``paged_prefill="off"``, (c) ``repair="off"``
+     without faults (no repair kernel may launch; (a)/(c) is the repair
+     overhead on the gathered path), (d) ``drain_interval=4`` (lockstep's
+     tokens, fewer host syncs; then ``drain_interval=1`` at ber=1e-7 must
+     replay lockstep bit for bit), (e) register mode: the forward over 256
+     tokens with a NaN weight lane, bit-equal to mode off with that lane 0,
+     then the engine on the gathered path, (f) ``generate`` over the dense
+     cache (the scrub kernel must find a NaN and an Inf planted before its
+     2nd interval scrub) and ``generate(paged=True)``
   4. parity at full width with 2 layers in f32: the same engine and faults
-     on the card (kernels) and on the CPU (plain versions)
+     on the card (kernels) and on the CPU (plain versions), in seven arms:
+     paged, (a), (b), (c), register mode, a ``neighbor_mean`` space and
+     ``drain_interval=2``
   5. the injection arm: ber=1e-7 for 4 steps
   6. the mLSTM kernel at xlstm-1.3b width (B=1, H=4, S=2048: 16 chunks of
      128, head dim 1024), f32 (FFMA route) and bf16 (wgmma route, and the
@@ -1241,33 +1256,45 @@ def plant(engine):
     return [a.pages[0], b.pages[0]], 2, 1
 
 
-def drive(engine, prompts, *, plant_after: int = 3, max_new: int = 16):
-    """Serve ``prompts``; plant faults after step ``plant_after`` and check
-    the next step repairs them.  Returns (results, per-step log)."""
+def _check_repaired(engine, planted, before) -> None:
+    """The planted pages are charged, their lanes found, the pool finite."""
     import torch
 
+    pages, n_nan, n_inf = planted
+    after = engine.stats_dict()
+    for p in pages:
+        if engine.pool.page_events[p] < 1:
+            raise AssertionError(f"planted page {p} was not charged")
+    if after["nan_found"] - before["nan_found"] < n_nan:
+        raise AssertionError("planted NaN lanes not all found")
+    if after["inf_found"] - before["inf_found"] < n_inf:
+        raise AssertionError("planted Inf lanes not all found")
+    for leaf in engine.pool.tree.values():
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError("a fatal lane survived the reactive scrub")
+
+
+def drive(engine, prompts, *, plant_after: int | None = 3, max_new: int = 16,
+          deferred: bool = False):
+    """Serve ``prompts``; plant faults after step ``plant_after`` (None: no
+    faults) and check that the next step repairs them, or with
+    ``deferred`` (the desynchronized drain) that they are repaired once the
+    engine has drained at the end.  Returns the results."""
     rids = [engine.add_request(p, max_new=max_new) for p in prompts]
-    planted, steps = None, 0
+    planted, at_plant, steps = None, None, 0
     while engine.has_work:
         before = engine.stats_dict()
         engine.step()
-        if planted is not None:
-            pages, n_nan, n_inf = planted
-            after = engine.stats_dict()
-            for p in pages:
-                if engine.pool.page_events[p] < 1:
-                    raise AssertionError(f"planted page {p} was not charged")
-            if after["nan_found"] - before["nan_found"] < n_nan:
-                raise AssertionError("planted NaN lanes not all found")
-            if after["inf_found"] - before["inf_found"] < n_inf:
-                raise AssertionError("planted Inf lanes not all found")
-            for leaf in engine.pool.tree.values():
-                if not bool(torch.isfinite(leaf).all()):
-                    raise AssertionError("a fatal lane survived the reactive scrub")
+        if planted is not None and not deferred:
+            _check_repaired(engine, planted, before)
             planted = None
         steps += 1
-        if steps == plant_after + 1:
+        if plant_after is not None and steps == plant_after + 1:
+            at_plant = engine.stats_dict()
             planted = plant(engine)
+    if planted is not None:
+        engine.drain()
+        _check_repaired(engine, planted, at_plant)
     return [engine.results[r] for r in rids]
 
 
@@ -1353,11 +1380,262 @@ def engine_phase(report: dict) -> None:
     report["model"] = model
 
 
+def _engine_arm(name: str, model, cfg, prompts, **drive_kw) -> dict:
+    """Serve ``prompts`` cold (launch counts from zero, the arm's checks run
+    on it), then warm (timed), then once more under the profiler; print
+    one ``timing engine arm=`` line.  Returns the cold engine, its results
+    and launches, and the timing row."""
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.serving import Engine
+
+    common.reset_launches()
+    cold = Engine(model, cfg, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = drive(cold, prompts, **drive_kw)
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    common.reset_launches()
+    warm = Engine(model, cfg, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drive(warm, prompts, **drive_kw)
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t0
+    wm = warm.metrics()
+    steps = wm["steps"]
+    warm_launches = dict(common.LAUNCHES)
+    busy = sum(device_profile(lambda: drive(
+        Engine(model, cfg, device="cuda"), prompts, **drive_kw)).values())
+    row = dict(
+        ms_per_step=1e3 * warm_wall / steps,
+        tokens_per_s=wm["tokens_emitted"] / warm_wall,
+        device_idle_share=(1.0 - busy / (1e3 * warm_wall)) if busy else None,
+        host_syncs_per_step=wm["n_host_syncs"] / steps,
+        gathers_per_step=wm["pool_gathers"] / steps,
+        scatters_per_step=wm["pool_scatters"] / steps,
+        launches_per_step={k: v / steps for k, v in sorted(warm_launches.items())},
+        stage_ms_per_step={k: 1e3 * v / steps for k, v in wm["stage_wall_s"].items()},
+        steps=steps, first_run_ms_per_step=1e3 * cold_wall / cold.metrics()["steps"],
+        paged_decode=wm["paged_decode"], paged_prefill=wm["paged_prefill"],
+        drain_interval=wm["drain_interval"],
+    )
+    log(f"timing engine arm={name}: {json.dumps(row)} ({gpu_line()})")
+    for res in results:
+        gen = res["generated"]
+        if not gen or not all(0 <= t < model.cfg.vocab for t in gen):
+            raise AssertionError(f"arm {name}: bad generation {gen}")
+    return dict(engine=cold, results=results, launches=launches, row=row)
+
+
+def _launched(arm: dict, name: str, **want) -> None:
+    """Hold the arm's cold-run launches: ``kernel=n`` exactly, or at least
+    ``n`` with a ``_min`` suffix on the name (``scrub_min=1``)."""
+    got = arm["launches"]
+    for key, n in want.items():
+        kernel, at_least = (key[:-4], True) if key.endswith("_min") else (key, False)
+        have = got.get(kernel, 0)
+        if (have < n) if at_least else (have != n):
+            raise AssertionError(f"arm {name}: {kernel} launched {have} times, "
+                                 f"want {'>=' if at_least else '=='} {n} ({got})")
+
+
+def _register_forward(model, tokens):
+    """Register mode at full width: one NaN in layer 3's ``w_up``.  The
+    register-mode forward must be bit-equal to a mode-"off" forward with
+    that lane 0, and finite; mode "off" with the NaN left in is not.
+    Returns the register-mode model, its NaN still in place."""
+    import torch
+
+    from repro_torch.models import TransformerLM
+    from repro_torch.runtime import ApproxConfig
+
+    def twin(mode):
+        cfg = dataclasses.replace(model.cfg, repair=ApproxConfig(mode=mode, policy="zero"))
+        m = TransformerLM(cfg, device="cuda", seed=0)
+        m.load_state_dict(model.state_dict())
+        m.layers[3].mlp.w_up[7, 1000] = float("nan")
+        return m
+
+    reg, off = twin("register"), twin("off")
+    t0 = time.perf_counter()
+    got = reg(tokens)
+    torch.cuda.synchronize()
+    reg_ms = 1e3 * (time.perf_counter() - t0)
+    poisoned = off(tokens)
+    off.layers[3].mlp.w_up[7, 1000] = 0.0
+    t0 = time.perf_counter()
+    zeroed = off(tokens)
+    torch.cuda.synchronize()
+    off_ms = 1e3 * (time.perf_counter() - t0)
+    if bool(torch.isfinite(poisoned).any()):
+        raise AssertionError("mode off: a NaN weight lane left finite logits")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("register mode: logits not finite")
+    if not torch.equal(got.view(torch.int32), zeroed.view(torch.int32)):
+        raise AssertionError("register mode: logits differ from the zeroed lane's "
+                             f"by {float((got - zeroed).abs().max())}")
+    log(f"register forward ok: {tuple(tokens.shape)} tokens at full width, one NaN "
+        f"in layers[3].mlp.w_up: bit-equal to mode off with the lane 0, finite; "
+        f"mode off with the NaN: non-finite; forward {reg_ms:.1f} ms (register, "
+        f"first call) vs {off_ms:.1f} ms (off)")
+    del off
+    return reg
+
+
+def fallback_phase(report: dict) -> None:
+    """The gathered-view fallback, the no-repair arm, the desynchronized
+    drain, register mode and generate, at full width on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve
+    from repro_torch.runtime import ApproxConfig, ApproxSpace, ScrubSchedule
+    from repro_torch.serving import Engine
+
+    model = report["model"]
+    prompts = requests(model.cfg.vocab)
+    base = serving_config()
+    arms = {}
+
+    # (a) everything gathered: probe + scrub, then Model.serve_step
+    a = arms["a-gathered"] = _engine_arm(
+        "a-gathered", model, dataclasses.replace(base, paged_decode="off"), prompts)
+    _launched(a, "a", paged_decode=0, paged_prefill=0, scrub_min=1)
+    if a["row"]["gathers_per_step"] <= 0:
+        raise AssertionError("arm a: no pool gathers")
+    # (b) gathered prefill, paged decode
+    b = arms["b-gathered-prefill"] = _engine_arm(
+        "b-gathered-prefill", model, dataclasses.replace(base, paged_prefill="off"),
+        prompts)
+    _launched(b, "b", paged_decode_min=1, paged_prefill=0, scrub_min=1)
+    # (c) no repair, no faults: the paper's baseline
+    c = arms["c-repair-off"] = _engine_arm(
+        "c-repair-off", model, dataclasses.replace(base, repair="off"), prompts,
+        plant_after=None)
+    _launched(c, "c", paged_decode=0, paged_prefill=0, scrub=0)
+    overhead = a["row"]["ms_per_step"] / c["row"]["ms_per_step"]
+    log(f"repair overhead on the gathered path: (a) {a['row']['ms_per_step']:.2f} "
+        f"/ (c) {c['row']['ms_per_step']:.2f} ms a step = {overhead:.3f} "
+        f"({gpu_line()})")
+
+    # (d) the desynchronized drain on the paged path, the same plants
+    lock = Engine(model, base, device="cuda")
+    lock_res = drive(lock, prompts)
+    d = arms["d-drain4"] = _engine_arm(
+        "d-drain4", model, dataclasses.replace(base, drain_interval=4), prompts,
+        deferred=True)
+    _launched(d, "d", paged_decode_min=1, paged_prefill_min=1, scrub_min=1)
+    lock_syncs = lock.metrics()["n_host_syncs"]
+    d_syncs = d["engine"].metrics()["n_host_syncs"]
+    if [r["tokens"] for r in d["results"]] != [r["tokens"] for r in lock_res]:
+        raise AssertionError("drain_interval=4: tokens differ from lockstep's")
+    if not d_syncs < lock_syncs:
+        raise AssertionError(f"drain_interval=4: {d_syncs} host syncs, lockstep "
+                             f"{lock_syncs}")
+    replay = []
+    for di in (0, 1):
+        eng = Engine(model, dataclasses.replace(base, ber=1e-7, seed=0,
+                                                drain_interval=di), device="cuda")
+        eng.add_request(prompts[0], max_new=16)
+        eng.run()
+        replay.append(eng)
+    lk, dk = replay
+    for what, x, y in (
+        ("tokens", dk.results, lk.results), ("stats", dk.stats_dict(), lk.stats_dict()),
+        ("page_events", dk.pool.page_events.tolist(), lk.pool.page_events.tolist()),
+    ):
+        if x != y:
+            raise AssertionError(f"drain_interval=1 at ber=1e-7: {what} differ")
+    for path, leaf in lk.pool.tree.items():
+        if not torch.equal(dk.pool.tree[path].view(torch.int16), leaf.view(torch.int16)):
+            raise AssertionError(f"drain_interval=1 at ber=1e-7: pool {path} bits differ")
+    if not dk.n_host_syncs < lk.n_host_syncs:
+        raise AssertionError("drain_interval=1: no fewer host syncs than lockstep")
+    log(f"desync ok: drain_interval=4 tokens = lockstep's, host syncs {d_syncs} vs "
+        f"{lock_syncs}; drain_interval=1 at ber=1e-7 (1 request) replays lockstep "
+        f"bit for bit (stats {lk.stats_dict()}), host syncs {dk.n_host_syncs} vs "
+        f"{lk.n_host_syncs}")
+
+    # (e) register mode: the forward, then the engine over the gathered path
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(1, model.cfg.vocab, (1, 256), generator=gen).cuda()
+    reg = _register_forward(model, tokens)
+    e = arms["e-register"] = _engine_arm("e-register", reg, base, prompts)
+    if e["engine"].paged_plan is not None:
+        raise AssertionError("arm e: a register-mode model took the paged path")
+    _launched(e, "e", paged_decode=0, paged_prefill=0, scrub_min=1)
+    del reg
+    for arm in arms.values():
+        arm.pop("engine")
+
+    # (f) generate over the dense cache (the scrub kernel every 8 steps, a
+    # NaN and an Inf planted before the 2nd scrub), then over the engine
+    rng = np.random.default_rng(3)
+    gp = torch.from_numpy(rng.integers(1, model.cfg.vocab, size=(4, 64)))
+
+    def space():
+        return ApproxSpace(ApproxConfig(mode="memory", policy="zero"),
+                           max_magnitude=None,
+                           scrub=ScrubSchedule(boundary=False, interval=8))
+
+    deltas, sp = [], space()
+    _plant_before(sp, 2, [("layers/k", (3, 1, 10, 0, 5), float("nan")),
+                          ("layers/v", (20, 2, 30, 1, 77), float("inf"))], deltas)
+    common.reset_launches()
+    dense, stats = serve.generate(model, gp, max_new=16, max_seq=80, space=sp)
+    dense_launches = dict(common.LAUNCHES)
+    if tuple(dense.shape) != (4, 80) or not bool(((dense >= 0) & (dense < model.cfg.vocab)).all()):
+        raise AssertionError(f"generate: bad tokens {tuple(dense.shape)}")
+    if len(deltas) != 3 or deltas[1][:2] != [1, 1] or any(
+            d_[:2] != [0, 0] for i, d_ in enumerate(deltas) if i != 1):
+        raise AssertionError(f"generate: scrubs found {deltas}, planted [1, 1] "
+                             "before the 2nd")
+    if dense_launches.get("scrub", 0) < 3:
+        raise AssertionError(f"generate: the cache scrub kernel did not run "
+                             f"({dense_launches})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve.generate(model, gp, max_new=16, max_seq=80, space=space())
+    torch.cuda.synchronize()
+    dense_ms = 1e3 * (time.perf_counter() - t0) / 16      # per new token
+    common.reset_launches()
+    paged, _ = serve.generate(model, gp, max_new=16, max_seq=80, paged=True)
+    paged_launches = dict(common.LAUNCHES)
+    for k in ("paged_decode", "paged_prefill"):
+        if paged_launches.get(k, 0) < 1:
+            raise AssertionError(f"generate(paged=True): {k} never launched")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve.generate(model, gp, max_new=16, max_seq=80, paged=True)
+    torch.cuda.synchronize()
+    paged_ms = 1e3 * (time.perf_counter() - t0) / 16
+    busy = sum(device_profile(lambda: serve.generate(
+        model, gp, max_new=16, max_seq=80, paged=True)).values())
+    agree = float((paged.cpu() == dense.cpu())[:, 64:].float().mean())
+    log(f"timing engine arm=f-generate: " + json.dumps(dict(
+        dense_ms_per_new_token=dense_ms, paged_ms_per_new_token=paged_ms,
+        paged_device_idle_share=1.0 - busy / (16 * paged_ms),
+        dense_launches=dense_launches, paged_launches=paged_launches,
+        scrub_deltas=deltas, stats=stats, new_tokens_agree=agree))
+        + f" ({gpu_line()})")
+    report["fallback"] = {k: v["row"] for k, v in arms.items()}
+    report["fallback"]["repair_overhead_a_over_c"] = overhead
+
+
 def parity_phase(report: dict) -> None:
+    """Each engine arm at full width with 2 layers in f32 (TF32 off), on the
+    card (kernels) and on the CPU (plain versions): tokens, page events,
+    stats, kernel counts and host syncs must be equal."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import TransformerLM
+    from repro_torch.runtime import ApproxConfig, ApproxSpace
     from repro_torch.serving import Engine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1367,21 +1645,60 @@ def parity_phase(report: dict) -> None:
     gpu = TransformerLM(cfg, device="cuda", seed=0)
     cpu = TransformerLM(cfg, device="cpu", seed=1)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+
+    def register_twin(m):
+        rcfg = dataclasses.replace(cfg, repair=ApproxConfig(mode="register",
+                                                            policy="zero"))
+        twin = TransformerLM(rcfg, device=m.device, seed=0)
+        twin.load_state_dict(m.state_dict())
+        twin.layers[1].mlp.w_up[5, 300] = float("nan")
+        return twin
+
+    # the arms after the first serve 8 new tokens a request (16 steps, the
+    # plants after step 3 as before): the CPU side's full-width readout
+    # holds the phase's time
+    base = serving_config()
+    short = dict(max_new=8)
+    arms = {
+        "paged": dict(cfg=base),
+        "a-gathered": dict(cfg=dataclasses.replace(base, paged_decode="off"),
+                           drive=short),
+        "b-gathered-prefill": dict(cfg=dataclasses.replace(base, paged_prefill="off"),
+                                   drive=short),
+        "c-repair-off": dict(cfg=dataclasses.replace(base, repair="off"),
+                             drive=dict(plant_after=None, **short)),
+        "register": dict(cfg=base, model=register_twin, drive=short),
+        "neighbor-mean": dict(cfg=base, space=dict(mode="memory",
+                                                   policy="neighbor_mean"),
+                              drive=short),
+        "drain2": dict(cfg=dataclasses.replace(base, drain_interval=2),
+                       drive=dict(deferred=True, **short)),
+    }
     prompts = requests(cfg.vocab)
-    outs = []
-    for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
-        eng = Engine(model, serving_config(), device=dev)
-        res = drive(eng, prompts)
-        outs.append(dict(
-            tokens=[r["tokens"] for r in res],
-            page_events=eng.pool.page_events.tolist(),
-            stats=eng.stats_dict(), kernel_counts=eng.kernel_counts.tolist(),
-        ))
-    for key in ("tokens", "page_events", "stats", "kernel_counts"):
-        if outs[0][key] != outs[1][key]:
-            raise AssertionError(f"parity: {key} differs between card and CPU")
-    log(f"parity ok: 2-layer f32, stats {outs[0]['stats']}, kernel_counts "
-        f"{outs[0]['kernel_counts']}")
+    for name, arm in arms.items():
+        t0 = time.perf_counter()
+        outs = []
+        for model in (gpu, cpu):
+            if "model" in arm:
+                model = arm["model"](model)
+            space = ApproxSpace(**arm["space"]) if "space" in arm else None
+            eng = Engine(model, arm["cfg"], space=space, device=model.device)
+            res = drive(eng, prompts, **arm.get("drive", {}))
+            m = eng.metrics()
+            outs.append(dict(
+                tokens=[r["tokens"] for r in res],
+                page_events=eng.pool.page_events.tolist(),
+                stats=eng.stats_dict(), kernel_counts=eng.kernel_counts.tolist(),
+                n_host_syncs=m["n_host_syncs"], gathers=m["pool_gathers"],
+            ))
+        for key in outs[0]:
+            if outs[0][key] != outs[1][key]:
+                raise AssertionError(f"parity arm {name}: {key} differs between "
+                                     "card and CPU")
+        log(f"parity ok arm={name}: 2-layer f32, stats {outs[0]['stats']}, "
+            f"kernel_counts {outs[0]['kernel_counts']}, host syncs "
+            f"{outs[0]['n_host_syncs']}, pool gathers {outs[0]['gathers']} "
+            f"({time.perf_counter() - t0:.1f} s)")
 
 
 def injection_phase(report: dict) -> None:
@@ -1974,7 +2291,7 @@ def main() -> int:
         for kernel, info in ptxas_summary(_native.build_log(name)).items():
             log(f"ptxas {name} {kernel}: " + ", ".join(info))
     report: dict = {}
-    for phase in (kernel_phase, ops_phase, engine_phase, parity_phase,
+    for phase in (kernel_phase, ops_phase, engine_phase, fallback_phase, parity_phase,
                   injection_phase, mlstm_phase, xlstm_forward_phase,
                   xlstm_generate_phase, xlstm_depth_phase, xlstm_parity_phase):
         t0 = time.perf_counter()

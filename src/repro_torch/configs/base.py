@@ -43,6 +43,8 @@ class ArchConfig:
         mode="memory", policy="neighbor_mean", max_magnitude=1e3
     )
     ssm_chunk: int = 128                # xlstm: chunk length of the mLSTM
+    attn_q_block: int = 512             # chunked attention's tiles
+    attn_kv_block: int = 1024
 
     @property
     def dtype(self) -> torch.dtype:
@@ -67,4 +69,6 @@ class ArchConfig:
             vocab=512,
             slstm_every=4,          # 4 reduced layers: 1 group of 3+1
             ssm_chunk=16,
+            attn_q_block=64,
+            attn_kv_block=64,
         )

@@ -81,11 +81,13 @@ def use(
     stats: Optional[stats_lib.Stats] = None,
     path: str = "",
 ):
-    """Register-mode read through ``runtime.ApproxSpace(cfg).use``: the
-    repaired tensor, or ``(repaired, stats')`` when ``stats`` is given."""
+    """Register-mode read through ``runtime.use_tensor``: the repaired
+    tensor (its counts not read back), or ``(repaired, stats')`` when
+    ``stats`` is given.  ``cfg`` is a repair config or a prebuilt
+    ``ApproxSpace``, whose config is then used as it stands."""
     from ..runtime import ApproxSpace  # deferred: runtime builds on core
+    from ..runtime.space import use_tensor
 
-    if stats is None:
-        fixed, _ = ApproxSpace(cfg).use(x, stats_lib.zeros(), path=path)
-        return fixed
-    return ApproxSpace(cfg).use(x, stats, path=path)
+    config = cfg.config if isinstance(cfg, ApproxSpace) else ApproxSpace(cfg).config
+    fixed, stats = use_tensor(x, config, stats, path)
+    return fixed if stats is None else (fixed, stats)

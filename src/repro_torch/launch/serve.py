@@ -7,10 +7,9 @@ scrubbing the whole cache every ``scrub_every`` steps — the memory-
 repairing mechanism applied to the recurrent state, cheaper than leaving a
 NaN resident to poison every later token (Table 3's temporal analogue).
 
-Ported: ``build_serve_step``, ``serve_space`` and the contiguous (non-
-paged) ``generate`` with the token-by-token warm-up of recurrent models.
-The paged rebase (``paged=True``) and the gathered-view transformer step
-are ROADMAP items.
+``generate`` prefills a transformer's dense cache in one batched pass and
+warms a recurrent cache one token at a time; ``paged=True`` rebases the
+run onto the serving engine, one request per prompt row.
 """
 from __future__ import annotations
 
@@ -75,37 +74,43 @@ def generate(
     scrub_every: int = 0,
     space: Optional[ApproxSpace] = None,
     paged: bool = False,
+    page_size: int = 16,
 ) -> Tuple[torch.Tensor, Dict[str, int]]:
     """Greedy generation: returns ``(tokens (B, S0 + max_new), stats)``.
 
-    Recurrent models (``supports_batched_prefill`` False) warm their cache
-    one prompt token at a time.  Before every step ``t`` the space's
-    schedule may scrub the whole cache (``scrub_every``; trigger
-    "interval"); the run's stats are returned and recorded into ``space``
-    (default: ``serve_space(model, scrub_every)``).  ``max_seq`` is the
-    reference's cache length, which a recurrent cache does not have."""
-    if paged:
-        raise NotImplementedError(
-            "generate(paged=True) is not ported: ROADMAP 'Serving leftovers' "
-            "item 5 (the serving engine serves paged models)"
-        )
-    if getattr(model, "supports_batched_prefill", True) or not hasattr(
-            model, "init_cache"):
-        raise NotImplementedError(
-            f"generate over {type(model).__name__} is not ported: ROADMAP "
-            "'Serving leftovers' item 5 (build_serve_step's gathered-view "
-            "path); use serving.Engine"
-        )
+    A transformer (``supports_batched_prefill``) prefills its dense cache of
+    ``max_seq`` positions in one pass; a recurrent model warms its cache
+    one prompt token at a time (``max_seq`` is then unused).  Before every
+    step ``t`` (the batched prefill is step 0) the space's schedule may
+    scrub the whole cache (``scrub_every``; trigger "interval"); the
+    run's stats are returned and recorded into ``space``
+    (default: ``serve_space(model, scrub_every)``).
+
+    ``paged=True`` serves each prompt row as one engine request over a
+    paged pool instead (``_generate_paged``)."""
     B, S0 = prompt.shape
     if max_new <= 0:
         return prompt, stats_lib.as_dict(stats_lib.zeros())
+    if paged:
+        return _generate_paged(
+            model, prompt, max_new=max_new, max_seq=max_seq,
+            page_size=page_size, scrub_every=scrub_every, space=space,
+        )
     space = space or serve_space(model, scrub_every)
-    cache = model.init_cache(B)
+    batched = model.supports_batched_prefill
+    cache = model.init_cache(B, max_seq) if batched else model.init_cache(B)
     step_fn = space.wrap_serve_step(build_serve_step(model))
     stats = stats_lib.zeros()
     tokens = prompt.to(model.device)
-    nxt = tokens[:, :1]
-    for t in range(S0 + max_new - 1):
+    nxt, t0 = tokens[:, :1], 0
+    if batched:
+        if space.config.scrub.due(0):
+            cache, stats = space.scrub(cache, stats, trigger="interval")
+        nxt_flat, _, cache, stats = step_fn(cache, tokens, 0, stats)
+        nxt = nxt_flat[:, None].to(tokens.dtype)
+        tokens = torch.cat([tokens, nxt], dim=1)
+        t0 = S0
+    for t in range(t0, S0 + max_new - 1):
         tok = tokens[:, t:t + 1] if t < S0 else nxt
         if space.config.scrub.due(t):
             cache, stats = space.scrub(cache, stats, trigger="interval")
@@ -115,3 +120,44 @@ def generate(
             tokens = torch.cat([tokens, nxt], dim=1)
     space.record(stats)
     return tokens, stats_lib.as_dict(stats)
+
+
+def _generate_paged(
+    model,
+    prompt: torch.Tensor,
+    *,
+    max_new: int,
+    max_seq: int,
+    page_size: int,
+    scrub_every: int = 0,
+    space: Optional[ApproxSpace] = None,
+) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """``generate`` over the serving engine: one request per prompt row, a
+    pool sized so that nothing waits.  ``scrub_every`` becomes the engine's
+    background sweep over the whole pool; a given ``space`` receives the
+    run's unified stats."""
+    from ..serving import Engine, ServingConfig  # deferred: serving imports us
+
+    B = prompt.shape[0]
+    page_size = min(page_size, max_seq)
+    while max_seq % page_size:
+        page_size -= 1
+    pages_per_req = max_seq // page_size
+    n_pages = B * pages_per_req
+    eng = Engine(
+        model,
+        ServingConfig(
+            page_size=page_size, n_pages=n_pages, max_batch=B,
+            max_pages_per_request=pages_per_req, sweep_interval=scrub_every,
+            sweep_pages=n_pages,
+        ),
+        device=model.device,
+    )
+    rows = prompt.cpu().numpy()
+    rids = [eng.add_request(rows[b], max_new=max_new) for b in range(B)]
+    results = eng.run()
+    if space is not None:
+        space.record(eng.unified_stats())
+    out = torch.tensor([results[r]["tokens"] for r in rids], dtype=prompt.dtype,
+                       device=model.device)
+    return out, eng.stats_dict()

@@ -1,11 +1,19 @@
-"""Decoder-only transformer LM (the dense Qwen2 family) over the paged pool.
+"""Decoder-only transformer LM (the dense Qwen2 family).
 
 A Python loop over per-layer blocks replaces the reference's ``lax.scan``;
 the layer index reaches the kernels as an argument, so one kernel serves
-every layer.  Ported surface: embedding, ``serve_step_paged`` (one decode
-token per request), ``prefill_paged`` (one causal prompt chunk), final norm
-and the tied readout.  Other families (LayerNorm, GeLU, MoE, untied heads)
+every layer.  Ported surface: ``forward`` (the whole sequence), the dense
+cache (``cache_defs``, ``init_cache``, ``serve_step``, ``prefill``), the
+paged paths (``serve_step_paged``: one decode token per request;
+``prefill_paged``: one causal prompt chunk), final norm and the tied
+readout.  Every block reads its weights through the use-site repair of
+``cfg.repair`` with the reference's parameter paths (``layers/attn/wq``,
+``embed/table``, ...).  Other families (LayerNorm, GeLU, MoE, untied heads)
 are not ported.
+
+The dense cache is the pool's flat-keyed layout: ``{"layers/k",
+"layers/v"}`` of shape (L, B, S, Kh, Dh), what ``PagedKVPool.gather``
+returns.
 """
 from __future__ import annotations
 
@@ -25,21 +33,29 @@ from ..nn.mlp import SwiGLU
 class Block(nn.Module):
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
-        dt = cfg.dtype
-        self.norm1 = RMSNorm(cfg.d_model, dtype=dt, device=device)
+        dt, rcfg = cfg.dtype, cfg.repair
+        self.norm1 = RMSNorm(cfg.d_model, dtype=dt, device=device, rcfg=rcfg,
+                             path="layers/norm1")
         self.attn = Attention(
             cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim,
             qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta,
-            rotary_pct=cfg.rotary_pct, dtype=dt, device=device,
+            rotary_pct=cfg.rotary_pct, dtype=dt, device=device, rcfg=rcfg,
+            path="layers/attn", q_block=cfg.attn_q_block,
+            kv_block=cfg.attn_kv_block,
         )
-        self.norm2 = RMSNorm(cfg.d_model, dtype=dt, device=device)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt, device=device)
+        self.norm2 = RMSNorm(cfg.d_model, dtype=dt, device=device, rcfg=rcfg,
+                             path="layers/norm2")
+        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt, device=device,
+                          rcfg=rcfg, path="layers/mlp")
 
 
 class TransformerLM(nn.Module):
     supports_paged_kv = True
     supports_paged_decode = True
     supports_paged_prefill = True
+    # the decode path is length-generic: one serve_step call over the whole
+    # prompt is a batched prefill
+    supports_batched_prefill = True
 
     def __init__(self, cfg: ArchConfig, *, device=None, seed: int = 0):
         super().__init__()
@@ -59,9 +75,11 @@ class TransformerLM(nn.Module):
             )
         dev = device_lib.resolve(device)
         self.cfg = cfg
-        self.embed = Embedding(cfg.vocab, cfg.d_model, dtype=cfg.dtype, device=dev)
+        self.embed = Embedding(cfg.vocab, cfg.d_model, dtype=cfg.dtype,
+                               device=dev, rcfg=cfg.repair, path="embed")
         self.layers = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=dev)
+        self.final_norm = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=dev,
+                                  rcfg=cfg.repair, path="final_norm")
         self.init_weights(seed)
 
     @property
@@ -80,6 +98,48 @@ class TransformerLM(nn.Module):
             n_pages, page_size, self.cfg.n_layers
         )
         return {f"layers/{name}": d for name, d in defs.items()}
+
+    def cache_defs(self, batch: int, max_seq: int):
+        """``{"layers/k": (shape, dtype), "layers/v": ...}``, each leaf
+        ``(n_layers, batch, max_seq, Kh, Dh)``."""
+        defs = self.layers[0].attn.cache_defs(batch, max_seq)
+        return {f"layers/{name}": ((self.cfg.n_layers,) + shape, dt)
+                for name, (shape, dt) in defs.items()}
+
+    def init_cache(self, batch: int, max_seq: int) -> Dict[str, torch.Tensor]:
+        """The dense decode cache, zeros."""
+        return {
+            path: torch.zeros(shape, dtype=dt, device=self.device)
+            for path, (shape, dt) in self.cache_defs(batch, max_seq).items()
+        }
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, S) tokens -> f32 logits (B, S, V), causal over the whole
+        sequence (``Attention.forward``)."""
+        h = self.embed(tokens)
+        positions = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+        for blk in self.layers:
+            h = h + blk.attn(blk.norm1(h), positions)
+            h = h + blk.mlp(blk.norm2(h))
+        return self.embed.attend(self.final_norm(h))
+
+    @torch.no_grad()
+    def serve_step(self, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                   pos) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(B, S) tokens written at ``pos`` (a scalar or (B,)) of the dense
+        cache, updated in place: S == 1 decodes, S > 1 is a batched prefill.
+        Returns ``(logits (B, S, V) f32, cache)``."""
+        kc, vc = cache["layers/k"], cache["layers/v"]
+        h = self.embed(tokens)
+        for i, blk in enumerate(self.layers):
+            h = h + blk.attn.decode(blk.norm1(h), kc[i], vc[i], pos)
+            h = h + blk.mlp(blk.norm2(h))
+        return self.embed.attend(self.final_norm(h)), cache
+
+    def prefill(self, cache, tokens, pos):
+        """The whole prompt in one ``serve_step`` call."""
+        return self.serve_step(cache, tokens, pos)
 
     def _walk(self, h, attend):
         """Run the layers; ``attend(attn, x, layer)`` is the paged attention

@@ -1,15 +1,29 @@
-"""Basic layers: RMSNorm and the token embedding with its tied readout.
+"""Basic layers: RMSNorm and the token embedding with its tied readout, and
+the use-site read every layer's weights go through.
 
 Every module declares ``inits`` — ``{parameter name: initializer}`` — which
 ``nn.initializers.init_weights`` draws from one generator.  Weights
 keep the reference's (in, out) layout, so a product is ``x @ w`` and the
 weights carry across from the JAX package without transposes.
+
+Use-site repair (the paper's register mode, and on-read rules in any mode):
+each module takes the model's repair config ``rcfg`` and its parameter path
+prefix (``layers/attn``, ``embed``, ...), and reads each weight through
+``core.repair.use`` with the reference's path.  Whether a read can ever
+repair depends on ``rcfg`` and the path alone (``runtime.space.read_rule``),
+so each module decides it once, at construction (``read_site``): where it
+cannot, the read is the bare tensor with no call at all.
 """
 from __future__ import annotations
+
+from typing import Any, Optional
 
 import torch
 from torch import nn
 
+from ..core import repair
+from ..runtime import ApproxSpace
+from ..runtime.space import read_rule
 from . import initializers as ini
 
 
@@ -19,34 +33,65 @@ def param(shape, dtype, device) -> nn.Parameter:
     )
 
 
+def sub_path(prefix: str, name: str) -> str:
+    """The reference's parameter path ``prefix/name``; "" (a pathless read,
+    bound to ``RuleSet.read_rule``) when the module has no prefix."""
+    return f"{prefix}/{name}" if prefix else ""
+
+
+def read_site(rcfg: Any, path: str) -> Optional[ApproxSpace]:
+    """``None`` where a use-site read of ``path`` under ``rcfg`` can never
+    repair, else one prebuilt space for ``core.repair.use``."""
+    if rcfg is None or read_rule(rcfg, path) is None:
+        return None
+    return ApproxSpace(rcfg)
+
+
+class UseSites:
+    """The read sites of one module's weights, decided at construction."""
+
+    def __init__(self, rcfg: Any, prefix: str, names):
+        self.paths = {n: sub_path(prefix, n) for n in names}
+        self.sites = {n: read_site(rcfg, p) for n, p in self.paths.items()}
+
+    def read(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        site = self.sites[name]
+        if site is None:
+            return x
+        return repair.use(x, site, path=self.paths[name])
+
+
 class RMSNorm(nn.Module):
     def __init__(self, d: int, *, eps: float = 1e-6, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, rcfg: Any = None, path: str = ""):
         super().__init__()
         self.eps = eps
         self.scale = param((d,), dtype, device)
         self.inits = {"scale": ini.ones}
+        self.reads = UseSites(rcfg, path, ("scale",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = self.reads.read("scale", self.scale)
         xf = x.float()
         var = (xf * xf).mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps)
-        return (y * self.scale.float()).to(x.dtype)
+        return (y * scale.float()).to(x.dtype)
 
 
 class Embedding(nn.Module):
     """Token embedding (vocab, d); also the tied readout."""
 
     def __init__(self, vocab: int, d_model: int, *, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, rcfg: Any = None, path: str = ""):
         super().__init__()
         self.table = param((vocab, d_model), dtype, device)
         self.inits = {"table": ini.normal(0.02)}
+        self.reads = UseSites(rcfg, path, ("table",))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.table[tokens.long()]
+        return self.reads.read("table", self.table)[tokens.long()]
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Tied readout: logits = x @ table.T, returned in f32 (computed in
         the weights' dtype with the library's f32 accumulation)."""
-        return torch.matmul(x, self.table.t()).float()
+        return torch.matmul(x, self.reads.read("table", self.table).t()).float()

@@ -24,30 +24,45 @@ from ..core import rules as rules_lib
 from ..core import stats as stats_lib
 from .config import ApproxConfig
 
-__all__ = ["ApproxSpace", "use_tensor"]
+__all__ = ["ApproxSpace", "read_rule", "use_tensor"]
 
 Tree = Dict[str, torch.Tensor]
 
 
-def use_tensor(
-    x: torch.Tensor, cfg: Any, stats: stats_lib.Stats, path: str = ""
-) -> Tuple[torch.Tensor, stats_lib.Stats]:
-    """Register-mode read (paper §3.3): repair at the consumption site.
-
-    The identity outside register mode, except for a bound *on-read* rule,
-    which repairs here in every mode.  ``path`` binds the ruleset's rule
-    for that path; a pathless read takes ``RuleSet.read_rule``.  An
-    exact-island rule is the identity.  Returns ``(repaired, stats')``;
-    ``x`` itself is not modified."""
+def read_rule(cfg: Any, path: str = "") -> Optional[rules_lib.RepairRule]:
+    """The rule a use-site read of ``path`` repairs with, or ``None`` where
+    the read is the identity: mode off, an exact-island rule, or a rule
+    that fires on read only in register mode outside it.  ``path`` binds
+    the ruleset's rule for that path; a pathless read takes
+    ``RuleSet.read_rule``.  Depends on ``cfg`` and ``path`` alone, so a
+    caller can decide once whether a read site can ever repair."""
     if cfg.mode == "off":
-        return x, stats
+        return None
     ruleset = rules_lib.ruleset_of(cfg)
     rule = ruleset.rule_for(path)[1] if path else ruleset.read_rule()
     if rule.exact:
-        return x, stats
+        return None
     if cfg.mode != "register" and rule.trigger != "on-read":
+        return None
+    return rule
+
+
+def use_tensor(
+    x: torch.Tensor, cfg: Any, stats: Optional[stats_lib.Stats],
+    path: str = "",
+) -> Tuple[torch.Tensor, Optional[stats_lib.Stats]]:
+    """Register-mode read (paper §3.3): repair at the consumption site.
+
+    The identity outside register mode, except for a bound *on-read* rule,
+    which repairs here in every mode (``read_rule``).  Returns
+    ``(repaired, stats')``; ``x`` itself is not modified.  With ``stats``
+    None the counts are not read back and ``None`` is returned for them."""
+    rule = read_rule(cfg, path)
+    if rule is None:
         return x, stats
     fixed, n, i = rule.apply(x)
+    if stats is None:
+        return fixed, None
     return fixed, stats_lib.record_repair(stats, n, i)
 
 

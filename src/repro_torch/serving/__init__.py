@@ -5,8 +5,10 @@ from .engine import Engine, engine_space  # noqa: F401
 from .pool import PagedKVPool  # noqa: F401
 from .repair import PageRepairManager  # noqa: F401
 from .scheduler import Request, RequestState, Scheduler  # noqa: F401
+from .workload import Arrival, WorkloadConfig, generate_arrivals  # noqa: F401
 
 __all__ = [
-    "Engine", "PagedKVPool", "PageRepairManager", "Request", "RequestState",
-    "Scheduler", "ServingConfig", "engine_space",
+    "Arrival", "Engine", "PagedKVPool", "PageRepairManager", "Request",
+    "RequestState", "Scheduler", "ServingConfig", "WorkloadConfig",
+    "engine_space", "generate_arrivals",
 ]

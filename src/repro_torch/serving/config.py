@@ -2,10 +2,8 @@
 
 Same fields, defaults and validation as the reference.  Options whose code
 is not ported yet raise ``NotImplementedError`` naming the ROADMAP item:
-``prefix_cache``, ``host_pages > 0``, ``drain_interval > 0``,
-``autopilot``, and ``paged_decode``/``paged_prefill = "off"`` (the
-gathered-view fallback).  Field meanings are documented on the
-reference's ``repro.serving.config.ServingConfig``.
+``prefix_cache``, ``host_pages > 0`` and ``autopilot``.  Field meanings
+are documented on the reference's ``repro.serving.config.ServingConfig``.
 """
 from __future__ import annotations
 
@@ -84,16 +82,7 @@ class ServingConfig:
         unported = {
             "prefix_cache=True": (self.prefix_cache, "serving/prefix_cache.py"),
             "host_pages>0": (self.host_pages > 0, "serving/tiers.py"),
-            "drain_interval>0": (
-                self.drain_interval > 0, "Engine desynchronized stats drain"
-            ),
             "autopilot": (self.autopilot is not None, "autopilot/"),
-            "paged_decode='off'": (
-                self.paged_decode == "off", "the gathered-view fallback"
-            ),
-            "paged_prefill='off'": (
-                self.paged_prefill == "off", "the gathered-view fallback"
-            ),
         }
         for option, (asked, item) in unported.items():
             if asked:

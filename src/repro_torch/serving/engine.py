@@ -6,23 +6,37 @@
         out = engine.step()          # {"emitted": {rid: [tok]}, "finished"}
     engine.results[rid]["tokens"]    # prompt + generated
 
-One step, in lockstep (every lane's kernel counters are read back and
-acted on within the step):
+One step:
 
+  0. the deferred stats drain (``drain_interval > 0``, when due)
   1. one approximate-memory window strikes the pool (``ber > 0`` only)
-  2. admission: waiting requests get zeroed pages and a decode slot
-  3. the prefill lane: one prompt chunk per mid-prefill request through the
-     paged prefill kernel, straight off the pool, then ONE reactive scrub
-     from the summed per-page fatal counts
-  4. one decode step over the static ``(max_batch, M)`` slot batch through
+  2. admission: waiting requests get zeroed pages and a decode slot; on the
+     gathered prefill a probe over the fresh pages and the null page runs
+     first, then one whole-prompt ``Model.prefill`` per admission over the
+     request's gathered view
+  3. the paged prefill lane: one prompt chunk per mid-prefill request
+     through the paged prefill kernel, straight off the pool, then ONE
+     reactive scrub from the summed per-page fatal counts
+  4. one decode step over the static ``(max_batch, M)`` slot batch: through
      the paged decode kernel (split-K when ``resolve_split_k() > 1``), then
-     the reactive scrub of the pages its counts flagged
+     the reactive scrub of the pages its counts flagged; or, on the
+     gathered fallback, the probe of the touched pages, their scrub, then
+     ``Model.serve_step`` over the gathered view
   5. the background sweep tick
 
-The kernels repair on read with a value-independent fill, so the tokens do
-not depend on when the scrub writes the repair back.  Configurations that
-need the reference's gathered-view fallback (``repair="off"``, non-memory
-modes, fills the kernels cannot reproduce) are not ported and raise.
+The paged paths run wherever the model and the pool rules allow
+(``_paged_decode_plan``); the gathered view is the fallback the reference
+keeps for the rest: ``paged_decode="off"``, ``repair="off"`` (the kernels
+always repair what they read), non-memory spaces, a register-mode model
+(its use-site repair replaces the kernels'), and fills without a kernel
+form.  ``paged_prefill="off"`` gathers only the prefill.
+
+Lockstep (``drain_interval == 0``) reads each lane's kernel counters back
+and acts on them within the step.  With ``drain_interval = N`` the paged
+lanes' counters accumulate on the device and one readback every N steps
+drives the scrub of the union of flagged pages: the kernels repair on read
+with a value-independent fill, so the tokens do not depend on when the
+scrub writes the repair back, and ``n_host_syncs`` falls.
 """
 from __future__ import annotations
 
@@ -37,6 +51,7 @@ from .. import device as device_lib
 from ..core import stats as stats_lib
 from ..core.regions import Region
 from ..kernels import common as kernels_common
+from ..launch.serve import build_serve_step
 from ..runtime import ApproxSpace, ScrubSchedule
 from ..runtime.plan import serving_scope
 from .config import ServingConfig
@@ -60,22 +75,25 @@ def engine_space(model: Any) -> ApproxSpace:
 @dataclasses.dataclass(frozen=True)
 class _PagedDecodePlan:
     """One detector (``None`` = detection off) and one kernel fill per
-    pool-leaf name, shared by the decode and prefill kernels."""
+    pool-leaf name, shared by the decode and prefill kernels; ``prefill``
+    says whether admission runs the paged prefill kernel too."""
 
     detectors: Mapping[str, Any]
     fills: Mapping[str, Tuple[str, float]]
+    prefill: bool = False
 
 
 def _paged_decode_plan(
-    model: Any, space: ApproxSpace, pool: PagedKVPool
+    model: Any, space: ApproxSpace, pool: PagedKVPool, cfg: ServingConfig
 ) -> Optional[_PagedDecodePlan]:
     """The kernels' repair spec, or ``None`` where the reference falls back
     to the gathered view: ``repair="off"``, non-memory modes, register-mode
     model reads, fills without a bit-identical kernel form, detectors that
-    do not encode into the constants, or leaves of one name disagreeing."""
+    do not encode into the constants, or leaves of one name disagreeing.
+    Decided before any launch, from the configuration alone."""
     if not getattr(model, "supports_paged_decode", False):
         return None
-    if space.config.mode != "memory":
+    if serving_scope(cfg.repair) == "none" or space.config.mode != "memory":
         return None
     if getattr(model.cfg.repair, "mode", "off") == "register":
         return None
@@ -108,7 +126,11 @@ def _paged_decode_plan(
         detectors[name] = det
         if det is not None or name not in fills:
             fills[name] = fill
-    return _PagedDecodePlan(detectors=detectors, fills=fills)
+    return _PagedDecodePlan(
+        detectors=detectors, fills=fills,
+        prefill=(bool(getattr(model, "supports_paged_prefill", False))
+                 and cfg.paged_prefill == "auto"),
+    )
 
 
 class Engine:
@@ -131,6 +153,10 @@ class Engine:
             raise NotImplementedError(
                 f"{type(model).__name__} has no paged KV layout"
             )
+        if not getattr(model, "supports_batched_prefill", False):
+            raise NotImplementedError(
+                f"{type(model).__name__} cannot batched-prefill"
+            )
         self.model = model
         self.cfg = cfg or ServingConfig()
         self.space = space or engine_space(model)
@@ -143,20 +169,25 @@ class Engine:
         self.repair = PageRepairManager(
             self.pool, self.space, self.cfg, on_host_sync=self._note_host_sync
         )
+        # the greedy step of the gathered fallback, shared with generate
+        self._step_fn = self.space.wrap_serve_step(build_serve_step(model))
         self.paged_plan = (
-            _paged_decode_plan(model, self.space, self.pool)
-            if serving_scope(self.cfg.repair) != "none" else None
+            _paged_decode_plan(model, self.space, self.pool, self.cfg)
+            if self.cfg.paged_decode == "auto" else None
         )
-        if self.paged_plan is None:
-            raise NotImplementedError(
-                "this configuration needs the gathered-view fallback "
-                "(repair='off', a non-memory mode, or a fill without a kernel "
-                "form), which is not ported: ROADMAP 'Modules still to port', "
-                "launch/serve.py::build_serve_step"
-            )
+        self._paged_prefill = (
+            self.paged_plan is not None and self.paged_plan.prefill
+        )
         self._split_k = self.cfg.resolve_split_k()
         self._prefilling: List[Request] = []
         self.kernel_counts = np.zeros(8, np.int64)
+        # desynchronized drain: the paged lanes' counters accumulate on the
+        # device, (n_pages + 1 + 8,) int32, read back once per drain
+        self._desync = self.cfg.drain_interval > 0 and self.paged_plan is not None
+        self._pending: Optional[torch.Tensor] = None
+        self._pending_covered: set = set()
+        self._pending_attr: List[Tuple[List[int], int]] = []
+        self._steps_since_drain = 0
         self._stream = stats_lib.zeros()
         self.results: Dict[int, Dict[str, Any]] = {}
         self._next_rid = 0
@@ -194,25 +225,40 @@ class Engine:
         finished: List[int] = []
         self._last_touched = []
 
+        # (0) the deferred drain runs before this step's flips land, so at
+        # drain_interval=1 the pool entering (1) is the lockstep engine's
+        if self._desync and self._steps_since_drain >= self.cfg.drain_interval:
+            self._drain_pending()
+
         # (1) simulation boundary: one window of flips strikes the pool
         if self.cfg.ber > 0.0:
             self.pool.tree, self._stream = self.space.inject(
                 self.pool.tree, self._generator, self.cfg.ber, stats=self._stream
             )
 
-        # (2) admission: fresh pages are zeroed; the prefill kernel is the
-        # detector, so no probe runs here
+        # (2) admission: fresh pages are zeroed.  The paged prefill kernel
+        # is the detector; the gathered prefill probes the fresh pages (the
+        # null page rides along) before its whole-prompt pass, whose wall
+        # time lands in "admit"
         t_admit = time.perf_counter()
         self._prefilling = [
             r for r in self._prefilling if r.state is RequestState.RUNNING
         ]
         plan = self.sched.step_plan(self._prefilling)
         if plan.admitted:
-            self._last_touched = sorted({p for r in plan.admitted for p in r.pages})
+            pages = sorted({p for r in plan.admitted for p in r.pages})
+            if pages and not self._paged_prefill:
+                self._stream = self.repair.repair_step(pages, self._stream)
+            self._last_touched = pages
         for req in plan.admitted:
-            if req.prefill_pos is None:
-                req.prefill_pos = 0
-            self._prefilling.append(req)
+            if self._paged_prefill:
+                if req.prefill_pos is None:
+                    req.prefill_pos = 0
+                self._prefilling.append(req)
+                continue
+            self._prefill(req, emitted)
+            if req.state is RequestState.RUNNING and self._maybe_finish(req):
+                finished.append(req.rid)
         self.stage_wall_s["admit"] += time.perf_counter() - t_admit
 
         # (3) the prefill lane, then one reactive pass over its summed counts
@@ -251,10 +297,20 @@ class Engine:
                 set(self._last_touched) | {p for r in decodable for p in r.pages}
             )
             self._last_touched = touched
-            t_dec = time.perf_counter()
-            page_counts, counts = self._decode_paged(decodable, emitted)
-            self.stage_wall_s["decode"] += time.perf_counter() - t_dec
-            self._flush_lane(page_counts, counts, set(touched) | {self.pool.null_page})
+            if self.paged_plan is not None:
+                t_dec = time.perf_counter()
+                page_counts, counts = self._decode_paged(decodable, emitted)
+                self.stage_wall_s["decode"] += time.perf_counter() - t_dec
+                self._flush_lane(
+                    page_counts, counts, set(touched) | {self.pool.null_page}
+                )
+            else:
+                t_rep = time.perf_counter()
+                self._stream = self.repair.repair_step(touched, self._stream)
+                self.stage_wall_s["repair"] += time.perf_counter() - t_rep
+                t_dec = time.perf_counter()
+                self._decode(decodable, emitted)
+                self.stage_wall_s["decode"] += time.perf_counter() - t_dec
             for req in decodable:
                 if self._maybe_finish(req):
                     finished.append(req.rid)
@@ -264,6 +320,8 @@ class Engine:
         self._stream = self.repair.sweep_step(t, self._stream)
         self.stage_wall_s["repair"] += time.perf_counter() - t_rep
 
+        if self._desync:
+            self._steps_since_drain += 1
         self._t += 1
         for toks in emitted.values():
             self.tokens_emitted += len(toks)
@@ -279,26 +337,76 @@ class Engine:
                 raise RuntimeError(
                     f"engine made no progress in {max_idle_steps} steps"
                 )
+        self.drain()        # leave nothing parked: scrub what was flagged
         return self.results
 
     # --------------------------------------------------------------- lanes
     def _note_host_sync(self) -> None:
         self.n_host_syncs += 1
 
-    def _host(self, x: torch.Tensor) -> np.ndarray:
-        """Blocking device→host readback; every hot-path sync funnels here."""
+    def _host(self, x) -> np.ndarray:
+        """Blocking device→host readback; every hot-path sync funnels here
+        (a deferred event delta, already a host count, is charged as the
+        reference's device scalar is)."""
         self.n_host_syncs += 1
-        return x.cpu().numpy()
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
     def _flush_lane(self, page_counts, counts, covered) -> None:
-        """Read one lane's kernel counters back and run the reactive pass."""
+        """One paged lane's kernel counters.  Lockstep: read both back now
+        and run the reactive pass.  Desync: add them into the one device
+        accumulator, so a drain costs one readback however many lanes and
+        steps it covers."""
         if page_counts is None:
+            return
+        if self._desync:
+            pending = torch.cat([page_counts.to(torch.int32), counts.to(torch.int32)])
+            self._pending = (
+                pending if self._pending is None else self._pending + pending
+            )
+            self._pending_covered |= set(covered)
             return
         pc = self._host(page_counts)
         self.kernel_counts += self._host(counts).astype(np.int64)
         t0 = time.perf_counter()
         self._stream = self.repair.repair_counts(pc, covered, self._stream)
         self.stage_wall_s["repair"] += time.perf_counter() - t0
+
+    def _resolve_attr(self) -> None:
+        """Charge the per-page ledger with the event deltas a drain-time
+        scrub deferred."""
+        attrs, self._pending_attr = self._pending_attr, []
+        for pages, delta in attrs:
+            d = int(self._host(delta))
+            if d > 0:
+                self.pool.attribute(pages, d)
+
+    def _drain_pending(self) -> None:
+        """One drain: resolve the previous drain's attribution, read the
+        pending accumulator back in one readback, and scrub the union of
+        flagged pages (its own attribution deferred in turn)."""
+        self._resolve_attr()
+        self._steps_since_drain = 0
+        if self._pending is None:
+            return
+        pend = self._host(self._pending)
+        n_rows = self.cfg.n_pages + 1
+        page_counts, counts = pend[:n_rows], pend[n_rows:]
+        self.kernel_counts += counts.astype(np.int64)
+        covered = self._pending_covered
+        self._pending = None
+        self._pending_covered = set()
+        t0 = time.perf_counter()
+        self._stream = self.repair.repair_counts(
+            page_counts, covered, self._stream, defer=self._pending_attr
+        )
+        self.stage_wall_s["repair"] += time.perf_counter() - t0
+
+    def drain(self) -> None:
+        """Flush every deferred readback: the pending kernel counters, the
+        scrub they drive and its ledger attribution.  ``metrics()`` and the
+        end of ``run()`` call it; a lockstep engine has nothing to flush."""
+        self._drain_pending()
+        self._resolve_attr()
 
     def _page_counts(self, bt: torch.Tensor, slot_counts: torch.Tensor):
         """Per-slot counts scatter-added onto the pool's page axis."""
@@ -309,6 +417,22 @@ class Engine:
     def _reserve_next_page(self, req: Request) -> bool:
         req.pos = req.n_context - 1
         return self.sched.ensure_capacity(req)
+
+    def _prefill(self, req: Request, emitted: Dict[int, List[int]]) -> None:
+        """The gathered prefill: the whole (re-)prefill context in one
+        ``Model.prefill`` call over the request's gathered pages."""
+        toks = req.prefill_tokens()
+        bt = self.pool.block_table(req.pages)[None, :]
+        view = self.pool.gather(bt)
+        tokens = torch.as_tensor([toks], dtype=torch.int64, device=self.device)
+        nxt, _, view, self._stream = self._step_fn(view, tokens, 0, self._stream)
+        self.pool.scatter(view, bt)
+        req.pos = len(toks)
+        if req.n_preempted:
+            self.prefill_tokens_recomputed += len(toks)
+        tok = int(self._host(nxt)[0])
+        req.tokens.append(tok)
+        emitted.setdefault(req.rid, []).append(tok)
 
     def _prefill_paged(self, req: Request, emitted: Dict[int, List[int]]):
         """One prompt chunk straight off the pool (``prefill_chunk == 0``:
@@ -358,6 +482,27 @@ class Engine:
             pos[req.slot] = req.pos
         return bt, tokens, pos
 
+    def _emit(self, reqs: List[Request], nxt: torch.Tensor,
+              emitted: Dict[int, List[int]]) -> None:
+        nxt = self._host(nxt)
+        for req in reqs:
+            tok = int(nxt[req.slot])
+            req.tokens.append(tok)
+            req.pos += 1
+            emitted.setdefault(req.rid, []).append(tok)
+
+    def _decode(self, reqs: List[Request], emitted: Dict[int, List[int]]) -> None:
+        """The gathered-view decode over the static slot batch."""
+        bt, tokens, pos = self._decode_batch(reqs)
+        dev = self.device
+        view = self.pool.gather(bt)
+        nxt, _, view, self._stream = self._step_fn(
+            view, torch.as_tensor(tokens, device=dev),
+            torch.as_tensor(pos, device=dev), self._stream,
+        )
+        self.pool.scatter(view, bt)
+        self._emit(reqs, nxt, emitted)
+
     def _decode_paged(self, reqs: List[Request], emitted: Dict[int, List[int]]):
         bt, tokens, pos = self._decode_batch(reqs)
         dev = self.device
@@ -368,12 +513,7 @@ class Engine:
             detectors=self.paged_plan.detectors, fills=self.paged_plan.fills,
             split_k=self._split_k,
         )
-        nxt = self._host(logits[:, -1, :].argmax(dim=-1))
-        for req in reqs:
-            tok = int(nxt[req.slot])
-            req.tokens.append(tok)
-            req.pos += 1
-            emitted.setdefault(req.rid, []).append(tok)
+        self._emit(reqs, logits[:, -1, :].argmax(dim=-1), emitted)
         return self._page_counts(bt, slot_counts), counts
 
     def _maybe_finish(self, req: Request) -> bool:
@@ -405,6 +545,7 @@ class Engine:
         return self.space.rule_stats()
 
     def metrics(self) -> Dict[str, Any]:
+        self.drain()        # metrics reflect a fully flushed engine
         toks = max(self.tokens_emitted, 1)
         steps = max(self._t, 1)
         return {
@@ -412,13 +553,18 @@ class Engine:
             "steps": self._t,
             "n_host_syncs": self.n_host_syncs,
             "host_syncs_per_step": self.n_host_syncs / steps,
+            "drain_interval": self.cfg.drain_interval,
             "stage_wall_s": dict(self.stage_wall_s),
             "prefill_tokens_recomputed": self.prefill_tokens_recomputed,
             "n_preemptions": self.sched.n_preemptions,
             "scrubbed_bytes": self.pool.scrubbed_bytes,
             "scrub_calls": self.pool.scrub_calls,
             "scrubbed_bytes_per_token": self.pool.scrubbed_bytes / toks,
+            "paged_decode": self.paged_plan is not None,
+            "paged_prefill": self._paged_prefill,
             "split_k": self._split_k,
+            "pool_gathers": self.pool.n_gathers,
+            "pool_scatters": self.pool.n_scatters,
             "paged_kernel_events": int(self.kernel_counts[6]),
             **self.repair.summary(),
         }

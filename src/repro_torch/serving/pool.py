@@ -6,10 +6,16 @@ fault attribution and targeted repair.  Row ``n_pages`` is the null page
 that pads block tables; it is read, repaired and counted like any page.
 The pool's state is the flat dict ``tree = {"layers/k": ..., "layers/v":
 ...}``, updated in place by the model's K/V writes and by the scrubs.
+
+The paged kernels read the pool straight through block tables.  The
+gathered-view fallback copies a batch of block tables out as the model's
+dense cache (``gather``) and writes it back (``scatter``); both are counted
+(``n_gathers``, ``n_scatters``), so tests can tell the paths apart.
 """
 from __future__ import annotations
 
 import collections
+import warnings
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
@@ -49,6 +55,8 @@ class PagedKVPool:
         self.page_scrubs = np.zeros(cfg.n_pages + 1, np.int64)
         self.scrubbed_bytes = 0
         self.scrub_calls = 0
+        self.n_gathers = 0
+        self.n_scatters = 0
 
     @property
     def n_free(self) -> int:
@@ -96,7 +104,54 @@ class PagedKVPool:
         row[: len(pages)] = pages
         return row
 
+    # --------------------------------------------------------- gather/scatter
+    def gather(self, block_tables) -> dict:
+        """Pool pages -> per-request dense cache views: each leaf (P, L, pg,
+        Kh, Dh) through block tables (R, M) gives (L, R, M * pg, Kh, Dh),
+        the model's ``cache_defs`` layout."""
+        self.n_gathers += 1
+        bt = torch.as_tensor(np.asarray(block_tables), device=self.device).long()
+        out = {}
+        for path, leaf in self.tree.items():
+            v = leaf[bt].movedim(2, 0)                 # (L, R, M, pg, ...)
+            out[path] = v.reshape(v.shape[0], v.shape[1], -1, *v.shape[4:])
+        return out
+
+    def scatter(self, view: dict, block_tables) -> None:
+        """Write per-request cache views back into the pool pages.  A page
+        named more than once (the null page padding block tables) takes its
+        last occurrence, row-major over ``block_tables``: one write per
+        page, so the result does not depend on the device's write order."""
+        self.n_scatters += 1
+        flat = np.asarray(block_tables).reshape(-1)
+        pages, first_rev = np.unique(flat[::-1], return_index=True)
+        last = flat.size - 1 - first_rev
+        dev = self.device
+        pages_t = torch.as_tensor(pages, device=dev).long()
+        last_t = torch.as_tensor(last, device=dev).long()
+        for path, leaf in self.tree.items():
+            pg = leaf.shape[2]
+            v = view[path]
+            L, R = v.shape[:2]
+            v = v.reshape(L, R, -1, pg, *v.shape[3:]).movedim(0, 2)
+            v = v.reshape(-1, *v.shape[2:])            # (R * M, L, pg, ...)
+            leaf[pages_t] = v[last_t].to(leaf.dtype)
+
     # ----------------------------------------------------------------- repair
+    def fatal_pages(self, page_ids: Sequence[int]) -> List[int]:
+        """Deprecated public probe: the paged kernels emit per-page fatal
+        counts as they read, so reactive detection needs no separate scan;
+        the probe remains for the gathered-view fallback, through
+        ``PageRepairManager.repair_step``."""
+        warnings.warn(
+            "PagedKVPool.fatal_pages is deprecated: the paged kernels emit "
+            "per-page fatal counts on read (PageRepairManager.repair_counts);"
+            " the probe remains only for gathered-view fallback paths",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return self._probe_fatal_pages(page_ids)
+
     def _probe_fatal_pages(self, page_ids: Sequence[int]) -> List[int]:
         """The subset of ``page_ids`` holding ≥1 fatal lane under each
         leaf's rule detector (detection only), gated like the repair:

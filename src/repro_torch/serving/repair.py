@@ -2,7 +2,9 @@
 
   reactive   the paged kernels are the trap: they emit per-page fatal
              counts as they read, so ``repair_counts`` scrubs exactly the
-             pages that faulted, with no separate detection pass
+             pages that faulted, with no separate detection pass; the
+             gathered-view fallback probes its pages first instead
+             (``repair_step``)
   routed     kernel counter vectors reported through ``note_kernel`` fold
              into the unified stats and mark the step's pages dirty
   sweep      every ``sweep_interval`` steps a rotating window of
@@ -53,12 +55,29 @@ class PageRepairManager:
     def mark_dirty(self, pages: Iterable[int]) -> None:
         self._dirty.update(pages)
 
+    def repair_step(self, touched: Sequence[int],
+                    stats: stats_lib.Stats) -> stats_lib.Stats:
+        """The gathered-view fallback's reactive pass, before the step's
+        compute reads the touched pages: probe touched ∪ dirty ∪ {null},
+        then scrub what holds a fatal lane."""
+        scope = serving_scope(self.cfg.repair)
+        if scope == "none":
+            return stats
+        candidates = set(touched) | self._dirty | {self.pool.null_page}
+        self._on_host_sync()          # the probe blocks on a device read
+        faulty = self.pool._probe_fatal_pages(candidates)
+        return self._scrub_faulty(scope, faulty, stats)
+
     def repair_counts(self, page_counts, covered: Sequence[int],
-                      stats: stats_lib.Stats) -> stats_lib.Stats:
+                      stats: stats_lib.Stats,
+                      defer: Optional[List] = None) -> stats_lib.Stats:
         """Reactive repair driven by the kernels' per-page fatal counts
         (``(n_pages + 1,)``, host).  Dirty pages outside this step's
         coverage keep the probe.  A fault in the slot this step's K/V write
-        overwrites is healed by the write before any read: never counted."""
+        overwrites is healed by the write before any read: never counted.
+        ``defer`` is the desynchronized engine's attribution queue: the
+        scrub's event delta is appended as ``(faulty pages, delta)`` for the
+        next drain to charge, so this pass adds no host read of its own."""
         scope = serving_scope(self.cfg.repair)
         if scope == "none":
             return stats
@@ -68,20 +87,25 @@ class PageRepairManager:
         if stale:
             self._on_host_sync()
             faulty = sorted(set(faulty) | set(self.pool._probe_fatal_pages(stale)))
-        return self._scrub_faulty(scope, faulty, stats)
+        return self._scrub_faulty(scope, faulty, stats, defer=defer)
 
     def _scrub_faulty(self, scope: str, faulty: Sequence[int],
-                      stats: stats_lib.Stats) -> stats_lib.Stats:
+                      stats: stats_lib.Stats,
+                      defer: Optional[List] = None) -> stats_lib.Stats:
         """Scrub faulty ∪ dirty, clear the dirty set, charge the events to
-        the pages that held a fatal lane."""
+        the pages that held a fatal lane (now, or through ``defer``)."""
         scrub_set = sorted(set(faulty) | self._dirty)
         self._dirty.clear()
         if not scrub_set:
             return stats
-        self._on_host_sync()
+        if defer is None:
+            self._on_host_sync()
         events0 = stats["events"]
         stats = self.pool.scrub_scope(scope, scrub_set, stats, trigger="reactive")
         self.n_reactive_scrubs += 1
+        if defer is not None:
+            defer.append((list(faulty), stats["events"] - events0))
+            return stats
         self._on_host_sync()
         delta = stats["events"] - events0
         if delta > 0:

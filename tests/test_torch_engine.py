@@ -4,7 +4,10 @@ identical requests from identical weights, with identical faults planted in
 both pools mid-run.  Tokens, ``page_events``, ``stats_dict()``,
 ``rule_stats()``, ``scrubbed_bytes``, the kernel counter totals and the
 host-sync count must be identical; the pools stay within rtol = atol = 1e-5
-(f32; the two sum in different orders)."""
+(f32; the two sum in different orders).  The cases cover the paged paths,
+the gathered-view fallback (decode and prefill, ``repair="off"``, a
+``neighbor_mean`` space, a register-mode model) and the desynchronized
+stats drain."""
 import dataclasses
 
 import pytest
@@ -16,6 +19,9 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from conftest import tiny_transformer  # noqa: E402
+from repro.models import build_model as jbuild_model  # noqa: E402
+from repro.runtime import ApproxConfig as JApproxConfig  # noqa: E402
+from repro.runtime import ApproxSpace as JApproxSpace  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
 from repro.serving import ServingConfig as JServingConfig  # noqa: E402
 from repro_torch import convert  # noqa: E402
@@ -24,11 +30,11 @@ from repro_torch.runtime import ApproxConfig, ApproxSpace  # noqa: E402
 from repro_torch.serving import Engine, ServingConfig  # noqa: E402
 
 
-def tiny_cfg():
+def tiny_cfg(repair=None):
     return dataclasses.replace(
         get_config("qwen2-1.5b").reduced(),
         n_layers=2, d_model=64, n_heads=4, n_kv=2, head_dim=16,
-        d_ff=128, vocab=97, repair=ApproxConfig(mode="off"),
+        d_ff=128, vocab=97, repair=repair or ApproxConfig(mode="off"),
     )
 
 
@@ -53,7 +59,50 @@ CASES = {
                           sweep_interval=3, sweep_pages=2),
     "whole": dict(page_size=4, n_pages=10, max_batch=4, max_pages_per_request=4,
                   repair="whole", prefill_chunk=4),
+    # the gathered-view fallback: probe, scrub, then Model.serve_step over
+    # pool.gather / pool.scatter (prefill and decode), with the sweep
+    "gathered": dict(page_size=4, n_pages=10, max_batch=4, max_pages_per_request=4,
+                     paged_decode="off", sweep_interval=3, sweep_pages=2),
+    # gathered prefill (with its admission probe), paged decode
+    "gathered_prefill": dict(page_size=4, n_pages=12, max_batch=3,
+                             max_pages_per_request=4, paged_prefill="off"),
+    # the no-repair arm: nothing probes, scrubs or repairs on read
+    "repair_off": dict(page_size=4, n_pages=10, max_batch=4,
+                       max_pages_per_request=4, repair="off"),
+    # a fill with no kernel form: the engine's space forces the fallback
+    "neighbor_mean": dict(page_size=4, n_pages=10, max_batch=4,
+                          max_pages_per_request=4),
+    # a register-mode model (NaN planted in one weight): use-site repair of
+    # every weight and of the gathered cache
+    "register": dict(page_size=4, n_pages=10, max_batch=4, max_pages_per_request=4),
+    # the desynchronized drain over chunked prefill and split-K decode
+    "desync2": dict(page_size=4, n_pages=12, max_batch=3, max_pages_per_request=4,
+                    prefill_chunk=3, drain_interval=2),
 }
+# the engine's runtime where it is not the default engine_space
+SPACES = {"neighbor_mean": dict(mode="memory", policy="neighbor_mean")}
+# which pool each case's first decode takes: paged (kernels) or gathered
+PAGED = {"preempt", "splitk", "chunked_sweep", "whole", "gathered_prefill",
+         "desync2"}
+
+
+def _engines(models, case):
+    """The JAX engine and the port's for ``case``: for "register", both
+    models in register mode with a NaN in layer 1's ``w_up``."""
+    jm, jp, tm = models
+    kw = CASES[case]
+    if case == "register":
+        jm = jbuild_model(dataclasses.replace(
+            jm.cfg, repair=JApproxConfig(mode="register")))
+        jp = jax.tree.map(np.array, jp)
+        jp["layers"]["mlp"]["w_up"][1, 3, 5] = np.nan
+        tm = convert.params_from_jax(
+            jp, tiny_cfg(ApproxConfig(mode="register")), device="cpu")
+    jspace = tspace = None
+    if case in SPACES:
+        jspace, tspace = JApproxSpace(**SPACES[case]), ApproxSpace(**SPACES[case])
+    return (JEngine(jm, jp, JServingConfig(**kw), space=jspace),
+            Engine(tm, ServingConfig(**kw), space=tspace, device="cpu"))
 
 
 def _plant(je, te, step):
@@ -81,10 +130,11 @@ def _plant(je, te, step):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_engine_matches_reference_under_planted_faults(models, case):
-    jm, jp, tm = models
     kw = CASES[case]
-    je = JEngine(jm, jp, JServingConfig(**kw))
-    te = Engine(tm, ServingConfig(**kw), device="cpu")
+    je, te = _engines(models, case)
+    assert (te.paged_plan is not None) == (je._paged_fn is not None) == (case in PAGED)
+    assert te._paged_prefill == (je._prefill_fn is not None)
+    assert te._desync == je._desync
     rng = np.random.default_rng(0)
     max_seq = kw["page_size"] * kw["max_pages_per_request"]
     for i in range(6):
@@ -112,12 +162,18 @@ def test_engine_matches_reference_under_planted_faults(models, case):
     assert te.pool.scrubbed_bytes == je.pool.scrubbed_bytes
     np.testing.assert_array_equal(te.kernel_counts, je.kernel_counts)
     assert te.n_host_syncs == je.n_host_syncs
-    assert te.stats_dict()["nan_found"] > 0
     jm_, tm_ = je.metrics(), te.metrics()
     for key in ("tokens_emitted", "n_preemptions", "scrub_calls", "split_k",
                 "prefill_tokens_recomputed", "reactive_scrubs", "sweep_scrubs",
-                "hot_pages", "paged_kernel_events"):
+                "hot_pages", "paged_kernel_events", "paged_decode",
+                "paged_prefill", "pool_gathers", "pool_scatters",
+                "drain_interval", "n_host_syncs"):
         assert tm_[key] == jm_[key], key
+    assert (tm_["pool_gathers"] > 0) == (case not in PAGED or case == "gathered_prefill")
+    if case == "repair_off":     # only the routed counter vector's NaN
+        assert tm_["scrub_calls"] == 0 and te.stats_dict()["nan_found"] == 1
+    else:
+        assert te.stats_dict()["nan_found"] > 0
     if case == "preempt":
         assert tm_["n_preemptions"] > 0
     if case == "splitk":
@@ -157,8 +213,7 @@ def test_default_device_is_the_card(models, monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(prefix_cache=True), dict(host_pages=4), dict(drain_interval=2),
-    dict(autopilot=object()), dict(paged_decode="off"), dict(paged_prefill="off"),
+    dict(prefix_cache=True), dict(host_pages=4), dict(autopilot=object()),
 ])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -167,15 +222,8 @@ def test_unported_options_raise(option):
 
 
 def test_configurations_needing_the_gathered_fallback_raise(models):
-    _, _, tm = models
-    cfg = ServingConfig(page_size=4, n_pages=8, max_batch=2,
-                        max_pages_per_request=4, repair="off")
-    with pytest.raises(NotImplementedError, match="gathered-view fallback"):
-        Engine(tm, cfg, device="cpu")
-    mean_fill = ApproxSpace(mode="memory", policy="neighbor_mean")
-    with pytest.raises(NotImplementedError):
-        Engine(tm, ServingConfig(page_size=4, n_pages=8, max_batch=2,
-                                 max_pages_per_request=4), space=mean_fill,
-               device="cpu")
+    """The gathered fallback serves ``repair="off"`` and fills without a
+    kernel form (the parity cases above); a mesh-native space still
+    raises."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ApproxSpace(mesh=object())

@@ -195,7 +195,7 @@ def test_unmapped_paths_and_unported_paths_raise(ref):
                 device="cpu")
     tm = XLSTMLM(cfg, device="cpu")
     prompt = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="no paged KV layout"):
         serve.generate(tm, prompt, max_new=2, max_seq=8, paged=True)
     with pytest.raises(NotImplementedError, match="token-by-token"):
         serve.build_serve_step(tm)(tm.init_cache(1), prompt, 0)
