@@ -70,6 +70,17 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      then the engine on the gathered path, (f) ``generate`` over the dense
      cache (the scrub kernel must find a NaN and an Inf planted before its
      2nd interval scrub) and ``generate(paged=True)``
+  3c. the prefix cache and the host tier at the same width (bf16, page size
+     16): two waves of six requests on one 96-token prefix (wave one with
+     random suffixes of 8-40 tokens, wave two diverging from each wave-one
+     prompt inside its cached partial tail page), 16 new tokens each: hits,
+     saved prefill tokens and copy-on-write forks, the tokens against a
+     cache-off run reported; with ``dwell_threshold=0`` a NaN planted in a
+     cached full page must take back its snapshot's exact bits on the hit;
+     then six requests growing by 48 tokens each over a 16-page pool with
+     ``host_pages=32``: preemption must swap, every
+     swapped-out page's host copy must equal its scrubbed device bits and
+     every swapped-in page its host copy, the pool finite
   4. parity at full width with 2 layers in f32: the same engine and faults
      on the card (kernels) and on the CPU (plain versions), in seven arms:
      paged, (a), (b), (c), register mode, a ``neighbor_mean`` space and
@@ -1377,6 +1388,10 @@ def engine_phase(report: dict) -> None:
         split_k=m["split_k"], stage_wall_s=wm["stage_wall_s"],
     )
     log("engine: " + json.dumps(report["engine"]))
+    dms = report["engine"]["device_ms_per_step"]
+    log(f"engine device ms a step: gemm {dms['gemm']:.4f}, elementwise "
+        f"{dms['other']:.4f}, repair kernels {dms['repair_kernels']:.4f}, "
+        f"copies {dms['copy']:.4f} ({gpu_line()})")
     report["model"] = model
 
 
@@ -1625,6 +1640,189 @@ def fallback_phase(report: dict) -> None:
         + f" ({gpu_line()})")
     report["fallback"] = {k: v["row"] for k, v in arms.items()}
     report["fallback"]["repair_overhead_a_over_c"] = overhead
+
+
+# prefix-cache phase geometry: one 96-token (6-page) prefix, block tables
+# wide enough for it, a 40-token suffix and 16 new tokens
+PREFIX_TOKENS = 96
+PREFIX_M = 12
+
+
+def prefix_requests(vocab: int):
+    """Two waves of six prompts on one prefix.  Wave one's suffixes (8-40
+    tokens) leave a partial tail page of at least two rows; wave two
+    changes each wave-one prompt's last token, so its match ends inside
+    that tail: a fragment hit and a copy-on-write fork."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(1, vocab, size=PREFIX_TOKENS).tolist()
+    lengths = [n for n in range(8, 41) if n % PG >= 2]
+    wave1 = [prefix + rng.integers(1, vocab, size=int(rng.choice(lengths))).tolist()
+             for _ in range(6)]
+    wave2 = []
+    for p in wave1:
+        t = int(rng.integers(1, vocab - 1))
+        wave2.append(p[:-1] + [t + (t >= p[-1])])
+    return wave1, wave2
+
+
+def _prefix_arm(engine, waves, between=None, max_new: int = 16) -> dict:
+    """Serve the waves on ``engine``, each with the launch counts from 0;
+    return its timing row (``between(engine)`` runs after the first wave,
+    its time excluded, its launches counted with the second wave's) and
+    the results."""
+    import torch
+
+    from repro_torch.kernels import common
+
+    results, wall, by_wave = [], 0.0, []
+    for i, wave in enumerate(waves):
+        common.reset_launches()
+        if i and between is not None:
+            between(engine)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results += drive(engine, wave, plant_after=None, max_new=max_new)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        by_wave.append(dict(common.LAUNCHES))
+    launches = {k: sum(w.get(k, 0) for w in by_wave) for w in by_wave for k in w}
+    m = engine.metrics()
+    row = dict(ms_per_step=1e3 * wall / m["steps"], steps=m["steps"],
+               tokens_per_s=m["tokens_emitted"] / wall,
+               launches=launches, launches_by_wave=by_wave,
+               launches_per_step={k: v / m["steps"] for k, v in sorted(launches.items())},
+               prefill_tokens_saved=m["prefill_tokens_saved"],
+               n_preemptions=m["n_preemptions"], stats=engine.stats_dict(),
+               cache=engine.cache_stats(), tiers=engine.tier_stats())
+    return dict(row=row, results=results)
+
+
+def prefix_tier_phase(report: dict) -> None:
+    """The prefix cache and the host KV tier on the paged engine at full
+    width in bf16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import detect
+    from repro_torch.serving import Engine, ServingConfig
+
+    model = report["model"]
+    wave1, wave2 = prefix_requests(model.cfg.vocab)
+    base = ServingConfig(page_size=PG, n_pages=96, max_batch=4,
+                         max_pages_per_request=PREFIX_M, repair="page")
+
+    # the cache arm, and the same waves with the cache off
+    on = _prefix_arm(Engine(model, dataclasses.replace(base, prefix_cache=True),
+                                     device="cuda"), [wave1, wave2])
+    off = _prefix_arm(Engine(model, base, device="cuda"), [wave1, wave2])
+    row, c = on["row"], on["row"]["cache"]
+    if not (c["hits"] > 0 and c["cow_forks"] > 0 and row["prefill_tokens_saved"] > 0):
+        raise AssertionError(f"prefix cache: no hits, forks or saved tokens: {c}")
+    for k in ("paged_prefill", "paged_decode"):      # wave two: the suffix prefills
+        if row["launches_by_wave"][1].get(k, 0) < 1:
+            raise AssertionError(f"prefix cache: {k} never launched in wave two "
+                                 f"({row['launches_by_wave']})")
+    same = sum(a["tokens"] == b["tokens"] for a, b in zip(on["results"], off["results"]))
+    agree = sum(x == y for a, b in zip(on["results"], off["results"])
+                for x, y in zip(a["generated"], b["generated"]))
+    log(f"timing prefix arm=cache: {json.dumps(row)} ({gpu_line()})")
+    log(f"timing prefix arm=off: ms_per_step {off['row']['ms_per_step']:.2f}, "
+        f"launches {off['row']['launches']} ({gpu_line()})")
+    log(f"prefix cache ok: hits {c['hits']}, misses {c['misses']}, hit tokens "
+        f"{c['hit_tokens']}, cow forks {c['cow_forks']}, fragment hits "
+        f"{c['fragment_hits']}, prefill tokens saved {row['prefill_tokens_saved']}; "
+        f"against the cache-off run (bf16, reported): {same}/12 requests "
+        f"token-identical, {agree}/{16 * 12} new tokens equal")
+
+    # dwell_threshold=0: a NaN planted in a cached full page before wave two
+    planted = {}
+
+    def plant(eng):
+        e = next(e for e in eng.cache._entries.values()
+                 if not e.partial and len(e.key) == PREFIX_TOKENS)
+        top = eng.pool.tree["layers/k"].shape[1] - 1      # the pool's last layer
+        at = (e.page, min(5, top), 3, 1, 17)
+        eng.pool.tree["layers/k"][at] = float("nan")
+        planted.update(entry=e, at=at, events=eng.stats_dict()["nan_found"])
+
+    def first_step(eng):
+        plant(eng)
+        for p in wave2:
+            eng.add_request(p, max_new=16)
+        eng.step()               # admission: the hit repairs from the snapshot
+        e = planted["entry"]
+        got = detect.bits_of(eng.pool.tree["layers/k"][e.page])
+        want = detect.bits_of(e.snapshot["layers/k"][0].to(got.device))
+        if not torch.equal(got, want):
+            raise AssertionError("dwell_threshold=0: the hit did not restore the "
+                                 "snapshot's bits")
+        planted["restored"] = True
+
+    eng0 = Engine(model, dataclasses.replace(base, prefix_cache=True,
+                                             dwell_threshold=0.0), device="cuda")
+    d0 = _prefix_arm(eng0, [wave1, []], between=first_step)
+    c0 = d0["row"]["cache"]
+    if not planted.get("restored") or c0["reuse_ref_repairs"] < 1 or c0["reuse_skips"]:
+        raise AssertionError(f"dwell_threshold=0: {c0}")
+    if d0["row"]["launches"].get("scrub", 0) < 1:
+        raise AssertionError("dwell_threshold=0: the partial tails' reuse scrub "
+                             f"did not launch the scrub kernel ({d0['row']['launches']})")
+    if eng0.stats_dict()["nan_found"] != planted["events"] + 1:
+        raise AssertionError(f"dwell_threshold=0: nan_found {eng0.stats_dict()}")
+    log(f"timing prefix arm=dwell0: {json.dumps(d0['row'])} ({gpu_line()})")
+    log(f"reuse repair ok: the NaN at {planted['at']} took back its snapshot's "
+        f"bits; reference repairs {c0['reuse_ref_repairs']}, reuse scrubs "
+        f"{c0['reuse_scrubs']}")
+
+    # the tier arm: six requests of 20-60 tokens growing by 48 new tokens
+    # each over a 16-page pool, so preemption swaps to the host tier
+    rng = np.random.default_rng(6)
+    grow = [rng.integers(1, model.cfg.vocab, size=int(n)).tolist()
+            for n in rng.integers(20, 61, size=6)]
+    tier = Engine(model, dataclasses.replace(base, n_pages=16, host_pages=32),
+                  device="cuda")
+    tiers, checked = tier.tiers, {"out": 0, "in": 0}
+    swap_out, swap_in = tiers.swap_out, tiers.swap_in
+
+    def bits_equal(a: dict, b: dict, what: str) -> None:
+        for path in a:
+            if not torch.equal(detect.bits_of(a[path]), detect.bits_of(b[path])):
+                raise AssertionError(f"tier: {what} bits differ in {path}")
+
+    def checked_out(pages):
+        handle = swap_out(pages)
+        if handle is not None:
+            bits_equal(tiers.host.get(handle.slots), tier.pool.pages_view(pages),
+                       "swapped-out")
+            checked["out"] += 1
+        return handle
+
+    def checked_in(handle, pages):
+        stored = tiers.host.get(handle.slots)
+        swap_in(handle, pages)
+        bits_equal(stored, tier.pool.pages_view(pages), "swapped-in")
+        checked["in"] += 1
+
+    tiers.swap_out, tiers.swap_in = checked_out, checked_in
+    t = _prefix_arm(tier, [grow], max_new=48)
+    ts = t["row"]["tiers"]
+    if ts["n_swap_preemptions"] < 1 or checked["in"] != ts["swap_ins"] or not checked["in"]:
+        raise AssertionError(f"tier: no swap round trip checked ({ts}, {checked})")
+    if ts["host_used"] or tier.prefill_tokens_recomputed:
+        raise AssertionError(f"tier: {ts}, recomputed {tier.prefill_tokens_recomputed}")
+    for k in ("scrub", "paged_prefill", "paged_decode"):
+        if t["row"]["launches"].get(k, 0) < 1:
+            raise AssertionError(f"tier: {k} never launched ({t['row']['launches']})")
+    for leaf in tier.pool.tree.values():
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError("tier: the pool is not finite")
+    log(f"timing prefix arm=tier: {json.dumps(t['row'])} ({gpu_line()})")
+    log(f"tier ok: {ts['n_swap_preemptions']} swap preemptions, {checked['out']} "
+        f"swap-outs and {checked['in']} swap-ins bit-checked, boundary scrub "
+        f"{ts['boundary_scrub_bytes']} bytes, pool finite")
+    report["prefix_tier"] = dict(cache=row, dwell0=d0["row"], tier=t["row"])
 
 
 def parity_phase(report: dict) -> None:
@@ -2291,9 +2489,10 @@ def main() -> int:
         for kernel, info in ptxas_summary(_native.build_log(name)).items():
             log(f"ptxas {name} {kernel}: " + ", ".join(info))
     report: dict = {}
-    for phase in (kernel_phase, ops_phase, engine_phase, fallback_phase, parity_phase,
-                  injection_phase, mlstm_phase, xlstm_forward_phase,
-                  xlstm_generate_phase, xlstm_depth_phase, xlstm_parity_phase):
+    for phase in (kernel_phase, ops_phase, engine_phase, fallback_phase,
+                  prefix_tier_phase, parity_phase, injection_phase, mlstm_phase,
+                  xlstm_forward_phase, xlstm_generate_phase, xlstm_depth_phase,
+                  xlstm_parity_phase):
         t0 = time.perf_counter()
         phase(report)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.2f} s")

@@ -29,7 +29,7 @@ from torch import nn
 
 from ..kernels import paged_attention as paged_kernel
 from . import initializers as ini
-from .layers import UseSites, param
+from .layers import UseSites, matmul_f32, param
 from .rotary import apply_rope
 
 NEG_INF = -1e30
@@ -67,9 +67,9 @@ class Attention(nn.Module):
     # ------------------------------------------------------------ helpers
     def _proj(self, x, w: str, b: str):
         read = self.reads.read
-        y = torch.matmul(x, read(w, getattr(self, w)))
+        y = matmul_f32(x, read(w, getattr(self, w)))
         if self.qkv_bias:
-            y = y.float() + read(b, getattr(self, b)).float()
+            y = y + read(b, getattr(self, b)).float()
         return y.to(self.dtype)
 
     def qkv(self, x: torch.Tensor):

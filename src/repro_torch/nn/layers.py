@@ -13,6 +13,9 @@ prefix (``layers/attn``, ``embed``, ...), and reads each weight through
 repair depends on ``rcfg`` and the path alone (``runtime.space.read_rule``),
 so each module decides it once, at construction (``read_site``): where it
 cannot, the read is the bare tensor with no call at all.
+
+Products the reference forms with ``preferred_element_type=f32`` go through
+``matmul_f32``, which keeps them in f32 until the caller rounds, once.
 """
 from __future__ import annotations
 
@@ -31,6 +34,23 @@ def param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(
         torch.empty(shape, dtype=dtype, device=device), requires_grad=False
     )
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (``a`` (..., K), ``b`` (K, N)) with an f32 result.
+
+    16-bit operands on the card: one GEMM with f32 output
+    (``torch.mm(..., out_dtype=torch.float32)``), so the product is rounded
+    once, by the caller, and the weights are read in their own dtype.  On
+    the CPU: the f32 product of the same values (each 16-bit product is
+    exact in f32; only the summation order differs from the reference).
+    f32 operands: the plain product (TF32 stays off)."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.device.type == "cuda":
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
 
 
 def sub_path(prefix: str, name: str) -> str:
@@ -92,6 +112,5 @@ class Embedding(nn.Module):
         return self.reads.read("table", self.table)[tokens.long()]
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """Tied readout: logits = x @ table.T, returned in f32 (computed in
-        the weights' dtype with the library's f32 accumulation)."""
-        return torch.matmul(x, self.reads.read("table", self.table).t()).float()
+        """Tied readout: logits = x @ table.T, the f32 product."""
+        return matmul_f32(x, self.reads.read("table", self.table).t())

@@ -7,7 +7,7 @@ import torch
 from torch import nn
 
 from . import initializers as ini
-from .layers import UseSites, param
+from .layers import UseSites, matmul_f32, param
 
 _WEIGHTS = ("w_gate", "w_up", "w_down")
 
@@ -24,7 +24,7 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         read = self.reads.read
-        g = torch.matmul(x, read("w_gate", self.w_gate)).float()
-        u = torch.matmul(x, read("w_up", self.w_up)).float()
+        g = matmul_f32(x, read("w_gate", self.w_gate))
+        u = matmul_f32(x, read("w_up", self.w_up))
         h = (torch.nn.functional.silu(g) * u).to(x.dtype)
         return torch.matmul(h, read("w_down", self.w_down)).to(x.dtype)

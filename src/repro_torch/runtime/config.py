@@ -65,6 +65,16 @@ class ApproxConfig:
     def resolved_ber(self) -> float:
         return self.ber if self.ber is not None else self.memory_model.ber
 
+    def expected_faults(self, n_bytes: int, windows: float,
+                        ber: Optional[float] = None) -> float:
+        """Expected fatal-bit count of ``n_bytes`` of approximate memory
+        after ``windows`` refresh windows: ``bits × ber × windows`` (the
+        per-window BER is memoryless, so the expectation is linear in dwell
+        time).  ``ber`` defaults to the refresh model's; the serving prefix
+        cache passes the engine's simulation BER."""
+        b = self.resolved_ber if ber is None else ber
+        return float(n_bytes) * 8.0 * float(b) * max(float(windows), 0.0)
+
     @staticmethod
     def from_legacy(cfg: Any, **overrides) -> "ApproxConfig":
         """Lift any object with the four repair fields (an ``ApproxConfig``

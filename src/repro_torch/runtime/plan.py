@@ -3,6 +3,10 @@
   scope       "none"    no-op (non-memory modes)
               "tree"    every approximate-region float leaf
               "pages"   rows ``page_ids`` of the leading page axis
+              "reference" fatal lanes take a reference tree's bits (the
+                        prefix cache's snapshots): a forced pass in every
+                        repair mode, plain ``torch.where`` on each rule's
+                        fatal masks, as the reference's has no kernel
               "inject"  the simulation boundary (one bit-flip window)
   placement   "kernel"  tree and pages scrubs go through the scrub wrapper
                         (``kernels.scrub``): its CUDA kernel for tensors on
@@ -35,7 +39,7 @@ from ..kernels import scrub as scrub_kernel
 
 __all__ = ["RepairPlan", "plan_for", "serving_scope", "SCOPES"]
 
-SCOPES = ("none", "tree", "pages", "inject")
+SCOPES = ("none", "tree", "pages", "reference", "inject")
 
 _SERVING_SCOPE = {"off": "none", "whole": "tree", "page": "pages"}
 
@@ -134,6 +138,7 @@ class RepairPlan:
         *,
         page_ids=None,
         generator: Optional[torch.Generator] = None,
+        reference: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Any]:
         """Run the pass over ``tree`` (tensors updated in place).  Returns
         ``(tree, stats delta)``, or ``(tree, n_flips)`` for "inject"."""
@@ -141,6 +146,11 @@ class RepairPlan:
             return tree, (0 if self.ber is not None else stats_lib.zeros())
         if self.scope == "inject":
             return tree, self._inject(tree, generator)
+        if self.scope == "reference":
+            return tree, self._fold([
+                (p, self._reference_leaf(leaf, rule, reference[p]))
+                for p, leaf, rule in self._firing(tree)
+            ])
         if self.scope == "tree":
             return tree, self._fold(
                 [(p, self._scrub_leaf(leaf, rule)) for p, leaf, rule in self._firing(tree)]
@@ -181,6 +191,14 @@ class RepairPlan:
         valid = (torch.arange(len(padded), device=leaf.device) < n_valid)
         valid = valid.reshape((-1,) + (1,) * (rows.dim() - 1))
         return torch.stack([(nan_m & valid).sum(), (inf_m & valid).sum()])
+
+    @staticmethod
+    def _reference_leaf(leaf, rule, ref) -> torch.Tensor:
+        """Fatal lanes (by the rule's detector) take ``ref``'s bits."""
+        nan_m, inf_m = rule.detect.masks(leaf)
+        ref = ref.to(device=leaf.device, dtype=leaf.dtype)
+        leaf.copy_(torch.where(nan_m | inf_m, ref, leaf))
+        return torch.stack([nan_m.sum(), inf_m.sum()])
 
     def _inject(self, tree, generator) -> int:
         flips = 0

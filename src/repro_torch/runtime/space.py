@@ -8,8 +8,10 @@ its tensors in place and return the same dict.  Every mechanism has a pure
 form (pass ``stats``, get ``(tree, stats')`` back) and a convenience form
 (omit ``stats``; deltas accumulate in ``self.stats``).  ``use`` is the
 register-mode read of one tensor; unlike the passes it returns a repaired
-copy and leaves its input as it was.  ``wrap_serve_step`` installs the
-boundary scrub around a serve step.  Not ported yet: reference repair, the
+copy and leaves its input as it was.  ``scrub_with_reference`` restores
+fatal lanes from a reference tree (the prefix cache's page snapshots).
+``wrap_serve_step`` installs the boundary scrub around a serve step.  Not
+ported yet: the checkpoint manager's use of reference repair, the
 train-step decorator and meshes (ROADMAP).
 """
 from __future__ import annotations
@@ -162,6 +164,16 @@ class ApproxSpace:
         plan = self.plan_for(tree, scope="pages", trigger=trigger)
         out, delta = plan.run(tree, page_ids=ids)
         self.scrubbed_bytes += int(ids.size) * plan.page_row_bytes
+        return self._thread_stats(out, delta, stats)
+
+    def scrub_with_reference(self, tree: Tree, ref_tree: Tree,
+                             stats: Optional[stats_lib.Stats] = None):
+        """Reference repair, in place: each approximate float leaf's fatal
+        lanes, by its rule's detector, take ``ref_tree``'s exact bits.  A
+        forced pass, in every repair mode (an explicit request)."""
+        plan = self.plan_for(tree, scope="reference")
+        out, delta = plan.run(tree, reference=ref_tree)
+        self.scrubbed_bytes += plan.bytes_per_run
         return self._thread_stats(out, delta, stats)
 
     def _thread_stats(self, out, delta, stats):

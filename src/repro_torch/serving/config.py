@@ -1,9 +1,9 @@
 """`ServingConfig` — the knob surface of the continuous-batching engine.
 
-Same fields, defaults and validation as the reference.  Options whose code
-is not ported yet raise ``NotImplementedError`` naming the ROADMAP item:
-``prefix_cache``, ``host_pages > 0`` and ``autopilot``.  Field meanings
-are documented on the reference's ``repro.serving.config.ServingConfig``.
+Same fields, defaults and validation as the reference.  The one option
+whose code is not ported yet, ``autopilot``, raises ``NotImplementedError``
+naming the ROADMAP item.  Field meanings are documented on the reference's
+``repro.serving.config.ServingConfig``.
 """
 from __future__ import annotations
 
@@ -79,16 +79,10 @@ class ServingConfig:
                 "max_cached_pages must lie in [0, n_pages] "
                 f"({self.max_cached_pages} vs {self.n_pages})"
             )
-        unported = {
-            "prefix_cache=True": (self.prefix_cache, "serving/prefix_cache.py"),
-            "host_pages>0": (self.host_pages > 0, "serving/tiers.py"),
-            "autopilot": (self.autopilot is not None, "autopilot/"),
-        }
-        for option, (asked, item) in unported.items():
-            if asked:
-                raise NotImplementedError(
-                    f"ServingConfig {option} is not ported: {_ROADMAP}, {item}"
-                )
+        if self.autopilot is not None:
+            raise NotImplementedError(
+                f"ServingConfig autopilot is not ported: {_ROADMAP}, autopilot/"
+            )
 
     @property
     def max_seq(self) -> int:

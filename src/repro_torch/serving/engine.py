@@ -10,13 +10,19 @@ One step:
 
   0. the deferred stats drain (``drain_interval > 0``, when due)
   1. one approximate-memory window strikes the pool (``ber > 0`` only)
-  2. admission: waiting requests get zeroed pages and a decode slot; on the
-     gathered prefill a probe over the fresh pages and the null page runs
-     first, then one whole-prompt ``Model.prefill`` per admission over the
-     request's gathered view
+  2. admission: waiting requests get zeroed pages and a decode slot, or,
+     with the prefix cache, the shared pages of their longest cached prefix
+     and fresh pages for the rest; on the gathered prefill a probe over the
+     fresh pages and the null page runs first.  A request swapped out to
+     the host tier is written back instead of re-prefilled.  A cache hit's
+     scrub on reuse and copy-on-write fork run next (``prepare_hit``), then,
+     on the gathered prefill, one ``Model.prefill`` per admission over the
+     request's gathered view, from the first uncached position
   3. the paged prefill lane: one prompt chunk per mid-prefill request
-     through the paged prefill kernel, straight off the pool, then ONE
-     reactive scrub from the summed per-page fatal counts
+     through the paged prefill kernel, straight off the pool (a cache hit's
+     suffix starts at its match length), then ONE reactive scrub from the
+     summed per-page fatal counts, so a page shared by several requests is
+     charged once a step
   4. one decode step over the static ``(max_batch, M)`` slot batch: through
      the paged decode kernel (split-K when ``resolve_split_k() > 1``), then
      the reactive scrub of the pages its counts flagged; or, on the
@@ -37,6 +43,10 @@ lanes' counters accumulate on the device and one readback every N steps
 drives the scrub of the union of flagged pages: the kernels repair on read
 with a value-independent fill, so the tokens do not depend on when the
 scrub writes the repair back, and ``n_host_syncs`` falls.
+
+A prefix is cached once its prefill completes (``PrefixCache.insert``,
+before the request can finish).  ``cache_stats()`` and ``tier_stats()``
+report the cache and the host tier.
 """
 from __future__ import annotations
 
@@ -56,8 +66,10 @@ from ..runtime import ApproxSpace, ScrubSchedule
 from ..runtime.plan import serving_scope
 from .config import ServingConfig
 from .pool import PagedKVPool
+from .prefix_cache import PrefixCache
 from .repair import PageRepairManager
 from .scheduler import Request, RequestState, Scheduler
+from .tiers import TierManager
 
 
 def engine_space(model: Any) -> ApproxSpace:
@@ -165,7 +177,12 @@ class Engine:
         self.stage_wall_s: Dict[str, float] = {
             "admit": 0.0, "prefill": 0.0, "decode": 0.0, "repair": 0.0,
         }
-        self.sched = Scheduler(self.pool, self.cfg)
+        self.tiers = (TierManager(self.pool, self.space, self.cfg)
+                      if self.cfg.host_pages > 0 else None)
+        self.cache = (PrefixCache(self.pool, self.space, self.cfg, tiers=self.tiers)
+                      if self.cfg.prefix_cache else None)
+        self.sched = Scheduler(self.pool, self.cfg, cache=self.cache,
+                               tiers=self.tiers)
         self.repair = PageRepairManager(
             self.pool, self.space, self.cfg, on_host_sync=self._note_host_sync
         )
@@ -197,6 +214,8 @@ class Engine:
         )
         self._last_touched: List[int] = []
         self.tokens_emitted = 0
+        self.prefill_tokens_saved = 0
+        # tokens a re-prefill processed again after a recompute preemption
         self.prefill_tokens_recomputed = 0
 
     # ------------------------------------------------------------------ admit
@@ -239,7 +258,11 @@ class Engine:
         # (2) admission: fresh pages are zeroed.  The paged prefill kernel
         # is the detector; the gathered prefill probes the fresh pages (the
         # null page rides along) before its whole-prompt pass, whose wall
-        # time lands in "admit"
+        # time lands in "admit".  Shared pages are left out of the probe
+        # (their admission policy is the scrub on reuse), and so are pages
+        # about to take a swapped-in context's exact bits.  A preempted
+        # member of the lane leaves it here; a swapped one rejoins it where
+        # it left off once swapped in
         t_admit = time.perf_counter()
         self._prefilling = [
             r for r in self._prefilling if r.state is RequestState.RUNNING
@@ -247,16 +270,36 @@ class Engine:
         plan = self.sched.step_plan(self._prefilling)
         if plan.admitted:
             pages = sorted({p for r in plan.admitted for p in r.pages})
-            if pages and not self._paged_prefill:
-                self._stream = self.repair.repair_step(pages, self._stream)
+            shared = {
+                e.page
+                for r in plan.admitted if r.cache_hit is not None
+                for e in (*r.cache_hit.full, r.cache_hit.partial) if e is not None
+            }
+            swapped = {p for r in plan.admitted if r.swap is not None
+                       for p in r.pages}
+            fresh = sorted(set(pages) - shared - swapped)
+            if fresh and not self._paged_prefill:
+                self._stream = self.repair.repair_step(fresh, self._stream)
             self._last_touched = pages
         for req in plan.admitted:
+            if req.swap is not None:
+                handle, req.swap = req.swap, None
+                self.tiers.swap_in(handle, req.pages)
+                if req.prefill_pos is not None and self._paged_prefill:
+                    self._prefilling.append(req)
+                continue
+            if self.cache is not None:
+                self._stream = self.cache.prepare_hit(req, self._stream)
             if self._paged_prefill:
                 if req.prefill_pos is None:
                     req.prefill_pos = 0
                 self._prefilling.append(req)
                 continue
             self._prefill(req, emitted)
+            if self.cache is not None:
+                # before finish: the cache's own references keep the
+                # prefix resident when the request finishes at once
+                self.cache.insert(req)
             if req.state is RequestState.RUNNING and self._maybe_finish(req):
                 finished.append(req.rid)
         self.stage_wall_s["admit"] += time.perf_counter() - t_admit
@@ -275,6 +318,8 @@ class Engine:
                 if not done:
                     still.append(req)
                     continue
+                if self.cache is not None:
+                    self.cache.insert(req)
                 if req.state is RequestState.RUNNING and self._maybe_finish(req):
                     finished.append(req.rid)
             self._prefilling = still
@@ -419,28 +464,34 @@ class Engine:
         return self.sched.ensure_capacity(req)
 
     def _prefill(self, req: Request, emitted: Dict[int, List[int]]) -> None:
-        """The gathered prefill: the whole (re-)prefill context in one
-        ``Model.prefill`` call over the request's gathered pages."""
+        """The gathered prefill: the (re-)prefill context past the cached
+        prefix in one ``Model.prefill`` call over the request's gathered
+        pages, from cache position ``req.cached_tokens``."""
         toks = req.prefill_tokens()
+        n_cached = req.cached_tokens
         bt = self.pool.block_table(req.pages)[None, :]
         view = self.pool.gather(bt)
-        tokens = torch.as_tensor([toks], dtype=torch.int64, device=self.device)
-        nxt, _, view, self._stream = self._step_fn(view, tokens, 0, self._stream)
+        tokens = torch.as_tensor([toks[n_cached:]], dtype=torch.int64,
+                                 device=self.device)
+        nxt, _, view, self._stream = self._step_fn(view, tokens, n_cached,
+                                                   self._stream)
         self.pool.scatter(view, bt)
         req.pos = len(toks)
+        self.prefill_tokens_saved += n_cached
         if req.n_preempted:
-            self.prefill_tokens_recomputed += len(toks)
+            self.prefill_tokens_recomputed += len(toks) - n_cached
         tok = int(self._host(nxt)[0])
         req.tokens.append(tok)
         emitted.setdefault(req.rid, []).append(tok)
 
     def _prefill_paged(self, req: Request, emitted: Dict[int, List[int]]):
         """One prompt chunk straight off the pool (``prefill_chunk == 0``:
-        the whole remaining context).  Returns the per-page fatal counts and
-        the counter vector as device tensors, and whether the prefill is
-        complete (the first token is emitted only then)."""
+        the whole remaining context); a cache hit's first chunk starts at
+        its match length.  Returns the per-page fatal counts and the counter
+        vector as device tensors, and whether the prefill is complete (the
+        first token is emitted only then)."""
         toks = req.prefill_tokens()
-        start = req.prefill_pos
+        start = req.cached_tokens + req.prefill_pos
         rest = toks[start:]
         width = len(rest) if self.cfg.prefill_chunk == 0 else self.cfg.prefill_chunk
         chunk = rest[:width]
@@ -463,8 +514,9 @@ class Engine:
         if done:
             req.pos = len(toks)
             req.prefill_pos = None
+            self.prefill_tokens_saved += req.cached_tokens
             if req.n_preempted:
-                self.prefill_tokens_recomputed += len(toks)
+                self.prefill_tokens_recomputed += len(toks) - req.cached_tokens
             tok = int(self._host(nxt))
             req.tokens.append(tok)
             emitted.setdefault(req.rid, []).append(tok)
@@ -544,6 +596,31 @@ class Engine:
     def rule_stats(self) -> Dict[str, Dict[str, int]]:
         return self.space.rule_stats()
 
+    def cache_stats(self) -> Dict[str, Any]:
+        """The prefix cache's counters (``{"enabled": False, ...}`` when it
+        is off)."""
+        out: Dict[str, Any] = {
+            "enabled": self.cache is not None,
+            "prefill_tokens_saved": self.prefill_tokens_saved,
+        }
+        if self.cache is not None:
+            out.update(self.cache.stats())
+        return out
+
+    def tier_stats(self) -> Dict[str, Any]:
+        """The host tier's counters: swap traffic, the boundary-scrub byte
+        ledger and the recompute fallbacks (``{"enabled": False, ...}`` when
+        ``host_pages == 0``)."""
+        out: Dict[str, Any] = {
+            "enabled": self.tiers is not None,
+            "swap_policy": self.cfg.swap_policy,
+            "n_swap_preemptions": self.sched.n_swap_preemptions,
+            "prefill_tokens_recomputed": self.prefill_tokens_recomputed,
+        }
+        if self.tiers is not None:
+            out.update(self.tiers.stats())
+        return out
+
     def metrics(self) -> Dict[str, Any]:
         self.drain()        # metrics reflect a fully flushed engine
         toks = max(self.tokens_emitted, 1)
@@ -555,8 +632,10 @@ class Engine:
             "host_syncs_per_step": self.n_host_syncs / steps,
             "drain_interval": self.cfg.drain_interval,
             "stage_wall_s": dict(self.stage_wall_s),
+            "prefill_tokens_saved": self.prefill_tokens_saved,
             "prefill_tokens_recomputed": self.prefill_tokens_recomputed,
             "n_preemptions": self.sched.n_preemptions,
+            "n_swap_preemptions": self.sched.n_swap_preemptions,
             "scrubbed_bytes": self.pool.scrubbed_bytes,
             "scrub_calls": self.pool.scrub_calls,
             "scrubbed_bytes_per_token": self.pool.scrubbed_bytes / toks,

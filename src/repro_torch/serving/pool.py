@@ -11,6 +11,14 @@ The paged kernels read the pool straight through block tables.  The
 gathered-view fallback copies a batch of block tables out as the model's
 dense cache (``gather``) and writes it back (``scatter``); both are counted
 (``n_gathers``, ``n_scatters``), so tests can tell the paths apart.
+
+Pages are refcounted: ``alloc`` hands a page out with one reference,
+``share`` adds a holder (the prefix cache, a request admitted onto a cached
+prefix), ``free`` drops one and returns the page to the free list at zero.
+The dwell clock (``now - page_clean_step``) is what the prefix cache charges
+before it re-shares a page.  ``pages_view`` and ``snapshot_page`` are host
+copies (blocking copies off the card), so recycling the device page later
+never changes them; ``write_pages`` puts such rows back into live pages.
 """
 from __future__ import annotations
 
@@ -62,6 +70,20 @@ class PagedKVPool:
     def n_free(self) -> int:
         return len(self._free)
 
+    @property
+    def total_bytes(self) -> int:
+        """Bytes of the whole pool's float leaves."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for leaf in self.tree.values() if leaf.is_floating_point())
+
+    @property
+    def page_bytes(self) -> int:
+        return self.total_bytes // (self.cfg.n_pages + 1)
+
+    def _check_page(self, p: int) -> None:
+        if not 0 <= p < self.null_page:
+            raise ValueError(f"bad page id {p}")
+
     # ------------------------------------------------------------ allocation
     def alloc(self, n: int) -> Optional[List[int]]:
         """Allocate ``n`` zeroed pages, or None when the pool cannot."""
@@ -78,23 +100,77 @@ class PagedKVPool:
             self.page_clean_step[pages] = self.now
         return pages
 
+    def share(self, pages: Sequence[int]) -> None:
+        """Add one reference to each page (a new holder).  Sharing a free
+        page raises."""
+        for p in pages:
+            self._check_page(p)
+            if self._refcount[p] <= 0:
+                raise RuntimeError(f"sharing free page {p}")
+            self._refcount[p] += 1
+
     def free(self, pages: Sequence[int]) -> None:
         """Release one reference per page; a page returns to the free list
         when its last holder lets go.  A double free raises."""
         for p in pages:
-            if not 0 <= p < self.null_page:
-                raise ValueError(f"bad page id {p}")
+            self._check_page(p)
             if self._refcount[p] <= 0:
                 raise RuntimeError(f"double free of page {p} (no live reference)")
             self._refcount[p] -= 1
             if self._refcount[p] == 0:
                 self._free.append(p)
 
+    def refcount(self, page: int) -> int:
+        return int(self._refcount[page])
+
     def is_free(self, page: int) -> bool:
         return self._refcount[page] == 0
 
+    def dwell(self, page: int) -> int:
+        """Engine steps (injection windows) since ``page`` was last known
+        clean."""
+        return int(self.now - self.page_clean_step[page])
+
     def mark_clean(self, pages: Sequence[int]) -> None:
         self.page_clean_step[sorted(set(pages))] = self.now
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy page ``src``'s rows into ``dst`` on the device (the prefix
+        cache's copy-on-write fork); the clone inherits ``src``'s dwell
+        stamp."""
+        for leaf in self.tree.values():
+            if leaf.is_floating_point():
+                leaf[dst] = leaf[src]
+        self.page_clean_step[dst] = self.page_clean_step[src]
+
+    def pages_view(self, pages: Sequence[int]) -> dict:
+        """Host copies of several pages' rows, ``{path: (n, L, pg, Kh,
+        Dh)}`` in ``pages`` order.  The copy off the card blocks until the
+        rows have arrived, so a later ``free``/``alloc`` of the device pages
+        cannot change it."""
+        idx = torch.as_tensor(list(pages), dtype=torch.long, device=self.device)
+        return {
+            path: leaf.index_select(0, idx).cpu()
+            for path, leaf in self.tree.items() if leaf.is_floating_point()
+        }
+
+    def snapshot_page(self, page: int) -> dict:
+        """Host copy of one page's rows (leading axis 1): the prefix cache's
+        reference for reference repair."""
+        return self.pages_view([page])
+
+    def write_pages(self, pages: Sequence[int], views: dict) -> None:
+        """Write page rows (leading axis in ``pages`` order) into live pool
+        pages, the tier's swap-in.  Writing into a free page raises."""
+        pages = list(pages)
+        for p in pages:
+            self._check_page(p)
+            if self._refcount[p] <= 0:
+                raise RuntimeError(f"writing into free page {p}")
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        for path, leaf in self.tree.items():
+            if leaf.is_floating_point():
+                leaf[idx] = views[path].to(device=self.device, dtype=leaf.dtype)
 
     def block_table(self, pages: Sequence[int]) -> np.ndarray:
         """Fixed-width block table row, null-padded."""
@@ -217,6 +293,25 @@ class PagedKVPool:
         if scope == "tree":
             return self.scrub_all(stats, trigger=trigger)
         assert scope == "none", f"bad plan scope {scope!r}"
+        return stats
+
+    def reference_repair_page(self, page: int, snapshot: dict,
+                              stats: stats_lib.Stats) -> stats_lib.Stats:
+        """Repair one page against its host snapshot: fatal lanes take the
+        exact bits the page held when it was cached.  Charged like a page
+        scrub (one page row's bytes), and the page is stamped clean."""
+        idx = torch.as_tensor([page], dtype=torch.long, device=self.device)
+        view = {path: leaf.index_select(0, idx) for path, leaf in self.tree.items()}
+        plan = self.space.plan_for(view, scope="reference")
+        if plan.bytes_per_run == 0:
+            return stats
+        view, stats = self.space.scrub_with_reference(view, snapshot, stats)
+        for path, leaf in self.tree.items():
+            leaf[idx] = view[path]
+        self.page_scrubs[page] += 1
+        self.scrubbed_bytes += plan.bytes_per_run
+        self.scrub_calls += 1
+        self.mark_clean([page])
         return stats
 
     def attribute(self, page_ids: Sequence[int], n_events: int) -> None:

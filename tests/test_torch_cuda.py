@@ -133,6 +133,66 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     assert outs[0][2]["nan_found"] == 1 and outs[0][2]["inf_found"] == 1
 
 
+@pytest.mark.cuda
+def test_prefix_cache_and_tier_on_the_card_match_the_cpu(cuda):
+    """The tiny f32 engine with the prefix cache and the host tier: cache
+    hits with copy-on-write forks, a NaN in a cached full page taking back
+    its snapshot's bits (``dwell_threshold=0``), and preemptions swapping
+    through the pinned host store — identical on the card and the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        get_config("qwen2-1.5b").reduced(), n_layers=2, d_model=64, n_heads=4,
+        n_kv=2, head_dim=16, d_ff=128, vocab=97, repair=ApproxConfig(mode="off"),
+    )
+    gpu = TransformerLM(cfg, device=cuda, seed=0)
+    cpu = TransformerLM(cfg, device="cpu", seed=1)
+    cpu.load_state_dict({n: p.cpu() for n, p in gpu.state_dict().items()})
+    scfg = ServingConfig(page_size=4, n_pages=10, max_batch=4, max_pages_per_request=5,
+                         prefix_cache=True, dwell_threshold=0.0, host_pages=12)
+    shared = [1, 2, 3, 4, 5, 6, 7, 8]
+    outs = []
+    for model, dev in ((gpu, cuda), (cpu, "cpu")):
+        eng = Engine(model, scfg, device=dev)
+        assert eng.tiers.host._buffers["layers/k"].is_pinned() == (dev != "cpu")
+        eng.add_request(shared + [9, 10], max_new=4)
+        eng.run()
+        e = next(e for e in eng.cache._entries.values() if not e.partial)
+        eng.pool.tree["layers/k"][e.page, 1, 2, 0, 3] = float("nan")
+        for i in range(6):
+            eng.add_request(shared + [9 + i, 20 + i], max_new=10)
+        eng.step()              # the first hit repairs the page from its snapshot
+        assert torch.equal(detect.bits_of(eng.pool.tree["layers/k"][e.page].cpu()),
+                           detect.bits_of(e.snapshot["layers/k"][0]))
+        eng.run()
+        outs.append((
+            {r: res["tokens"] for r, res in eng.results.items()},
+            eng.pool.page_events.tolist(), eng.stats_dict(), eng.cache_stats(),
+            eng.tier_stats(), eng.kernel_counts.tolist(), eng.n_host_syncs,
+        ))
+    assert outs[0] == outs[1]
+    cache, tiers = outs[0][3], outs[0][4]
+    assert cache["reuse_ref_repairs"] > 0 and cache["cow_forks"] > 0
+    assert tiers["n_swap_preemptions"] > 0 and tiers["swap_ins"] == tiers["swap_outs"]
+
+
+@pytest.mark.cuda
+def test_matmul_f32_on_the_card(cuda):
+    """bf16 operands on the card: one GEMM with an f32 result, equal to the
+    f32 product of the same values up to the summation order, also for a
+    transposed weight view (the tied readout's)."""
+    from repro_torch.nn.layers import matmul_f32
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((3, 5, 256), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((256, 96), generator=gen, device=cuda).bfloat16()
+    for b in (w, w.t().contiguous().t()):
+        got = matmul_f32(a, b)
+        want = torch.matmul(a.float(), b.float())
+        assert got.dtype == torch.float32 and got.shape == (3, 5, 96)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 def _plant(x, seed):
     """NaN, ±Inf, a range-guard value (3e4) and a bit-pattern value (3.0)
     at seeded positions of ``x`` (in place)."""

@@ -212,9 +212,7 @@ def test_default_device_is_the_card(models, monkeypatch):
                                              max_pages_per_request=4))
 
 
-@pytest.mark.parametrize("option", [
-    dict(prefix_cache=True), dict(host_pages=4), dict(autopilot=object()),
-])
+@pytest.mark.parametrize("option", [dict(autopilot=object())])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingConfig(page_size=4, n_pages=8, max_batch=2,
