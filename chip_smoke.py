@@ -30,7 +30,14 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      operation a call, and (b) the whole-buffer scrub of the xLSTM cache's
      mLSTM C at xlstm-1.3b width, batch 4 (2.82 GB f32), held bit for bit
      and count for count against ``scrub_plain`` on the same planted input,
-     then timed clean and planted beside its bound
+     then timed clean and planted beside its bound; ``neighbor_mean`` on the
+     same pool (f32 and bf16, both fills and the K-only mean beside a zero
+     V fill under the range detector): every decode and prefill route and
+     the page scrub against their plain versions, and ``tile_fill``'s
+     per-page table against the plain table (``nm ok`` lines; each page,
+     and each of the scrub's tiles, carries its own offset, and each line
+     ends with its controls, which must fail its comparison: the zero
+     fill, and each operand's table rolled one tile)
   2b. ops: the paper's fused-repair ops at Qwen2-1.5B width — repair_matmul
      on the MLP projections of a 2,048-token prefill (f32, bf16, and A bf16
      with B f32) and flash_attention at B=1, H=12, Kh=2, S=T=2048, D=128
@@ -54,7 +61,15 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      bf16 at S=T=2048 on planted and on clean operands (the wgmma kernel
      must show in the profile; scan, main kernel and counts apart, beside
      SDPA's call; the clean call also replayed from a CUDA graph) and in
-     f32 (the FFMA route)
+     f32 (the FFMA route); ``neighbor_mean`` (``nm ok`` lines): the gate/up
+     product and the 2,048-token attention in bf16 (wgmma routes), the
+     quickstart's f32 shapes (FFMA routes), each against its plain version,
+     each operand's ``tile_fill`` table against the plain one, memory
+     mode's origin scrub against the plain scrub, on operands whose tiles
+     carry their own offsets, with the controls as above; one ``timing tile_fill``
+     line (device ms at the gate/up A operand and at the engine pool's
+     layer beside their bytes bounds, and the calls with the mean against
+     the zero fill's)
   3. the engine at full width (28 layers, bf16, random weights from seed
      0): 6 requests, faults planted after step 3, repair and launch checks
   3b. the fallback arms on the same model and requests, each cold (its
@@ -91,8 +106,11 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      same values 2 bytes off alignment on the FFMA route,
      ``kernels.mlstm_chunk.route``), NaN/±Inf planted in q, k and v, fills
      zero and constant, include_inf on and off: counts equal to the plain
-     version's on the card, outputs within MLSTM_TOL; then the bf16
-     operands timed on both routes beside the bound
+     version's on the card, outputs within MLSTM_TOL; ``neighbor_mean`` on
+     both bf16 routes with one v tile fatal in every lane (tiles offset,
+     the controls as above); ``nm launches``:
+     the kernels the ``neighbor_mean`` calls launched, each at least once;
+     then the bf16 operands timed on both routes beside the bound
   7. the xLSTM forward at full xlstm-1.3b width (48 blocks, bf16, random
      weights from seed 0), 2,048 prompt tokens: one kernel launch per mLSTM
      block (42), zero counts, finite logits; the same forward with the
@@ -117,6 +135,8 @@ missing.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import re
@@ -148,6 +168,12 @@ LAYER = 5
 #   f16  — f16 outputs (one ulp near 1 is 2^-10) and weights rounded to
 #          f16 on flash_attention's wgmma route (tests/test_torch_cuda.py's)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 1e-2}
+# a neighbor_mean lane, kernel (tile_fill's table) vs plain version
+# (common.tile_means): the two sum a tile in different orders, so the mean
+# may differ in its last place; the reference scrub tests' tolerance
+NM_FILL_TOL = {"float32": dict(rtol=1e-6, atol=1e-6),
+               "bfloat16": dict(rtol=1e-2, atol=1e-6),
+               "float16": dict(rtol=1e-2, atol=1e-6)}
 
 
 def log(*a):
@@ -282,6 +308,7 @@ KERNEL_NAMES = {
     # FFMA route: qk + scan; wgmma route: prep + scan_wgmma ("mlstm_scan"
     # matches both scans)
     "mlstm_chunk": ("mlstm_qk", "mlstm_prep", "mlstm_scan"),
+    "tile_fill": ("tile_fill",),
 }
 # the mLSTM routes' kernels, named apart for their device-time split
 MLSTM_KERNELS = {"ffma": ("mlstm_qk", "mlstm_scan<"),
@@ -317,12 +344,19 @@ def kernel_phase(report: dict) -> None:
     import torch
 
     from repro_torch.core import detect
+    from repro_torch.kernels import common, tile_fill
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import scrub as sk
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    report["nm_launches"] = collections.Counter()
+    report["nm_err"] = nm_err = dict(tile_fill=0.0, paged=0.0, scrub=0.0,
+                                     repair_matmul=0.0, flash_attention=0.0,
+                                     mlstm_chunk=0.0)
     n_real = [8, 5, 3, 1]
+    cols = PG * KH * DH                 # one page of one layer: its nm tile
+    layer_view = dict(row_stride=L * cols, offset=LAYER * cols)
     perm = torch.randperm(P - 1, generator=gen, device=dev).tolist()
     bt_rows, cursor = [], 0
     for n in n_real:
@@ -334,10 +368,25 @@ def kernel_phase(report: dict) -> None:
                                 dtype=torch.int32, device=dev) for c in (C, C_LONG)}
     scrub_ids = [bt_rows[0][1], bt_rows[1][0], NULL]
 
-    def fresh(dtype):
+    def fresh(dtype, nm=False):
+        """The pools, decode q and prefill chunks, planted.  With ``nm``,
+        the neighbor_mean operands: each page of the layer carries its own
+        offset (the page is one logical tile), and request 3, whose lanes
+        all sit in one page (page p3, offset NM_OFFSETS[0] > 0), gets lanes
+        a wrong fill must move: V lane 5 of KV head 0 NaN in every slot
+        (its output lane there is V's fill, whatever the weights), K of
+        slot 1 of KV head 1 NaN in every lane, and q of that head group
+        biased against p3's sign (p3's keys score alike with the right
+        fill; slot 1 takes the row over with a zero or negative one)."""
         g = torch.Generator(device=dev).manual_seed(1)
-        kp = torch.randn((P, L, PG, KH, DH), generator=g, device=dev).to(dtype)
-        vp = torch.randn((P, L, PG, KH, DH), generator=g, device=dev).to(dtype)
+        kp = torch.randn((P, L, PG, KH, DH), generator=g, device=dev)
+        vp = torch.randn((P, L, PG, KH, DH), generator=g, device=dev)
+        if nm:
+            for t in (kp, vp):
+                t[:, LAYER] += _tile_offsets(P, cols, (1, cols), dev,
+                                             first=bt_rows[3][0]).view(
+                    P, PG, KH, DH)
+        kp, vp = kp.to(dtype), vp.to(dtype)
         plant = [
             (kp, (bt_rows[0][1], LAYER, 3, 0, 10), float("nan")),
             (kp, (bt_rows[1][0], LAYER, 0, 1, 100), float("inf")),
@@ -354,10 +403,18 @@ def kernel_phase(report: dict) -> None:
         ]
         for t, idx, val in plant:
             t[idx] = val
-        q = torch.randn((B, H, DH), generator=g, device=dev).to(dtype)
-        qcs = {c: torch.randn((B, c, H, DH), generator=g, device=dev).to(dtype)
+        q = torch.randn((B, H, DH), generator=g, device=dev)
+        qcs = {c: torch.randn((B, c, H, DH), generator=g, device=dev)
                for c in (C, C_LONG)}
-        return kp, vp, q, qcs
+        if nm:
+            p3 = bt_rows[3][0]
+            vp[p3, LAYER, :, 0, 5] = float("nan")
+            kp[p3, LAYER, 1, 1, :] = float("nan")
+            q[3, H // KH:] -= 1.0
+            for qc in qcs.values():
+                qc[3, :, H // KH:] -= 1.0
+        return (kp, vp, q.to(dtype),
+                {c: qc.to(dtype) for c, qc in qcs.items()})
 
     def errs(a, b):
         return float((a.float() - b.float()).abs().nan_to_num(0.0).max())
@@ -513,6 +570,125 @@ def kernel_phase(report: dict) -> None:
         same(sk.scrub(a)[1], sk.scrub_plain(b)[1], f"scrub counts {name}")
         same(detect.bits_of(a), detect.bits_of(b), f"scrub bits {name}")
 
+    # ---- neighbor_mean on the engine pool's paged calls: each page's mean
+    # over both KV heads from tile_fill's per-page table, on every decode
+    # and prefill route, and the page scrub's gathered tiles; kernel calls
+    # counted apart, plain versions, tables and controls compared outside
+    # the count
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        kp, vp, q, qcs = fresh(dtype, nm=True)
+        table_err = 0.0
+        for pool in (kp, vp):
+            for d in (None, _det2(dtype)):
+                consts = common.detector_operand(common.resolve_detector(d, True),
+                                                 dtype)
+                got_t = tile_fill.tile_fill(pool, P, cols, (1, cols), consts,
+                                            **layer_view)
+                want_t = tile_fill.tile_fill_plain(pool, P, cols, (1, cols),
+                                                   consts, **layer_view)
+                table_err = max(table_err, errs(tile_fill.values(got_t, dtype),
+                                                tile_fill.values(want_t, dtype)))
+        nm_err["tile_fill"] = max(nm_err["tile_fill"], table_err)
+        for label, kw, zero_kw, tabled in (
+                ("both", dict(policy="neighbor_mean"), dict(policy="zero"),
+                 dict(K=kp, V=vp)),
+                ("k-only range+bitpattern",
+                 dict(detector_k=_det2(dtype), detector_v=_det2(dtype),
+                      policy_k="neighbor_mean", policy_v="zero"),
+                 dict(policy_k="zero"), dict(K=kp))):
+            decode_cases = [("s=4", q, 4, "fused"), ("s=1", q, 1, "fused"),
+                            ("s=4 q-off", _at_offset(q, 1), 4, "walk")]
+            prefill_cases = [(f"C={c}", qc, q_starts[c], want_route[dtype])
+                             for c, qc in qcs.items()]
+            if dtype != torch.float32:
+                prefill_cases.append((f"C={C} q-off", _at_offset(qcs[C], 1),
+                                      q_starts[C], "ffma"))
+
+            def call(case, **over):
+                _, x, arg, _ = case
+                if x.dim() == 3:
+                    return pa.paged_attention_splitk_raw(
+                        x, kp, vp, bt, pos, LAYER, splits=arg, **{**kw, **over})
+                return pa.paged_prefill_raw(x, kp, vp, bt, arg, LAYER,
+                                            **{**kw, **over})
+
+            cases = decode_cases + prefill_cases
+            common.reset_launches()
+            got = [call(case) for case in cases]
+            report["nm_launches"].update(common.LAUNCHES)
+            want = [pa.paged_decode_plain(qd, kp, vp, bt, pos, LAYER,
+                                          splits=s_, **kw)
+                    for _, qd, s_, _ in decode_cases]
+            want += [pa.paged_prefill_plain(qc, kp, vp, bt, qs, LAYER, **kw)
+                     for _, qc, qs, _ in prefill_cases]
+            parts, out_err, controls = [], 0.0, {}
+            for case, g, w in zip(cases, got, want):
+                what, x, _, want_r = case
+                routed = (pa.decode_route(x, kp, vp) if x.dim() == 3
+                          else pa.route(x, kp, vp))
+                if routed != want_r:
+                    raise AssertionError(f"nm {name} {what} took {routed}")
+                same(g[1], w[1], f"nm slot_counts {name} {label} {what}")
+                same(g[2], w[2], f"nm counts {name} {label} {what}")
+                close_nonfinite(g[0], w[0], TOL[name], f"nm {name} {label} {what}")
+                out_err = max(out_err, errs(g[0], w[0]))
+                parts.append(f"{what} ({routed})")
+                for k_, r_ in _nm_controls(
+                        lambda case=case, **o: call(case, **o), tabled, zero_kw,
+                        lambda out, w=w: _tol_ratio(out[0], w[0], TOL[name],
+                                                    TOL[name])).items():
+                    controls[k_] = min(controls.get(k_, float("inf")), r_)
+            nm_err["paged"] = max(nm_err["paged"], out_err)
+            log(f"nm ok  kernels dtype={name} fill={label} decode+prefill "
+                f"{'; '.join(parts)} counts {got[0][2].tolist()} / "
+                f"{got[3][2].tolist()}, max_abs_err outputs {out_err:.3g}, "
+                f"page fills (table vs plain) {table_err:.3g}; controls, the "
+                f"least over the routes: {_fmt_controls(controls)}")
+        # the page scrub, 3 unique ids, on a copy of the K pool whose
+        # gathered view's logical tiles carry their own offsets
+        ids = [bt_rows[0][1], bt_rows[1][0], NULL]
+        _, rpp, s_cols, _, s_block, _ = sk._pages_args(kp, ids, True, None,
+                                                        None, 0)
+        base = kp.clone()
+        base[ids] = (base[ids].float() + _tile_offsets(
+            len(ids) * rpp, s_cols, s_block, dev).view(base[ids].shape)).to(dtype)
+        a, b = base.clone(), base.clone()
+        fatal = torch.zeros_like(a, dtype=torch.bool)
+        nan_m, inf_m = common.fatal_masks(a, common.detector_operand(
+            common.resolve_detector(None, True), dtype))
+        fatal[ids] = (nan_m | inf_m)[ids]
+        common.reset_launches()
+        _, c_kernel = sk.scrub_pages(a, ids, policy="neighbor_mean")
+        report["nm_launches"].update(common.LAUNCHES)
+        _, c_plain = sk.scrub_pages_plain(b, ids, policy="neighbor_mean")
+        same(c_kernel, c_plain, f"nm scrub_pages counts {name}")
+        same(detect.bits_of(a)[~fatal], detect.bits_of(b)[~fatal],
+             f"nm scrub_pages untouched lanes {name}")
+        lane_err = errs(a[fatal], b[fatal])
+        torch.testing.assert_close(a[fatal].float(), b[fatal].float(),
+                                   **NM_FILL_TOL[name])
+        nm_err["scrub"] = max(nm_err["scrub"], lane_err)
+
+        def scrub_call(**over):
+            x = base.clone()
+            with contextlib.ExitStack() as stack:
+                if over.pop("rolled", False):
+                    stack.enter_context(_rolled_table(x))
+                sk.scrub_pages(x, ids, **{"policy": "neighbor_mean", **over})
+            return x
+
+        readings = {"zero": _tol_ratio(scrub_call(policy="zero")[fatal],
+                                       b[fatal], **NM_FILL_TOL[name]),
+                    "rolled": _tol_ratio(scrub_call(rolled=True)[fatal],
+                                         b[fatal], **NM_FILL_TOL[name])}
+        if not min(readings.values()) > 1.0:
+            raise AssertionError(f"nm scrub_pages controls passed: {readings}")
+        log(f"nm ok  scrub_pages dtype={name} 3 pages: counts "
+            f"{c_kernel.tolist()}, repaired lanes max_abs_err {lane_err:.3g} "
+            f"(rtol, atol {NM_FILL_TOL[name]}), others bit-equal; controls "
+            f"{_fmt_controls(readings)}")
+
     # ---- timings at the main path's shapes (bf16 pool, layer LAYER) ----
     dtype, name = torch.bfloat16, "bfloat16"
     es = 2
@@ -619,6 +795,18 @@ def kernel_phase(report: dict) -> None:
 
     ffma = dict(ms=cuda_ms(ffma_call),
                 device_ms=kernel_device_ms(ffma_call, KERNEL_NAMES["paged_prefill"]))
+
+    # neighbor_mean at the engine pool: tile_fill over the layer (the paged
+    # calls' per-page table) and the fused decode at splits 4 with the mean
+    # against the zero fill, device time a call (all device operations)
+    consts = common.detector_operand(common.resolve_detector(None, True), dtype)
+    report["tile_fill_pool"] = dict(
+        device_ms=kernel_device_ms(lambda: tile_fill.tile_fill(
+            kp, P, cols, (1, cols), consts, **layer_view), ("tile_fill",)),
+        bound_ms=(P * cols * es + P * 4) / HBM_BYTES_PER_S * 1e3,
+        **{f"{fill}_ms": device_ops(lambda fill=fill: pa.paged_attention_splitk_raw(
+            q, kp, vp, bt, pos, LAYER, splits=4, policy=fill))[0]
+           for fill in ("neighbor_mean", "zero")})
 
     # (a) the engine's page scrub: 2 pages of the bf16 pool, n_valid 2
     ids2 = [bt_rows[0][1], bt_rows[1][0]]
@@ -858,6 +1046,145 @@ def _at_offset(x, off: int):
     return buf[off:].view(x.shape).copy_(x)
 
 
+# ---- neighbor_mean operands and their controls.  Every logical tile of an
+# operand carries its own offset, NM_OFFSETS[t % 6] for tile t (row-major
+# over the tile grid): neighbouring tiles' offsets differ by 5 or more and
+# in sign, and none lies within 2 of 0.  A few fatal lanes sit where their
+# fill reaches an output lane almost unmixed (a causal row that sees one
+# key, a spike in the other operand of a product), so a wrong fill moves an
+# output far past the line's tolerance.  Each nm line then runs controls:
+# the same kernel call with the zero fill, and with one operand's table
+# rolled by one tile (tile t reads tile t+1's entry: a kernel that indexes
+# its neighbour).  Each must fail the line's own comparison; its reading is
+# the largest |got - want| / (atol + rtol |want|), above 1 to fail.
+NM_OFFSETS = (3.0, -2.0, 4.0, -3.0, 2.0, -4.0)
+# the partner of a fatal product lane: finite, and below 512, where
+# _det2's range guard (a bound on the exponent) starts
+NM_SPIKE = 256.0
+# f32 products take a quarter of the offsets: MM_TOL's f32 1e-4 / 1e-3 is
+# set for summands of order 1, and two f32 sums of 512 terms of order 10
+# in different orders differ by ~5e-3 (the plain versions on the CPU:
+# 0.85-1.1 of the limit at full offsets, 0.19 at a quarter); a wrong fill
+# still reads thousands
+NM_F32_MM_SCALE = 0.25
+
+
+def _tile_offsets(rows, cols, block, dev, scale=1.0, first=0):
+    """(rows, cols) f32: NM_OFFSETS[(t - first) % 6] * scale on every lane
+    of logical tile t of a (rows, cols) view with tiles ``block``."""
+    import torch
+
+    br, bc = block
+    gr, gc = rows // br, cols // bc
+    t = (torch.arange(gr * gc, device=dev) - first) % len(NM_OFFSETS)
+    off = torch.tensor(NM_OFFSETS, device=dev)[t].view(gr, gc) * scale
+    return off.repeat_interleave(br, 0).repeat_interleave(bc, 1)
+
+
+def _tol_ratio(got, want, rtol, atol):
+    """assert_close(got, want, rtol, atol) as a number: the largest
+    |got - want| / (atol + rtol |want|) over want's finite lanes, inf where
+    the two differ in finiteness; above 1 fails."""
+    import torch
+
+    got, want = got.float(), want.float()
+    fin = want.isfinite()
+    if not torch.equal(got.isfinite(), fin):
+        return float("inf")
+    r = (got[fin] - want[fin]).abs() / (atol + rtol * want[fin].abs())
+    return float(r.max()) if r.numel() else 0.0
+
+
+@contextlib.contextmanager
+def _rolled_table(target):
+    """Inside, the fill table a kernel wrapper builds for ``target`` (the
+    tensor at its data pointer) is rolled by one tile: tile t reads tile
+    t+1's entry.  Yields the list of the rolled tables' sizes."""
+    import torch
+
+    from repro_torch.kernels import tile_fill
+
+    build = tile_fill.table_or_none
+    rolled = []
+
+    def patched(policy, x, *args, **kw):
+        table = build(policy, x, *args, **kw)
+        if table is not None and x.data_ptr() == target.data_ptr():
+            rolled.append(table.numel())
+            return torch.roll(table, -1)
+        return table
+
+    tile_fill.table_or_none = patched
+    try:
+        yield rolled
+    finally:
+        tile_fill.table_or_none = build
+
+
+def _nm_controls(call, operands, zero_kw, check):
+    """{control: reading} of one nm call: ``call(**zero_kw)`` (the zero
+    fill) and ``call()`` with each operand's table rolled (skipped where
+    the table has one tile).  ``check(out)`` gives a reading; each must
+    exceed 1."""
+    readings = {"zero": check(call(**zero_kw))}
+    for name, x in operands.items():
+        with _rolled_table(x) as rolled:
+            out = call()
+        if not rolled:
+            raise AssertionError(f"control rolled {name}: no table was built")
+        if rolled[0] > 1:
+            readings[f"rolled {name}"] = check(out)
+    failed = {k: v for k, v in readings.items() if not v > 1.0}
+    if failed:
+        raise AssertionError(f"controls passed the comparison they must fail: "
+                             f"{failed}")
+    return readings
+
+
+def _fmt_controls(readings):
+    return ", ".join(f"{k} {v:.3g}" for k, v in readings.items()) + " (> 1)"
+
+
+def _nm_matmul_operands(shape, blocks, dtype, big, gen, scale=1.0):
+    """A (M, K) and B (K, N) of a neighbor_mean product: randn plus each
+    logical tile's offset, NaN/±Inf/bit-pattern (with ``big`` range) lanes
+    at random, and one NaN lane in A's and in B's first tile, each facing
+    NM_SPIKE in the other operand at its contraction index: C's lane there
+    carries NM_SPIKE times that fill.  The offsets are times ``scale``."""
+    import torch
+
+    (M, K, N), (bm, bn, bk), dev = shape, blocks, gen.device
+    a = torch.randn((M, K), generator=gen, device=dev) + _tile_offsets(
+        M, K, (bm, bk), dev, scale)
+    b = torch.randn((K, N), generator=gen, device=dev) + _tile_offsets(
+        K, N, (bk, bn), dev, scale)
+    a[1, 2], b[2, 6] = float("nan"), NM_SPIKE      # C[1, 6]: A's fill
+    b[3, 4], a[5, 3] = float("nan"), NM_SPIKE      # C[5, 4]: B's fill
+    return _plant_lanes(a, gen, dtype, big), _plant_lanes(b, gen, dtype, big)
+
+
+def _nm_attention_operands(shape, bk, dtype, gen):
+    """Causal q (B, H, S, D), k and v (B, Kh, T, D) of a neighbor_mean
+    attention: randn plus each (bk, D) tile's offset (the (B*Kh*T, D)
+    view), lanes planted at random, and in KV head 0 of batch 0: V lanes
+    0-3 of key 0 NaN (row 0 sees key 0 alone, so its output there is V's
+    fill) and K's key 1 NaN in every lane, with that head group's row 1 of
+    q biased against the tile's sign: keys 0 and 1 then score alike with
+    the right fill, and key 1 takes row 1 over with a wrong one."""
+    import torch
+
+    (B, H, Kh, S, T, D), dev = shape, gen.device
+    q = torch.randn((B, H, S, D), generator=gen, device=dev)
+    k, v = (torch.randn((B, Kh, T, D), generator=gen, device=dev)
+            + _tile_offsets(B * Kh * T, D, (bk, D), dev).view(B, Kh, T, D)
+            for _ in range(2))
+    k, v = _plant_lanes(k, gen, torch.float32), _plant_lanes(v, gen, torch.float32)
+    v[0, 0, 0, :4] = float("nan")
+    k[0, 0, 1, :] = float("nan")
+    q[0, :H // Kh, 1, :] -= NM_OFFSETS[0] / abs(NM_OFFSETS[0])
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
 def _late_rel(out, ref):
     """||out - ref|| / ||ref|| of each (b, h) over the last LATE_ROWS query
     rows, as a flat f32 tensor."""
@@ -877,9 +1204,9 @@ def _dropped_tile_plain(q, k, v, causal, detector):
     from repro_torch.kernels import common
     from repro_torch.kernels import repair_attention as ra
 
-    _, ck, cv = ra._spec(q, k, v, True, None, detector)
+    (_, bk), ck, cv = ra._spec(q, k, v, True, None, detector)
     S, T, G = q.shape[2], k.shape[2], q.shape[1] // k.shape[1]
-    kx, vx = (common.repair_tile(x, c, "zero", 0.0)[0].float()
+    kx, vx = (common.repair_tile(x, c, "zero", 0.0, (bk, x.shape[-1]))[0].float()
               .repeat_interleave(G, dim=1) for x, c in ((k, ck), (v, cv)))
     s = (q[..., -LATE_ROWS:, :].float() @ kx.transpose(-1, -2)
          / math.sqrt(q.shape[-1]))
@@ -920,9 +1247,11 @@ def ops_phase(report: dict) -> None:
 
     import torch
 
-    from repro_torch.kernels import common, ops
+    from repro_torch.core import detect
+    from repro_torch.kernels import common, ops, tile_fill
     from repro_torch.kernels import repair_attention as ra
     from repro_torch.kernels import repair_matmul as rm
+    from repro_torch.kernels import scrub as sk
 
     sys.path.insert(0, str(ROOT / "examples"))
     import torch_quickstart
@@ -932,6 +1261,7 @@ def ops_phase(report: dict) -> None:
     dev = torch.device("cuda")
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     max_err = {"repair_matmul": 0.0, "flash_attention": 0.0}
+    nm_err = report["nm_err"]
 
     def compare(what, got, want, tol):
         if not torch.equal(got[1].cpu(), want[1].cpu()):
@@ -1058,6 +1388,108 @@ def ops_phase(report: dict) -> None:
                     f"max_abs_err={err:.3g} tol={TOL[name]}")
     del a, b, q, k, v, got, want
 
+    # ---- neighbor_mean: the gate/up product and the 2,048-token attention
+    # in bf16 on the wgmma route, the quickstart's f32 shapes on the FFMA
+    # route; each operand's table against the plain one, the call against
+    # the plain version, and memory mode's origin scrub (the scrub's own
+    # default tiles) against the plain scrub
+    def nm_tables(pairs):
+        worst = 0.0
+        for x, rows, cols, block, det in pairs:
+            consts = common.detector_operand(common.resolve_detector(det, True),
+                                             x.dtype)
+            g = tile_fill.values(tile_fill.tile_fill(x, rows, cols, block, consts),
+                                 x.dtype)
+            w = tile_fill.values(tile_fill.tile_fill_plain(x, rows, cols, block,
+                                                           consts), x.dtype)
+            worst = max(worst, float((g - w).abs().nan_to_num(0.0).max()))
+        nm_err["tile_fill"] = max(nm_err["tile_fill"], worst)
+        return worst
+
+    def nm_memory(op, operands, kw, what):
+        """Memory mode with the mean on copies; the repaired lanes' largest
+        error against the plain scrub's, the other lanes bit-equal."""
+        mine = [x.clone() for x in operands[-2:]]
+        plain = [x.clone() for x in operands[-2:]]
+        common.reset_launches()
+        op(*operands[:-2], *mine, mode="memory", **kw)
+        report["nm_launches"].update(common.LAUNCHES)
+        worst = 0.0
+        for x, y, x0 in zip(mine, plain, operands[-2:]):
+            fatal = common.fatal_masks(x0, common.detector_operand(
+                common.resolve_detector(kw.get("detector"), True), x0.dtype))
+            fatal = fatal[0] | fatal[1]
+            sk.scrub_plain(y, detector=kw.get("detector"), policy="neighbor_mean")
+            if not torch.equal(detect.bits_of(x)[~fatal], detect.bits_of(y)[~fatal]):
+                raise AssertionError(f"{what}: memory mode changed a lane "
+                                     f"that was not fatal")
+            name_ = str(x.dtype).split(".")[-1]
+            torch.testing.assert_close(x[fatal].float(), y[fatal].float(),
+                                       msg=what, **NM_FILL_TOL[name_])
+            worst = max(worst, float((x[fatal].float() - y[fatal].float())
+                                     .abs().max()))
+        return worst
+
+    M, K, N = MM_SHAPES["gate_up"]
+    nm_cases = [
+        ("repair_matmul gate/up bf16 range+bitpattern", bf16, _det2(bf16),
+         (M, K, N), None),
+        ("repair_matmul quickstart f32 default", f32, None, (qn, qn, qn), qbm),
+    ]
+    for what, dtype, det, (M_, K_, N_), blocks in nm_cases:
+        bm, bn, bk = blocks or rm._default_blocks(M_, N_, K_)
+        a, b = _nm_matmul_operands(
+            (M_, K_, N_), (bm, bn, bk), dtype, det is not None, gen,
+            NM_F32_MM_SCALE if dtype == f32 else 1.0)
+        kw = dict(blocks=blocks, detector=det, policy="neighbor_mean")
+        what = f"{what} ({rm.route(a, b)})"
+        common.reset_launches()
+        got = rm.repair_matmul_raw(a, b, **kw)
+        report["nm_launches"].update(common.LAUNCHES)
+        want = rm.repair_matmul_plain(a, b, **kw)
+        name = str(dtype).split(".")[-1]
+        err = compare(f"nm {what}", got, want, MM_TOL[name])
+        controls = _nm_controls(
+            lambda **o: rm.repair_matmul_raw(a, b, **{**kw, **o}), dict(A=a, B=b),
+            dict(policy="zero"),
+            lambda out: _tol_ratio(out[0], want[0], *MM_TOL[name]))
+        t_err = nm_tables([(a, M_, K_, (bm, bk), det), (b, K_, N_, (bk, bn), det)])
+        l_err = nm_memory(ops.repair_matmul, (a, b), kw, f"nm {what}")
+        nm_err["repair_matmul"] = max(nm_err["repair_matmul"], err)
+        nm_err["scrub"] = max(nm_err["scrub"], l_err)
+        log(f"nm ok  {what}: counts={got[1].tolist()} max_abs_err c {err:.3g}, "
+            f"A/B fills (table vs plain) {t_err:.3g}, memory-mode repaired "
+            f"lanes {l_err:.3g}; controls {_fmt_controls(controls)}")
+    at_nm = [("flash_attention causal S=T=2048 bf16 default", bf16,
+              (AT_B, AT_H, AT_KH, AT_S, AT_S, AT_D), None),
+             ("flash_attention quickstart D=64 f32 default", f32,
+              (1, 4, 2, 256, 256, 64), (64, 64))]
+    for what, dtype, shape, blocks in at_nm:
+        bk = (blocks or ra._default_blocks(shape[3], shape[4]))[1]
+        q, k, v = _nm_attention_operands(shape, bk, dtype, gen)
+        kw = dict(causal=True, blocks=blocks, detector=None,
+                  policy="neighbor_mean")
+        what = f"{what} ({ra.route(q, k, v)})"
+        common.reset_launches()
+        got = ra.flash_attention_raw(q, k, v, **kw)
+        report["nm_launches"].update(common.LAUNCHES)
+        want = ra.flash_attention_plain(q, k, v, **kw)
+        name = str(q.dtype).split(".")[-1]
+        err = compare(f"nm {what}", got, want, (TOL[name], TOL[name]))
+        controls = _nm_controls(
+            lambda **o: ra.flash_attention_raw(q, k, v, **{**kw, **o}),
+            dict(K=k, V=v), dict(policy="zero"),
+            lambda out: _tol_ratio(out[0], want[0], TOL[name], TOL[name]))
+        B_, Kh_, T_, D_ = k.shape
+        t_err = nm_tables([(x, B_ * Kh_ * T_, D_, (bk, D_), None) for x in (k, v)])
+        l_err = nm_memory(ops.flash_attention, (q, k, v), kw, f"nm {what}")
+        nm_err["flash_attention"] = max(nm_err["flash_attention"], err)
+        nm_err["scrub"] = max(nm_err["scrub"], l_err)
+        log(f"nm ok  {what}: counts={got[1].tolist()} max_abs_err out {err:.3g}, "
+            f"K/V fills (table vs plain) {t_err:.3g}, memory-mode repaired "
+            f"lanes {l_err:.3g}; controls {_fmt_controls(controls)}")
+    del a, b, q, k, v, got, want
+
     # ---- the quickstart twin on the card: the slice's main path
     common.reset_launches()
     torch.cuda.synchronize()
@@ -1112,6 +1544,37 @@ def ops_phase(report: dict) -> None:
             f"{flops / pr['repair_mm_wgmma'] / 1e9:.1f} TFLOP/s")
     log(f"timing repair_matmul gate/up bf16 clean: call {clean_call:.4f} ms; "
         f"torch.matmul call {clean_lib:.4f} ms, device {lib_dev}")
+    # tile_fill at the planted gate/up A operand (the product's (256, 512)
+    # logical tiles), and the product with the mean against the zero fill
+    bm, bn, bk = rm._default_blocks(M, N, K)
+    consts = common.detector_operand(common.resolve_detector(None, True), bf16)
+
+    def tf_call():
+        return tile_fill.tile_fill(a, M, K, (bm, bk), consts)
+
+    n_tiles = (M // bm) * (K // bk)
+    tf = dict(ms=cuda_ms(tf_call), device_ms=kernel_device_ms(tf_call, ("tile_fill",)),
+              plain_ms=cuda_ms(lambda: tile_fill.tile_fill_plain(
+                  a, M, K, (bm, bk), consts), iters=10),
+              bound_ms=(2 * M * K + 4 * n_tiles) / HBM_BYTES_PER_S * 1e3,
+              bound_by="bytes", library_ms=None, route="cuda",
+              source="src/repro_torch/csrc/tile_fill.cu",
+              replaces=("src/repro/kernels/common.py:153 (repair_value, its "
+                        "neighbor_mean branch, which every Pallas kernel "
+                        "reaches through repair_tile)"))
+    mm_nm = {fill: device_ops(lambda fill=fill: rm.repair_matmul_raw(
+        a, b, policy=fill))[0] for fill in ("neighbor_mean", "zero")}
+    pool = report["tile_fill_pool"]
+    report["kernels"]["tile_fill"] = tf
+    log(f"timing tile_fill: gate/up A ({M}, {K}) bf16 in ({bm}, {bk}) tiles "
+        f"({n_tiles} tiles): device {tf['device_ms']} ms, call {tf['ms']:.4f} "
+        f"ms, plain {tf['plain_ms']:.4f} ms, bound {tf['bound_ms']:.5f} ms "
+        f"(bytes); engine pool layer ({P} pages of {PG}x{KH}x{DH}) bf16: device "
+        f"{pool['device_ms']} ms, bound {pool['bound_ms']:.6f} ms (bytes); "
+        f"device ms a call, neighbor_mean vs zero: repair_matmul gate/up "
+        f"{mm_nm['neighbor_mean']:.4f} vs {mm_nm['zero']:.4f}, paged decode "
+        f"splits=4 {pool['neighbor_mean_ms']:.4f} vs {pool['zero_ms']:.4f} "
+        f"({gpu_line()})")
     del a, b, fa, fb, ca, cb
     # the f32 product (the FFMA route, which the quickstart takes)
     a, b = clean_a, clean_b
@@ -1923,6 +2386,9 @@ ML_B, ML_H, ML_S, ML_Q, ML_P = 1, 4, 2048, 128, 1024
 # f32, so only the summation order differs (tests/test_mlstm_kernel.py
 # holds the reference kernel to its oracle at 5e-4 in f32)
 MLSTM_TOL = 5e-4
+# the neighbor_mean operands' tile offsets in the mLSTM, scaled so q.k and
+# the state stay in the range MLSTM_TOL was set for
+NM_MLSTM_SCALE = 0.25
 # The full-width bf16 forward holds the kernel against its plain version
 # block by block (each mLSTM block's y on that block's own inputs,
 # MLSTM_TOL), not at the logits: in bf16 one f32 ulp on one block's y flips
@@ -1950,9 +2416,11 @@ XL_PROMPTS, XL_PROMPT_LEN, XL_NEW, XL_SCRUB = 4, 32, 16, 8
 PROFILE_TOKENS = 256
 
 
-def _mlstm_inputs(gen, dtype):
+def _mlstm_inputs(gen, dtype, nm=False):
     """q, k, v (B, H, nc, Q, P) as tests/test_mlstm_kernel.py draws them,
-    NaN and ±Inf planted across chunks and heads; f32 gates."""
+    NaN and ±Inf planted across chunks and heads; f32 gates.  With ``nm``,
+    each (b, h, c) tile of q, k and v carries its own offset, times
+    NM_MLSTM_SCALE (q's also over sqrt(P), as q is drawn)."""
     import torch
 
     shape = (ML_B, ML_H, ML_S // ML_Q, ML_Q, ML_P)
@@ -1963,6 +2431,11 @@ def _mlstm_inputs(gen, dtype):
     li = torch.randn(shape[:4], generator=gen, device=dev) * 0.5
     lf = torch.nn.functional.logsigmoid(
         torch.randn(shape[:4], generator=gen, device=dev) + 2.0)
+    if nm:
+        rows = ML_B * ML_H * ML_S
+        for x, scale in ((q, NM_MLSTM_SCALE / ML_P ** 0.5), (k, NM_MLSTM_SCALE),
+                         (v, NM_MLSTM_SCALE)):
+            x += _tile_offsets(rows, ML_P, (ML_Q, ML_P), dev, scale).view(shape)
     nan, inf = float("nan"), float("inf")
     for x, spots in ((q, [((0, 1, 3, 5, 17), nan), ((0, 2, 9, 0, 1000), inf)]),
                      (k, [((0, 0, 4, 127, 2), -inf), ((0, 3, 11, 64, 512), nan)]),
@@ -1978,6 +2451,7 @@ def mlstm_phase(report: dict) -> None:
 
     import torch
 
+    from repro_torch.kernels import common, tile_fill
     from repro_torch.kernels import mlstm_chunk as mc
 
     gc.collect()
@@ -2031,6 +2505,62 @@ def mlstm_phase(report: dict) -> None:
                         f"max_abs_err={err:.3g} finite={float(fin.float().mean()):.4f} "
                         f"tol={MLSTM_TOL}")
         del got, want
+
+    # ---- neighbor_mean: one xlstm-1.3b mLSTM block in bf16 on both routes,
+    # a table per operand ((b, h, c) tiles, each with its own offset), one v
+    # tile fatal in every lane (its lanes take 0); the wgmma route splits
+    # the repaired v into hi/lo
+    x = _mlstm_inputs(gen, torch.bfloat16, nm=True)
+    v_nm = x[2].clone()
+    v_nm[0, 1, 3] = float("nan")
+    nm_ops = {"wgmma": [x[0], x[1], v_nm, *x[3:]],
+              "ffma": [off_by_one(t) for t in (x[0], x[1], v_nm)] + list(x[3:])}
+    kw = dict(policy="neighbor_mean")
+    common.reset_launches()
+    got = {name: mc.mlstm_chunk_raw(*xs, **kw) for name, xs in nm_ops.items()}
+    report["nm_launches"].update(common.LAUNCHES)
+    want = mc.mlstm_chunk_plain(*nm_ops["wgmma"], **kw)
+    B_, H_, nc_, Q_, P_ = x[0].shape
+    consts = common.detector_operand(common.resolve_detector(None, True),
+                                     torch.bfloat16)
+    t_err = 0.0
+    for t in nm_ops["wgmma"][:3]:
+        g = tile_fill.tile_fill(t, B_ * H_ * nc_ * Q_, P_, (Q_, P_), consts)
+        w = tile_fill.tile_fill_plain(t, B_ * H_ * nc_ * Q_, P_, (Q_, P_), consts)
+        t_err = max(t_err, float((tile_fill.values(g, torch.bfloat16)
+                                  - tile_fill.values(w, torch.bfloat16)).abs().max()))
+    nm_err = report["nm_err"]
+    nm_err["tile_fill"] = max(nm_err["tile_fill"], t_err)
+    for name, g in got.items():
+        what = f"mlstm_chunk bf16 neighbor_mean ({name})"
+        xs = nm_ops[name]
+        if mc.route(*xs[:3]) != name:
+            raise AssertionError(f"{what}: took {mc.route(*xs[:3])}")
+        if not torch.equal(g[1].cpu(), want[1].cpu()):
+            raise AssertionError(f"{what}: counts {g[1].tolist()} vs "
+                                 f"{want[1].tolist()}")
+        torch.testing.assert_close(g[0], want[0], rtol=MLSTM_TOL, atol=MLSTM_TOL,
+                                   equal_nan=True, msg=what)
+        err = float((g[0] - want[0]).nan_to_num(0.0).abs().max())
+        controls = _nm_controls(
+            lambda xs=xs, **o: mc.mlstm_chunk_raw(*xs, **{**kw, **o}),
+            dict(q=xs[0], k=xs[1], v=xs[2]), dict(policy="zero"),
+            lambda out: _tol_ratio(out[0], want[0], MLSTM_TOL, MLSTM_TOL))
+        nm_err["mlstm_chunk"] = max(nm_err["mlstm_chunk"], err)
+        log(f"nm ok  {what}: counts={g[1].tolist()} max_abs_err y {err:.3g} "
+            f"tol={MLSTM_TOL}, q/k/v fills (table vs plain) {t_err:.3g}; "
+            f"controls {_fmt_controls(controls)}")
+    del got, want, nm_ops, v_nm
+    nm = report["nm_launches"]
+    for k_name in ("tile_fill", "scrub", "paged_decode", "paged_prefill",
+                   "repair_matmul", "flash_attention", "mlstm_chunk"):
+        if nm.get(k_name, 0) < 1:
+            raise AssertionError(f"no neighbor_mean call launched {k_name}")
+    tf = report["kernels"]["tile_fill"]
+    tf.update(launches=int(nm["tile_fill"]), max_abs_err=nm_err["tile_fill"])
+    log(f"nm launches (the neighbor_mean calls, counted from 0 before each "
+        f"and read after): {dict(nm)}; max_abs_err against the plain "
+        f"versions: {nm_err}")
 
     # ---- timing, bf16, at the forward's shapes: the wgmma route (the main
     # path's) and the FFMA route, on the operands checked above

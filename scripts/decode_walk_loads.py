@@ -35,7 +35,7 @@ namespace {
 template <int DT>
 __device__ __forceinline__ void repair_tile_batched(
     const typename repro::Storage<DT>::bits_t* src, int rows, int dh, int stride,
-    const repro::Detector& det, typename repro::Storage<DT>::bits_t fill,
+    const repro::Detector& det, const repro::Fill& fill, long long page,
     float* dst, int* cnt) {
   constexpr int U = 16;
   int n_nan = 0, n_inf = 0;
@@ -55,7 +55,7 @@ __device__ __forceinline__ void repair_tile_batched(
         const int c = repro::classify(b, det);
         n_nan += c & 1;
         n_inf += c >> 1;
-        if (c) b = fill;
+        if (c) b = fill.at(page);
         dst[(e / dh) * stride + (e % dh)] = repro::Storage<DT>::to_float(b);
       }
     }

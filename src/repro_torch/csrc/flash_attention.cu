@@ -4,7 +4,9 @@
 // Replaces src/repro/kernels/repair_attention.py::_flash_kernel (:44, behind
 // `flash_attention_raw`).  What every route computes: per (b, h) query
 // head, over KV head h / G (G = H / Kh), with every fatal K/V lane taking
-// the fill's bit pattern (precomputed by the host in the storage dtype):
+// the fill's bit pattern (precomputed by the host in the storage dtype, or
+// for neighbor_mean its logical (bk, D) tile's entry of the table that
+// tile_fill.cu wrote):
 //   s = q . k^T * (1 / sqrt(D)) in f32; masked positions get -1e30 (the
 //   reference's mask value, not -inf); m_new = max(m, rowmax s);
 //   p = exp(s - m_new); alpha = exp(m - m_new); l = l * alpha + rowsum p;
@@ -106,9 +108,8 @@ __global__ void __launch_bounds__(kThreads)
                      const typename Storage<DT>::bits_t* __restrict__ v,
                      typename Storage<DT>::bits_t* __restrict__ out, int H,
                      int Kh, int S, int T, int causal, float sm_scale,
-                     Detector det_k, Detector det_v,
-                     typename Storage<DT>::bits_t fill_k,
-                     typename Storage<DT>::bits_t fill_v) {
+                     Detector det_k, Detector det_v, repro::Fill fill_k,
+                     repro::Fill fill_v, int bk) {
   constexpr int QS = D + 1;  // row stride of q_s and k_s
   constexpr int DC = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -153,8 +154,9 @@ __global__ void __launch_bounds__(kThreads)
       if (k0 + t < T) {
         const long long off = kv_base + (long long)(k0 + t) * D + d;
         uint32_t kb = k[off], vb = v[off];
-        if (repro::classify(kb, det_k)) kb = fill_k;
-        if (repro::classify(vb, det_v)) vb = fill_v;
+        // the logical tile of row (b, kh, k0 + t) of the (B*Kh*T, D) view
+        if (repro::classify(kb, det_k)) kb = fill_k.at((kv_base / D + k0 + t) / bk);
+        if (repro::classify(vb, det_v)) vb = fill_v.at((kv_base / D + k0 + t) / bk);
         kf = Storage<DT>::to_float(kb);
         vf = Storage<DT>::to_float(vb);
       }
@@ -324,7 +326,7 @@ template <int DT, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int H, int Kh, int S, int T, int bq, int bk,
                    int causal, float sm_scale, const int* det_k,
-                   const int* det_v, unsigned int fill_k, unsigned int fill_v,
+                   const int* det_v, repro::Fill fill_k, repro::Fill fill_v,
                    int* tiles, int* counts, cudaStream_t stream) {
   using bits_t = typename Storage<DT>::bits_t;
   const Detector dk = repro::detector_from(det_k);
@@ -351,7 +353,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                               stream>>>(
         static_cast<const bits_t*>(q), static_cast<const bits_t*>(k),
         static_cast<const bits_t*>(v), static_cast<bits_t*>(out), H, Kh, S, T,
-        causal, sm_scale, dk, dv, (bits_t)fill_k, (bits_t)fill_v);
+        causal, sm_scale, dk, dv, fill_k, fill_v, bk);
   return cudaGetLastError();
 }
 
@@ -359,9 +361,8 @@ template <int DT>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      void* out, int B, int H, int Kh, int S, int T, int bq,
                      int bk, int causal, float sm_scale, const int* det_k,
-                     const int* det_v, unsigned int fill_k,
-                     unsigned int fill_v, int* tiles, int* counts,
-                     cudaStream_t s) {
+                     const int* det_v, repro::Fill fill_k, repro::Fill fill_v,
+                     int* tiles, int* counts, cudaStream_t s) {
   if (D == 64)
     return launch<DT, 64>(q, k, v, out, B, H, Kh, S, T, bq, bk, causal,
                           sm_scale, det_k, det_v, fill_k, fill_v, tiles,
@@ -400,15 +401,22 @@ struct Tile {
 // Both consumer warpgroups repair a flagged K or V stage: every consumer
 // thread takes its share of the tile's 16-byte chunks (all D lanes of a row
 // are in bounds); rows at or past T are TMA's zero padding and are never
-// touched.  Then the tile is handed to the async proxy.
+// touched.  A chunk's lanes share a row, so one logical (bk, D) tile of
+// the (B*Kh*T, D) view: row0 is the head's first row.  Then the tile is
+// handed to the async proxy.
 template <int D>
 __device__ __forceinline__ void repair_stage(uint8_t* tile, int k0, int T,
                                              const Detector& det,
-                                             uint32_t fill) {
+                                             const repro::Fill& fill,
+                                             long long row0, int bk) {
   const int rows = min(BKV, T - k0);
-  for (int c = threadIdx.x; c < Tile<D>::BOXES * BKV * 8; c += CONSUMERS)
-    if (((c >> 3) & (BKV - 1)) < rows)
-      repair_chunk(reinterpret_cast<uint4*>(tile) + c, 8, det, fill);
+  for (int c = threadIdx.x; c < Tile<D>::BOXES * BKV * 8; c += CONSUMERS) {
+    const int r = (c >> 3) & (BKV - 1);
+    if (r < rows)
+      repair_chunk_with(reinterpret_cast<uint4*>(tile) + c, 8, det, [&](int) {
+        return fill.at((row0 + k0 + r) / bk);
+      });
+  }
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
 }
@@ -422,8 +430,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                        const __grid_constant__ CUtensorMap map_v,
                        uint16_t* __restrict__ out, int BH, int H, int Kh,
                        int S, int T, int causal, float scale_log2,
-                       Detector det_k, Detector det_v, uint32_t fill_k,
-                       uint32_t fill_v, const int* __restrict__ flags) {
+                       Detector det_k, Detector det_v, repro::Fill fill_k,
+                       repro::Fill fill_v, int bk,
+                       const int* __restrict__ flags) {
   using C = Tile<D>;
   constexpr int ST = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -508,7 +517,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       uint8_t* vt = kt + C::OPERAND_BYTES;
       mbar_wait(smem_u32(&k_full[s]), parity);
       const int fl = stage_flags[s];
-      if (fl & 1) repair_stage<D>(kt, k0, T, det_k, fill_k);
+      if (fl & 1) repair_stage<D>(kt, k0, T, det_k, fill_k, (long long)kvh * T, bk);
 
       float sc[64];
       qk_tile<DT, D>(sc, q_base, smem_u32(kt));
@@ -522,7 +531,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       softmax_tile<DT, D>(sc, m, l, o, scale_log2, pa);
 
       mbar_wait(smem_u32(&v_full[s]), parity);
-      if (fl & 2) repair_stage<D>(vt, k0, T, det_v, fill_v);
+      if (fl & 2) repair_stage<D>(vt, k0, T, det_v, fill_v, (long long)kvh * T, bk);
       pv_tile<DT, D>(o, pa, smem_u32(vt), BKV / 16);
       mbar_arrive(smem_u32(&empty[s]));
     }
@@ -667,8 +676,8 @@ template <int DT, int D>
 cudaError_t launch_main(const void* q, const void* k, const void* v,
                         void* out, int B, int H, int Kh, int S, int T,
                         int causal, float sm_scale, const int* det_k,
-                        const int* det_v, unsigned int fill_k,
-                        unsigned int fill_v, const int* flags,
+                        const int* det_v, repro::Fill fill_k,
+                        repro::Fill fill_v, int bk, const int* flags,
                         cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
   if (!tensor_map_3d(&map_q, q, DT, B * H, S, D, BQ, 64) ||
@@ -686,7 +695,7 @@ cudaError_t launch_main(const void* q, const void* k, const void* v,
   flash_repair_wgmma<DT, D><<<blocks, THREADS, Tile<D>::SMEM_BYTES, stream>>>(
       map_q, map_k, map_v, static_cast<uint16_t*>(out), B * H, H, Kh, S, T,
       causal, (float)(sm_scale * LOG2E), repro::detector_from(det_k),
-      repro::detector_from(det_v), fill_k, fill_v, flags);
+      repro::detector_from(det_v), fill_k, fill_v, bk, flags);
   return cudaGetLastError();
 }
 
@@ -694,14 +703,14 @@ template <int DT>
 cudaError_t launch_main_d(int D, const void* q, const void* k, const void* v,
                           void* out, int B, int H, int Kh, int S, int T,
                           int causal, float sm_scale, const int* det_k,
-                          const int* det_v, unsigned int fill_k,
-                          unsigned int fill_v, const int* flags,
+                          const int* det_v, repro::Fill fill_k,
+                          repro::Fill fill_v, int bk, const int* flags,
                           cudaStream_t s) {
   if (D == 64)
     return launch_main<DT, 64>(q, k, v, out, B, H, Kh, S, T, causal, sm_scale,
-                               det_k, det_v, fill_k, fill_v, flags, s);
+                               det_k, det_v, fill_k, fill_v, bk, flags, s);
   return launch_main<DT, 128>(q, k, v, out, B, H, Kh, S, T, causal, sm_scale,
-                              det_k, det_v, fill_k, fill_v, flags, s);
+                              det_k, det_v, fill_k, fill_v, bk, flags, s);
 }
 
 }  // namespace fw
@@ -712,18 +721,22 @@ cudaError_t launch_main_d(int D, const void* q, const void* k, const void* v,
 // (0 f32, 1 bf16, 2 f16) and contiguous on the device; D is 64 or 128;
 // (bq, bk) the logical blocks, which must divide (S, T); sm_scale
 // 1/sqrt(D) rounded once from double; det_k/det_v host int32[8];
-// fill_k/fill_v the repaired lanes' bit patterns; tiles int32[4 * B * Kh *
-// (T / bk)] scratch (zeroed here, on the stream); counts int32[8] out.
-// Returns
-// cudaGetLastError() after the launches.
+// fill_k/fill_v the repaired lanes' bit patterns, or with fills_k/fills_v
+// (device uint32 per logical (bk, D) tile of the (B*Kh*T, D) view, from
+// repro_tile_fill; null: none) the lane's tile's entry; tiles int32[4 * B *
+// Kh * (T / bk)] scratch (zeroed here, on the stream); counts int32[8] out.
+// Returns cudaGetLastError() after the launches.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, int dtype, int B,
     int H, int Kh, int S, int T, int D, int bq, int bk, int causal,
-    float sm_scale, const int* det_k, const int* det_v, unsigned int fill_k,
-    unsigned int fill_v, int* tiles, int* counts, void* stream) {
+    float sm_scale, const int* det_k, const int* det_v,
+    unsigned int fill_k_bits, unsigned int fill_v_bits,
+    const unsigned int* fills_k, const unsigned int* fills_v, int* tiles,
+    int* counts, void* stream) {
   if (Kh < 1 || H % Kh || bq < 1 || bk < 1 || S % bq || T % bk || T < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const repro::Fill fill_k{fills_k, fill_k_bits}, fill_v{fills_v, fill_v_bits};
   switch (dtype) {
     case repro::DT_F32:
       return (int)launch_d<repro::DT_F32>(D, q, k, v, out, B, H, Kh, S, T, bq,
@@ -764,22 +777,26 @@ extern "C" int repro_flash_scan(const void* k, const void* v, int dtype,
 extern "C" int repro_flash_attention_wgmma(
     const void* q, const void* k, const void* v, void* out, int dtype, int B,
     int H, int Kh, int S, int T, int D, int bq, int bk, int causal,
-    float sm_scale, const int* det_k, const int* det_v, unsigned int fill_k,
-    unsigned int fill_v, int* tiles, int* flags, int* counts, void* stream) {
+    float sm_scale, const int* det_k, const int* det_v,
+    unsigned int fill_k_bits, unsigned int fill_v_bits,
+    const unsigned int* fills_k, const unsigned int* fills_v, int* tiles,
+    int* flags, int* counts, void* stream) {
   if (H < 1 || Kh < 1 || H % Kh || bq < 1 || S % bq ||
       (long long)B * H * S * D >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const repro::Fill fill_k{fills_k, fill_k_bits}, fill_v{fills_v, fill_v_bits};
   cudaError_t err = fw::launch_scan(k, v, dtype, B, Kh, S, T, D, bk, causal,
                                     det_k, det_v, tiles, flags, s);
   if (err != cudaSuccess) return (int)err;
   err = dtype == repro::DT_BF16
             ? fw::launch_main_d<repro::DT_BF16>(D, q, k, v, out, B, H, Kh, S,
                                                 T, causal, sm_scale, det_k,
-                                                det_v, fill_k, fill_v, flags, s)
+                                                det_v, fill_k, fill_v, bk,
+                                                flags, s)
             : fw::launch_main_d<repro::DT_F16>(D, q, k, v, out, B, H, Kh, S, T,
                                                causal, sm_scale, det_k, det_v,
-                                               fill_k, fill_v, flags, s);
+                                               fill_k, fill_v, bk, flags, s);
   if (err != cudaSuccess) return (int)err;
   flash_counts<<<1, kThreads, 0, s>>>(tiles, B * Kh, T / bk,
                                       live_tiles(S, T, bk, causal), H / Kh,

@@ -116,10 +116,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 // Repairs the fatal lanes of one 16-byte chunk (8 lanes) in shared memory;
-// only the first `n_in` lanes are in bounds.
-__device__ __forceinline__ void repair_chunk(uint4* p, int n_in,
-                                             const Detector& det,
-                                             uint32_t fill) {
+// only the first `n_in` lanes are in bounds.  Fatal lane e takes
+// fill_of(e), called only for a fatal lane: a chunk may span logical tiles.
+template <typename FillOf>
+__device__ __forceinline__ void repair_chunk_with(uint4* p, int n_in,
+                                                  const Detector& det,
+                                                  FillOf fill_of) {
   uint4 v = *p;
   uint32_t w[4] = {v.x, v.y, v.z, v.w};
   bool hit = false;
@@ -127,11 +129,18 @@ __device__ __forceinline__ void repair_chunk(uint4* p, int n_in,
   for (int e = 0; e < 8; ++e) {
     const int sh = (e & 1) * 16;
     if (e < n_in && repro::classify((w[e >> 1] >> sh) & 0xFFFFu, det)) {
-      w[e >> 1] = (w[e >> 1] & ~(0xFFFFu << sh)) | (fill << sh);
+      w[e >> 1] = (w[e >> 1] & ~(0xFFFFu << sh)) | (fill_of(e) << sh);
       hit = true;
     }
   }
   if (hit) *p = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The same with one fill for the whole chunk.
+__device__ __forceinline__ void repair_chunk(uint4* p, int n_in,
+                                             const Detector& det,
+                                             uint32_t fill) {
+  repair_chunk_with(p, n_in, det, [fill](int) { return fill; });
 }
 
 // A lane whose exponent field is below this cannot be fatal under `d`

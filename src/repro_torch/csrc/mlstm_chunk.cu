@@ -30,8 +30,10 @@
 // Products take f32 operands after the repair and accumulate in f32 on the
 // FP32 pipe: no tensor cores, so no TF32.  Detection is on the storage
 // bits before the cast (16-bit views zero-extended, repair.cuh); a fatal
-// lane takes the fill's bit pattern.  Every block repairs what it reads;
-// only pass 1 counts.
+// lane takes the fill's bit pattern, or for neighbor_mean its operand's
+// entry for the (b, h, c) tile in the table that tile_fill.cu wrote (q, k
+// and v each have their own).  Every block repairs what it reads; only
+// pass 1 counts.
 //
 // What bounds it on an H100: operations.  Per chunk and head the function
 // needs 2 Q^2 P + 4 Q P^2 flops (the causal halves of q k^T and W v, then
@@ -137,7 +139,9 @@ struct Tile {
   }
 
   __device__ __forceinline__ void store(int Q, int P, int p0,
-                                        const Detector& det, uint32_t fill,
+                                        const Detector& det,
+                                        const repro::Fill& fill,
+                                        long long tile,
                                         const float* row_scale, float* dst,
                                         int ld, int& n_nan,
                                         int& n_inf) const {
@@ -151,7 +155,7 @@ struct Tile {
         const int cls = repro::classify(bits, det);
         n_nan += cls & 1;
         n_inf += cls >> 1;
-        if (cls) bits = fill;
+        if (cls) bits = fill.at(tile);
         val = Storage<DT>::to_float(bits);
         if (row_scale) val *= row_scale[t];
       }
@@ -183,8 +187,8 @@ __global__ void __launch_bounds__(kThreads)
     mlstm_qk(const typename Storage<DT>::bits_t* __restrict__ q,
              const typename Storage<DT>::bits_t* __restrict__ k,
              const typename Storage<DT>::bits_t* __restrict__ v, int Q, int P,
-             Detector det, uint32_t fill, float* __restrict__ S,
-             int* __restrict__ counts) {
+             Detector det, repro::Fill fill_q, repro::Fill fill_k,
+             float* __restrict__ S, int* __restrict__ counts) {
   __shared__ float qs[QMAX * LD];
   __shared__ float ks[QMAX * LD];
   __shared__ int cnt[6];  // nan/inf lanes of q, k, v
@@ -205,8 +209,8 @@ __global__ void __launch_bounds__(kThreads)
   tk.fetch(k + off, Q, P, 0);
   tv.fetch(v + off, Q, P, 0);
   for (int p0 = 0; p0 < P; p0 += TP) {
-    tq.store(Q, P, p0, det, fill, nullptr, qs, LD, n[0], n[1]);
-    tk.store(Q, P, p0, det, fill, nullptr, ks, LD, n[2], n[3]);
+    tq.store(Q, P, p0, det, fill_q, tile, nullptr, qs, LD, n[0], n[1]);
+    tk.store(Q, P, p0, det, fill_k, tile, nullptr, ks, LD, n[2], n[3]);
     tv.count(Q, P, p0, det, n[4], n[5]);  // v enters the counts only
     __syncthreads();
     if (p0 + TP < P) {
@@ -265,8 +269,8 @@ __global__ void __launch_bounds__(kThreads)
                const typename Storage<DT>::bits_t* __restrict__ v,
                const float* __restrict__ log_i,
                const float* __restrict__ log_f, const float* __restrict__ S,
-               int nc, int Q, int P, Detector det, uint32_t fill,
-               float* __restrict__ y) {
+               int nc, int Q, int P, Detector det, repro::Fill fill_q,
+               repro::Fill fill_k, repro::Fill fill_v, float* __restrict__ y) {
   extern __shared__ __align__(16) float smem[];
   float* Cs = smem;               // P x BV: this block's slab of C
   float* vs = Cs + P * BV;        // QMAX x BV: the chunk's value columns
@@ -320,7 +324,8 @@ __global__ void __launch_bounds__(kThreads)
     {
       Tile<DT> tv;
       tv.fetch(v + off, Q, P, v0);
-      tv.store(Q, P, v0, det, fill, nullptr, vs, BV, unused_nan, unused_inf);
+      tv.store(Q, P, v0, det, fill_v, chunk, nullptr, vs, BV, unused_nan,
+               unused_inf);
     }
     __syncthreads();
 
@@ -375,8 +380,10 @@ __global__ void __launch_bounds__(kThreads)
     tq.fetch(q + off, Q, P, 0);
     tk.fetch(k + off, Q, P, 0);
     for (int p0 = 0; p0 < P; p0 += TP) {
-      tq.store(Q, P, p0, det, fill, nullptr, ts, LD, unused_nan, unused_inf);
-      tk.store(Q, P, p0, det, fill, src, ks, LD, unused_nan, unused_inf);
+      tq.store(Q, P, p0, det, fill_q, chunk, nullptr, ts, LD, unused_nan,
+               unused_inf);
+      tk.store(Q, P, p0, det, fill_k, chunk, src, ks, LD, unused_nan,
+               unused_inf);
       __syncthreads();
       if (p0 + TP < P) {
         tq.fetch(q + off, Q, P, p0 + TP);
@@ -465,7 +472,7 @@ template <int DT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* log_i, const float* log_f, int B, int H,
                    int nc, int Q, int P, const int* det_host,
-                   unsigned int fill, float* S, float* y, int* counts,
+                   const repro::Fill* fills, float* S, float* y, int* counts,
                    cudaStream_t stream) {
   using bits_t = typename Storage<DT>::bits_t;
   const long long tiles = (long long)B * H * nc;
@@ -475,13 +482,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const bits_t* kb = static_cast<const bits_t*>(k);
   const bits_t* vb = static_cast<const bits_t*>(v);
   mlstm_qk<DT><<<(unsigned)tiles, kThreads, 0, stream>>>(
-      qb, kb, vb, Q, P, det, fill, S, counts);
+      qb, kb, vb, Q, P, det, fills[0], fills[1], S, counts);
   const size_t smem = scan_smem(P);
   cudaError_t err = repro::allow_smem((const void*)mlstm_scan<DT>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(B * H), (unsigned)((P + BV - 1) / BV));
   mlstm_scan<DT><<<grid, kThreads, smem, stream>>>(
-      qb, kb, vb, log_i, log_f, S, nc, Q, P, det, fill, y);
+      qb, kb, vb, log_i, log_f, S, nc, Q, P, det, fills[0], fills[1], fills[2],
+      y);
   return cudaGetLastError();
 }
 
@@ -704,6 +712,7 @@ struct Args {
   long long tiles;     // B*H*nc
   Detector det;
   uint32_t floor, fill;
+  const uint32_t* fills[3];  // neighbor_mean: q, k, v per tile, else null
   uint4* wfrag;  // [tile][W_U4]
   float* gates;  // [tile][GATES]
   float* qn;     // [tile][nbox][QP]: q . n_{c-1} over each 64-column slice
@@ -711,6 +720,13 @@ struct Args {
   int* counts;   // int32[8]
   float* y;      // (B*H*nc, Q, P) f32
 };
+
+// The fill of a fatal lane of operand `which` (0 q, 1 k, 2 v) in `tile`.
+__device__ __forceinline__ uint32_t fill_at(const Args& a, int which,
+                                            long long tile) {
+  const uint32_t* t = a.fills[which];
+  return t ? __ldg(t + tile) : a.fill;
+}
 
 // Pass 1, a tile block: counts, flags, S by wgmma, the gates, W's terms.
 __device__ void prep_tile(const CUtensorMap* map_q, const CUtensorMap* map_k,
@@ -804,7 +820,7 @@ __device__ void prep_tile(const CUtensorMap* map_q, const CUtensorMap* map_k,
         uint4* p = reinterpret_cast<uint4*>(qb + which * BOX_BYTES) + slot;
         const uint4 x = *p;
         if (may_be_fatal(x, a.det.exp_mask, a.floor)) {
-          const int f = scan_fix(p, x, a.det, a.fill);
+          const int f = scan_fix(p, x, a.det, fill_at(a, which, tile));
           if (f) {
             n[2 * which] += f & 15;
             n[2 * which + 1] += f >> 4;
@@ -936,7 +952,7 @@ __device__ void prep_norm(const Args& a, uint8_t* smem, long long blk) {
 #pragma unroll
       for (int w = 0; w < 2; ++w) {
         if (may_be_fatal(x[w], a.det.exp_mask, a.floor))
-          x[w] = fix_vec(x[w], a.det, a.fill);
+          x[w] = fix_vec(x[w], a.det, fill_at(a, w, tile));
         const uint32_t b[4] = {x[w].x, x[w].y, x[w].z, x[w].w};
         float* dst = (w ? ks : qs) + r * LDS + col;
 #pragma unroll
@@ -1117,7 +1133,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
       if (t < Q && col < P)
         x = __ldg(reinterpret_cast<const uint4*>(a.v + (tile * Q + t) * P + col));
-      if (vflag) x = fix_vec(x, a.det, a.fill);
+      // v's tile fill goes in before the hi/lo split below
+      if (vflag) x = fix_vec(x, a.det, fill_at(a, 2, tile));
       const float src = t < Q ? g[t] : 0.f;
       const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
@@ -1185,7 +1202,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                   const int jj = w4 * 32 + __ffs(bits) - 1;
                   bits &= bits - 1;
                   uint32_t vb16 = a.v[(tile * Q + jj) * P + v0 + n];
-                  if (repro::classify(vb16, a.det)) vb16 = a.fill;
+                  if (repro::classify(vb16, a.det)) vb16 = fill_at(a, 2, tile);
                   corr += w_at(a, tile, r, jj) * __uint_as_float(vb16 << 16);
                   any = true;
                 }
@@ -1216,7 +1233,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             const int r = slot >> 3, col = b * 64 + ((slot & 7) ^ (r & 7)) * 8;
             if (r < Q && col < P)
               repair_chunk(reinterpret_cast<uint4*>(qb + which * BOX_BYTES) + slot,
-                           8, a.det, a.fill);
+                           8, a.det, fill_at(a, which, tile));
           }
           asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
           __syncthreads();
@@ -1319,7 +1336,8 @@ bool shape_ok(int B, int H, int nc, int Q, int P) {
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* log_i, const float* log_f, int B, int H,
                    int nc, int Q, int P, const int* det_host,
-                   unsigned int fill, void* scratch, float* y, int* counts,
+                   unsigned int fill, const unsigned int* const* fills,
+                   void* scratch, float* y, int* counts,
                    cudaStream_t stream) {
   const long long tiles = (long long)B * H * nc;
   const int nbox = (P + 63) / 64;
@@ -1353,6 +1371,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                det,
                fatal_floor(det),
                fill,
+               {fills[0], fills[1], fills[2]},
                reinterpret_cast<uint4*>(base),
                reinterpret_cast<float*>(base + sc.gates),
                reinterpret_cast<float*>(base + sc.qn),
@@ -1375,26 +1394,32 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q, k, v: (B, H, nc, Q, P) row-major on the device in dtype dt (0 f32,
 // 1 bf16, 2 f16); log_i, log_f: (B, H, nc, Q) f32; det: host int32[8];
-// fill: the repaired lane's bit pattern; S: (B, H, nc, Q, Q) f32 scratch;
-// y: (B, H, nc, Q, P) f32 out; counts: zeroed int32[8].  Returns
+// fill: the repaired lane's bit pattern, or with fills_q/k/v (device
+// uint32 per (b, h, c) tile of each operand, from repro_tile_fill; null:
+// none) the lane's tile's entry; S: (B, H, nc, Q, Q) f32 scratch; y: (B,
+// H, nc, Q, P) f32 out; counts: zeroed int32[8].  Returns
 // cudaGetLastError() after the launches.
 extern "C" int repro_mlstm_chunk(const void* q, const void* k, const void* v,
                                  const float* log_i, const float* log_f,
                                  int dt, int B, int H, int nc, int Q, int P,
-                                 const int* det, unsigned int fill, float* S,
+                                 const int* det, unsigned int fill,
+                                 const unsigned int* fills_q,
+                                 const unsigned int* fills_k,
+                                 const unsigned int* fills_v, float* S,
                                  float* y, int* counts, void* stream) {
   if (Q < 1 || Q > QMAX || P < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const repro::Fill f[3] = {{fills_q, fill}, {fills_k, fill}, {fills_v, fill}};
   switch (dt) {
     case repro::DT_F32:
       return (int)launch<repro::DT_F32>(q, k, v, log_i, log_f, B, H, nc, Q, P,
-                                        det, fill, S, y, counts, s);
+                                        det, f, S, y, counts, s);
     case repro::DT_BF16:
       return (int)launch<repro::DT_BF16>(q, k, v, log_i, log_f, B, H, nc, Q,
-                                         P, det, fill, S, y, counts, s);
+                                         P, det, f, S, y, counts, s);
     case repro::DT_F16:
       return (int)launch<repro::DT_F16>(q, k, v, log_i, log_f, B, H, nc, Q, P,
-                                        det, fill, S, y, counts, s);
+                                        det, f, S, y, counts, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1411,7 +1436,7 @@ extern "C" int repro_mlstm_wgmma_scratch(int B, int H, int nc, int Q, int P,
 // The wgmma route: q, k, v (B, H, nc, Q, P) bf16 row-major on the device,
 // each 16-byte aligned, Q a multiple of 16 up to 128, P a multiple of 8 up to
 // 1024; log_i, log_f (B, H, nc, Q) f32; det host int32[8]; fill the repaired
-// lane's bf16 bits; scratch repro_mlstm_wgmma_scratch bytes, 16-byte
+// lane's bf16 bits, fills_q/k/v as for repro_mlstm_chunk; scratch repro_mlstm_wgmma_scratch bytes, 16-byte
 // aligned (every byte the kernels read is written first); y (B, H, nc, Q, P)
 // f32 out; counts zeroed int32[8].  Launches mlstm_prep_wgmma, then
 // mlstm_scan_wgmma; returns cudaGetLastError().
@@ -1419,13 +1444,19 @@ extern "C" int repro_mlstm_chunk_wgmma(const void* q, const void* k,
                                        const void* v, const float* log_i,
                                        const float* log_f, int B, int H,
                                        int nc, int Q, int P, const int* det,
-                                       unsigned int fill, void* scratch,
-                                       float* y, int* counts, void* stream) {
+                                       unsigned int fill,
+                                       const unsigned int* fills_q,
+                                       const unsigned int* fills_k,
+                                       const unsigned int* fills_v,
+                                       void* scratch, float* y, int* counts,
+                                       void* stream) {
   if (!wg::shape_ok(B, H, nc, Q, P) ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(scratch)) &
        15))
     return (int)cudaErrorInvalidValue;
+  const unsigned int* fills[3] = {fills_q, fills_k, fills_v};
   return (int)wg::launch(q, k, v, log_i, log_f, B, H, nc, Q, P, det, fill,
-                         scratch, y, counts, static_cast<cudaStream_t>(stream));
+                         fills, scratch, y, counts,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -10,7 +10,11 @@
 // of the block table is one page visit (null-padded slots and slots past
 // pos[b] included) that repairs the page's whole (pg, Kh, Dh) K and V
 // tiles of this layer (a fatal lane takes the fill's bit pattern, which
-// the host precomputes in the storage dtype) and counts them:
+// the host precomputes in the storage dtype, or for neighbor_mean the
+// page's entry of the table that tile_fill.cu wrote over the layer: the
+// reference's tile is the whole page, both KV heads, so no route that
+// works one head or one group of slots at a time could form it) and counts
+// them:
 // slot_counts[b, j] is the visit's fatal-lane total over both KV heads,
 // `counts` the AT int32[8] [nan_k, inf_k, ev_k, nan_v, inf_v, ev_v,
 // ev_total, 0].  Keys are masked to position <= pos[b] with -1e30 (the
@@ -92,10 +96,9 @@ __global__ void decode_partials(
     const typename Storage<DT>::bits_t* q, const typename Storage<DT>::bits_t* kp,
     const typename Storage<DT>::bits_t* vp, const int* bt, const int* pos,
     int H, int Dh, int L, int pg, int Kh, int M, int ns, int layer,
-    float sm_scale, Detector det_k, Detector det_v,
-    typename Storage<DT>::bits_t fill_k, typename Storage<DT>::bits_t fill_v,
-    float* o_part, float* m_part, float* l_part, int* slot_counts,
-    int* counts) {
+    float sm_scale, Detector det_k, Detector det_v, repro::Fill fill_k,
+    repro::Fill fill_v, float* o_part, float* m_part, float* l_part,
+    int* slot_counts, int* counts) {
   extern __shared__ float smem[];
   const int ks = Dh + 1;                  // padded K row stride
   const int rows = pg * Kh;               // (token, kv head) rows per page
@@ -128,8 +131,10 @@ __global__ void decode_partials(
     const long long base = (page * L + layer) * tile;
     if (tid < 4) cnt[tid] = 0;
     __syncthreads();
-    repro::repair_tile<DT>(kp + base, rows, Dh, ks, det_k, fill_k, k_s, &cnt[0]);
-    repro::repair_tile<DT>(vp + base, rows, Dh, Dh, det_v, fill_v, v_s, &cnt[2]);
+    repro::repair_tile<DT>(kp + base, rows, Dh, ks, det_k, fill_k, page, k_s,
+                           &cnt[0]);
+    repro::repair_tile<DT>(vp + base, rows, Dh, Dh, det_v, fill_v, page, v_s,
+                           &cnt[2]);
     __syncthreads();
     if (tid == 0) {
       const int fk = cnt[0] + cnt[1], fv = cnt[2] + cnt[3];
@@ -215,8 +220,8 @@ template <int DT>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int* bt, const int* pos, int B, int H, int Dh, int L,
                    int pg, int Kh, int M, int splits, int layer,
-                   const int* det_k, const int* det_v, unsigned int fill_k,
-                   unsigned int fill_v, float* o_part, float* m_part,
+                   const int* det_k, const int* det_v, repro::Fill fill_k,
+                   repro::Fill fill_v, float* o_part, float* m_part,
                    float* l_part, int* slot_counts, int* counts, void* out,
                    cudaStream_t stream) {
   using bits_t = typename Storage<DT>::bits_t;
@@ -231,8 +236,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
       static_cast<const bits_t*>(q), static_cast<const bits_t*>(kp),
       static_cast<const bits_t*>(vp), bt, pos, H, Dh, L, pg, Kh, M, M / splits,
       layer, sm_scale, repro::detector_from(det_k), repro::detector_from(det_v),
-      (bits_t)fill_k, (bits_t)fill_v, o_part, m_part, l_part, slot_counts,
-      counts);
+      fill_k, fill_v, o_part, m_part, l_part, slot_counts, counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   lse_merge<DT><<<B, kThreads, 0, stream>>>(o_part, m_part, l_part, splits, H,
@@ -271,7 +275,7 @@ struct Decode {
   float scale;
   Detector det_k, det_v;
   uint32_t floor_k, floor_v;  // fatal_floor of each detector
-  uint32_t fill_k, fill_v;
+  repro::Fill fill_k, fill_v;  // a table is indexed by page id
 };
 
 // Byte offsets into a block's dynamic shared memory: the mbarrier, q's row
@@ -586,9 +590,14 @@ __global__ void __launch_bounds__(MAX_THREADS)
         const uint32_t floor = op ? p.floor_v : p.floor_k;
         const uint32_t exp_mask = op ? p.det_v.exp_mask : p.det_k.exp_mask;
         if (suspect<DT>(chunks[c], exp_mask, floor)) {
-          const int r = op ? repair_vec<DT>(chunks + c, p.det_v, p.fill_v)
-                           : repair_vec<DT>(chunks + c, p.det_k, p.fill_k);
-          int* sc = cnt + 4 * (c / (2 * cpt)) + 2 * op;
+          // the fill of the slot's page, whichever block holds the slot
+          const int slot = c / (2 * cpt);
+          const repro::Fill& f = op ? p.fill_v : p.fill_k;
+          const uint32_t fill =
+              f.table ? f.at(p.bt[(long long)b * p.M + jr + slot]) : f.value;
+          const int r = op ? repair_vec<DT>(chunks + c, p.det_v, fill)
+                           : repair_vec<DT>(chunks + c, p.det_k, fill);
+          int* sc = cnt + 4 * slot + 2 * op;
           if (r & 0xFFFF) atomicAdd(sc, r & 0xFFFF);
           if (r >> 16) atomicAdd(sc + 1, r >> 16);
         }
@@ -742,19 +751,24 @@ cudaError_t launch(const Decode& p, int B, int nb, cudaStream_t stream) {
 
 // q (B, H, Dh), pages (P, L, pg, Kh, Dh) in `dtype` (0 f32, 1 bf16, 2 f16);
 // bt (B, M) and pos (B,) int32 on the device; det_k/det_v host int32[8];
-// fill_k/fill_v the repaired lanes' bit patterns.  Outputs: o_part
-// (B, splits, H, Dh), m_part/l_part (B, splits, H) f32 scratch,
-// slot_counts (B, M) int32, counts int32[8] (zeroed by the caller), out
-// (B, H, Dh) in `dtype`.  Returns cudaGetLastError() after the launches.
+// fill_k/fill_v the repaired lanes' bit patterns, or with fills_k/fills_v
+// (device uint32 per page of the layer, from repro_tile_fill; null: none)
+// the page's entry.  Outputs: o_part (B, splits, H, Dh), m_part/l_part
+// (B, splits, H) f32 scratch, slot_counts (B, M) int32, counts int32[8]
+// (zeroed by the caller), out (B, H, Dh) in `dtype`.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int repro_paged_decode(
     const void* q, const void* kp, const void* vp, const int* bt,
     const int* pos, int dtype, int B, int H, int Dh, int L, int pg, int Kh,
     int M, int splits, int layer, const int* det_k, const int* det_v,
-    unsigned int fill_k, unsigned int fill_v, float* o_part, float* m_part,
-    float* l_part, int* slot_counts, int* counts, void* out, void* stream) {
+    unsigned int fill_k_bits, unsigned int fill_v_bits,
+    const unsigned int* fills_k, const unsigned int* fills_v, float* o_part,
+    float* m_part, float* l_part, int* slot_counts, int* counts, void* out,
+    void* stream) {
   if (splits < 1 || M % splits != 0 || H % Kh != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const repro::Fill fill_k{fills_k, fill_k_bits}, fill_v{fills_v, fill_v_bits};
   switch (dtype) {
     case repro::DT_F32:
       return (int)launch<repro::DT_F32>(q, kp, vp, bt, pos, B, H, Dh, L, pg, Kh,
@@ -778,15 +792,16 @@ extern "C" int repro_paged_decode(
 // The fused route: q (B, H, Dh) and pages (P, L, pg, Kh, Dh) all in `dtype`
 // (0 f32, 1 bf16, 2 f16), contiguous and 16-byte aligned, Dh 64 or 128;
 // bt (B, M) and pos (B,) int32 on the device; det_k/det_v host int32[8];
-// fill_k/fill_v the repaired lanes' bit patterns.  Writes out (B, H, Dh) in
-// `dtype`, slot_counts (B, M) and counts int32[8] (zeroed first, on the
-// stream).  Returns the memset's or the launch's error.
+// fill_k/fill_v and fills_k/fills_v as for repro_paged_decode.  Writes out
+// (B, H, Dh) in `dtype`, slot_counts (B, M) and counts int32[8] (zeroed
+// first, on the stream).  Returns the memset's or the launch's error.
 extern "C" int repro_paged_decode_fused(
     const void* q, const void* kp, const void* vp, const int* bt,
     const int* pos, int dtype, int B, int H, int Dh, int P, int L, int pg,
     int Kh, int M, int layer, const int* det_k, const int* det_v,
-    unsigned int fill_k, unsigned int fill_v, void* out, int* slot_counts,
-    int* counts, void* stream) {
+    unsigned int fill_k, unsigned int fill_v, const unsigned int* fills_k,
+    const unsigned int* fills_v, void* out, int* slot_counts, int* counts,
+    void* stream) {
   const int es = dtype == repro::DT_F32 ? 4 : 2;
   if (dtype < repro::DT_F32 || dtype > repro::DT_F16 || (Dh != 64 && Dh != 128) ||
       B < 1 || H < 1 || Kh < 1 || H % Kh || P < 1 || L < 1 || pg < 1 ||
@@ -822,8 +837,8 @@ extern "C" int repro_paged_decode_fused(
                      dv,
                      hopper::fatal_floor(dk),
                      hopper::fatal_floor(dv),
-                     fill_k,
-                     fill_v};
+                     {fills_k, fill_k},
+                     {fills_v, fill_v}};
   switch (dtype * 2 + (Dh == 128)) {
     case 2 * repro::DT_F32: return (int)fd::launch<repro::DT_F32, 64>(p, B, nb, s);
     case 2 * repro::DT_F32 + 1: return (int)fd::launch<repro::DT_F32, 128>(p, B, nb, s);

@@ -7,7 +7,9 @@
 // position q_start[b] + c and reads the keys at positions <= that, key t
 // living in slot t / pg of the block table; query head h reads KV head
 // h / G (G = H / Kh); every fatal K/V lane takes the fill's bit pattern
-// (precomputed by the host in the storage dtype); the online softmax masks
+// (precomputed by the host in the storage dtype, or for neighbor_mean the
+// page's entry of the table that tile_fill.cu wrote over the layer: the
+// reference's tile is the whole page, all KV heads); the online softmax masks
 // with -1e30 (the reference's value, not -inf), and p is rounded to the
 // storage dtype before the value product.  Counts: each (b, j) slot of the
 // block table is one page visit, NULL-padded slots and slots past every
@@ -66,9 +68,10 @@
 //   is rounded against another running max: outputs agree within the
 //   16-bit tolerances, not bitwise.  In the reference a V lane that stays
 //   non-finite after the repair (one the V detector lets through, or a
-//   non-finite fill) reaches every row of its KV head through 0 * NaN, the
-//   rows that mask it too.  So the scan also marks such slots (bit 1 of
-//   the V flag) and keeps, per request, the end of the last one
+//   non-finite fill; with a table, the page's own fill, which an f32 sum
+//   of large lanes can make Inf) reaches every row of its KV head through
+//   0 * NaN, the rows that mask it too.  So the scan also marks such slots
+//   (bit 1 of the V flag) and keeps, per request, the end of the last one
 //   (`poison_end`); a block loads its slots up to the larger of its causal
 //   limit and that end, and the routes agree on those rows as well.
 #include <cmath>
@@ -89,10 +92,9 @@ __global__ void prefill_partials(
     const typename Storage<DT>::bits_t* q, const typename Storage<DT>::bits_t* kp,
     const typename Storage<DT>::bits_t* vp, const int* bt, const int* q_start,
     int C, int H, int Dh, int L, int pg, int Kh, int M, int layer,
-    float sm_scale, Detector det_k, Detector det_v,
-    typename Storage<DT>::bits_t fill_k, typename Storage<DT>::bits_t fill_v,
-    float* acc_out, float* m_out, float* l_out, int* slot_counts,
-    int* counts) {
+    float sm_scale, Detector det_k, Detector det_v, repro::Fill fill_k,
+    repro::Fill fill_v, float* acc_out, float* m_out, float* l_out,
+    int* slot_counts, int* counts) {
   extern __shared__ float smem[];
   const int ks = Dh + 1;
   const int rows = pg * Kh;
@@ -130,8 +132,10 @@ __global__ void prefill_partials(
     const long long base = (page * L + layer) * tile;
     if (tid < 4) cnt[tid] = 0;
     __syncthreads();
-    repro::repair_tile<DT>(kp + base, rows, Dh, ks, det_k, fill_k, k_s, &cnt[0]);
-    repro::repair_tile<DT>(vp + base, rows, Dh, Dh, det_v, fill_v, v_s, &cnt[2]);
+    repro::repair_tile<DT>(kp + base, rows, Dh, ks, det_k, fill_k, page, k_s,
+                           &cnt[0]);
+    repro::repair_tile<DT>(vp + base, rows, Dh, Dh, det_v, fill_v, page, v_s,
+                           &cnt[2]);
     __syncthreads();
     if (reporter && tid == 0) {
       const int fk = cnt[0] + cnt[1], fv = cnt[2] + cnt[3];
@@ -194,8 +198,8 @@ template <int DT>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int* bt, const int* q_start, int B, int C, int H,
                    int Dh, int L, int pg, int Kh, int M, int layer,
-                   const int* det_k, const int* det_v, unsigned int fill_k,
-                   unsigned int fill_v, float* acc, float* m, float* l,
+                   const int* det_k, const int* det_v, repro::Fill fill_k,
+                   repro::Fill fill_v, float* acc, float* m, float* l,
                    int* slot_counts, int* counts, cudaStream_t stream) {
   using bits_t = typename Storage<DT>::bits_t;
   const int rows = pg * Kh;
@@ -213,7 +217,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
       static_cast<const bits_t*>(q), static_cast<const bits_t*>(kp),
       static_cast<const bits_t*>(vp), bt, q_start, C, H, Dh, L, pg, Kh, M,
       layer, sm_scale, repro::detector_from(det_k), repro::detector_from(det_v),
-      (bits_t)fill_k, (bits_t)fill_v, acc, m, l, slot_counts, counts);
+      fill_k, fill_v, acc, m, l, slot_counts, counts);
   return cudaGetLastError();
 }
 
@@ -255,20 +259,24 @@ struct Prefill {
   float scale_log2;
   Detector det_k, det_v;
   uint32_t floor_k, floor_v;  // fatal_floor of each detector
-  uint32_t fill_k, fill_v;
+  repro::Fill fill_k, fill_v;  // a table is indexed by page id
 };
 
 // The consumers repair the flagged pages of a K or V tile (bit q of
-// `pages`: the tile's page q, rows q * pg .. q * pg + pg - 1), every lane
-// of them, 16-byte chunks that pass the exponent-floor prefilter in full;
-// then the tile is handed to the async proxy.
+// `pages`: the tile's page q, rows q * pg .. q * pg + pg - 1, page id
+// ids[q]), every lane of them, 16-byte chunks that pass the exponent-floor
+// prefilter in full; then the tile is handed to the async proxy.  The
+// fill is the page's: a page is one logical tile.
 template <int D>
 __device__ __forceinline__ void repair_pages(uint8_t* tile, uint32_t pages,
                                              int pg, const Detector& det,
-                                             uint32_t floor, uint32_t fill) {
+                                             uint32_t floor,
+                                             const repro::Fill& f,
+                                             const int* ids) {
   const int per_box = pg * 8;   // chunks of one page in one 64-lane box
   for (; pages; pages &= pages - 1) {
     const int q = __ffs(pages) - 1;
+    const uint32_t fill = f.table ? f.at(ids[q]) : f.value;
     for (int c = threadIdx.x; c < Tile<D>::BOXES * per_box; c += CONSUMERS) {
       const int x = c / per_box, i = c - x * per_box;
       uint4* chunk = reinterpret_cast<uint4*>(tile + x * BOX_BYTES +
@@ -434,8 +442,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int kend = min(key_end - k0, tile_keys);
       mbar_wait(smem_u32(&k_full[s]), parity);
       const uint32_t fl = stage_flags[s];
+      const int* ids = p.bt + (long long)b * p.M + it * ppt;
       if (fl & 0xFFu)
-        repair_pages<D>(kt, fl & 0xFFu, p.pg, p.det_k, p.floor_k, p.fill_k);
+        repair_pages<D>(kt, fl & 0xFFu, p.pg, p.det_k, p.floor_k, p.fill_k,
+                        ids);
 
       float sc[64];
       qk_tile<DT, D>(sc, q_base, smem_u32(kt));
@@ -449,7 +459,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       mbar_wait(smem_u32(&v_full[s]), parity);
       if (fl >> 8)
-        repair_pages<D>(vt, fl >> 8, p.pg, p.det_v, p.floor_v, p.fill_v);
+        repair_pages<D>(vt, fl >> 8, p.pg, p.det_v, p.floor_v, p.fill_v, ids);
       pv_tile<DT, D>(o, pa, smem_u32(vt), kend / 16);
       mbar_arrive(smem_u32(&empty[s]));
     }
@@ -498,6 +508,7 @@ struct PageScan {
   uint32_t floor_k, floor_v;  // fatal_floor of each detector
   uint32_t ieee_exp;    // the storage dtype's exponent field
   bool fill_v_finite;   // whether the V fill is a finite value
+  const uint32_t* fills_v;  // neighbor_mean: the V fill per page, else null
   int* slot_counts;     // (B * M)
   int* flags;           // (B * M, 2)
   int* counts;          // int32[8], zeroed before the launch
@@ -580,7 +591,12 @@ __global__ void __launch_bounds__(SCAN_THREADS) prefill_scan(const PageScan s) {
   __syncthreads();
   if (threadIdx.x == 0) {
     const int fk = cnt[0] + cnt[1], fv = cnt[2] + cnt[3];
-    const bool poison = cnt[4] > 0 || (fv > 0 && !s.fill_v_finite);
+    // with a table the V fill, and whether it is finite, is the page's
+    // (an f32 sum of large bf16 lanes can overflow to Inf)
+    const bool fill_finite =
+        s.fills_v ? (__ldg(s.fills_v + s.bt[slot]) & s.ieee_exp) != s.ieee_exp
+                  : s.fill_v_finite;
+    const bool poison = cnt[4] > 0 || (fv > 0 && !fill_finite);
     s.slot_counts[slot] = fk + fv;
     s.flags[2 * slot] = fk > 0;
     s.flags[2 * slot + 1] = (fv > 0) | (poison << 1);
@@ -609,8 +625,8 @@ bool shape_ok(int dt, int B, int M, long long P, int L, int pg, int Kh,
 cudaError_t launch_scan(const void* kp, const void* vp, const int* bt, int dt,
                         int B, int M, int L, int pg, int Kh, int Dh, int layer,
                         const int* det_k, const int* det_v, unsigned fill_v,
-                        int* slot_counts, int* flags, int* counts,
-                        cudaStream_t stream) {
+                        const unsigned* fills_v, int* slot_counts, int* flags,
+                        int* counts, cudaStream_t stream) {
   cudaError_t err =
       cudaMemsetAsync(counts, 0, (8 + (size_t)B) * sizeof(int), stream);
   if (err != cudaSuccess) return err;
@@ -630,6 +646,7 @@ cudaError_t launch_scan(const void* kp, const void* vp, const int* bt, int dt,
                    fatal_floor(dv),
                    ieee_exp,
                    (fill_v & ieee_exp) != ieee_exp,
+                   fills_v,
                    slot_counts,
                    flags,
                    counts,
@@ -697,17 +714,21 @@ cudaError_t launch_main(const CUtensorMap& map_k, const CUtensorMap& map_v,
 
 // q (B, C, H, Dh) and pages (P, L, pg, Kh, Dh) in `dtype` (0 f32, 1 bf16,
 // 2 f16); bt (B, M), q_start (B,) int32 on the device; det_k/det_v host
-// int32[8]; fill_k/fill_v the repaired lanes' bit patterns.  Outputs acc
-// (B, C, H, Dh), m/l (B, C*H) f32, slot_counts (B, M) int32, counts
-// int32[8] (zeroed by the caller).  Returns cudaGetLastError().
+// int32[8]; fill_k/fill_v the repaired lanes' bit patterns, or with
+// fills_k/fills_v (device uint32 per page of the layer, from
+// repro_tile_fill; null: none) the page's entry.  Outputs acc (B, C, H,
+// Dh), m/l (B, C*H) f32, slot_counts (B, M) int32, counts int32[8] (zeroed
+// by the caller).  Returns cudaGetLastError().
 extern "C" int repro_paged_prefill(
     const void* q, const void* kp, const void* vp, const int* bt,
     const int* q_start, int dtype, int B, int C, int H, int Dh, int L, int pg,
     int Kh, int M, int layer, const int* det_k, const int* det_v,
-    unsigned int fill_k, unsigned int fill_v, float* acc, float* m, float* l,
-    int* slot_counts, int* counts, void* stream) {
+    unsigned int fill_k_bits, unsigned int fill_v_bits,
+    const unsigned int* fills_k, const unsigned int* fills_v, float* acc,
+    float* m, float* l, int* slot_counts, int* counts, void* stream) {
   if (H % Kh != 0 || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const repro::Fill fill_k{fills_k, fill_k_bits}, fill_v{fills_v, fill_v_bits};
   switch (dtype) {
     case repro::DT_F32:
       return (int)launch<repro::DT_F32>(q, kp, vp, bt, q_start, B, C, H, Dh, L,
@@ -731,7 +752,8 @@ extern "C" int repro_paged_prefill(
 // The wgmma route's scan alone: pages (P, L, pg, Kh, Dh) bf16 (dtype 1) or
 // f16 (2), 16-byte aligned, Dh 64 or 128, pg a multiple of 16 up to 128;
 // bt (B, M) int32 on the device; det_k/det_v host int32[8]; fill_v the
-// repaired V lanes' bit pattern.  Writes slot_counts (B, M), flags (B, M,
+// repaired V lanes' bit pattern, or with fills_v (device uint32 per page of
+// the layer; null: none) the page's entry.  Writes slot_counts (B, M), flags (B, M,
 // 2) [K, V] (bit 0: the slot's tile holds a fatal lane; bit 1 of V: it
 // stays non-finite after the repair) and counts int32[8 + B]: the AT
 // counts, then per request the end of its last slot with V bit 1 (zeroed
@@ -739,32 +761,35 @@ extern "C" int repro_paged_prefill(
 extern "C" int repro_paged_prefill_scan(
     const void* kp, const void* vp, const int* bt, int dtype, int B, int M,
     int P, int L, int pg, int Kh, int Dh, int layer, const int* det_k,
-    const int* det_v, unsigned int fill_v, int* slot_counts, int* flags,
-    int* counts, void* stream) {
+    const int* det_v, unsigned int fill_v, const unsigned int* fills_v,
+    int* slot_counts, int* flags, int* counts, void* stream) {
   if (!pw::shape_ok(dtype, B, M, P, L, pg, Kh, Dh) || layer < 0 || layer >= L)
     return (int)cudaErrorInvalidValue;
   return (int)pw::launch_scan(kp, vp, bt, dtype, B, M, L, pg, Kh, Dh, layer,
-                              det_k, det_v, fill_v, slot_counts, flags, counts,
-                              static_cast<cudaStream_t>(stream));
+                              det_k, det_v, fill_v, fills_v, slot_counts,
+                              flags, counts, static_cast<cudaStream_t>(stream));
 }
 
 // The wgmma route: the scan, then prefill_repair_wgmma.  q (B, C, H, Dh)
 // and the pages as for the scan, all in `dtype`; q_start (B,) int32;
-// fill_k/fill_v the repaired lanes' bit patterns; out (B, C, H, Dh) in
+// fill_k/fill_v and fills_k/fills_v as for repro_paged_prefill; out (B, C,
+// H, Dh) in
 // `dtype`; slot_counts, flags and counts (int32[8 + B]) as the scan's.
 // Returns cudaGetLastError() after the launches.
 extern "C" int repro_paged_prefill_wgmma(
     const void* q, const void* kp, const void* vp, const int* bt,
     const int* q_start, int dtype, int B, int C, int H, int Dh, int P, int L,
     int pg, int Kh, int M, int layer, const int* det_k, const int* det_v,
-    unsigned int fill_k, unsigned int fill_v, void* out, int* slot_counts,
-    int* flags, int* counts, void* stream) {
+    unsigned int fill_k, unsigned int fill_v, const unsigned int* fills_k,
+    const unsigned int* fills_v, void* out, int* slot_counts, int* flags,
+    int* counts, void* stream) {
   if (!pw::shape_ok(dtype, B, M, P, L, pg, Kh, Dh) || layer < 0 ||
       layer >= L || C < 1 || H % Kh || (long long)B * C * H * Dh >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = pw::launch_scan(kp, vp, bt, dtype, B, M, L, pg, Kh, Dh,
-                                    layer, det_k, det_v, fill_v, slot_counts,
+                                    layer, det_k, det_v, fill_v, fills_v,
+                                    slot_counts,
                                     flags, counts, s);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)P * L * pg;
@@ -790,8 +815,8 @@ extern "C" int repro_paged_prefill_wgmma(
                       repro::detector_from(det_v),
                       hopper::fatal_floor(repro::detector_from(det_k)),
                       hopper::fatal_floor(repro::detector_from(det_v)),
-                      fill_k,
-                      fill_v};
+                      {fills_k, fill_k},
+                      {fills_v, fill_v}};
   if (dtype == repro::DT_BF16)
     err = Dh == 64 ? pw::launch_main<repro::DT_BF16, 64>(mk, mv, p, B, s)
                    : pw::launch_main<repro::DT_BF16, 128>(mk, mv, p, B, s);

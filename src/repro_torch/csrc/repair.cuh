@@ -6,8 +6,9 @@
 // read as uint32 exactly like the reference's masks_from_consts
 // (src/repro/kernels/common.py:105).  A 16-bit lane is widened to uint32 by
 // zero extension, as the reference's uint16 view does.  A fatal lane takes
-// the fill's bit pattern, which the host precomputes in the storage dtype,
-// so a repaired lane is bit-identical to the plain PyTorch version.
+// the fill's bit pattern, which the host precomputes in the storage dtype
+// (or, for neighbor_mean, tile_fill.cu writes per logical tile), so a
+// repaired lane is bit-identical to the plain PyTorch version.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +26,18 @@ enum DType { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
 
 struct Detector {
   uint32_t exp_mask, man_mask, flags, range, bp_mask, bp_value, n_valid, pad;
+};
+
+// What a fatal lane takes: `value` in every tile (zero, constant,
+// clamp_finite_max), or, with a `table` (neighbor_mean), the entry of the
+// lane's logical tile in the table that tile_fill.cu wrote before the
+// launch.  The table is read only where a fatal lane is found.
+struct Fill {
+  const uint32_t* table;
+  uint32_t value;
+  __device__ __forceinline__ uint32_t at(long long tile) const {
+    return table ? __ldg(table + tile) : value;
+  }
 };
 
 inline Detector detector_from(const int* c) {
@@ -113,11 +126,12 @@ __device__ __forceinline__ void block_add(int* dst, int v) {
 
 // Repairs one (pg, Kh, Dh) page tile of a pool leaf into shared memory as
 // f32 (row stride `stride` floats per (token, kv-head) row of Dh lanes) and
-// counts its fatal lanes into cnt[0] (NaN) and cnt[1] (Inf).
+// counts its fatal lanes into cnt[0] (NaN) and cnt[1] (Inf).  The page is
+// one logical tile: `page` indexes a fill table.
 template <int DT>
 __device__ __forceinline__ void repair_tile(
     const typename Storage<DT>::bits_t* src, int rows, int dh, int stride,
-    const Detector& det, typename Storage<DT>::bits_t fill, float* dst,
+    const Detector& det, const Fill& fill, long long page, float* dst,
     int* cnt) {
   int n_nan = 0, n_inf = 0;
   for (int e = threadIdx.x; e < rows * dh; e += blockDim.x) {
@@ -125,7 +139,7 @@ __device__ __forceinline__ void repair_tile(
     const int c = classify(b, det);
     n_nan += c & 1;
     n_inf += c >> 1;
-    if (c) b = fill;
+    if (c) b = fill.at(page);
     dst[(e / dh) * stride + (e % dh)] = Storage<DT>::to_float(b);
   }
   block_add(&cnt[0], n_nan);

@@ -3,11 +3,12 @@
 //
 // Replaces src/repro/kernels/repair_matmul.py::_mm_kernel (:60, behind
 // `repair_matmul_raw`).  A fatal lane takes the fill (bit pattern
-// precomputed by the host in the operand's storage dtype) before it reaches
-// the product.  The stored operands are never written: the memory-mode
-// origin scrub is a separate call (kernels/ops.py).  Two routes, chosen by
-// the wrapper from dtypes, shapes and alignment alone
-// (kernels/repair_matmul.py::route):
+// precomputed by the host in the operand's storage dtype, or for
+// neighbor_mean the entry of its logical (bm, bk) / (bk, bn) tile in the
+// table that tile_fill.cu wrote) before it reaches the product.  The
+// stored operands are never written: the memory-mode origin scrub is a
+// separate call (kernels/ops.py).  Two routes, chosen by the wrapper from
+// dtypes, shapes and alignment alone (kernels/repair_matmul.py::route):
 //
 // FFMA route (`repair_mm_tiles`): any dtype mix, any shape.  Every lane of
 // an A or B tile is classified against its operand's detector as it is
@@ -91,8 +92,8 @@ __global__ void __launch_bounds__(kThreads)
     repair_mm_tiles(const typename Storage<DA>::bits_t* __restrict__ A,
                     const typename Storage<DB>::bits_t* __restrict__ B,
                     void* C, int out_dt, int M, int N, int K, int bm, int bn,
-                    int bk, Detector det_a, Detector det_b, uint32_t fill_a,
-                    uint32_t fill_b, int* tiles_a, int* tiles_b) {
+                    int bk, Detector det_a, Detector det_b, repro::Fill fill_a,
+                    repro::Fill fill_b, int* tiles_a, int* tiles_b) {
   __shared__ __align__(16) float As[BK][BM];  // A tile, transposed: [k][m]
   __shared__ __align__(16) float Bs[BK][BN];  // B tile: [k][n]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -120,9 +121,9 @@ __global__ void __launch_bounds__(kThreads)
           uint32_t bits = A[(long long)r * K + c];
           const int cls = repro::classify(bits, det_a);
           if (cls) {
-            bits = fill_a;
-            if (count_a)
-              count_lane(tiles_a, (long long)(r / bm) * nk_log + c / bk, cls);
+            const long long t = (long long)(r / bm) * nk_log + c / bk;
+            bits = fill_a.at(t);
+            if (count_a) count_lane(tiles_a, t, cls);
           }
           val = Storage<DA>::to_float(bits);
         }
@@ -139,9 +140,9 @@ __global__ void __launch_bounds__(kThreads)
           uint32_t bits = B[(long long)r * N + c];
           const int cls = repro::classify(bits, det_b);
           if (cls) {
-            bits = fill_b;
-            if (count_b)
-              count_lane(tiles_b, (long long)(r / bk) * nj_log + c / bn, cls);
+            const long long t = (long long)(r / bk) * nj_log + c / bn;
+            bits = fill_b.at(t);
+            if (count_b) count_lane(tiles_b, t, cls);
           }
           val = Storage<DB>::to_float(bits);
         }
@@ -294,25 +295,39 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t desc_a,
 
 // Every consumer thread takes its share of a flagged stage's 16-byte
 // chunks.  Under the 128-byte swizzle, chunk c of smem row r holds the
-// operand's logical chunk c ^ (r & 7) of that row.
+// operand's logical chunk c ^ (r & 7) of that row.  A fatal lane's fill is
+// its logical tile's (A: bm x bk, B: bk x bn): the 8 lanes of a chunk may
+// span logical tiles when bk or bn is not a multiple of 8.
 __device__ __forceinline__ void repair_a(uint8_t* tile, int m0, int k0, int M,
                                          int K, const Detector& det,
-                                         uint32_t fill) {
+                                         const repro::Fill& fill, int bm,
+                                         int bk) {
+  const int nk = K / bk;
   for (int q = threadIdx.x; q < BM * 8; q += CONSUMER_THREADS) {
     const int r = q >> 3, k = k0 + ((q & 7) ^ (r & 7)) * 8;
     if (m0 + r < M && k < K)
-      repair_chunk(reinterpret_cast<uint4*>(tile) + q, K - k, det, fill);
+      repair_chunk_with(reinterpret_cast<uint4*>(tile) + q, K - k, det,
+                        [&](int e) {
+                          return fill.at((long long)((m0 + r) / bm) * nk +
+                                         (k + e) / bk);
+                        });
   }
 }
 
 __device__ __forceinline__ void repair_b(uint8_t* tile, int k0, int n0, int K,
                                          int N, const Detector& det,
-                                         uint32_t fill) {
+                                         const repro::Fill& fill, int bk,
+                                         int bn) {
+  const int nj = N / bn;
   for (int q = threadIdx.x; q < BK * BN / 8; q += CONSUMER_THREADS) {
     const int box = q >> 9, r = (q & 511) >> 3;
     const int n = n0 + box * B_BOX + ((q & 7) ^ (r & 7)) * 8;
     if (k0 + r < K && n < N)
-      repair_chunk(reinterpret_cast<uint4*>(tile) + q, N - n, det, fill);
+      repair_chunk_with(reinterpret_cast<uint4*>(tile) + q, N - n, det,
+                        [&](int e) {
+                          return fill.at((long long)((k0 + r) / bk) * nj +
+                                         (n + e) / bn);
+                        });
   }
 }
 
@@ -400,9 +415,10 @@ template <int DT>
 __global__ void __launch_bounds__(THREADS, 1)
     repair_mm_wgmma(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b, void* C,
-                    int out_dt, int M, int N, int K, Detector det_a,
-                    Detector det_b, uint32_t fill_a, uint32_t fill_b,
-                    const int* flags_a, const int* flags_b) {
+                    int out_dt, int M, int N, int K, int bm, int bn, int bk,
+                    Detector det_a, Detector det_b, repro::Fill fill_a,
+                    repro::Fill fill_b, const int* flags_a,
+                    const int* flags_b) {
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the ring to it
   uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -465,9 +481,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(smem_u32(&full[s]), (it / STAGES) & 1);
         const int fl = stage_flags[s];
         if (fl) {
-          if (fl & 1) repair_a(a_tile, m0, kt * BK, M, K, det_a, fill_a);
+          if (fl & 1)
+            repair_a(a_tile, m0, kt * BK, M, K, det_a, fill_a, bm, bk);
           if (fl & 2)
-            repair_b(a_tile + A_BYTES, kt * BK, n0, K, N, det_b, fill_b);
+            repair_b(a_tile + A_BYTES, kt * BK, n0, K, N, det_b, fill_b, bk,
+                     bn);
           asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
           asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
         }
@@ -503,10 +521,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <int DT>
 cudaError_t launch_wgmma(const void* a, const void* b, void* c, int out_dt,
-                         int M, int N, int K, const int* det_a,
-                         const int* det_b, unsigned int fill_a,
-                         unsigned int fill_b, const int* flags_a,
-                         const int* flags_b, cudaStream_t stream) {
+                         int M, int N, int K, int bm, int bn, int bk,
+                         const int* det_a, const int* det_b,
+                         repro::Fill fill_a, repro::Fill fill_b,
+                         const int* flags_a, const int* flags_b,
+                         cudaStream_t stream) {
   CUtensorMap map_a, map_b;
   if (!tensor_map(&map_a, a, DT, M, K, BM, BK) ||
       !tensor_map(&map_b, b, DT, K, N, BK, B_BOX))
@@ -525,8 +544,8 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, int out_dt,
   if (err != cudaSuccess) return err;
   const int tiles = (M + BM - 1) / BM * ((N + BN - 1) / BN);
   repair_mm_wgmma<DT><<<tiles < sms ? tiles : sms, THREADS, SMEM_BYTES,
-                        stream>>>(map_a, map_b, c, out_dt, M, N, K,
-                                  repro::detector_from(det_a),
+                        stream>>>(map_a, map_b, c, out_dt, M, N, K, bm, bn,
+                                  bk, repro::detector_from(det_a),
                                   repro::detector_from(det_b), fill_a, fill_b,
                                   flags_a, flags_b);
   return cudaGetLastError();
@@ -537,7 +556,7 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, int out_dt,
 template <int DA, int DB>
 cudaError_t launch(const void* a, const void* b, void* c, int out_dt, int M,
                    int N, int K, int bm, int bn, int bk, const int* det_a,
-                   const int* det_b, unsigned int fill_a, unsigned int fill_b,
+                   const int* det_b, repro::Fill fill_a, repro::Fill fill_b,
                    int* tiles_a, int* tiles_b, int* counts,
                    cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
@@ -555,8 +574,8 @@ cudaError_t launch(const void* a, const void* b, void* c, int out_dt, int M,
 template <int DA>
 cudaError_t launch_b(int dt_b, const void* a, const void* b, void* c,
                      int out_dt, int M, int N, int K, int bm, int bn, int bk,
-                     const int* det_a, const int* det_b, unsigned int fill_a,
-                     unsigned int fill_b, int* tiles_a, int* tiles_b,
+                     const int* det_a, const int* det_b, repro::Fill fill_a,
+                     repro::Fill fill_b, int* tiles_a, int* tiles_b,
                      int* counts, cudaStream_t s) {
   switch (dt_b) {
     case repro::DT_F32:
@@ -580,20 +599,25 @@ cudaError_t launch_b(int dt_b, const void* a, const void* b, void* c,
 // a (M, K), b (K, N) row-major on the device in dtypes dt_a / dt_b, c (M, N)
 // in out_dt (0 f32, 1 bf16, 2 f16); (bm, bn, bk) the logical blocks, which
 // must divide (M, N, K); det_a/det_b host int32[8]; fill_a/fill_b the
-// repaired lanes' bit patterns; tiles_a int32[2 * ni * nk] and tiles_b
-// int32[2 * nk * nj] zeroed scratch; counts int32[8] out.  Returns
-// cudaGetLastError() after the launches.
+// repaired lanes' bit patterns, or with fills_a/fills_b (device uint32 per
+// logical A / B tile, from repro_tile_fill; null: none) the lane's tile's
+// entry; tiles_a int32[2 * ni * nk] and tiles_b int32[2 * nk * nj] zeroed
+// scratch; counts int32[8] out.  Returns cudaGetLastError() after the
+// launches.
 extern "C" int repro_repair_matmul(const void* a, const void* b, void* c,
                                    int dt_a, int dt_b, int out_dt, int M,
                                    int N, int K, int bm, int bn, int bk,
                                    const int* det_a, const int* det_b,
-                                   unsigned int fill_a, unsigned int fill_b,
-                                   int* tiles_a, int* tiles_b, int* counts,
-                                   void* stream) {
+                                   unsigned int fill_a_bits,
+                                   unsigned int fill_b_bits,
+                                   const unsigned int* fills_a,
+                                   const unsigned int* fills_b, int* tiles_a,
+                                   int* tiles_b, int* counts, void* stream) {
   if (bm < 1 || bn < 1 || bk < 1 || M % bm || N % bn || K % bk ||
       out_dt < 0 || out_dt > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const repro::Fill fill_a{fills_a, fill_a_bits}, fill_b{fills_b, fill_b_bits};
   switch (dt_a) {
     case repro::DT_F32:
       return (int)launch_b<repro::DT_F32>(dt_b, a, b, c, out_dt, M, N, K, bm,
@@ -656,10 +680,13 @@ extern "C" int repro_repair_mm_scan(const void* a, const void* b, int dt,
 extern "C" int repro_repair_mm_wgmma(const void* a, const void* b, void* c,
                                      int dt, int out_dt, int M, int N, int K,
                                      int bm, int bn, int bk, const int* det_a,
-                                     const int* det_b, unsigned int fill_a,
-                                     unsigned int fill_b, int* tiles_a,
+                                     const int* det_b, unsigned int fill_a_bits,
+                                     unsigned int fill_b_bits,
+                                     const unsigned int* fills_a,
+                                     const unsigned int* fills_b, int* tiles_a,
                                      int* tiles_b, int* flags_a, int* flags_b,
                                      int* counts, void* stream) {
+  const repro::Fill fill_a{fills_a, fill_a_bits}, fill_b{fills_b, fill_b_bits};
   if (!wgmma_shape_ok(dt, out_dt, M, N, K, bm, bn, bk))
     return (int)cudaErrorInvalidValue;
   const int scan =
@@ -669,12 +696,12 @@ extern "C" int repro_repair_mm_wgmma(const void* a, const void* b, void* c,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dt == repro::DT_BF16
-          ? wg::launch_wgmma<repro::DT_BF16>(a, b, c, out_dt, M, N, K, det_a,
-                                         det_b, fill_a, fill_b, flags_a,
-                                         flags_b, s)
-          : wg::launch_wgmma<repro::DT_F16>(a, b, c, out_dt, M, N, K, det_a,
-                                        det_b, fill_a, fill_b, flags_a,
-                                        flags_b, s);
+          ? wg::launch_wgmma<repro::DT_BF16>(a, b, c, out_dt, M, N, K, bm, bn,
+                                             bk, det_a, det_b, fill_a, fill_b,
+                                             flags_a, flags_b, s)
+          : wg::launch_wgmma<repro::DT_F16>(a, b, c, out_dt, M, N, K, bm, bn,
+                                            bk, det_a, det_b, fill_a, fill_b,
+                                            flags_a, flags_b, s);
   if (err != cudaSuccess) return (int)err;
   repair_mm_counts<<<1, 256, 0, s>>>(tiles_a, tiles_b, M / bm, N / bn, K / bk,
                                      counts);

@@ -37,7 +37,10 @@
 //     compute its gathered row and column, and from them its logical tile:
 //     one atomicOr into a bitmap of tiles, whose old bit decides the one
 //     atomicAdd on the event count, so events are exact whatever block
-//     finds the lanes of a tile.
+//     finds the lanes of a tile.  The same tile indexes the neighbor_mean
+//     fill table (tile_fill.cu, launched before on the stream: the table
+//     is complete before any lane is written in place), so the clean
+//     streaming loop is the same for every fill.
 //   * Launch latency.  One launch per call and nothing else on the device:
 //     NaN and Inf are summed per block into a workspace that the wrapper
 //     keeps per (device, stream), and the last block to finish (a ticket
@@ -75,6 +78,7 @@ struct Args {
   int n_chunks, chunks_per_page, chunk_words;
   Detector det;
   uint32_t fill;
+  const uint32_t* fills;       // neighbor_mean: per logical tile, else null
   int ids[kIds > 0 ? kIds : 1];
 };
 
@@ -106,17 +110,18 @@ __device__ __forceinline__ uint32_t lane(const uint4& w, int j) {
   return (u >> ((j & 1) * 16)) & 0xffffu;
 }
 
-// The rare path: repair a fatal lane at gathered lane `g`; if it counts,
-// add it to the block's sums and mark its logical tile.
+// The rare path: repair a fatal lane at gathered lane `g` (with its logical
+// tile's entry of the fill table, if any); if it counts, add it to the
+// block's sums and mark its logical tile.
 template <typename bits_t, int kIds>
 __device__ __noinline__ void repair_lane(const Args<kIds>& a, bits_t* p,
                                          long long g, int cls, int* cnt) {
-  *p = (bits_t)a.fill;
+  const long long row = g / a.cols, col = g - row * a.cols;
+  const long long tile = (row / a.br) * a.n_tiles_c + col / a.bc;
+  *p = (bits_t)(a.fills ? __ldg(a.fills + tile) : a.fill);
   if (a.count_lanes && g >= a.count_lanes) return;
   if (cls & 1) atomicAdd(&cnt[0], 1);
   if (cls & 2) atomicAdd(&cnt[1], 1);
-  const long long row = g / a.cols, col = g - row * a.cols;
-  const long long tile = (row / a.br) * a.n_tiles_c + col / a.bc;
   unsigned* bitmap = reinterpret_cast<unsigned*>(a.ws + WS_HEADER);
   const unsigned bit = 1u << (tile & 31);
   const unsigned old = atomicOr(bitmap + (tile >> 5), bit);
@@ -235,9 +240,9 @@ template <int kIds>
 cudaError_t launch(void* x, int elem_bytes, const int* ids, int n_pages,
                    long long page_elems, long long cols, long long count_lanes,
                    long long br, long long bc, const int* det,
-                   unsigned int fill, int chunk_words, int chunks_per_page,
-                   int grid, int* ws, long long n_words, int* counts,
-                   cudaStream_t s) {
+                   unsigned int fill, const unsigned int* fills,
+                   int chunk_words, int chunks_per_page, int grid, int* ws,
+                   long long n_words, int* counts, cudaStream_t s) {
   Args<kIds> a;
   a.x = x;
   a.ids_dev = kIds ? nullptr : ids;
@@ -256,6 +261,7 @@ cudaError_t launch(void* x, int elem_bytes, const int* ids, int n_pages,
   a.chunk_words = chunk_words;
   a.det = repro::detector_from(det);
   a.fill = fill;
+  a.fills = fills;
   if (elem_bytes == 4)
     scrub_stream<uint32_t, kIds><<<grid, kThreads, 0, s>>>(a);
   else if (elem_bytes == 2)
@@ -273,7 +279,9 @@ cudaError_t launch(void* x, int elem_bytes, const int* ids, int n_pages,
 // n_pages <= 512) or, with ids_staged, device int32[n_pages]; cols, br, bc:
 // the gathered view's row width and logical tile; count_lanes: lanes of
 // the gathered view that count (0: all); det: host int32[8]; fill: the
-// repaired lane's bit pattern; chunk_words: 16-byte words per chunk,
+// repaired lane's bit pattern, or with fills (device uint32[n_tiles], from
+// repro_tile_fill over the gathered view; null: none) its logical tile's
+// entry; chunk_words: 16-byte words per chunk,
 // chunks_per_page chunks a page, walked by `grid` blocks; ws: the zeroed
 // workspace, int32[8 + 2 * n_words] with n_words >= ceil(n_tiles / 32),
 // left zeroed; counts: int32[3] out.  Returns cudaGetLastError() after the
@@ -282,13 +290,13 @@ extern "C" int repro_scrub(void* x, int elem_bytes, const int* ids,
                            int n_pages, int ids_staged, long long page_elems,
                            long long cols, long long count_lanes, long long br,
                            long long bc, const int* det, unsigned int fill,
-                           int chunk_words, int chunks_per_page, int grid,
-                           int* ws, long long n_words, int* counts,
-                           void* stream) {
+                           const unsigned int* fills, int chunk_words,
+                           int chunks_per_page, int grid, int* ws,
+                           long long n_words, int* counts, void* stream) {
   if (n_pages < 1 || grid < 1 || (!ids_staged && n_pages > kMaxIds))
     return (int)cudaErrorInvalidValue;
   auto run = ids_staged ? &launch<0> : &launch<kMaxIds>;
   return (int)run(x, elem_bytes, ids, n_pages, page_elems, cols, count_lanes,
-                  br, bc, det, fill, chunk_words, chunks_per_page, grid, ws,
-                  n_words, counts, static_cast<cudaStream_t>(stream));
+                  br, bc, det, fill, fills, chunk_words, chunks_per_page, grid,
+                  ws, n_words, counts, static_cast<cudaStream_t>(stream));
 }

@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = (
     "scrub", "paged_decode", "paged_prefill", "repair_matmul", "flash_attention",
-    "mlstm_chunk",
+    "mlstm_chunk", "tile_fill",
 )
 _HEADERS = ("repair.cuh", "hopper.cuh", "attention_wgmma.cuh")
 _FLAGS = (

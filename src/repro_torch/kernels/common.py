@@ -7,8 +7,12 @@ plain versions below decode the same operand with the same bucket rules, so
 the CUDA kernels, the plain versions and the reference all agree on which
 lanes are fatal and how they are counted.
 
-Kernel fills are the value-independent subset: zero, constant and
-``clamp_finite_max`` (the kernel form: +max on every repaired lane).
+Kernel fills are zero, constant, ``clamp_finite_max`` (the kernel form:
++max on every repaired lane) and ``neighbor_mean``: the f32 mean of the
+non-fatal lanes of the lane's logical tile, rounded to the storage dtype
+(reference ``kernels/common.py::repair_value``).  The kernels read that
+mean from a per-tile table (``kernels.tile_fill``); the plain versions
+form the same table with :func:`tile_means`.
 """
 from __future__ import annotations
 
@@ -21,14 +25,7 @@ import torch
 from ..core import detect, policies as policies_lib, rules as rules_lib
 from . import _native
 
-KERNEL_POLICIES = ("zero", "constant", "clamp_finite_max")
-
-# kernel fills of the reference that have no port yet
-NOT_PORTED = {
-    "neighbor_mean": "ROADMAP 'Modules still to port': the in-kernel "
-    "neighbor_mean fill (src/repro/kernels/common.py:153-159, a mean over "
-    "the logical tile)",
-}
+KERNEL_POLICIES = ("zero", "constant", "neighbor_mean", "clamp_finite_max")
 
 # storage dtypes the kernels take, by the code of ``repro::DType``
 # (csrc/repair.cuh)
@@ -113,17 +110,15 @@ def fatal_masks(
 
 def fill_value(policy: str, constant: float, dtype: torch.dtype) -> float:
     """The repaired value of a kernel fill, already rounded to ``dtype``
-    (so the f32 value handed to a kernel converts to ``dtype`` exactly)."""
-    if policy == "zero":
+    (so the f32 value handed to a kernel converts to ``dtype`` exactly).
+    ``neighbor_mean`` has no single value: its lanes read a per-tile table,
+    and the scalar handed beside it is 0 and unused."""
+    if policy in ("zero", "neighbor_mean"):
         v = 0.0
     elif policy == "constant":
         v = constant
     elif policy == "clamp_finite_max":
         v = torch.finfo(dtype).max
-    elif policy in NOT_PORTED:
-        raise NotImplementedError(
-            f"kernel fill {policy!r} is not ported: {NOT_PORTED[policy]}"
-        )
     else:
         raise ValueError(
             f"kernel policy must be one of {KERNEL_POLICIES}, got {policy!r}"
@@ -145,14 +140,53 @@ cached_operand = functools.lru_cache(maxsize=None)(detector_operand)
 host_ints = functools.lru_cache(maxsize=None)(_native.int8_array)
 
 
+def tile_means(
+    x2: torch.Tensor, fatal: torch.Tensor, block: Tuple[int, int]
+) -> torch.Tensor:
+    """The ``neighbor_mean`` fill of every (br, bc) tile of the 2-D ``x2``
+    (rows/br, cols/bc), in its dtype: the f32 sum of the tile's non-fatal
+    lanes over their count (at least 1), rounded to the dtype, as the
+    reference's ``repair_value`` forms it."""
+    rows, cols = x2.shape
+    br, bc = block
+    if rows % br or cols % bc:
+        raise ValueError(f"block {block} must divide {tuple(x2.shape)}")
+    ok = ~fatal.reshape(rows // br, br, cols // bc, bc)
+    vals = torch.where(ok, x2.float().reshape(ok.shape), 0.0)
+    total = vals.sum(dim=(1, 3))
+    n = ok.sum(dim=(1, 3)).float().clamp_min(1.0)
+    return (total / n).to(x2.dtype)
+
+
+def _view2d(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1]) if x.dim() >= 2 else x.reshape(1, -1)
+
+
 def repair_tile(
-    x: torch.Tensor, consts: Sequence[int], policy: str, constant: float
+    x: torch.Tensor, consts: Sequence[int], policy: str, constant: float,
+    block: Tuple[int, int],
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(repaired, nan_mask, inf_mask): every fatal lane of ``x`` takes the
-    kernel fill.  Masks, not counts: callers count per tile visit."""
+    kernel fill.  Masks, not counts: callers count per tile visit.
+    ``neighbor_mean`` takes the mean of the lane's ``block`` tile of the
+    trailing-dim 2-D view (the calling kernel's logical tile)."""
     nan_m, inf_m = fatal_masks(x, consts)
-    fill = torch.full_like(x, fill_value(policy, constant, x.dtype))
-    return torch.where(nan_m | inf_m, fill, x), nan_m, inf_m
+    fatal = nan_m | inf_m
+    if policy == "neighbor_mean":
+        x2 = _view2d(x)
+        br, bc = block
+        means = tile_means(x2, _view2d(fatal), (br, bc))
+        fill = means.repeat_interleave(br, dim=0).repeat_interleave(bc, dim=1)
+        fill = fill.reshape(x.shape)
+    else:
+        fill = torch.full_like(x, fill_value(policy, constant, x.dtype))
+    return torch.where(fatal, fill, x), nan_m, inf_m
+
+
+def table_ptr(table: Optional[torch.Tensor]):
+    """The device address of a fill table for a launch, or None (NULL): the
+    kernel then writes the scalar fill."""
+    return None if table is None else table.data_ptr()
 
 
 def raw_stream(device: torch.device) -> int:

@@ -16,6 +16,9 @@ the repair and accumulate in f32; ``W v`` uses ``W`` in f32 (the oracle
 ``nn.xlstm._chunked_mlstm`` casts it to the value dtype first).
 
 Repair uses the legacy detector: NaN, plus ±Inf with ``include_inf``.
+``neighbor_mean`` fills a fatal lane with the mean of its operand's
+(b, h, c) tile (Q, P), from a table per operand that ``kernels.tile_fill``
+writes before the kernels run.
 Counts (int32[8], slot 7 always 0) are per logical (b, h, c) tile, as the
 reference kernel counts them::
 
@@ -52,7 +55,7 @@ from typing import Tuple
 
 import torch
 
-from . import _native, common
+from . import _native, common, tile_fill
 
 NEG = -1e30
 
@@ -120,6 +123,7 @@ def _repair_chunk(q, k, v, c, det, policy, constant):
     for x in (q, k, v):
         t, nan_m, inf_m = common.repair_tile(
             x[:, :, c], common.detector_operand(det, x.dtype), policy, constant,
+            x.shape[3:],
         )
         fixed.append(t.float())
         lanes.append((nan_m.sum(dim=(-2, -1)), inf_m.sum(dim=(-2, -1))))
@@ -267,13 +271,15 @@ _SIGNATURE = [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.HOST_INTS, _native.U, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P, _native.P,
 ]
 
 
 _WGMMA_SIGNATURE = [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.HOST_INTS, _native.U,
-    _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.P,
 ]
 
 
@@ -315,6 +321,9 @@ def _kernel(q, k, v, log_i, log_f, policy, constant, include_inf):
         common.resolve_detector(None, include_inf), q.dtype
     )
     fill = common.fill_bits(policy, constant, q.dtype)
+    tables = [tile_fill.table_or_none(policy, x, B * H * nc * Q, P, (Q, P),
+                                      consts) for x in (q, k, v)]
+    ptrs = [common.table_ptr(t) for t in tables]
     if route(q, k, v) == "wgmma":
         scratch = torch.empty(_wgmma_scratch_bytes(B, H, nc, Q, P),
                               dtype=torch.uint8, device=dev)
@@ -322,7 +331,7 @@ def _kernel(q, k, v, log_i, log_f, policy, constant, include_inf):
             "mlstm_chunk", "repro_mlstm_chunk_wgmma", _WGMMA_SIGNATURE)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
             lf.data_ptr(), B, H, nc, Q, P, _native.int8_array(consts), fill,
-            scratch.data_ptr(), y.data_ptr(), counts.data_ptr(),
+            *ptrs, scratch.data_ptr(), y.data_ptr(), counts.data_ptr(),
             common.raw_stream(dev),
         )
     else:
@@ -330,7 +339,7 @@ def _kernel(q, k, v, log_i, log_f, policy, constant, include_inf):
         err = _native.function("mlstm_chunk", "repro_mlstm_chunk", _SIGNATURE)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
             lf.data_ptr(), common.DTYPE_CODES[q.dtype], B, H, nc, Q, P,
-            _native.int8_array(consts), fill, qk.data_ptr(), y.data_ptr(),
+            _native.int8_array(consts), fill, *ptrs, qk.data_ptr(), y.data_ptr(),
             counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _native.check(err, "mlstm_chunk")

@@ -11,7 +11,10 @@ Layout (the reference's):
   q_start       (B,) int32          context position of chunk row 0 (prefill)
 
 Each (b, j) page visit repairs the page's whole (pg, Kh, Dh) K and V tiles
-with the operand's detector and fill and counts them: ``slot_counts[b, j]``
+with the operand's detector and fill and counts them (the page is the
+logical tile of ``neighbor_mean``: its mean covers both KV heads, so the
+kernels read it from a table over the layer's pages that
+``kernels.tile_fill`` writes first): ``slot_counts[b, j]``
 is the visit's fatal-lane total and ``counts`` the AT int32[8] layout
 [nan_k, inf_k, ev_k, nan_v, inf_v, ev_v, ev_total, 0].  Null-padded slots
 are read, repaired and counted on every visit.
@@ -71,7 +74,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _native, common
+from . import _native, common, tile_fill
 
 NEG_INF = -1e30
 
@@ -122,9 +125,10 @@ def _operand_spec(dtype, include_inf, policy, constant, detector_k,
 # ----------------------------------------------------------------- plain
 def _repair_visits(pages, bt, layer, consts, fill):
     """Repaired (B, M, pg, Kh, Dh) rows of every page visit, with per-visit
-    NaN and Inf lane counts (B, M)."""
+    NaN and Inf lane counts (B, M); a visit's page is one logical tile."""
     rows = pages[bt.long(), layer]
-    fixed, nan_m, inf_m = common.repair_tile(rows, consts, *fill)
+    pg, kh, dh = rows.shape[2:]
+    fixed, nan_m, inf_m = common.repair_tile(rows, consts, *fill, (pg * kh, dh))
     return fixed, nan_m.sum(dim=(2, 3, 4)), inf_m.sum(dim=(2, 3, 4))
 
 
@@ -337,14 +341,14 @@ _DECODE_SIG = [
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.I, _native.HOST_INTS, _native.HOST_INTS,
     _native.U, _native.U, _native.P, _native.P, _native.P, _native.P,
-    _native.P, _native.P, _native.P,
+    _native.P, _native.P, _native.P, _native.P, _native.P,
 ]
 _PREFILL_SIG = [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.I, _native.HOST_INTS, _native.HOST_INTS,
     _native.U, _native.U, _native.P, _native.P, _native.P, _native.P,
-    _native.P, _native.P,
+    _native.P, _native.P, _native.P, _native.P,
 ]
 
 _PREFILL_WGMMA_SIG = [
@@ -352,20 +356,35 @@ _PREFILL_WGMMA_SIG = [
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.HOST_INTS,
     _native.HOST_INTS, _native.U, _native.U, _native.P, _native.P,
-    _native.P, _native.P, _native.P,
+    _native.P, _native.P, _native.P, _native.P, _native.P,
 ]
 _DECODE_FUSED_SIG = [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.I, _native.HOST_INTS, _native.HOST_INTS,
     _native.U, _native.U, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P,
 ]
 _SCAN_SIG = [
     _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.HOST_INTS, _native.HOST_INTS, _native.U, _native.P, _native.P,
-    _native.P, _native.P,
+    _native.P, _native.P, _native.P,
 ]
+
+
+def _pool_tables(k_pages, v_pages, layer, spec):
+    """The ``neighbor_mean`` fill tables of K and V over every page of the
+    layer (indexed by page id), each None unless its operand's policy is
+    ``neighbor_mean`` with a detector that repairs."""
+    consts_k, consts_v, fill_k, fill_v = spec
+    P, L, pg, Kh, Dh = k_pages.shape
+    cols = pg * Kh * Dh
+    where = dict(row_stride=L * cols, offset=int(layer) * cols)
+    return (tile_fill.table_or_none(fill_k[0], k_pages, P, cols, (1, cols),
+                                    consts_k, **where),
+            tile_fill.table_or_none(fill_v[0], v_pages, P, cols, (1, cols),
+                                    consts_v, **where))
 
 
 def _check_operands(q, k_pages, v_pages, bt, vec, what):
@@ -396,12 +415,14 @@ def _decode_kernel(q, k_pages, v_pages, bt, pos, layer, splits, spec):
     slot_counts = torch.empty((B, M), dtype=torch.int32, device=dev)
     counts = torch.zeros(8, dtype=torch.int32, device=dev)
     out = torch.empty_like(q)
+    fills_k, fills_v = _pool_tables(k_pages, v_pages, layer, spec)
     err = _native.function("paged_decode", "repro_paged_decode",
                            _DECODE_SIG)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
         pos.data_ptr(), common.DTYPE_CODES[q.dtype], B, H, Dh, L, pg, Kh, M, splits,
         int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
         common.fill_bits(*fill_k, q.dtype), common.fill_bits(*fill_v, q.dtype),
+        common.table_ptr(fills_k), common.table_ptr(fills_v),
         o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
         slot_counts.data_ptr(), counts.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -423,12 +444,14 @@ def _prefill_kernel(q, k_pages, v_pages, bt, q_start, layer, spec):
     l = torch.empty((B, C * H), dtype=torch.float32, device=dev)
     slot_counts = torch.empty((B, M), dtype=torch.int32, device=dev)
     counts = torch.zeros(8, dtype=torch.int32, device=dev)
+    fills_k, fills_v = _pool_tables(k_pages, v_pages, layer, spec)
     err = _native.function("paged_prefill", "repro_paged_prefill",
                            _PREFILL_SIG)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
         q_start.data_ptr(), common.DTYPE_CODES[q.dtype], B, C, H, Dh, L, pg, Kh, M,
         int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
         common.fill_bits(*fill_k, q.dtype), common.fill_bits(*fill_v, q.dtype),
+        common.table_ptr(fills_k), common.table_ptr(fills_v),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), slot_counts.data_ptr(),
         counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -443,16 +466,20 @@ def _pool_constants(what, k_shape, v_shape, dtype, include_inf, policy,
                     policy_v, constant_v):
     """What repeats across the wgmma prefill's and the fused decode's calls
     on one pool, cached by value: the pool's shape, then the detector
-    operands and fill bits."""
+    operands and fill bits, and the operand spec when a fill is
+    ``neighbor_mean`` (its tables are data: each call writes them), else
+    None."""
     if v_shape != k_shape:
         raise ValueError(f"{what}: k pages {tuple(k_shape)}, v pages "
                          f"{tuple(v_shape)}")
-    ck, cv, fill_k, fill_v = _operand_spec(
+    spec = _operand_spec(
         dtype, include_inf, policy, constant, detector_k, detector_v,
         policy_k, constant_k, policy_v, constant_v)
+    ck, cv, fill_k, fill_v = spec
+    nm = "neighbor_mean" in (fill_k[0], fill_v[0])
     return k_shape, (common.host_ints(ck), common.host_ints(cv),
                      common.fill_bits(*fill_k, dtype),
-                     common.fill_bits(*fill_v, dtype))
+                     common.fill_bits(*fill_v, dtype)), spec if nm else None
 
 
 def _check_tables(q, bt, vec, what="paged prefill", vec_name="q_start"):
@@ -468,7 +495,7 @@ def _prefill_wgmma(q, k_pages, v_pages, bt, q_start, layer, include_inf, fills):
     scan's per-request poison ends (B), slot_counts (B, M) and its flags
     (B, M, 2)."""
     _check_tables(q, bt, q_start)
-    (P, L, pg, Kh, Dk), tail = _pool_constants(
+    (P, L, pg, Kh, Dk), tail, nm_spec = _pool_constants(
         "paged prefill", k_pages.shape, v_pages.shape, q.dtype, include_inf,
         **fills)
     B, C, H, Dh = q.shape
@@ -485,11 +512,14 @@ def _prefill_wgmma(q, k_pages, v_pages, bt, q_start, layer, include_inf, fills):
     buf = torch.empty(head + 3 * B * M, dtype=torch.int32, device=q.device)
     out = torch.empty_like(q)
     base = buf.data_ptr()
+    tables = ((None, None) if nm_spec is None
+              else _pool_tables(k_pages, v_pages, layer, nm_spec))
     err = _native.function("paged_prefill", "repro_paged_prefill_wgmma",
                            _PREFILL_WGMMA_SIG)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
         q_start.data_ptr(), common.DTYPE_CODES[q.dtype], B, C, H, Dh, P, L,
-        pg, Kh, M, layer, *tail, out.data_ptr(), base + 4 * head,
+        pg, Kh, M, layer, *tail, *map(common.table_ptr, tables),
+        out.data_ptr(), base + 4 * head,
         base + 4 * (head + B * M), base, common.raw_stream(q.device),
     )
     _native.check(err, "paged prefill (wgmma)")
@@ -502,7 +532,7 @@ def _decode_fused(q, k_pages, v_pages, bt, pos, layer, include_inf, fills):
     ``decode_fused``.  One int32 buffer holds counts (8) and slot_counts
     (B, M)."""
     _check_tables(q, bt, pos, "paged decode", "positions")
-    (P, L, pg, Kh, Dk), tail = _pool_constants(
+    (P, L, pg, Kh, Dk), tail, nm_spec = _pool_constants(
         "paged decode", k_pages.shape, v_pages.shape, q.dtype, include_inf,
         **fills)
     B, H, Dh = q.shape
@@ -518,11 +548,14 @@ def _decode_fused(q, k_pages, v_pages, bt, pos, layer, include_inf, fills):
     buf = torch.empty(8 + B * M, dtype=torch.int32, device=q.device)
     out = torch.empty_like(q)
     base = buf.data_ptr()
+    tables = ((None, None) if nm_spec is None
+              else _pool_tables(k_pages, v_pages, layer, nm_spec))
     err = _native.function("paged_decode", "repro_paged_decode_fused",
                            _DECODE_FUSED_SIG)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
         pos.data_ptr(), common.DTYPE_CODES[q.dtype], B, H, Dh, P, L, pg, Kh,
-        M, layer, *tail, out.data_ptr(), base + 32, base,
+        M, layer, *tail, *map(common.table_ptr, tables), out.data_ptr(),
+        base + 32, base,
         common.raw_stream(q.device),
     )
     _native.check(err, "paged decode (fused)")
@@ -544,6 +577,10 @@ def _scan_kernel(k_pages, v_pages, block_tables, layer, *, include_inf=True,
     slot_counts = torch.empty((B, M), dtype=torch.int32, device=dev)
     flags = torch.empty((B, M, 2), dtype=torch.int32, device=dev)
     counts = torch.empty(8 + B, dtype=torch.int32, device=dev)
+    consts_v = _consts(detector_v, v_pages.dtype, include_inf)
+    fills_v = _pool_tables(k_pages, v_pages, layer,
+                           (consts_v, consts_v, ("zero", 0.0),
+                            (policy_v, constant_v)))[1]
     err = _native.function("paged_prefill", "repro_paged_prefill_scan",
                            _SCAN_SIG)(
         k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
@@ -551,6 +588,7 @@ def _scan_kernel(k_pages, v_pages, block_tables, layer, *, include_inf=True,
         common.host_ints(_consts(detector_k, k_pages.dtype, include_inf)),
         common.host_ints(_consts(detector_v, v_pages.dtype, include_inf)),
         common.fill_bits(policy_v, constant_v, v_pages.dtype),
+        common.table_ptr(fills_v),
         slot_counts.data_ptr(), flags.data_ptr(), counts.data_ptr(),
         common.raw_stream(dev),
     )

@@ -19,13 +19,22 @@ from ..core import detect, rules as rules_lib
 NEG_INF = -1e30
 
 
-def _fill(x: torch.Tensor, policy: str, constant: float) -> torch.Tensor:
+def _fill(x: torch.Tensor, policy: str, constant: float, mask=None,
+          dims=None) -> torch.Tensor:
+    """The fill of every lane of ``x``; ``neighbor_mean`` is the f32 mean
+    of the lanes outside ``mask`` over ``dims`` (one tile per index of the
+    other dims), rounded to the dtype."""
     if policy == "zero":
         return torch.zeros_like(x)
     if policy == "constant":
         return torch.full_like(x, constant)
     if policy == "clamp_finite_max":
         return torch.full_like(x, torch.finfo(x.dtype).max)
+    if policy == "neighbor_mean":
+        ok = ~mask
+        n = ok.sum(dim=dims, keepdim=True).float().clamp_min(1.0)
+        total = torch.where(ok, x.float(), 0.0).sum(dim=dims, keepdim=True)
+        return (total / n).to(x.dtype).expand(x.shape)
     raise ValueError(policy)
 
 
@@ -44,8 +53,10 @@ def repair_array_ref(
     nan_m = detect.is_nan_bits(bits, x.dtype)
     inf_m = detect.is_inf_bits(bits, x.dtype)
     mask = (nan_m | inf_m) if include_inf else nan_m
-    fixed = torch.where(mask, _fill(x2, policy, constant), x2).reshape(orig)
+    t = x2.reshape(rows // br, br, cols // bc, bc)
     tm = mask.reshape(rows // br, br, cols // bc, bc)
+    rep = _fill(t, policy, constant, tm, (1, 3)).reshape(rows, cols)
+    fixed = torch.where(mask, rep, x2).reshape(orig)
     tiles = int(tm.any(dim=3).any(dim=1).sum())
     n_inf = int(inf_m.sum()) if include_inf else 0
     return fixed, int(nan_m.sum()), n_inf, tiles
@@ -134,7 +145,7 @@ def _repair_paged_rows(rows, detector, policy, constant, include_inf):
     returns the repaired rows and per-slot fatal-lane counts (B, M)."""
     nan_m, inf_m = _paged_masks(rows, detector, include_inf)
     mask = nan_m | inf_m
-    fixed = torch.where(mask, _fill(rows, policy, constant), rows)
+    fixed = torch.where(mask, _fill(rows, policy, constant, mask, (2, 3, 4)), rows)
     return fixed, mask.to(torch.int32).sum(dim=(2, 3, 4))
 
 

@@ -17,7 +17,9 @@ L(kj) = #{qi : kj·bk <= qi·bq + bq - 1} when causal (S / bq otherwise), so
   nan_k … ev_v   that weight times the tile's lanes, or its 0/1 fatal flag
   ev_total       that weight times (K tile fatal or V tile fatal)
 
-and tiles that are never live count 0.
+and tiles that are never live count 0.  ``neighbor_mean`` fills a fatal
+K/V lane with the mean of its logical (bk, D) tile of the (B*Kh*T, D)
+view, from a table per operand that ``kernels.tile_fill`` writes first.
 
 Routes on the card (:func:`route`, a pure function of the operands'
 dtypes, shapes and data pointers, decided before any launch):
@@ -48,7 +50,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core import tiling
-from . import _native, common
+from . import _native, common, tile_fill
 
 NEG_INF = -1e30
 
@@ -200,8 +202,8 @@ def flash_attention_plain(
     B, H, S, D = q.shape
     Kh, T = k.shape[1], k.shape[2]
     G = H // Kh
-    fk, nan_k, inf_k = common.repair_tile(k, consts_k, policy, constant)
-    fv, nan_v, inf_v = common.repair_tile(v, consts_v, policy, constant)
+    fk, nan_k, inf_k = common.repair_tile(k, consts_k, policy, constant, (bk, D))
+    fv, nan_v, inf_v = common.repair_tile(v, consts_v, policy, constant, (bk, D))
     lanes = torch.stack([nan_k, inf_k, nan_v, inf_v], dim=-1)
     tiles = lanes.reshape(B, Kh, T // bk, bk * D, 4).sum(dim=3)
     counts = _at_counts(tiles, G * _live_visits(S, T, bq, bk, causal))
@@ -220,7 +222,8 @@ _SIGNATURE = [
     _native.P, _native.P, _native.P, _native.P, _native.I, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.F, _native.HOST_INTS, _native.HOST_INTS,
-    _native.U, _native.U, _native.P, _native.P, _native.P,
+    _native.U, _native.U, _native.P, _native.P, _native.P, _native.P,
+    _native.P,
 ]
 _WGMMA_SIGNATURE = _SIGNATURE[:-3] + [_native.P] * 4
 _SCAN_SIGNATURE = [
@@ -281,12 +284,16 @@ def _kernel(q, k, v, causal, blocks, consts_k, consts_v, policy, constant):
                              f"{KERNEL_HEAD_DIMS}, got {D}")
     buf, (counts, tiles, flags) = _scratch(B, Kh, T, blocks[1], q.device)
     out = torch.empty_like(q)
+    kv_rows, kv_block = B * Kh * T, (blocks[1], D)
+    fills_k = tile_fill.table_or_none(policy, k, kv_rows, D, kv_block, consts_k)
+    fills_v = tile_fill.table_or_none(policy, v, kv_rows, D, kv_block, consts_v)
     head = (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         common.DTYPE_CODES[q.dtype], B, H, Kh, S, T, D, *blocks, int(causal),
         1.0 / math.sqrt(D), common.host_ints(consts_k), common.host_ints(consts_v),
         common.fill_bits(policy, constant, k.dtype),
         common.fill_bits(policy, constant, v.dtype),
+        common.table_ptr(fills_k), common.table_ptr(fills_v),
     )
     stream = common.raw_stream(q.device)
     if path == "wgmma":          # scan, main kernel and counts

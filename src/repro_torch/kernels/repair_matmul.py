@@ -16,7 +16,9 @@ A tile is visited ``nj`` times and a B tile ``ni`` times, so
 
 The operands may differ in dtype (f32, bf16, f16); each is classified
 with its own detector row.  Fills are the kernel subset (zero, constant,
-``clamp_finite_max``).
+``neighbor_mean``, ``clamp_finite_max``); ``neighbor_mean`` takes the mean
+of the lane's logical tile, A (bm, bk) and B (bk, bn), from a table that
+``kernels.tile_fill`` writes per operand before the product.
 
 Routes on the card (:func:`route`, a pure function of the operands'
 dtypes, shapes and data pointers, decided before any launch):
@@ -44,7 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core import tiling
-from . import _native, common
+from . import _native, common, tile_fill
 
 # counts layout (int32[8])
 NAN_A, INF_A, EV_A, NAN_B, INF_B, EV_B, EV_TOTAL = range(7)
@@ -170,8 +172,10 @@ def repair_matmul_plain(
     (bm, bn, bk), consts_a, consts_b, out_dtype = _spec(
         a, b, include_inf, blocks, out_dtype, detector
     )
-    fa, nan_a, inf_a = common.repair_tile(a, consts_a, policy, constant)
-    fb, nan_b, inf_b = common.repair_tile(b, consts_b, policy, constant)
+    fa, nan_a, inf_a = common.repair_tile(a, consts_a, policy, constant,
+                                          (bm, bk))
+    fb, nan_b, inf_b = common.repair_tile(b, consts_b, policy, constant,
+                                          (bk, bn))
     counts = _mm_counts(_tile_sums(nan_a, inf_a, bm, bk),
                        _tile_sums(nan_b, inf_b, bk, bn))
     fa, fb = fa.float(), fb.float()
@@ -185,7 +189,7 @@ _SIGNATURE = [
     _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.HOST_INTS, _native.HOST_INTS, _native.U, _native.U,
-    _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
 ]
 _SCAN_SIGNATURE = [
     _native.P, _native.P, _native.I, _native.I, _native.I, _native.I,
@@ -197,6 +201,7 @@ _WGMMA_SIGNATURE = [
     _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.HOST_INTS, _native.HOST_INTS, _native.U, _native.U,
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P,
 ]
 
 
@@ -248,9 +253,13 @@ def _kernel(a, b, blocks, consts_a, consts_b, out_dtype, policy, constant):
     c = torch.empty((M, N), dtype=out_dtype, device=dev)
     codes = common.DTYPE_CODES
     head = (a.data_ptr(), b.data_ptr(), c.data_ptr())
+    bm, bn, bk = blocks
+    fills_a = tile_fill.table_or_none(policy, a, M, K, (bm, bk), consts_a)
+    fills_b = tile_fill.table_or_none(policy, b, K, N, (bk, bn), consts_b)
     dets = (common.host_ints(consts_a), common.host_ints(consts_b),
             common.fill_bits(policy, constant, a.dtype),
-            common.fill_bits(policy, constant, b.dtype))
+            common.fill_bits(policy, constant, b.dtype),
+            common.table_ptr(fills_a), common.table_ptr(fills_b))
     stream = torch.cuda.current_stream(dev).cuda_stream
     path = route(a, b)
     if path == "wgmma":          # scan, main kernel and counts

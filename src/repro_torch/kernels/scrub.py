@@ -31,13 +31,13 @@ import numpy as np
 import torch
 
 from ..core import detect, tiling
-from . import _native, common
+from . import _native, common, tile_fill
 
 _SIGNATURE = [
     _native.P, _native.I, _native.P, _native.I, _native.I, _native.LL,
     _native.LL, _native.LL, _native.LL, _native.LL, _native.HOST_INTS,
-    _native.U, _native.I, _native.I, _native.I, _native.P, _native.LL,
-    _native.P, _native.P,
+    _native.U, _native.P, _native.I, _native.I, _native.I, _native.P,
+    _native.LL, _native.P, _native.P,
 ]
 
 # launch geometry (csrc/scrub.cu: kThreads, kUnroll, kBlocksPerSM, kMaxIds,
@@ -146,7 +146,8 @@ def _plain(
     """Repair the 2-D view ``x2`` in place; returns the counts."""
     rows, cols = x2.shape
     br, bc = block
-    fixed, nan_m, inf_m = common.repair_tile(x2, consts, policy, constant)
+    fixed, nan_m, inf_m = common.repair_tile(x2, consts, policy, constant,
+                                             block)
     x2.copy_(fixed)
     if count_rows:
         keep = (torch.arange(rows, device=x2.device) < count_rows)[:, None]
@@ -159,11 +160,12 @@ def _plain(
 def _kernel(
     x: torch.Tensor, ids: Sequence[int], page_elems: int, cols: int,
     rows_process: int, count_rows: int, block: Tuple[int, int], det,
-    policy: str, constant: float,
+    policy: str, constant: float, fills: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One launch over ``len(ids)`` pages of ``page_elems`` lanes, page i
     at ``ids[i] * page_elems``; rows of the gathered view at or past
-    ``count_rows`` (0: no bound) are repaired but not counted."""
+    ``count_rows`` (0: no bound) are repaired but not counted.  ``fills``:
+    the ``neighbor_mean`` table of the gathered view's logical tiles."""
     if not x.is_contiguous():
         raise ValueError("scrub kernel needs a contiguous tensor")
     detect.layout_of(x.dtype)          # raises on an unsupported dtype
@@ -188,7 +190,8 @@ def _kernel(
         x.data_ptr(), x.element_size(), id_arg, len(ids),
         int(plan.ids == "staged"), page_elems, cols, count_rows * cols, br, bc,
         common.host_ints(common.cached_operand(det, x.dtype)),
-        common.fill_bits(policy, constant, x.dtype), plan.chunk_words,
+        common.fill_bits(policy, constant, x.dtype), common.table_ptr(fills),
+        plan.chunk_words,
         plan.chunks_per_page, plan.grid, ws.data_ptr(), plan.n_words,
         counts.data_ptr(), stream,
     )
@@ -242,8 +245,10 @@ def scrub(
             block=block, detector=detector, n_valid_rows=n_valid_rows,
         )
     det, rows, cols, block = _scrub_args(x, include_inf, block, detector)
+    fills = tile_fill.table_or_none(policy, x, rows, cols, block,
+                                    common.cached_operand(det, x.dtype))
     counts = _kernel(x, _WHOLE, rows * cols, cols, rows, n_valid_rows, block,
-                     det, policy, constant)
+                     det, policy, constant, fills)
     return x, counts
 
 
@@ -319,7 +324,14 @@ def scrub_pages(
     view: entries ``page_ids[n_valid:]`` are padding duplicates, repaired
     but not counted.  ``page_ids`` is a host sequence (the plan builds it on
     the host); on the card every padding entry must repeat a valid id and
-    the valid ids must be unique, so no two blocks scrub one page."""
+    the valid ids must be unique, so no two blocks scrub one page.
+
+    ``neighbor_mean`` takes the means of the gathered view's tiles, padding
+    rows included.  A padding duplicate can sit in another tile than the
+    page it repeats and so have another mean; the kernel repairs the page
+    once, with its valid entry's tile, where the reference's scatter of the
+    two copies is unordered: parity holds for ids whose duplicates share
+    the mean (unique ids without ``n_valid`` always do)."""
     kw = dict(policy=policy, constant=constant, include_inf=include_inf,
               block=block, detector=detector, n_valid=n_valid)
     if common.require_device(x, "scrub_pages") == "cpu":
@@ -330,6 +342,10 @@ def scrub_pages(
     if ids.size == 0:
         return x, torch.zeros(3, dtype=torch.int32, device=x.device)
     live = live_ids(ids, n_valid)
+    fills = tile_fill.table_or_none(
+        policy, x, ids.size * rpp, cols, block,
+        common.cached_operand(det, x.dtype), ids=ids.tolist(),
+        rows_per_page=rpp, page_stride=rpp * cols)
     counts = _kernel(x, live, rpp * cols, cols, len(live) * rpp, valid_rows,
-                     block, det, policy, constant)
+                     block, det, policy, constant, fills)
     return x, counts

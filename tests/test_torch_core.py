@@ -19,6 +19,7 @@ from repro.core import rules as jrules  # noqa: E402
 from repro.core import stats as jstats  # noqa: E402
 from repro.core import tiling as jtiling  # noqa: E402
 from repro.kernels import common as jcommon  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import detect, injection, policies, regions, rules  # noqa: E402
 from repro_torch.core import stats, tiling  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
@@ -240,13 +241,27 @@ def test_fills_match_reference(name, fill):
         assert common.kernel_fill(fill) == jcommon.kernel_fill(fill)
 
 
-def test_neighbor_mean_is_not_ported():
-    """The tensor-level policy is ported (``tests/test_torch_repair.py``);
-    the kernels' in-tile ``neighbor_mean`` fill is not."""
+def test_neighbor_mean_kernel_fill_matches_the_reference_oracle():
+    """The tensor-level policy is the same object as before; ``kernel_fill``
+    still maps ``neighbor_mean`` to None in both packages (the engine and
+    the plan keep the tensor-level path for it); and the kernels' in-tile
+    fill, in its plain form, matches the reference oracle tile for tile."""
     assert policies.get("neighbor_mean") is policies.neighbor_mean
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        common.fill_value("neighbor_mean", 0.0, torch.float32)
     assert common.kernel_fill("neighbor_mean") is None
+    assert jcommon.kernel_fill("neighbor_mean") is None
+    assert "neighbor_mean" in common.KERNEL_POLICIES
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((16, 32)).astype(np.float32)
+    x[1, 3], x[9, 20], x[12, 0] = np.nan, np.inf, -np.inf
+    x[8:16, 8:16] = np.nan                       # a tile with no finite lane
+    consts = common.detector_operand(rules.Detector(), torch.float32)
+    got, nan_m, inf_m = common.repair_tile(torch.from_numpy(x), consts,
+                                           "neighbor_mean", 0.0, (8, 8))
+    want = jref.repair_array_ref(jnp.asarray(x), policy="neighbor_mean",
+                                 block=(8, 8))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want[0]), rtol=1e-6,
+                               atol=1e-6)
+    assert int(nan_m.sum()) == int(want[1]) and int(inf_m.sum()) == int(want[2])
 
 
 @pytest.mark.parametrize("t", [0.01, 0.064, 0.1, 0.256, 0.5, 1.0, 2.0, 4.0, 10.0])

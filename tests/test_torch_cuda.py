@@ -18,6 +18,7 @@ cores as bf16 hi/lo pairs (2^-17 relative) and W as three bf16 terms.  Integer o
 (slot counts, AT, MM and mLSTM counts, scrub counts, repaired bits) must be
 identical.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -32,6 +33,7 @@ from repro_torch.kernels import common, ops, paged_attention as pa, scrub  # noq
 from repro_torch.kernels import repair_attention as ra  # noqa: E402
 from repro_torch.kernels import mlstm_chunk as mc  # noqa: E402
 from repro_torch.kernels import repair_matmul as rm  # noqa: E402
+from repro_torch.kernels import tile_fill  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import TransformerLM, XLSTMLM  # noqa: E402
 from repro_torch.runtime import ApproxConfig  # noqa: E402
@@ -234,12 +236,22 @@ A_CORNERS = [(0, 0), (127, 63), (128, 64), (199, 1031), (5, 1030)]
 B_CORNERS = [(0, 0), (63, 255), (64, 256), (1031, 327), (1028, 3)]
 
 
-def _mm_operands(dev, shape, dtypes, extra):
+def _mm_operands(dev, shape, dtypes, extra, nm_blocks=None):
+    """A and B of one MM_CASES entry; with ``nm_blocks`` (bm, bn, bk), the
+    neighbor_mean operands (_nm_note): each logical tile's offset, and NaN
+    at A[1, 2] and B[3, 4] facing NM_SPIKE at B[2, 6] and A[5, 3]."""
     M, K, N = shape
     da, db, _ = dtypes
     gen = torch.Generator(device=dev).manual_seed(2)
-    a = _plant(torch.randn((M, K), generator=gen, device=dev), 3)
-    b = _plant(torch.randn((K, N), generator=gen, device=dev), 4)
+    a = torch.randn((M, K), generator=gen, device=dev)
+    b = torch.randn((K, N), generator=gen, device=dev)
+    if nm_blocks is not None:
+        bm, bn, bk = nm_blocks
+        a += _tile_offsets(M, K, (bm, bk), dev)
+        b += _tile_offsets(K, N, (bk, bn), dev)
+        a[1, 2], b[2, 6] = float("nan"), NM_SPIKE
+        b[3, 4], a[5, 3] = float("nan"), NM_SPIKE
+    a, b = _plant(a, 3), _plant(b, 4)
     vals = [float("nan"), float("inf"), float("-inf"), 3.0e4, 3.0]
     if extra == "corners":
         for (x, corners) in ((a, A_CORNERS), (b, B_CORNERS)):
@@ -374,15 +386,25 @@ def _at_offset(x, off):
     return buf[off:].view(x.shape).copy_(x)
 
 
-def _fa_operands(dev, case):
+def _fa_operands(dev, case, nm=False):
     """q, k, v of one FA_CASES entry: NaN, ±Inf, range and bit-pattern
     values planted in K and V (none for "clean"), the case's extra plants,
-    at the case's offset into their storage."""
-    (B, H, Kh, S, T, D), _, _, dtype, _, extra = case
+    at the case's offset into their storage.  With ``nm``, the
+    neighbor_mean operands of a causal case (_nm_note): each (bk, D) tile's
+    offset; in KV head 0 of batch 0, V lanes 0-3 of key 0 NaN (row 0 sees
+    key 0 alone: its output there is V's fill) and K's key 1 NaN in every
+    lane, with the head group's row 1 of q biased against the tile's sign
+    (keys 0 and 1 score alike with the right fill; key 1 takes the row
+    over with a wrong one)."""
+    (B, H, Kh, S, T, D), blocks, _, dtype, _, extra = case
     gen = torch.Generator(device=dev).manual_seed(5)
     q = torch.randn((B, H, S, D), generator=gen, device=dev)
     k = torch.randn((B, Kh, T, D), generator=gen, device=dev)
     v = torch.randn((B, Kh, T, D), generator=gen, device=dev)
+    if nm:
+        bk = (blocks or ra._default_blocks(S, T))[1]
+        for t in (k, v):
+            t += _tile_offsets(B * Kh * T, D, (bk, D), dev).view(t.shape)
     if extra != "clean":
         _plant(k, 6)
         _plant(v, 7)
@@ -401,6 +423,10 @@ def _fa_operands(dev, case):
         for r, c in ((0, 0), (127, D - 1), (128, 1), (T - 1, D - 1)):
             k[0, 0, r, c] = 0.0
             v[0, 1, r, c] = 0.0
+    if nm:
+        v[0, 0, 0, :4] = nan
+        k[0, 0, 1, :] = nan
+        q[0, :H // Kh, 1, :] -= 1.0 if NM_OFFSETS[0] > 0 else -1.0
     off = FA_OFFSETS.get(extra, 0)
     return tuple(_at_offset(t.to(dtype), off) for t in (q, k, v))
 
@@ -486,14 +512,17 @@ PF_CASES = {
 }
 
 
-def _pf_operands(dev, case):
+def _pf_operands(dev, case, nm=False):
     """q, pools (P, 3, pg, Kh, Dh), block tables and q_start of one
     PF_CASES entry, read at layer 1.  Request b holds n_b real pages, then
     NULL slots; its chunk ends at its context's end (or starts at 0).  NaN,
     ±Inf, a range-guard value and a bit-pattern value are planted in live
     pages, NaN in K and V of the last real page of request 0 (dead for its
     early row blocks, live for its last one) and in the NULL page (live
-    for the short requests' late rows, dead for their early ones)."""
+    for the short requests' late rows, dead for their early ones).  With
+    ``nm``, the neighbor_mean operands (_nm_pools, _nm_paged_lanes): the
+    last request's chunk starts at 0, so its first rows see its first
+    page alone."""
     (B, C, H, Kh, Dh, pg, M), dtype, _, off = case
     n_real = [M, M // 2 + 1, 3][:B]
     P = sum(n_real) + 2
@@ -506,6 +535,8 @@ def _pf_operands(dev, case):
         cursor += n
     k = torch.randn((P, 3, pg, Kh, Dh), generator=gen, device=dev)
     v = torch.randn((P, 3, pg, Kh, Dh), generator=gen, device=dev)
+    if nm:
+        _nm_pools(k, v, rows[-1][0])
     nan, inf = float("nan"), float("inf")
     for t, (page, off_, kh, d), val in (
             (k, (rows[0][0], 3, 0, 10), nan), (v, (rows[0][0], 5, Kh - 1, 7), inf),
@@ -516,8 +547,11 @@ def _pf_operands(dev, case):
         t[page, 1, off_, kh, d] = val
     q = torch.randn((B, C, H, Dh), generator=gen, device=dev)
     bt = torch.tensor(rows, dtype=torch.int32, device=dev)
-    qs = torch.tensor([max(0, n * pg - C) for n in n_real], dtype=torch.int32,
-                      device=dev)
+    starts = [max(0, n * pg - C) for n in n_real]
+    if nm:
+        _nm_paged_lanes(k, v, q, rows[-1][0], B - 1)
+        starts[-1] = 0
+    qs = torch.tensor(starts, dtype=torch.int32, device=dev)
     return _at_offset(q.to(dtype), off), k.to(dtype), v.to(dtype), bt, qs
 
 
@@ -619,13 +653,15 @@ DC_CASES = {
 }
 
 
-def _dc_operands(dev, case):
+def _dc_operands(dev, case, nm=False):
     """q (B, H, Dh), pools (P, 3, pg, Kh, Dh), block tables and positions of
     one DC_CASES entry, read at layer 1.  Request b holds n_b real pages,
     then NULL slots; request 0's position ends inside its second-to-last
     page, so its last real page lies past it.  NaN, ±Inf, a range-guard
     value and a bit-pattern value are planted in live pages, NaN and Inf in
-    K and V of request 0's last page, and NaN in the NULL page's K and V."""
+    K and V of request 0's last page, and NaN in the NULL page's K and V.
+    With ``nm``, the neighbor_mean operands (_nm_pools, _nm_paged_lanes):
+    the last request's position ends in its first page."""
     (B, H, Kh, Dh, pg, M), dtype, _, off = case
     n_real = [M, M // 2 + 1, 3, 1][:B]
     P = sum(n_real) + 2
@@ -638,6 +674,8 @@ def _dc_operands(dev, case):
         cursor += n
     k = torch.randn((P, 3, pg, Kh, Dh), generator=gen, device=dev)
     v = torch.randn((P, 3, pg, Kh, Dh), generator=gen, device=dev)
+    if nm:
+        _nm_pools(k, v, rows[-1][0])
     nan, inf = float("nan"), float("inf")
     for t, (page, off_, kh, d), val in (
             (k, (rows[0][0], 3, 0, 10), nan), (v, (rows[0][0], 5, Kh - 1, 7), inf),
@@ -650,6 +688,9 @@ def _dc_operands(dev, case):
     bt = torch.tensor(rows, dtype=torch.int32, device=dev)
     pos = [n * pg - 2 for n in n_real]
     pos[0] = max(0, (n_real[0] - 1) * pg - 1)
+    if nm:
+        _nm_paged_lanes(k, v, q, rows[-1][0], B - 1)
+        pos[-1] = pg - 2
     pos = torch.tensor(pos, dtype=torch.int32, device=dev)
     return _at_offset(q.to(dtype), off), k.to(dtype), v.to(dtype), bt, pos
 
@@ -828,13 +869,24 @@ def test_scrub_kernel_back_to_back_on_one_workspace(cuda):
     assert torch.equal(got, want) and int(want[2]) == x.numel() // 16
 
 
-def _mlstm_inputs(dev, dtype, nc, Q, P, B=2, H=2, off=0):
+def _mlstm_inputs(dev, dtype, nc, Q, P, B=2, H=2, off=0, nm=False):
     """q, k, v (B, H, nc, Q, P) with NaN and ±Inf planted, f32 gates; q, k
-    and v start ``off`` elements into their storage."""
+    and v start ``off`` elements into their storage.  With ``nm``, each
+    (b, h, c) tile of q, k and v carries its own offset (_nm_note) times
+    NM_MLSTM_SCALE (q's also over sqrt(P), as q is drawn)."""
     gen = torch.Generator(device=dev).manual_seed(7 + nc)
-    q = _plant(torch.randn((B, H, nc, Q, P), generator=gen, device=dev) / P ** 0.5, 8)
-    k = _plant(torch.randn((B, H, nc, Q, P), generator=gen, device=dev), 9)
-    v = _plant(torch.randn((B, H, nc, Q, P), generator=gen, device=dev), 10)
+    shape = (B, H, nc, Q, P)
+
+    def tiles(scale):
+        if not nm:
+            return 0.0
+        return _tile_offsets(B * H * nc * Q, P, (Q, P), dev,
+                             NM_MLSTM_SCALE * scale).view(shape)
+
+    q = _plant(torch.randn(shape, generator=gen, device=dev) / P ** 0.5
+               + tiles(P ** -0.5), 8)
+    k = _plant(torch.randn(shape, generator=gen, device=dev) + tiles(1.0), 9)
+    v = _plant(torch.randn(shape, generator=gen, device=dev) + tiles(1.0), 10)
     li = torch.randn((B, H, nc, Q), generator=gen, device=dev) * 0.5
     lf = torch.nn.functional.logsigmoid(
         torch.randn((B, H, nc, Q), generator=gen, device=dev) + 2.0)
@@ -947,3 +999,363 @@ def test_xlstm_on_the_card_matches_the_cpu(cuda):
                                     space=space)
         outs.append((tok.cpu().tolist(), stats, space.rule_stats()))
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------------------------ neighbor_mean
+# A fatal lane takes the f32 mean of its logical tile's non-fatal lanes,
+# rounded to the dtype: from ``tile_fill``'s table on the card, from
+# ``common.tile_means`` in the plain versions.  The two sum in different
+# orders, so a repaired lane may differ in the last place: repaired lanes
+# within FILL_TOL, every other lane bit-equal, counts equal.
+FILL_TOL = {F32: dict(rtol=1e-6, atol=1e-6), BF16: dict(rtol=1e-2, atol=1e-6),
+            F16: dict(rtol=1e-2, atol=1e-6)}
+NM = dict(policy="neighbor_mean")
+
+# _nm_note: the products' neighbor_mean operands.  Every logical tile
+# carries its own offset, NM_OFFSETS[t % 6] for tile t (row-major over the
+# tile grid): neighbouring tiles' offsets differ by 5 or more and in sign,
+# none lies within 2 of 0.  A few fatal lanes sit where their fill reaches
+# an output lane almost unmixed (a causal row that sees one key or one
+# page, a spike in the other operand of a product).  So the controls (the
+# same call with the zero fill, and with one operand's table rolled by one
+# tile, as a kernel that reads its neighbour's entry) must fail the test's
+# own comparison: _tol_ratio above 1.
+NM_OFFSETS = (3.0, -2.0, 4.0, -3.0, 2.0, -4.0)
+# the partner of a fatal product lane: finite, and below 512, where the
+# range detector's bound (on the exponent) starts
+NM_SPIKE = 256.0
+# the mLSTM's tile offsets, scaled so q.k and the state stay in the range
+# the 1e-4 tolerance was set for
+NM_MLSTM_SCALE = 0.25
+
+
+def _tile_offsets(rows, cols, block, dev, scale=1.0, first=0):
+    """(rows, cols) f32: NM_OFFSETS[(t - first) % 6] * scale on every lane
+    of logical tile t of a (rows, cols) view with tiles ``block``."""
+    br, bc = block
+    gr, gc = rows // br, cols // bc
+    t = (torch.arange(gr * gc, device=dev) - first) % len(NM_OFFSETS)
+    off = torch.tensor(NM_OFFSETS, device=dev)[t].view(gr, gc) * scale
+    return off.repeat_interleave(br, 0).repeat_interleave(bc, 1)
+
+
+def _nm_pools(k, v, page):
+    """Each page of layer 1 carries its own offset (a page is one logical
+    tile of the paged kernels), ``page``'s NM_OFFSETS[0] > 0: its fill
+    stays positive under both detectors, also with the default detector's
+    3e4 lane in its mean."""
+    P_, _, pg, Kh, Dh = k.shape
+    cols = pg * Kh * Dh
+    for t in (k, v):
+        t[:, 1] += _tile_offsets(P_, cols, (1, cols), t.device,
+                                 first=page).view(P_, pg, Kh, Dh)
+
+
+def _nm_paged_lanes(k, v, q, page, b):
+    """Lanes a wrong fill must move, in ``page`` (offset by _nm_pools), the
+    first page of request ``b``, whose early rows see that page alone: V
+    lane 3 of KV head 0 NaN in every slot (the output lane there is V's
+    fill, whatever the weights), K of slot 1 of the last KV head NaN in
+    every lane, and q of that head group biased against the page's sign
+    (the page's keys score alike with the right fill; slot 1 takes the row
+    over with a zero or negative one).  q is (B, H, Dh) or (B, C, H, Dh)."""
+    Kh, H = k.shape[3], q.shape[-2]
+    v[page, 1, :, 0, 3] = float("nan")
+    k[page, 1, 1, Kh - 1, :] = float("nan")
+    q[b][..., (Kh - 1) * (H // Kh):, :] -= 1.0
+
+
+def _tol_ratio(got, want, tol):
+    """assert_close(got, want, rtol=tol, atol=tol) as a number: the largest
+    |got - want| / (tol + tol |want|) over want's finite lanes, inf where
+    the two differ in finiteness; above 1 fails."""
+    got, want = got.float(), want.float()
+    fin = want.isfinite()
+    if not torch.equal(got.isfinite(), fin):
+        return float("inf")
+    r = (got[fin] - want[fin]).abs() / (tol + tol * want[fin].abs())
+    return float(r.max()) if r.numel() else 0.0
+
+
+@contextlib.contextmanager
+def _rolled_table(target):
+    """Inside, the fill table a wrapper builds for ``target`` (the tensor at
+    its data pointer) is rolled by one tile: tile t reads tile t+1's
+    entry.  Yields the rolled tables' sizes."""
+    build = tile_fill.table_or_none
+    rolled = []
+
+    def patched(policy, x, *args, **kw):
+        table = build(policy, x, *args, **kw)
+        if table is not None and x.data_ptr() == target.data_ptr():
+            rolled.append(table.numel())
+            return torch.roll(table, -1)
+        return table
+
+    tile_fill.table_or_none = patched
+    try:
+        yield rolled
+    finally:
+        tile_fill.table_or_none = build
+
+
+def _controls_fail(call, operands, zero_kw, want, tol):
+    """The zero fill, and each operand's table rolled (where it has more
+    than one tile), must each fail ``call``'s comparison with ``want``."""
+    assert _tol_ratio(call(**zero_kw)[0], want, tol) > 1.0
+    for x in operands:
+        with _rolled_table(x) as rolled:
+            out = call()[0]
+        assert rolled
+        if rolled[0] > 1:
+            assert _tol_ratio(out, want, tol) > 1.0
+
+
+def _zero_kw(kw):
+    """The zero fill in place of a paged call's neighbor_mean."""
+    return dict(policy_k="zero") if "policy_k" in kw else dict(policy="zero")
+
+
+def _fatal_mask(x, det):
+    consts = common.detector_operand(common.resolve_detector(det, True), x.dtype)
+    nan_m, inf_m = common.fatal_masks(x, consts)
+    return nan_m | inf_m
+
+
+def _repaired_close(got, want, fatal, dtype):
+    assert torch.equal(detect.bits_of(got)[~fatal], detect.bits_of(want)[~fatal])
+    torch.testing.assert_close(got[fatal].float(), want[fatal].float(),
+                               **FILL_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
+def test_tile_fill_matches_plain(cuda, dtype):
+    """The table of every view form: 2-D tiles narrower and wider than a
+    block's 256 threads, tiles of odd sizes, a row stride and offset (a
+    paged pool's layer, one tile a page) and a page map (scrub_pages'
+    gathered view); one tile fatal in every lane takes 0."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _plant(torch.randn((96, 640), generator=gen, device=cuda) + 0.5, 5)
+    x[0:3, 0:5] = float("nan")
+    x = x.to(dtype)
+    det = _detectors(dtype)[1]
+    for d in (None, det):
+        consts = common.detector_operand(common.resolve_detector(d, True), dtype)
+        for rows, cols, block, where in (
+                (96, 640, (3, 5), {}), (96, 640, (32, 640), {}),
+                (96, 640, (96, 5), {}), (1, 96 * 640, (1, 96 * 640), {}),
+                (11, 3 * 640, (1, 3 * 640), dict(row_stride=8 * 640, offset=2 * 640)),
+                (12, 640, (4, 64), dict(ids=[7, 2, 5, 0], rows_per_page=3,
+                                        page_stride=12 * 640 // 4 * 2))):
+            common.reset_launches()
+            got = tile_fill.tile_fill(x, rows, cols, block, consts, **where)
+            assert common.LAUNCHES == {"tile_fill": 1}
+            want = tile_fill.tile_fill_plain(x, rows, cols, block, consts, **where)
+            torch.testing.assert_close(tile_fill.values(got, dtype),
+                                       tile_fill.values(want, dtype),
+                                       **FILL_TOL[dtype])
+        assert float(tile_fill.values(
+            tile_fill.tile_fill(x, 96, 640, (3, 5), consts), dtype)[0]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
+@pytest.mark.parametrize("case", ["width-7", "offset", "offset-pages",
+                                  "many-tiles-bound", "mid-tile-bound",
+                                  "staged-all", "large"])
+def test_scrub_kernel_neighbor_mean_matches_plain(cuda, case, dtype):
+    """``scrub`` and ``scrub_pages`` (unique ids) under both detectors: one
+    tile_fill and one scrub launch; counts equal, the repaired lanes
+    within FILL_TOL of the plain version's, the rest bit-equal."""
+    for det in _detectors(dtype):
+        x, ids = _sc_operand(cuda, dtype, case)
+        fn, plain_fn = _sc_fns(ids)
+        plain = x.clone()
+        fatal = _fatal_mask(x, det)
+        if ids is not None:     # scrub_pages repairs the listed pages only
+            listed = torch.zeros(x.shape[0], dtype=torch.bool, device=cuda)
+            listed[ids] = True
+            fatal &= listed.view((-1,) + (1,) * (x.dim() - 1))
+        common.reset_launches()
+        got = _sc_call(fn, x, ids, case, detector=det, **NM)
+        assert common.LAUNCHES == {"scrub": 1, "tile_fill": 1}
+        want = _sc_call(plain_fn, plain, ids, case, detector=det, **NM)
+        assert torch.equal(got, want) and int(want[0]) > 0
+        _repaired_close(x, plain, fatal, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32", "bf16", "bf16xf32", "f16",
+                                  "bf16-unaligned", "all-fatal-tile"])
+@pytest.mark.parametrize("split", [False, True])
+def test_repair_matmul_neighbor_mean_matches_plain(cuda, case, split):
+    """Both routes with the fill table of each operand: the split blocks'
+    bk and bn (88, 130, 86, 82, 108, 64) are not multiples of a 16-byte
+    chunk's 8 lanes, so the wgmma route's chunks span logical tiles; a
+    whole fatal A and B tile.  Two tile_fill launches and one product a
+    call; memory mode's origin scrub against the plain scrub."""
+    shape, dtypes, want_route, extra = MM_CASES[case]
+    da, db, out = dtypes
+    tol = TOL[out or da]
+    blocks = MM_SPLIT[shape] if split else None
+    a, b = _mm_operands(cuda, shape, dtypes, extra,
+                        nm_blocks=blocks or rm._default_blocks(
+                            shape[0], shape[2], shape[1]))
+    assert rm.route(a, b) == want_route
+    for det in _detectors(da):
+        common.reset_launches()
+        kw = dict(blocks=blocks, out_dtype=out, detector=det, **NM)
+        got = rm.repair_matmul_raw(a, b, **kw)
+        assert common.LAUNCHES == {"repair_matmul": 1, "tile_fill": 2}
+        want = rm.repair_matmul_plain(a, b, **kw)
+        assert torch.equal(got[1], want[1]) and int(got[1][rm.EV_TOTAL]) > 0
+        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol, atol=tol)
+        _controls_fail(lambda **o: rm.repair_matmul_raw(a, b, **{**kw, **o}),
+                       (a, b), dict(policy="zero"), want[0], tol)
+        ka, kb, pa_, pb = a.clone(), b.clone(), a.clone(), b.clone()
+        fa, fb = _fatal_mask(a, det), _fatal_mask(b, det)
+        ops.repair_matmul(ka, kb, mode="memory", **kw)
+        scrub.scrub_plain(pa_, detector=det, **NM)
+        scrub.scrub_plain(pb, detector=det, **NM)
+        _repaired_close(ka, pa_, fa, da)
+        _repaired_close(kb, pb, fb, db)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32-causal", "f32-S<T", "bf16-causal",
+                                  "f16-causal-D64-long", "bf16-ragged-T",
+                                  "bf16-all-fatal-tile", "bf16-unaligned"])
+def test_flash_attention_neighbor_mean_matches_plain(cuda, case):
+    """Both routes with the K and V tables ((bk, D) tiles of the
+    (B*Kh*T, D) view, which the wgmma route's 128-row tiles do not share):
+    two tile_fill launches and one attention a call."""
+    (B, H, Kh, S, T, D), blocks, causal, dtype, want_route, extra = FA_CASES[case]
+    tol = TOL[dtype]
+    q, k, v = _fa_operands(cuda, FA_CASES[case], nm=True)
+    assert ra.route(q, k, v) == want_route
+    for det in _detectors(dtype):
+        common.reset_launches()
+        kw = dict(causal=causal, blocks=blocks, detector=det, **NM)
+        got = ra.flash_attention_raw(q, k, v, **kw)
+        assert common.LAUNCHES == {"flash_attention": 1, "tile_fill": 2}
+        want = ra.flash_attention_plain(q, k, v, **kw)
+        assert torch.equal(got[1], want[1]) and int(got[1][ra.EV_TOTAL]) > 0
+        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol, atol=tol)
+        _controls_fail(lambda **o: ra.flash_attention_raw(q, k, v, **{**kw, **o}),
+                       (k, v), dict(policy="zero"), want[0], tol)
+
+
+def _nm_paged_configs(dtype):
+    """Both operands' mean, and K's mean beside V's zero fill, under both
+    detectors."""
+    det = _detectors(dtype)[1]
+    return [dict(NM), dict(policy_k="neighbor_mean", policy_v="zero"),
+            dict(detector_k=det, detector_v=det, **NM)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bf16-main", "f32-main", "bf16-M20",
+                                  "f16-pg48-D64", "bf16-unaligned"])
+def test_paged_decode_neighbor_mean_matches_plain(cuda, case):
+    """Both decode routes with the per-page tables (a page is one logical
+    tile over both KV heads; the fused route's groups of slots take each
+    page's own): one tile_fill per operand with the mean, one decode."""
+    (_, _, _, _, _, M), dtype, want_route, _ = DC_CASES[case]
+    q, k, v, bt, pos = _dc_operands(cuda, DC_CASES[case], nm=True)
+    assert pa.decode_route(q, k, v) == want_route
+    tol = TOL[dtype]
+    for kw in _nm_paged_configs(dtype):
+        n_tables = 1 if kw.get("policy_v") == "zero" else 2
+        for splits in [s for s in (1, 4) if M % s == 0]:
+            common.reset_launches()
+            got = pa.paged_attention_splitk_raw(q, k, v, bt, pos, 1,
+                                                splits=splits, **kw)
+            assert common.LAUNCHES == {"paged_decode": 1, "tile_fill": n_tables}
+            wants = [pa.paged_decode_plain(q, k, v, bt, pos, 1, splits=splits, **kw)]
+            if want_route == "fused":
+                wants.append(pa.paged_decode_fused_plain(q, k, v, bt, pos, 1, **kw))
+            for want in wants:
+                assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+                torch.testing.assert_close(got[0].float(), want[0].float(),
+                                           rtol=tol, atol=tol)
+            assert int(got[2][pa.EV_TOTAL]) > 0
+            _controls_fail(
+                lambda **o: pa.paged_attention_splitk_raw(
+                    q, k, v, bt, pos, 1, splits=splits, **{**kw, **o}),
+                (k, v)[:n_tables], _zero_kw(kw), wants[0][0], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bf16-C64-D128", "f16-C20-D64",
+                                  "bf16-C100-M16-D128", "f16-pg32-M16-D64",
+                                  "bf16-pg48", "f32-C64", "bf16-pg8"])
+def test_paged_prefill_neighbor_mean_matches_plain(cuda, case):
+    """Both prefill routes with the per-page tables, and the wgmma route's
+    scan: its V poison test is per page with a table.  The last config
+    puts two lanes near bf16's largest value in a V page beside a fatal
+    lane, so the page's f32 sum overflows and its fill is Inf, as in the
+    reference: that page poisons its KV head's rows on every route."""
+    _, dtype, want_route, _ = PF_CASES[case]
+    q, k, v, bt, qs = _pf_operands(cuda, PF_CASES[case], nm=True)
+    assert pa.route(q, k, v) == want_route
+    configs = _nm_paged_configs(dtype)
+    if dtype == BF16:
+        vh = v.clone()
+        vh[bt[0, 0], 1, 0, 0, :2] = 3.0e38        # page of v's planted Inf
+        configs.append(dict(NM, v_pages=vh))
+    for kw in configs:
+        vv = kw.pop("v_pages", v)
+        common.reset_launches()
+        got = pa.paged_prefill_raw(q, k, vv, bt, qs, 1, **kw)
+        n_tables = 1 if kw.get("policy_v") == "zero" else 2
+        assert common.LAUNCHES == {"paged_prefill": 1, "tile_fill": n_tables}
+        want = pa.paged_prefill_plain(q, k, vv, bt, qs, 1, **kw)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        assert bool((~want[0].isfinite()).any()) == (vv is not v)
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype],
+                                   equal_nan=True)
+        _controls_fail(lambda **o: pa.paged_prefill_raw(q, k, vv, bt, qs, 1,
+                                                        **{**kw, **o}),
+                       (k, vv)[:n_tables], _zero_kw(kw), want[0], TOL[dtype])
+        if want_route == "wgmma":
+            skw = {n: kw[n] for n in ("detector_k", "detector_v") if n in kw}
+            skw["policy_v"] = kw.get("policy_v", "neighbor_mean")
+            *sgot, _ = pa._scan_kernel(k, vv, bt, 1, **skw)
+            for g, w in zip(sgot, pa.prefill_scan_plain(k, vv, bt, 1, **skw)):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nc,Q,P,off,want_route", [
+    (torch.float32, 5, 32, 96, 0, "ffma"),
+    (torch.bfloat16, 5, 32, 96, 0, "wgmma"),
+    (torch.bfloat16, 3, 48, 100, 0, "ffma"),
+    (torch.bfloat16, 2, 48, 96, 0, "wgmma"),
+    (torch.bfloat16, 5, 32, 96, 1, "ffma"),
+])
+def test_mlstm_chunk_neighbor_mean_matches_plain(cuda, dtype, nc, Q, P, off,
+                                                 want_route):
+    """Both mLSTM routes with a table per operand ((b, h, c) tiles); one v
+    tile fatal in every lane; the wgmma route's repaired v lanes carry the
+    tile's mean into the hi/lo split (against the split twin too)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = list(_mlstm_inputs(cuda, dtype, nc, Q, P, off=off, nm=True))
+    x[2][1, 0, nc - 1] = float("nan")
+    assert mc.route(*x[:3]) == want_route
+    for include_inf in (True, False):
+        kw = dict(include_inf=include_inf, **NM)
+        common.reset_launches()
+        got = mc.mlstm_chunk_raw(*x, **kw)
+        assert common.LAUNCHES == {"mlstm_chunk": 1, "tile_fill": 3}
+        wants = [mc.mlstm_chunk_plain(*x, **kw)]
+        if want_route == "wgmma":
+            wants.append(mc.mlstm_chunk_split_plain(*x, **kw))
+        for want in wants:
+            assert torch.equal(got[1], want[1]) and int(got[1][mc.EV_TOTAL]) > 0
+            torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4,
+                                       equal_nan=True)
+        if include_inf:     # else the planted Inf lanes spread to most of y
+            _controls_fail(lambda **o: mc.mlstm_chunk_raw(*x, **{**kw, **o}),
+                           x[:3], dict(policy="zero"), wants[0][0], 1e-4)

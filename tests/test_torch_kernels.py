@@ -197,9 +197,19 @@ def test_wrappers_reject_bad_inputs():
         pa.paged_attention_splitk_raw(q, _t(k), _t(v), _t(BT), _t(POS), 1, splits=3)
     with pytest.raises(IndexError):
         scrub.scrub_pages(_t(k), [P + 1])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="kernel policy"):
         pa.paged_attention_raw(q, _t(k), _t(v), _t(BT), _t(POS), 1,
-                               policy="neighbor_mean")
+                               policy="nearest")
+    # neighbor_mean is a kernel fill now: the page's mean, as the reference's
+    qn = np.random.default_rng(12).standard_normal((3, H, DH)).astype(np.float32)
+    jout, jslot, jcnt = jpa.paged_attention_raw(
+        jnp.asarray(qn), jnp.asarray(k), jnp.asarray(v), jnp.asarray(BT),
+        jnp.asarray(POS), jnp.asarray(1, jnp.int32), policy="neighbor_mean")
+    tout, tslot, tcnt = pa.paged_attention_raw(
+        _t(qn), _t(k), _t(v), _t(BT), _t(POS), 1, policy="neighbor_mean")
+    np.testing.assert_array_equal(tslot.numpy(), np.asarray(jslot))
+    np.testing.assert_array_equal(tcnt.numpy(), np.asarray(jcnt))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
 
 
 def test_cpu_path_launches_no_kernel():

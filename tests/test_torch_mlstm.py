@@ -143,10 +143,18 @@ def test_repairs_poisoned_kv_state_stays_clean():
 
 
 def test_unported_fill_and_bad_shapes_raise():
+    """An unknown fill and bad shapes raise; ``neighbor_mean``, ported now,
+    matches the reference kernel."""
     q, k, v, li, lf = make(1, 16, 1, 8, seed=0)
-    t = [to_torch(to5(x, 16)) for x in (q, k, v)]
-    g = [to_torch(gates5(x, 16)) for x in (li, lf)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mc.mlstm_chunk_raw(*t, *g, policy="neighbor_mean")
+    q, k, v = plant(q, k, v)
+    arrays = [to5(x, 16) for x in (q, k, v)] + [gates5(x, 16) for x in (li, lf)]
+    j, tg = both(*arrays)
+    t, g = tg[:3], tg[3:]
+    with pytest.raises(ValueError, match="kernel policy"):
+        mc.mlstm_chunk_raw(*t, *g, policy="nearest")
+    jy, jc = jmc.mlstm_chunk_raw(*j, policy="neighbor_mean")
+    ty, tc = mc.mlstm_chunk_raw(*t, *g, policy="neighbor_mean")
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
     with pytest.raises(ValueError, match="gates"):
         mc.mlstm_chunk_raw(*t, g[0][..., :8], g[1])

@@ -263,8 +263,20 @@ def test_ops_reject_bad_arguments():
         ops.repair_matmul(a, b, blocks=(64, 32, 48))
     with pytest.raises(ValueError):
         ops.repair_matmul(a, a)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.repair_matmul(a, b, policy="neighbor_mean")
+    with pytest.raises(ValueError, match="kernel policy"):
+        ops.repair_matmul(a, b, policy="nearest")
+    # neighbor_mean is a kernel fill now: the same product as the reference's
+    rng = np.random.default_rng(2)
+    an = rng.standard_normal((64, 32)).astype(np.float32)
+    bn = rng.standard_normal((32, 48)).astype(np.float32)
+    an[5, 7], bn[3, 40] = np.nan, np.inf
+    jr = jops.repair_matmul(jnp.asarray(an), jnp.asarray(bn), mode="register",
+                            policy="neighbor_mean")
+    tr = ops.repair_matmul(torch.from_numpy(an), torch.from_numpy(bn),
+                           mode="register", policy="neighbor_mean")
+    assert tr.counts.tolist() == np.asarray(jr.counts).tolist()
+    np.testing.assert_allclose(tr.c.numpy(), np.asarray(jr.c),
+                               rtol=MM_TOL["float32"], atol=MM_TOL["float32"])
     q = torch.zeros((1, 4, 32, 16))
     with pytest.raises(ValueError):
         ops.flash_attention(q, torch.zeros((1, 3, 32, 16)), torch.zeros((1, 3, 32, 16)))
