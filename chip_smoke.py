@@ -101,6 +101,22 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      paged, (a), (b), (c), register mode, a ``neighbor_mean`` space and
      ``drain_interval=2``
   5. the injection arm: ber=1e-7 for 4 steps
+  5b. training at full qwen2-1.5b width and depth (``train_phase``): bf16
+     params, f32 AdamW moments, batch 4 x 512, 5 steps in memory mode with
+     a zero fill.  NaN and ±Inf planted in ``params/layers/mlp/w_down`` and
+     ``opt/nu/embed/table`` before step 2: the boundary scrub (the scrub
+     kernel, one launch a leaf) must count what ``scrub_plain`` counts on
+     clones of those leaves, leave them bit-equal to the plain scrub's, the
+     planted lanes holding the fill, and every loss finite; the same plants
+     with repair off must poison the run within 2 steps; register mode (2
+     layers) with a NaN weight lane keeps the loss and every gradient
+     finite; the card's loss and gradients match the CPU's (2 layers, f32,
+     TF32 off, 128 tokens) within TRAIN_CPU_RTOL; ``matmul_f32``'s bf16
+     backward is held against the f64 products, and a control that rounds
+     the cotangent first must fail.  One ``timing train:`` line: ms a warm
+     step, the device idle share, device ms by group, launches a step, peak
+     memory, the boundary scrub's and the AdamW update's device ms beside
+     their bytes bounds, and the step's model FLOPs beside its bound
   6. the mLSTM kernel at xlstm-1.3b width (B=1, H=4, S=2048: 16 chunks of
      128, head dim 1024), f32 (FFMA route) and bf16 (wgmma route, and the
      same values 2 bytes off alignment on the FFMA route,
@@ -139,6 +155,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2377,6 +2394,301 @@ def injection_phase(report: dict) -> None:
     log(f"injection ok: 4 steps at ber=1e-7, stats {stats}")
 
 
+# ------------------------------------------------------------ phase 5b
+# training at full qwen2-1.5b width and depth: bf16 params, f32 moments,
+# batch 4 x 512 tokens, 5 steps; faults planted before step TRAIN_PLANT_STEP
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_PLANT_STEP = 4, 512, 5, 1
+TRAIN_PLANTS = (("params/layers/mlp/w_down", (3, 100, 200), float("nan")),
+                ("params/layers/mlp/w_down", (17, 5000, 7), float("inf")),
+                ("opt/nu/embed/table", (1234, 56), float("nan")),
+                ("opt/nu/embed/table", (99999, 1000), float("-inf")))
+# card vs CPU, 2 layers at full width in f32 (TF32 off): loss and every
+# gradient within this share of the leaf's largest |value| (the two sum in
+# different orders; the CPU tests measure ~1e-6 at reduced width)
+TRAIN_CPU_RTOL = 1e-4
+# matmul_f32's bf16 gradients against the f64 products: every lane within
+# one bf16 ulp plus the f32 sum's own error (sqrt(K) · 2^-24 · Σ|terms|, which
+# matters only where the sum cancels), and at most this share of the lanes
+# not the f64 product rounded once (f32 sums over K land next to a rounding
+# boundary on a few lanes; a cotangent rounded to bf16 first misses ~40 %)
+MM_BWD_SHARE = 1e-2
+
+
+def _bwd_bar(got, exact, mag, k: int):
+    """bf16 ``got`` against the f64 ``exact`` whose terms' magnitudes sum to
+    ``mag``, over ``k`` terms: (lanes beyond one ulp plus the f32 sum's
+    error, share of lanes other than ``exact`` rounded once)."""
+    import torch
+
+    ax = exact.abs()
+    ulp = torch.where(ax > 0, torch.exp2(torch.floor(torch.log2(ax)) - 7),
+                      torch.zeros_like(ax))
+    allow = ulp + k ** 0.5 * 2.0 ** -24 * mag
+    beyond = int(((got.double() - exact).abs() > allow).sum())
+    share = float((got != exact.to(torch.bfloat16)).float().mean())
+    return beyond, share
+
+
+def _train_model_flops(cfg, n_params: int, B: int, S: int) -> float:
+    """Forward + backward FLOPs of one step: 6 per parameter and token, and
+    the direct attention's full S x S scores and P·V, 3 x 4·B·H·S²·Dh a
+    layer."""
+    attn = 12.0 * B * cfg.n_heads * S * S * cfg.resolved_head_dim * cfg.n_layers
+    return 6.0 * n_params * B * S + attn
+
+
+def train_phase(report: dict) -> None:
+    """Training at full qwen2-1.5b width on the card (ROADMAP slice 4):
+    memory mode through the boundary scrub kernel, repair off, register
+    mode, card against CPU, and matmul_f32's backward."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import detect
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import common, scrub as scrub_kernel
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import TransformerLM
+    from repro_torch.nn.layers import matmul_f32
+    from repro_torch.runtime import ApproxConfig, ApproxSpace
+
+    card = gpu_line()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              repair=ApproxConfig(mode="memory", policy="zero"))
+    model = TransformerLM(cfg, device="cuda", seed=0)
+    tree = model.param_tree()
+    n_params = sum(t.numel() for t in tree.values())
+    data = SyntheticStream(cfg, seed=0, batch=TRAIN_B, seq=TRAIN_S, device="cuda")
+    batches = [data(i) for i in range(TRAIN_STEPS)]
+    opt = ttrain.make_optimizer(peak_lr=3e-4, warmup=2, total=TRAIN_STEPS)
+
+    def plant(state):
+        with torch.no_grad():
+            for path, idx, value in TRAIN_PLANTS:
+                state[path][idx] = value
+
+    # -- memory mode: the boundary scrub through the scrub kernel
+    space = ApproxSpace(cfg.repair)
+    state = ttrain.init_train_state(model, opt, space=space)
+    raw = ttrain.raw_train_step(model, opt)
+    plain: dict = {}
+
+    def checked(state, batch):
+        """Between the boundary scrub and the compute: the planted leaves
+        must be bit-equal to the plain scrub of their clones."""
+        for path, want in plain.pop("leaves", {}).items():
+            if not torch.equal(detect.bits_of(state[path]), detect.bits_of(want)):
+                raise AssertionError(f"train: the boundary scrub of {path} "
+                                     "differs from scrub_plain's")
+            for p, idx, _ in TRAIN_PLANTS:
+                if p == path and float(state[path][idx]) != 0.0:
+                    raise AssertionError(f"train: {path}{idx} does not hold "
+                                         "the zero fill")
+        return raw(state, batch)
+
+    step_fn = space.wrap_train_step(checked)
+    losses, step_ms, scrub_deltas, want = [], [], [], []
+    common.reset_launches()                  # the train path's counts from 0
+    for i, batch in enumerate(batches):
+        if i == TRAIN_PLANT_STEP:
+            plant(state)
+            counts = torch.zeros(3, dtype=torch.int64, device="cuda")
+            leaves = {}
+            for path in sorted({p for p, _, _ in TRAIN_PLANTS}):
+                rule = space.ruleset.rule_for(path)[1]
+                policy, constant = common.kernel_fill(rule.fill)
+                clone = state[path].detach().clone()
+                counts += scrub_kernel.scrub_plain(
+                    clone, policy=policy, constant=constant,
+                    detector=rule.detect)[1].to(torch.int64)
+                leaves[path] = clone
+            plain["leaves"] = leaves
+            want = counts.tolist()
+        before = dict(state["stats"])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step_fn(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        scrub_deltas.append([state["stats"][k] - before[k]
+                             for k in ("nan_found", "inf_found", "events")])
+    launches = dict(common.LAUNCHES)
+    if plain or not want:
+        raise AssertionError("train: the checked step never ran")
+    if scrub_deltas[TRAIN_PLANT_STEP][:2] != want[:2] or \
+            scrub_deltas[TRAIN_PLANT_STEP][2] != 1:
+        raise AssertionError(f"train: boundary scrub counted "
+                             f"{scrub_deltas[TRAIN_PLANT_STEP]}, scrub_plain "
+                             f"{want}")
+    if any(any(d) for i, d in enumerate(scrub_deltas) if i != TRAIN_PLANT_STEP):
+        raise AssertionError(f"train: scrubs of clean steps counted {scrub_deltas}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train: memory mode lost the loss: {losses}")
+    n_leaves = sum(1 for p, t in ttrain.resident(state).items()
+                   if t.is_floating_point())
+    if launches.get("scrub", 0) != n_leaves * TRAIN_STEPS or \
+            set(launches) != {"scrub"}:
+        raise AssertionError(f"train: launches {launches}, want scrub "
+                             f"{n_leaves} a step")
+    state = ttrain._fold_rule_counts(space, state)
+    rule_stats = space.rule_stats()
+    log(f"train ok arm=memory: qwen2-1.5b L={cfg.n_layers} bf16 params="
+        f"{n_params} batch {TRAIN_B}x{TRAIN_S}, losses "
+        f"{[round(v, 4) for v in losses]}, plants before step "
+        f"{TRAIN_PLANT_STEP + 1} counted [nan, inf, events] "
+        f"{scrub_deltas[TRAIN_PLANT_STEP]}, scrub_plain's [nan, inf] "
+        f"{want[:2]}, leaves bit-equal, planted lanes hold 0; scrub "
+        f"launches {n_leaves} a step; rule stats {rule_stats} ({card})")
+
+    # -- timing: warm steps, one profiled step, the update alone
+    warm_ms = statistics.median(step_ms[2:])
+    per = device_profile(lambda: step_fn(state, batches[0]),
+                         table="train_profile.txt")
+    groups = {"scrub": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
+    for key, ms in per.items():
+        low = key.lower()
+        if "scrub_stream" in key:
+            groups["scrub"] += ms
+        elif any(n in low for n in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+            groups["gemm"] += ms
+        elif "memcpy" in low or "memset" in low:
+            groups["copy"] += ms
+        else:
+            groups["other"] += ms
+    busy = sum(groups.values())
+    grads = model.bind_grads()
+    opt_state = {k[4:]: v for k, v in state.items() if k.startswith("opt/")}
+    adam_ms = sum(device_profile(lambda: opt.update(grads, opt_state, tree)).values())
+    adam_call_ms = cuda_ms(lambda: opt.update(grads, opt_state, tree), iters=5,
+                           warmup=1)
+    p_bytes = sum(t.numel() * t.element_size() for t in tree.values())
+    m_bytes = sum(t.numel() * t.element_size() for p, t in state.items()
+                  if p.startswith(("opt/mu/", "opt/nu/")))
+    scrub_bound = (p_bytes + m_bytes) / HBM_BYTES_PER_S * 1e3
+    adam_bound = (3 * p_bytes + 2 * m_bytes) / HBM_BYTES_PER_S * 1e3
+    flops = _train_model_flops(cfg, n_params, TRAIN_B, TRAIN_S)
+    row = dict(
+        ms_per_step=warm_ms, step_ms=step_ms,
+        tokens_per_s=TRAIN_B * TRAIN_S / warm_ms * 1e3,
+        device_idle_share=(1.0 - busy / warm_ms) if busy else None,
+        device_ms_per_step=groups,
+        launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        scrub_device_ms=groups["scrub"], scrub_bound_ms=scrub_bound,
+        scrub_bytes=p_bytes + m_bytes,
+        adamw_device_ms=adam_ms, adamw_call_ms=adam_call_ms,
+        adamw_bound_ms=adam_bound, adamw_bytes=3 * p_bytes + 2 * m_bytes,
+        model_tflop=flops / 1e12,
+        flops_bound_ms=flops / PEAK_FLOPS["bfloat16"] * 1e3,
+        top_kernels_ms=[(k[:60], v) for k, v in
+                        sorted(per.items(), key=lambda kv: -kv[1])[:8]],
+    )
+    report["train"] = row
+    log(f"timing train: {json.dumps(row)} ({card})")
+
+    # -- repair off: the same plants poison the run
+    del state, opt_state, step_fn, raw
+    model.init_weights(0)
+    off = ApproxSpace(dataclasses.replace(cfg.repair, mode="off"))
+    state = ttrain.init_train_state(model, opt, space=off)
+    off_step = ttrain.build_train_step(model, opt, space=off)
+    off_losses = []
+    for i, batch in enumerate(batches[:TRAIN_PLANT_STEP + 2]):
+        if i == TRAIN_PLANT_STEP:
+            plant(state)
+        state, metrics = off_step(state, batch)
+        off_losses.append(float(metrics["loss"]))
+    finite = all(bool(torch.isfinite(t).all()) for p, t in state.items()
+                 if p.startswith("params/"))
+    if all(math.isfinite(v) for v in off_losses[TRAIN_PLANT_STEP:]) and finite:
+        raise AssertionError(f"train: repair off survived the plants: {off_losses}")
+    log(f"train ok arm=off: losses {off_losses}, params finite {finite} "
+        f"(poisoned within 2 steps of the plants) ({card})")
+    del state, off_step, grads, tree, model
+    torch.cuda.empty_cache()
+
+    # -- register mode, 2 layers: a NaN weight lane, finite loss and grads
+    rcfg = dataclasses.replace(cfg, n_layers=2, repair=ApproxConfig(
+        mode="register", policy="zero"))
+    reg = TransformerLM(rcfg, device="cuda", seed=0)
+    with torch.no_grad():
+        reg.layers[1].mlp.w_up[7, 1000] = float("nan")
+    reg_grads = reg.bind_grads()
+    loss, _ = reg.loss({"tokens": batches[0]["tokens"][:, :128]})
+    loss.backward()
+    bad = [p for p, g in reg_grads.items() if not bool(torch.isfinite(g).all())]
+    loss = float(loss.detach())
+    if not math.isfinite(loss) or bad:
+        raise AssertionError(f"train register: loss {loss}, non-finite "
+                             f"grads {bad}")
+    if not bool(torch.isnan(reg.layers[1].mlp.w_up[7, 1000])):
+        raise AssertionError("train register: the stored NaN was written back")
+    log(f"train ok arm=register: 2 layers at full width, one NaN in "
+        f"layers[1].mlp.w_up: loss {loss:.4f}, all {len(reg_grads)} "
+        f"grads finite, the lane still NaN in memory ({card})")
+    del reg, reg_grads, loss
+
+    # -- card against CPU: 2 layers, f32, TF32 off, 128 tokens
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fcfg = dataclasses.replace(cfg, n_layers=2, dtype_name="float32")
+    cpu = TransformerLM(fcfg, device="cpu", seed=0)
+    gpu = TransformerLM(fcfg, device="cuda", seed=1)
+    cpu_tree = cpu.param_tree()
+    with torch.no_grad():
+        for path, t in gpu.param_tree().items():
+            t.copy_(cpu_tree[path])
+    tokens = SyntheticStream(fcfg, seed=1, batch=1, seq=128, device="cpu")(0)
+    outs = []
+    for m in (gpu, cpu):
+        g = m.bind_grads()
+        loss, _ = m.loss({"tokens": tokens["tokens"].to(m.device)})
+        loss.backward()
+        outs.append((float(loss.detach()), {p: v.cpu() for p, v in g.items()}))
+    loss_rel = abs(outs[0][0] - outs[1][0]) / abs(outs[1][0])
+    worst = max(
+        (float((outs[0][1][p] - w).abs().max() / w.abs().max().clamp_min(1e-30)), p)
+        for p, w in outs[1][1].items())
+    if loss_rel > TRAIN_CPU_RTOL or worst[0] > TRAIN_CPU_RTOL:
+        raise AssertionError(f"train parity: loss rel {loss_rel}, worst grad "
+                             f"{worst}")
+    log(f"train parity ok: card vs CPU, 2 layers at full width, f32, 128 "
+        f"tokens: loss {outs[0][0]:.6f} vs {outs[1][0]:.6f} (rel "
+        f"{loss_rel:.2e}), worst grad {worst[1]} {worst[0]:.2e} <= "
+        f"{TRAIN_CPU_RTOL} ({card})")
+    del cpu, cpu_tree, gpu, outs
+
+    # -- matmul_f32's backward: the f32 cotangent, rounded once
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((TRAIN_B * TRAIN_S, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16().requires_grad_(True)
+    w = (torch.randn((cfg.d_model, cfg.d_ff), generator=gen, device="cuda")
+         / cfg.d_model ** 0.5).bfloat16().requires_grad_(True)
+    g = torch.randn((TRAIN_B * TRAIN_S, cfg.d_ff), generator=gen, device="cuda")
+    matmul_f32(a, w).backward(g)
+    g64, a64, w64 = g.double(), a.detach().double(), w.detach().double()
+    M, K, N = a.shape[0], cfg.d_model, cfg.d_ff
+    exact_a, mag_a = g64 @ w64.t(), g64.abs() @ w64.abs().t()
+    exact_w, mag_w = a64.t() @ g64, a64.abs().t() @ g64.abs()
+    bars = [_bwd_bar(a.grad, exact_a, mag_a, N), _bwd_bar(w.grad, exact_w, mag_w, M)]
+    ctrl = _bwd_bar(g.bfloat16() @ w.detach().t(), exact_a, mag_a, N)
+    if any(beyond or share > MM_BWD_SHARE for beyond, share in bars):
+        raise AssertionError(f"matmul_f32 backward: {bars}")
+    if not (ctrl[0] or ctrl[1] > MM_BWD_SHARE):
+        raise AssertionError(f"matmul_f32 backward: the bf16-cotangent control "
+                             f"passed the bar: {ctrl}")
+    log(f"train matmul_f32 backward ok: ({M}, {K}) x ({K}, {N}) bf16, f32 "
+        f"cotangent: dA {100 * bars[0][1]:.3f} % of lanes off the f64 product "
+        f"rounded once, dB {100 * bars[1][1]:.3f} %, none beyond one ulp plus "
+        f"the f32 sum's error; the bf16-cotangent control {100 * ctrl[1]:.2f} "
+        f"% ({ctrl[0]} beyond) fails the bar ({card})")
+
+
 # ------------------------------------------------------------ phases 6-9
 # mLSTM kernel geometry: one xlstm-1.3b block's mLSTM over a 2,048-token
 # prompt (d_inner 4096 over 4 heads)
@@ -3000,14 +3312,32 @@ def ptxas_summary(text: str) -> dict:
     return out
 
 
-def main() -> int:
+PHASES = ("kernel_phase", "ops_phase", "engine_phase", "fallback_phase",
+          "prefix_tier_phase", "parity_phase", "injection_phase", "train_phase",
+          "mlstm_phase", "xlstm_forward_phase", "xlstm_generate_phase",
+          "xlstm_depth_phase", "xlstm_parity_phase")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run alone (default: all, "
+                         "and the report lines)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from repro_torch.kernels import _native
 
+    phases = args.phases.split(",") if args.phases else list(PHASES)
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
+        return 2
     card = gpu_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3019,13 +3349,13 @@ def main() -> int:
         for kernel, info in ptxas_summary(_native.build_log(name)).items():
             log(f"ptxas {name} {kernel}: " + ", ".join(info))
     report: dict = {}
-    for phase in (kernel_phase, ops_phase, engine_phase, fallback_phase,
-                  prefix_tier_phase, parity_phase, injection_phase, mlstm_phase,
-                  xlstm_forward_phase, xlstm_generate_phase, xlstm_depth_phase,
-                  xlstm_parity_phase):
+    for name in phases:
         t0 = time.perf_counter()
-        phase(report)
-        log(f"{phase.__name__}: {time.perf_counter() - t0:.2f} s")
+        globals()[name](report)
+        log(f"{name}: {time.perf_counter() - t0:.2f} s")
+    if args.phases:
+        log(f"phases ok: {phases} ({card})")
+        return 0
     kernels = []
     for name, row in report["kernels"].items():
         row.setdefault("launches", int(report["launches"].get(name, 0)))

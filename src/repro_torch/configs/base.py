@@ -45,6 +45,7 @@ class ArchConfig:
     ssm_chunk: int = 128                # xlstm: chunk length of the mLSTM
     attn_q_block: int = 512             # chunked attention's tiles
     attn_kv_block: int = 1024
+    remat: bool = True                  # training: recompute each block
 
     @property
     def dtype(self) -> torch.dtype:

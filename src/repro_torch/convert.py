@@ -5,9 +5,14 @@ Both directions go through numpy, so this module needs no JAX:
   params_from_jax(tree, cfg)   the reference's parameter tree (nested dicts of
                                numpy arrays) → the port's model for
                                ``cfg.family``: a ``TransformerLM``
-                               (``layers/...`` stacked on axis 0) or an
-                               ``XLSTMLM`` (``xlstm_params_from_jax``); the
-                               tied embedding stays one table
+                               (``layers/...`` stacked on axis 0, as the
+                               model stores them) or an ``XLSTMLM``
+                               (``xlstm_params_from_jax``); the tied
+                               embedding stays one table
+  train_state_from_jax(state, cfg)
+                               a reference train state (params, AdamW
+                               moments and step, stats, rule_counts) → the
+                               port's model and its flat train state
   cache_from_jax(cache, tree)  a reference cache or pool tree → the port's
                                flat ``{path: tensor}`` state, in place
   cache_to_numpy(cache)        that flat state → the reference's nested layout
@@ -50,49 +55,54 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-# reference path (under "layers/") -> (block attribute, parameter name)
-_LAYER_PARAMS = {
-    "attn/wq": ("attn", "wq"), "attn/wk": ("attn", "wk"),
-    "attn/wv": ("attn", "wv"), "attn/wo": ("attn", "wo"),
-    "attn/bq": ("attn", "bq"), "attn/bk": ("attn", "bk"),
-    "attn/bv": ("attn", "bv"),
-    "mlp/w_gate": ("mlp", "w_gate"), "mlp/w_up": ("mlp", "w_up"),
-    "mlp/w_down": ("mlp", "w_down"),
-    "norm1/scale": ("norm1", "scale"), "norm2/scale": ("norm2", "scale"),
-}
-
-
 @torch.no_grad()
 def params_from_jax(tree: Any, cfg: ArchConfig, *, device=None):
     """The port's model for ``cfg`` holding the reference's weights."""
     if cfg.family == "ssm":
         return xlstm_params_from_jax(tree, cfg, device=device)
     model = TransformerLM(cfg, device=device)
+    own = model.param_tree()
     flat = flatten(tree)
-    dev = model.device
-    seen = set()
+    if set(flat) != set(own):
+        raise KeyError(f"parameter paths differ: {sorted(set(flat) ^ set(own))}")
     for path, arr in flat.items():
-        if path == "embed/table":
-            model.embed.table.copy_(to_torch(arr, dev))
-        elif path == "final_norm/scale":
-            model.final_norm.scale.copy_(to_torch(arr, dev))
-        elif path.startswith("layers/") and path[7:] in _LAYER_PARAMS:
-            block_attr, name = _LAYER_PARAMS[path[7:]]
-            stacked = to_torch(arr, dev)
-            if stacked.shape[0] != len(model.layers):
-                raise ValueError(
-                    f"{path}: {stacked.shape[0]} stacked layers, model has "
-                    f"{len(model.layers)}"
-                )
-            for i, blk in enumerate(model.layers):
-                getattr(getattr(blk, block_attr), name).copy_(stacked[i])
-        else:
-            raise KeyError(f"no ported parameter for reference path {path!r}")
-        seen.add(path)
-    missing = {"embed/table", "final_norm/scale"} - seen
-    if missing:
-        raise KeyError(f"reference tree lacks {sorted(missing)}")
+        src = to_torch(arr, model.device)
+        if src.shape != own[path].shape:
+            raise ValueError(f"{path}: {tuple(src.shape)} vs the port's "
+                             f"{tuple(own[path].shape)}")
+        own[path].copy_(src)
     return model
+
+
+def _field(node: Any, name: str) -> Any:
+    """``node[name]`` of a dict, or ``node.name`` of the reference's
+    ``OptState`` named tuple."""
+    return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
+def train_state_from_jax(state: Any, cfg: ArchConfig, *, device=None):
+    """``(model, train state)`` from a reference train state (numpy
+    leaves): the model holds its params; the flat state (``launch.train``)
+    has those tensors under ``params/``, the moments and step under
+    ``opt/``, the stats as host integers and ``rule_counts`` where the
+    reference has it."""
+    model = params_from_jax(state["params"], cfg, device=device)
+    dev = model.device
+    params = model.param_tree()
+    out: Dict[str, Any] = {f"params/{p}": t for p, t in params.items()}
+    opt = state["opt"]
+    out["opt/step"] = torch.tensor(int(np.asarray(_field(opt, "step"))),
+                                   dtype=torch.int32, device=dev)
+    for name in ("mu", "nu"):
+        flat = flatten(_field(opt, name))
+        if set(flat) != set(params):
+            raise KeyError(f"opt/{name} paths differ from the params'")
+        for p in params:
+            out[f"opt/{name}/{p}"] = to_torch(flat[p], dev).to(torch.float32)
+    out["stats"] = {k: int(np.asarray(v)) for k, v in state["stats"].items()}
+    if "rule_counts" in state:
+        out["rule_counts"] = np.asarray(state["rule_counts"]).astype(np.int64)
+    return model, out
 
 
 def _block_param(block, module: str, name: str, path: str) -> torch.nn.Parameter:

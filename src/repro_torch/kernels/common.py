@@ -198,8 +198,27 @@ def raw_stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def require_device(x: torch.Tensor, what: str) -> str:
-    """'cpu' or 'cuda' for a wrapper's dispatch; anything else raises."""
+def require_device(x: torch.Tensor, what: str, *inputs: torch.Tensor) -> str:
+    """'cpu' or 'cuda' for a wrapper's dispatch; anything else raises.  On
+    'cuda' the kernel route refuses autograd inputs (``refuse_autograd``
+    over ``x`` and ``inputs``); the plain versions are autograd's own."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.device.type == "cuda":
+        refuse_autograd(what, x, *inputs)
     return x.device.type
+
+
+def refuse_autograd(what: str, *inputs: Optional[torch.Tensor]) -> None:
+    """Raise where grad mode is on and a float input requires grad: the
+    kernels read and write raw device memory and have no backward, so
+    their result would be silently cut off from the graph."""
+    if not torch.is_grad_enabled():
+        return
+    for t in inputs:
+        if t is not None and t.is_floating_point() and t.requires_grad:
+            raise RuntimeError(
+                f"{what}: the CUDA kernel has no backward, and an input "
+                "requires grad; call it under torch.no_grad() or on detached "
+                "tensors"
+            )

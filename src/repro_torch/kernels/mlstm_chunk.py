@@ -360,7 +360,7 @@ def mlstm_chunk_raw(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked mLSTM.  Returns ``(y (B, H, nc, Q, P) f32, counts int32[8])``;
     the inputs are not modified."""
-    if common.require_device(q, "mlstm_chunk") == "cpu":
+    if common.require_device(q, "mlstm_chunk", k, v, log_i, log_f) == "cpu":
         return mlstm_chunk_plain(
             q, k, v, log_i, log_f, policy=policy, constant=constant,
             include_inf=include_inf,

@@ -650,7 +650,7 @@ def paged_decode_fused_plain(
 
 def _decode(q, k_pages, v_pages, block_tables, positions, layer, splits,
             include_inf, **fills):
-    if common.require_device(q, "paged decode") == "cpu":
+    if common.require_device(q, "paged decode", k_pages, v_pages) == "cpu":
         return paged_decode_plain(
             q, k_pages, v_pages, block_tables, positions, layer,
             splits=splits, include_inf=include_inf, **fills,
@@ -752,7 +752,7 @@ def paged_prefill_raw(
         detector_v=detector_v, policy_k=policy_k, constant_k=constant_k,
         policy_v=policy_v, constant_v=constant_v,
     )
-    if common.require_device(q, "paged prefill") == "cpu":
+    if common.require_device(q, "paged prefill", k_pages, v_pages) == "cpu":
         return paged_prefill_plain(
             q, k_pages, v_pages, block_tables, q_start, layer,
             include_inf=include_inf, **fills,

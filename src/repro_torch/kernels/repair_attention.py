@@ -324,7 +324,7 @@ def flash_attention_raw(
     core; ``ops.flash_attention`` adds the memory-mode origin scrub)."""
     kw = dict(causal=causal, policy=policy, constant=constant,
               include_inf=include_inf, blocks=blocks, detector=detector)
-    if common.require_device(q, "flash_attention") == "cpu":
+    if common.require_device(q, "flash_attention", k, v) == "cpu":
         return flash_attention_plain(q, k, v, **kw)
     blocks, consts_k, consts_v = _spec(q, k, v, include_inf, blocks, detector)
     return _kernel(q, k, v, causal, blocks, consts_k, consts_v, policy,

@@ -293,7 +293,7 @@ def repair_matmul_raw(
     """``(C, counts)``: C = repair(a) @ repair(b) in ``out_dtype`` (default
     a's), counts int32[8].  The operands are not modified (register-mode
     core; ``ops.repair_matmul`` adds the memory-mode origin scrub)."""
-    if common.require_device(a, "repair_matmul") == "cpu":
+    if common.require_device(a, "repair_matmul", b) == "cpu":
         return repair_matmul_plain(
             a, b, policy=policy, constant=constant, include_inf=include_inf,
             blocks=blocks, out_dtype=out_dtype, detector=detector,

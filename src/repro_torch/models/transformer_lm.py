@@ -6,10 +6,18 @@ every layer.  Ported surface: ``forward`` (the whole sequence), the dense
 cache (``cache_defs``, ``init_cache``, ``serve_step``, ``prefill``), the
 paged paths (``serve_step_paged``: one decode token per request;
 ``prefill_paged``: one causal prompt chunk), final norm and the tied
-readout.  Every block reads its weights through the use-site repair of
-``cfg.repair`` with the reference's parameter paths (``layers/attn/wq``,
-``embed/table``, ...).  Other families (LayerNorm, GeLU, MoE, untied heads)
-are not ported.
+readout, and training (``loss``: the whole sequence under autograd, each
+block recomputed in the backward with ``cfg.remat``).  Every block reads
+its weights through the use-site repair of ``cfg.repair`` with the
+reference's parameter paths (``layers/attn/wq``, ``embed/table``, ...).
+Other families (LayerNorm, GeLU, MoE, untied heads) are not ported.
+
+Each layer weight lives in one contiguous (L, ...) tensor, the reference's
+stacked leaf (``param_tree``); the blocks' parameters are its per-layer
+views.  So the train state, the scrub, the injection and the optimizer act
+on the same bytes as the blocks, one tensor a weight, and ``bind_grads``
+gives every weight one (L, ...) gradient buffer whose slices are the
+views' ``.grad``.
 
 The dense cache is the pool's flat-keyed layout: ``{"layers/k",
 "layers/v"}`` of shape (L, B, S, Kh, Dh), what ``PagedKVPool.gather``
@@ -17,10 +25,11 @@ returns.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as device_lib
 from ..configs.base import ArchConfig
@@ -28,6 +37,9 @@ from ..nn import initializers as ini
 from ..nn.attention import Attention
 from ..nn.layers import Embedding, RMSNorm
 from ..nn.mlp import SwiGLU
+from .base import next_token_loss
+
+_BLOCK_MODULES = ("norm1", "attn", "norm2", "mlp")
 
 
 class Block(nn.Module):
@@ -80,7 +92,61 @@ class TransformerLM(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=dev,
                                   rcfg=cfg.repair, path="final_norm")
+        self._stacked = self._stack_layers()
+        self._grads: Optional[Dict[str, torch.Tensor]] = None
         self.init_weights(seed)
+
+    def _stack_layers(self) -> Dict[str, torch.Tensor]:
+        """One (L, ...) tensor per layer weight, under its reference path;
+        each block's parameter becomes the view of its layer."""
+        stacked = {}
+        for mod in _BLOCK_MODULES:
+            for name, p0 in getattr(self.layers[0], mod).named_parameters(
+                    recurse=False):
+                whole = torch.empty((len(self.layers),) + tuple(p0.shape),
+                                    dtype=p0.dtype, device=p0.device)
+                for i, blk in enumerate(self.layers):
+                    setattr(getattr(blk, mod), name,
+                            nn.Parameter(whole[i], requires_grad=False))
+                stacked[f"layers/{mod}/{name}"] = whole
+        return stacked
+
+    def param_tree(self) -> Dict[str, torch.Tensor]:
+        """``{reference path: tensor}`` in the reference's leaf order: the
+        tied table, the final norm and the stacked layer weights, the
+        model's own tensors (not copies)."""
+        tree = dict(self._stacked)
+        tree["embed/table"] = self.embed.table
+        tree["final_norm/scale"] = self.final_norm.scale
+        return {p: tree[p] for p in sorted(tree)}
+
+    def _views(self, path: str):
+        """The parameters that hold ``path``: the per-layer views of a
+        stacked weight, or the one parameter."""
+        if path == "embed/table":
+            return [self.embed.table]
+        if path == "final_norm/scale":
+            return [self.final_norm.scale]
+        _, mod, name = path.split("/")
+        return [getattr(getattr(blk, mod), name) for blk in self.layers]
+
+    def bind_grads(self) -> Dict[str, torch.Tensor]:
+        """Make the weights trainable and return ``{path: gradient}``: one
+        zeroed buffer shaped like each ``param_tree`` leaf, whose per-layer
+        slices are the views' ``.grad``, so the backward accumulates into
+        it in place.  The serving entry points run without grad, so this
+        changes nothing there."""
+        if self._grads is None:
+            grads = {}
+            for path, leaf in self.param_tree().items():
+                buf = torch.zeros_like(leaf)
+                stacked = path in self._stacked
+                for i, p in enumerate(self._views(path)):
+                    p.requires_grad_(True)
+                    p.grad = buf[i] if stacked else buf
+                grads[path] = buf
+            self._grads = grads
+        return self._grads
 
     @property
     def device(self) -> torch.device:
@@ -113,16 +179,46 @@ class TransformerLM(nn.Module):
             for path, (shape, dt) in self.cache_defs(batch, max_seq).items()
         }
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _block(blk: Block, h: torch.Tensor, positions: torch.Tensor):
+        h = h + blk.attn(blk.norm1(h), positions)
+        return h + blk.mlp(blk.norm2(h))
+
+    def _logits(self, tokens: torch.Tensor, remat: bool = False):
         """(B, S) tokens -> f32 logits (B, S, V), causal over the whole
-        sequence (``Attention.forward``)."""
+        sequence (``Attention.forward``, ``impl="auto"``); with ``remat``
+        each block is recomputed in the backward (non-reentrant
+        checkpoint, the reference's ``jax.checkpoint``)."""
         h = self.embed(tokens)
         positions = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
         for blk in self.layers:
-            h = h + blk.attn(blk.norm1(h), positions)
-            h = h + blk.mlp(blk.norm2(h))
+            if remat:
+                h = checkpoint(self._block, blk, h, positions,
+                               use_reentrant=False)
+            else:
+                h = self._block(blk, h, positions)
         return self.embed.attend(self.final_norm(h))
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, S) tokens -> f32 logits (B, S, V)."""
+        return self._logits(tokens)
+
+    def loss(self, batch: Dict[str, Any]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token loss of ``batch["tokens"]`` (B, S) under autograd,
+        as the reference's ``loss``: ``(scalar f32, {"loss", "accuracy",
+        "tokens"})``, the metrics detached."""
+        if "patch_embeds" in batch:
+            raise NotImplementedError(
+                "the patch-embedding prefix is not ported: ROADMAP slice 5 "
+                "(the other families)"
+            )
+        tokens = batch["tokens"]
+        logits = self._logits(tokens, remat=self.cfg.remat
+                              and torch.is_grad_enabled())
+        loss, metrics = next_token_loss(logits, tokens)
+        return loss, {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
     def serve_step(self, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,

@@ -8,7 +8,8 @@ external FFN).
 
 Ported surface: ``forward`` (the prefill path: the chunked mLSTM kernel
 runs once per mLSTM block), ``serve_step`` (one decode token through the
-recurrent cache), ``init_cache`` and the tied readout.  The decode cache is
+recurrent cache), ``init_cache`` and the tied readout.  ``loss`` raises:
+training waits for ROADMAP §1 item 14.  The decode cache is
 a flat dict under the reference's paths (``mlstm_groups/C``,
 ``slstm_layers/h``, …), leaves stacked (n_groups, m_per_group, …) for the
 mLSTM blocks and (n_groups, …) for the sLSTM blocks, as the reference's
@@ -99,6 +100,14 @@ class XLSTMLM(nn.Module):
             h = h + blk.slstm(blk.norm(h))
         logits = self.embed.attend(self.final_norm(h))
         return (logits, counts) if with_counts else logits
+
+    def loss(self, batch):
+        """Training the xLSTM is not ported: the mLSTM kernel has no
+        backward, so it waits for the plain chunked mLSTM under autograd."""
+        raise NotImplementedError(
+            "xLSTM training is not ported: ROADMAP §1 item 14 (Modules still "
+            "to port)"
+        )
 
     # ----------------------------------------------------------------- decode
     def cache_defs(self, batch: int) -> Dict[str, Tuple[tuple, torch.dtype]]:

@@ -36,6 +36,36 @@ def param(shape, dtype, device) -> nn.Parameter:
     )
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.device.type == "cuda":
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
+class _MatmulF32(torch.autograd.Function):
+    """The f32 product of 16-bit operands with the reference's transpose:
+    the f32 cotangent, never rounded first, times the other operand widened
+    to f32 (exact), each gradient rounded once to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g2, b.float().t()).to(a.dtype).reshape(a.shape)
+        if ctx.needs_input_grad[1]:
+            a2 = a.reshape(-1, a.shape[-1]).float()
+            gb = torch.matmul(a2.t(), g2).to(b.dtype)
+        return ga, gb
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (``a`` (..., K), ``b`` (K, N)) with an f32 result.
 
@@ -44,13 +74,14 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     once, by the caller, and the weights are read in their own dtype.  On
     the CPU: the f32 product of the same values (each 16-bit product is
     exact in f32; only the summation order differs from the reference).
-    f32 operands: the plain product (TF32 stays off)."""
+    Under autograd the backward keeps the f32 cotangent (``_MatmulF32``):
+    ``dA = round(g @ bᵀ)``, ``dB = round(aᵀ @ g)``, the products in f32.
+    f32 operands: the plain product and its own backward (TF32 stays off)."""
     if a.dtype == torch.float32:
         return torch.matmul(a, b)
-    if a.device.type == "cuda":
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    return torch.matmul(a.float(), b.float())
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _MatmulF32.apply(a, b)
+    return _mm_f32(a, b)
 
 
 def sub_path(prefix: str, name: str) -> str:

@@ -113,25 +113,26 @@ class RepairPlan:
             ):
                 yield path, leaf, rule
 
-    def _fold(self, per_leaf) -> stats_lib.Stats:
+    def _fold(self, per_leaf, rules_out=None) -> stats_lib.Stats:
         """Sum per-leaf [nan, inf] count tensors with ONE host readback,
-        fold them into the rule ledger, return the stats delta."""
-        if not per_leaf:
-            self.space.record_rule_counts(
-                finish_rule_counts(np.zeros((self.n_rules, 2), np.int64))
-            )
-            return stats_lib.zeros()
-        paths = [p for p, _ in per_leaf]
-        values = torch.stack([c[:2].to(torch.int64) for _, c in per_leaf])
-        values = values.cpu().numpy()
+        fold them into the rule ledger (or into ``rules_out``), return the
+        stats delta."""
         rc = np.zeros((self.n_rules, 2), np.int64)
-        for path, (n, i) in zip(paths, values):
-            rc[self.indices[path]] += (n, i)
-        self.space.record_rule_counts(finish_rule_counts(rc))
+        values = np.zeros((0, 2), np.int64)
+        if per_leaf:
+            values = torch.stack([c[:2].to(torch.int64) for _, c in per_leaf])
+            values = values.cpu().numpy()
+            for (path, _), (n, i) in zip(per_leaf, values):
+                rc[self.indices[path]] += (n, i)
+        if rules_out is None:
+            self.space.record_rule_counts(finish_rule_counts(rc))
+        else:
+            rules_out += finish_rule_counts(rc)
         return stats_lib.record_repair(
             stats_lib.zeros(), int(values[:, 0].sum()), int(values[:, 1].sum())
         )
 
+    @torch.no_grad()
     def run(
         self,
         tree: Dict[str, torch.Tensor],
@@ -139,9 +140,13 @@ class RepairPlan:
         page_ids=None,
         generator: Optional[torch.Generator] = None,
         reference: Optional[Dict[str, torch.Tensor]] = None,
+        rules_out: Optional[np.ndarray] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Any]:
-        """Run the pass over ``tree`` (tensors updated in place).  Returns
-        ``(tree, stats delta)``, or ``(tree, n_flips)`` for "inject"."""
+        """Run the pass over ``tree`` (tensors updated in place, outside
+        autograd).  Returns ``(tree, stats delta)``, or ``(tree, n_flips)``
+        for "inject".  A tree pass adds its per-rule [nan, inf, events]
+        delta into ``rules_out`` (int64 [n_rules, 3]) when given, instead
+        of the space's ledger."""
         if self.scope == "none":
             return tree, (0 if self.ber is not None else stats_lib.zeros())
         if self.scope == "inject":
@@ -153,7 +158,8 @@ class RepairPlan:
             ])
         if self.scope == "tree":
             return tree, self._fold(
-                [(p, self._scrub_leaf(leaf, rule)) for p, leaf, rule in self._firing(tree)]
+                [(p, self._scrub_leaf(leaf, rule)) for p, leaf, rule in self._firing(tree)],
+                rules_out,
             )
         ids = np.asarray(page_ids, np.int64).reshape(-1)
         if ids.size == 0:

@@ -10,9 +10,9 @@ form (pass ``stats``, get ``(tree, stats')`` back) and a convenience form
 register-mode read of one tensor; unlike the passes it returns a repaired
 copy and leaves its input as it was.  ``scrub_with_reference`` restores
 fatal lanes from a reference tree (the prefix cache's page snapshots).
-``wrap_serve_step`` installs the boundary scrub around a serve step.  Not
-ported yet: the checkpoint manager's use of reference repair, the
-train-step decorator and meshes (ROADMAP).
+``wrap_serve_step`` and ``wrap_train_step`` install the boundary scrub
+around a serve step and a train step.  Not ported yet: the checkpoint
+manager's use of reference repair and meshes (ROADMAP).
 """
 from __future__ import annotations
 
@@ -213,6 +213,36 @@ class ApproxSpace:
             if self.config.mode == "memory" and self.config.scrub.boundary:
                 cache, stats = self.scrub(cache, stats, trigger="boundary")
             return (*fn(cache, tokens, pos), stats)
+
+        return step
+
+    def wrap_train_step(self, fn):
+        """Install the boundary scrub around a raw train step
+        ``fn(state, batch) -> (state, metrics)`` over the flat train state
+        (``params/...``, ``opt/...``, ``stats`` and, where the reference
+        has it, ``rule_counts``; ``launch.train``).
+
+        In memory mode with a boundary schedule, ``params`` and ``opt`` are
+        scrubbed in one "boundary" pass before the step, in place: through
+        the scrub kernel on the card where every firing rule has a kernel
+        fill (``runtime.plan``), else the tensor-level repair.  Its counts
+        go into ``state["stats"]`` (one event at most a pass) and its
+        per-rule delta into ``state["rule_counts"]``, which ``train_loop``
+        folds into ``rule_stats()`` once; a state without that block drops
+        the per-rule delta, as the reference's in-jit scrub does."""
+
+        def step(state, batch):
+            if self.config.mode == "memory" and self.config.scrub.boundary:
+                resident = {p: t for p, t in state.items()
+                            if p.startswith(("params/", "opt/"))}
+                plan = self.plan_for(resident, scope="tree", trigger="boundary")
+                rc = np.zeros((self.ruleset.n_rules, 3), np.int64)
+                _, delta = plan.run(resident, rules_out=rc)
+                self.scrubbed_bytes += plan.bytes_per_run
+                state = {**state, "stats": stats_lib.merge(state["stats"], delta)}
+                if "rule_counts" in state:
+                    state["rule_counts"] = state["rule_counts"] + rc
+            return fn(state, batch)
 
         return step
 

@@ -1,0 +1,166 @@
+"""The port under autograd: the CUDA kernel wrappers refuse inputs that
+require grad (a kernel writes raw device memory and has no backward, so
+its result would silently leave the graph), and ``matmul_f32``'s backward
+on the card keeps the f32 cotangent.
+
+The guard's own test runs on the CPU; one test per wrapper, and the
+backward check, need the card (marked ``cuda``) and skip without one.  The
+file imports neither JAX nor the reference, so on the card it runs as
+
+    python -m pytest --noconftest -q tests/test_torch_autograd.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import common, scrub, tile_fill  # noqa: E402
+from repro_torch.kernels import mlstm_chunk as mc  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import repair_attention as ra  # noqa: E402
+from repro_torch.kernels import repair_matmul as rm  # noqa: E402
+from repro_torch.nn.layers import matmul_f32  # noqa: E402
+
+NO_BACKWARD = "no backward"
+
+
+def test_the_guard_refuses_grad_inputs_only_in_grad_mode():
+    x = torch.randn(4, requires_grad=True)
+    plain = torch.randn(4)
+    with pytest.raises(RuntimeError, match=NO_BACKWARD):
+        common.refuse_autograd("op", plain, x)
+    with torch.no_grad():
+        common.refuse_autograd("op", plain, x)
+    common.refuse_autograd("op", plain, x.detach(), None,
+                           torch.zeros(3, dtype=torch.int32))
+    # the CPU route is the plain version, which autograd differentiates
+    assert common.require_device(x, "op", x) == "cpu"
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _pool(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = torch.randn((9, 2, 4, 2, 16), generator=gen, device=dev)
+    return k, k.clone()
+
+
+def _refused_then_runs(call, grad_input):
+    """``call`` raises with ``grad_input`` requiring grad, and runs on the
+    same values under ``torch.no_grad()``."""
+    grad_input.requires_grad_(True)
+    with pytest.raises(RuntimeError, match=NO_BACKWARD):
+        call()
+    with torch.no_grad():
+        call()
+    grad_input.requires_grad_(False)
+
+
+@pytest.mark.cuda
+def test_scrub_refuses_autograd(cuda):
+    x = torch.randn(64, 64, device=cuda)
+    _refused_then_runs(lambda: scrub.scrub(x), x)
+
+
+@pytest.mark.cuda
+def test_scrub_pages_refuses_autograd(cuda):
+    x = torch.randn(4, 8, 16, device=cuda)
+    _refused_then_runs(lambda: scrub.scrub_pages(x, [0, 2]), x)
+
+
+@pytest.mark.cuda
+def test_paged_decode_refuses_autograd(cuda):
+    k, v = _pool(cuda)
+    q = torch.randn((3, 4, 16), device=cuda)
+    bt = torch.tensor([[0, 2, 8, 8], [5, 3, 1, 8], [8, 8, 8, 8]],
+                      dtype=torch.int32, device=cuda)
+    pos = torch.tensor([9, 13, 0], dtype=torch.int32, device=cuda)
+    _refused_then_runs(lambda: pa.paged_attention_raw(q, k, v, bt, pos, 1), q)
+    _refused_then_runs(lambda: pa.paged_attention_raw(q, k, v, bt, pos, 1), v)
+
+
+@pytest.mark.cuda
+def test_paged_prefill_refuses_autograd(cuda):
+    k, v = _pool(cuda)
+    q = torch.randn((3, 6, 4, 16), device=cuda)
+    bt = torch.tensor([[0, 2, 8, 8], [5, 3, 1, 8], [8, 8, 8, 8]],
+                      dtype=torch.int32, device=cuda)
+    qs = torch.tensor([4, 8, 0], dtype=torch.int32, device=cuda)
+    _refused_then_runs(lambda: pa.paged_prefill_raw(q, k, v, bt, qs, 1), k)
+
+
+@pytest.mark.cuda
+def test_repair_matmul_refuses_autograd(cuda):
+    a = torch.randn(64, 128, device=cuda, dtype=torch.bfloat16)
+    b = torch.randn(128, 64, device=cuda, dtype=torch.bfloat16)
+    _refused_then_runs(lambda: rm.repair_matmul_raw(a, b), b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_autograd(cuda):
+    q = torch.randn(1, 4, 128, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(1, 2, 128, 64, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn(1, 2, 128, 64, device=cuda, dtype=torch.bfloat16)
+    _refused_then_runs(lambda: ra.flash_attention_raw(q, k, v), q)
+
+
+@pytest.mark.cuda
+def test_mlstm_chunk_refuses_autograd(cuda):
+    shape = (1, 2, 2, 16, 32)
+    q, k, v = (torch.randn(shape, device=cuda) for _ in range(3))
+    li = torch.randn(shape[:4], device=cuda)
+    lf = torch.nn.functional.logsigmoid(torch.randn(shape[:4], device=cuda))
+    _refused_then_runs(lambda: mc.mlstm_chunk_raw(q, k, v, li, lf), lf)
+
+
+@pytest.mark.cuda
+def test_tile_fill_refuses_autograd(cuda):
+    x = torch.randn(96, 640, device=cuda)
+    consts = common.detector_operand(common.resolve_detector(None, True),
+                                     torch.float32)
+    _refused_then_runs(
+        lambda: tile_fill.tile_fill(x, 96, 640, (32, 64), consts), x)
+
+
+def _bwd_bar(got, exact, mag, k: int):
+    """bf16 ``got`` against the f64 ``exact`` whose terms' magnitudes sum to
+    ``mag``, over ``k`` terms: (lanes beyond one bf16 ulp plus the f32
+    sum's own error, sqrt(k) · 2^-24 · mag; share of lanes other than
+    ``exact`` rounded once)."""
+    ax = exact.abs()
+    ulp = torch.where(ax > 0, torch.exp2(torch.floor(torch.log2(ax)) - 7),
+                      torch.zeros_like(ax))
+    allow = ulp + k ** 0.5 * 2.0 ** -24 * mag
+    beyond = int(((got.double() - exact).abs() > allow).sum())
+    return beyond, float((got != exact.to(torch.bfloat16)).float().mean())
+
+
+@pytest.mark.cuda
+def test_matmul_f32_backward_on_the_card(cuda):
+    """bf16 gradients on the card within one ulp of the f64 products (plus
+    the f32 sum's error where the sum cancels), at most 1 % of lanes other
+    than the f64 product rounded once; the control that rounds the
+    cotangent to bf16 first fails the same bar."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((2, 256, 512), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((512, 384), generator=gen, device=cuda) / 16).bfloat16()
+    g = torch.randn((2, 256, 384), generator=gen, device=cuda)
+    a.requires_grad_(True)
+    w.requires_grad_(True)
+    matmul_f32(a, w).backward(g)
+    g64 = g.double().reshape(-1, 384)
+    a64, w64 = a.detach().double().reshape(-1, 512), w.detach().double()
+    exact_a, mag_a = g64 @ w64.t(), g64.abs() @ w64.abs().t()
+    exact_w, mag_w = a64.t() @ g64, a64.abs().t() @ g64.abs()
+    for got, exact, mag, k in ((a.grad.reshape(-1, 512), exact_a, mag_a, 384),
+                               (w.grad, exact_w, mag_w, 512)):
+        beyond, share = _bwd_bar(got, exact, mag, k)
+        assert beyond == 0 and share <= 1e-2, (beyond, share)
+    ctrl = g.bfloat16().reshape(-1, 384) @ w.detach().t()
+    beyond, share = _bwd_bar(ctrl, exact_a, mag_a, 384)
+    assert beyond > 0 or share > 1e-2, (beyond, share)

@@ -1,0 +1,64 @@
+"""The port's example twins run on the CPU (their plain versions), each at
+its original's sizes unless the test says otherwise, with the checks the
+originals print."""
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_serve_engine_twin_runs_on_the_cpu(capsys):
+    out = _example("torch_serve_engine").main(device="cpu")
+    assert len(out["results"]) == 8
+    assert out["metrics"]["tokens_emitted"] == 80
+    assert out["metrics"]["n_preemptions"] > 0          # the pool is short
+    assert out["stats"]["flips"] > 0 and out["stats"]["events"] > 0
+    assert "served 8 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("repair", ["memory", "register"])
+def test_serve_approx_twin_runs_on_the_cpu(repair, capsys):
+    """At the README's sizes (10 tokens, batch 2): at its defaults (BER
+    1e-4 over 48 tokens) the original lets a finite ~1e38 cache lane, which
+    the NaN/Inf-only serving scrub keeps, overflow the scores, in both
+    packages."""
+    out = _example("torch_serve_approx").main(device="cpu", batch=2, tokens=10,
+                                              repair=repair)
+    assert out["tokens"].shape == (2, 11)
+    assert out["stats"]["flips"] > 0
+    if repair == "register":
+        assert out["scrub_passes"] == 0
+    assert "all logits finite: True" in capsys.readouterr().out
+
+
+def test_repair_rules_twin_runs_on_the_cpu():
+    out = _example("torch_repair_rules").main(device="cpu")
+    assert out["embed_intact"] and out["kv_resident_after_boundary"]
+    assert out["kv_clean"] and out["flips"] > 0
+    rs = out["rule_stats"]
+    assert rs["embed-exact"] == {"nan_found": 0, "inf_found": 0, "events": 0}
+    assert rs[r"(^|/)(k|v)(/|$)"]["nan_found"] == 1
+    assert rs[r"(^|/)opt(/|$)"]["inf_found"] >= 1
+    assert out["stats"]["flips"] == out["flips"]
+
+
+def test_train_twin_runs_on_the_cpu(capsys):
+    """``--steps 3 --device cpu`` at a short batch (2 x 64 tokens)."""
+    hist = _example("torch_train_approx_lm").main(
+        ["--steps", "3", "--device", "cpu", "--batch", "2", "--seq", "64"])
+    assert [h["step"] for h in hist] == [0, 2]
+    assert all(h["loss"] == h["loss"] for h in hist)        # not NaN
+    assert hist[-1]["flips"] > 0
+    assert "3 steps in" in capsys.readouterr().out
