@@ -117,6 +117,20 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      step, the device idle share, device ms by group, launches a step, peak
      memory, the boundary scrub's and the AdamW update's device ms beside
      their bytes bounds, and the step's model FLOPs beside its bound
+  5c. checkpointing (``checkpoint_phase``) at qwen2-1.5b width cut to 4
+     layers (4.21 GB a save): after 2 steps, NaN and ±Inf planted in a
+     weight and a moment of the live state, then an async save: the save
+     scrub (the scrub kernel on a copy, one launch a float leaf) must
+     count what ``scrub_plain`` counts on the same leaves, leave the live
+     state's bits as they were, and write a finite file bit-equal to
+     ``scrub_plain`` of the copy; ``restore(repair=True)`` bit-equal to
+     the file; lanes planted after the restore take the checkpoint's bits
+     back through ``reference_repair``; ``train_loop`` with a checkpoint
+     every 2 of 4 steps, restored at step 2 and resumed, within
+     CKPT_RESUME_RTOL of the uninterrupted run (bit-equality reported).
+     One ``timing checkpoint:`` line: the save's blocking and write ms
+     with GB/s, the restore's ms, the save scrub's device ms beside its
+     bytes bound and its launches
   6. the mLSTM kernel at xlstm-1.3b width (B=1, H=4, S=2048: 16 chunks of
      128, head dim 1024), f32 (FFMA route) and bf16 (wgmma route, and the
      same values 2 bytes off alignment on the FFMA route,
@@ -143,6 +157,17 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      DEPTH_TOL and within DEPTH_CONTROL_X of a one-ulp control
   9. xLSTM parity at full width, 8 blocks, f32: card (kernels) against CPU
      (plain versions), the same weights and planted cache faults
+  10. xLSTM training at full xlstm-1.3b width and depth
+     (``xlstm_train_phase``): bf16 params, f32 moments, batch 4 x 128, 3
+     steps in memory mode with a zero fill (the mLSTM in chunks of 32: at
+     128 the reference's gradient is NaN, ROADMAP §3), NaN and ±Inf planted in a
+     weight and a moment before step 2: the boundary scrub over the ~35 GB
+     state (the scrub kernel, one launch a leaf: 20 params + 40 moments)
+     must count what ``scrub_plain`` counts and leave the planted leaves
+     bit-equal to it; no mLSTM kernel launches (training runs the plain
+     chunked mLSTM under autograd); the same plants with repair off poison
+     the run; the card's loss and gradients against the CPU's at one group
+     (8 blocks, f32, 64 tokens) within XT_CPU_RTOL.  One ``timing xlstm train:`` line, as train_phase's
 
 Prints the kernel report as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -156,6 +181,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2689,6 +2715,222 @@ def train_phase(report: dict) -> None:
         f"% ({ctrl[0]} beyond) fails the bar ({card})")
 
 
+# ------------------------------------------------------------ phase 5c
+# checkpointing at full qwen2-1.5b width, cut to CKPT_LAYERS layers (one
+# save of the full depth would write 15.44 GB): bf16 params, f32 moments,
+# batch 4 x 512, zero fill, memory mode
+CKPT_LAYERS, CKPT_B, CKPT_S, CKPT_WARM = 4, 4, 512, 2
+CKPT_PLANTS = (("params/layers/mlp/w_down", (1, 100, 200), float("nan")),
+               ("params/layers/mlp/w_down", (3, 5000, 7), float("inf")),
+               ("opt/nu/embed/table", (1234, 56), float("nan")),
+               ("opt/nu/embed/table", (99999, 1000), float("-inf")))
+# planted into the restored tree before the reference repair
+CKPT_REPLANTS = (("params/layers/attn/wq", (2, 17, 33), float("nan")),
+                 ("opt/mu/layers/mlp/w_up", (0, 9, 99), float("inf")))
+# a resumed run against the uninterrupted one: the loss and each param
+# leaf (relative L2) within this share (the card's backward may sum in
+# another order run to run)
+CKPT_RESUME_RTOL = 1e-5
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.core import detect
+
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(detect.bits_of(a), detect.bits_of(b))
+
+
+def checkpoint_phase(report: dict) -> None:
+    """Checkpointing on the card (ROADMAP §1 item 13): the save scrub
+    through the scrub kernel on a copy of the live state, the file clean
+    and bit-equal to ``scrub_plain`` of that copy, restore and reference
+    repair, and a restart from a ``train_loop`` checkpoint."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import common, scrub as scrub_kernel
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import TransformerLM
+    from repro_torch.runtime import ApproxConfig, ApproxSpace
+
+    card = gpu_line()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=CKPT_LAYERS,
+                              repair=ApproxConfig(mode="memory", policy="zero"))
+    model = TransformerLM(cfg, device="cuda", seed=0)
+    data = SyntheticStream(cfg, seed=0, batch=CKPT_B, seq=CKPT_S, device="cuda")
+    opt = ttrain.make_optimizer(peak_lr=3e-4, warmup=2, total=8)
+    space = ApproxSpace(cfg.repair)
+    state = ttrain.init_train_state(model, opt, space=space)
+    step_fn = ttrain.build_train_step(model, opt, space=space)
+    for i in range(CKPT_WARM):
+        state, _ = step_fn(state, data(i))
+    state = ttrain._fold_rule_counts(space, state)
+    with torch.no_grad():
+        for path, idx, value in CKPT_PLANTS:
+            state[path][idx] = value
+    tensors = {p: t for p, t in state.items() if isinstance(t, torch.Tensor)}
+    floats = {p: t for p, t in tensors.items() if t.is_floating_point()}
+    n_bytes = sum(t.numel() * t.element_size() for t in floats.values())
+    before = {p: t.clone() for p, t in tensors.items()}
+    root = ROOT / "build" / "checkpoint_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        # -- the save: copy, scrub and device to host block; the write not
+        mgr = CheckpointManager(str(root / "a"), keep=2)
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(CKPT_WARM, state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = dict(common.LAUNCHES)
+        for path, idx, value in CKPT_PLANTS:      # the live state, at once
+            got = float(state[path][idx])
+            if not (got == value or (math.isnan(value) and math.isnan(got))):
+                raise AssertionError(f"ckpt: the save changed live {path}{idx}")
+        mgr.wait()
+        t2 = time.perf_counter()
+        for p, t in tensors.items():
+            if not _bits_equal(t, before[p]):
+                raise AssertionError(f"ckpt: the save changed live {p}")
+        if launches != {"scrub": len(floats)}:
+            raise AssertionError(f"ckpt: save launches {launches}, want scrub "
+                                 f"{len(floats)} (one a float leaf)")
+        got_counts = mgr.space.stats_dict()
+
+        # -- the file against scrub_plain of the copy, leaf by leaf
+        rule = mgr.space.ruleset.rule_for("params/x")[1]
+        policy, constant = common.kernel_fill(rule.fill)
+        restored, step = load_checkpoint(str(root / "a"), like=state)
+        want = torch.zeros(2, dtype=torch.int64, device="cuda")
+        for p, t in before.items():
+            clone = t.clone()
+            if t.is_floating_point():
+                want += scrub_kernel.scrub_plain(
+                    clone, policy=policy, constant=constant,
+                    detector=rule.detect)[1][:2].to(torch.int64)
+                if not bool(torch.isfinite(restored[p]).all()):
+                    raise AssertionError(f"ckpt: the file's {p} is not finite")
+            if not _bits_equal(restored[p], clone):
+                raise AssertionError(f"ckpt: the file's {p} is not scrub_plain's")
+            del clone
+        want = want.tolist()
+        if [got_counts["nan_found"], got_counts["inf_found"]] != want or \
+                got_counts["events"] != 1:
+            raise AssertionError(f"ckpt: the save scrub counted {got_counts}, "
+                                 f"scrub_plain {want}")
+        if step != CKPT_WARM or restored["stats"] != state["stats"]:
+            raise AssertionError("ckpt: step or stats not restored")
+        del before
+
+        # -- restore with repair: bit-equal to the file
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        repaired, _ = mgr.restore(like=state, repair=True)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t3) * 1e3
+        for p in tensors:
+            if not _bits_equal(repaired[p], restored[p]):
+                raise AssertionError(f"ckpt: restore(repair=True) changed {p}")
+        del repaired
+        # -- faults after the restore: the checkpoint's exact bits come back
+        stats0 = mgr.space.stats_dict()
+        healed = {p: (t.clone() if isinstance(t, torch.Tensor) else t)
+                  for p, t in restored.items()}
+        with torch.no_grad():
+            for path, idx, value in CKPT_REPLANTS:
+                healed[path][idx] = value
+        common.reset_launches()
+        mgr.reference_repair(healed)
+        for p in tensors:
+            if not _bits_equal(healed[p], restored[p]):
+                raise AssertionError(f"ckpt: reference repair left {p} off "
+                                     "the checkpoint's bits")
+        stats1 = mgr.space.stats_dict()
+        delta = [stats1[k] - stats0[k] for k in ("nan_found", "inf_found", "events")]
+        if delta != [1, 1, 1]:
+            raise AssertionError(f"ckpt: reference repair counted {delta}")
+        del healed, restored
+
+        # -- the save scrub's device time alone (clones scrubbed, dropped);
+        # a window counts when it recorded every launch (the profiler can
+        # drop device events)
+        probe = ApproxSpace(mode="memory", policy="zero")
+        for _ in range(5):
+            counts: dict = {}
+            per = device_profile(
+                lambda: probe.scrub_copies(floats, lambda p, t: None),
+                counts=counts)
+            scrub_keys = [k for k in per if "scrub_stream" in k]
+            if sum(counts[k] for k in scrub_keys) == len(floats):
+                scrub_ms = sum(per[k] for k in scrub_keys)
+                break
+        else:
+            raise AssertionError(f"ckpt: the profiler dropped scrub launches "
+                                 f"in 5 windows: {counts}")
+        common.reset_launches()
+
+        # -- train_loop with a checkpoint every 2 steps; restart at step 2
+        del state, tensors, floats, step_fn
+        torch.cuda.empty_cache()
+        model.init_weights(0)
+        mgr2 = CheckpointManager(str(root / "b"), keep=2)
+        full, hist = ttrain.train_loop(model, opt, data, steps=4,
+                                       checkpoint_manager=mgr2,
+                                       checkpoint_every=2, log_every=1)
+        if mgr2.latest_step() != 4 or sorted(os.listdir(root / "b")) != \
+                ["step_00000002", "step_00000004"]:
+            raise AssertionError(f"ckpt: train_loop saved {os.listdir(root / 'b')}")
+        final = {p: t.clone() for p, t in full.items() if p.startswith("params/")}
+        like = ttrain.init_train_state(model, opt)
+        back, step = load_checkpoint(str(root / "b"), step=2, like=like)
+        del like
+        resumed, rhist = ttrain.train_loop(model, opt, data, steps=4,
+                                           state=back, start_step=2,
+                                           log_every=1)
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(rhist, hist[2:]))
+        param_rel = max(
+            float((resumed[p].float() - w.float()).norm()
+                  / w.float().norm().clamp_min(1e-30)) for p, w in final.items())
+        bit_equal = all(_bits_equal(resumed[p], w) for p, w in final.items()) \
+            and all(a["loss"] == b["loss"] for a, b in zip(rhist, hist[2:]))
+        if step != 2 or loss_rel > CKPT_RESUME_RTOL or param_rel > CKPT_RESUME_RTOL:
+            raise AssertionError(f"ckpt: resume from step 2: loss rel {loss_rel}, "
+                                 f"param rel {param_rel}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    block_ms, write_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    row = dict(
+        config=f"qwen2-1.5b L={CKPT_LAYERS}", save_bytes=n_bytes,
+        save_blocking_ms=block_ms, save_blocking_gb_per_s=n_bytes / block_ms / 1e6,
+        worker_write_ms=write_ms, write_gb_per_s=n_bytes / write_ms / 1e6,
+        restore_ms=restore_ms, save_scrub_device_ms=scrub_ms,
+        save_scrub_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+        save_scrub_launches=launches.get("scrub", 0),
+        save_counts=want, resume_loss_rel=loss_rel, resume_param_rel=param_rel,
+        resume_bit_equal=bit_equal,
+    )
+    report["checkpoint"] = row
+    log(f"ckpt ok: qwen2-1.5b full width, {CKPT_LAYERS} layers, "
+        f"{n_bytes / 1e9:.3f} GB a save; the save scrub counted [nan, inf] "
+        f"{want} and 1 event as scrub_plain, {len(CKPT_PLANTS)} plants still "
+        f"in the live state, every file leaf bit-equal to scrub_plain of the "
+        f"copy and finite; restore(repair=True) bit-equal to the file; "
+        f"reference repair put back {len(CKPT_REPLANTS)} planted lanes "
+        f"[1, 1, 1]; resumed at step 2: loss rel {loss_rel:.3e}, param rel "
+        f"{param_rel:.3e} <= {CKPT_RESUME_RTOL}, bit-equal {bit_equal} ({card})")
+    log(f"timing checkpoint: {json.dumps(row)} ({card})")
+
+
 # ------------------------------------------------------------ phases 6-9
 # mLSTM kernel geometry: one xlstm-1.3b block's mLSTM over a 2,048-token
 # prompt (d_inner 4096 over 4 heads)
@@ -3256,6 +3498,268 @@ def xlstm_parity_phase(report: dict) -> None:
         f"deltas {outs[0]['deltas']}, stats {outs[0]['stats']}")
 
 
+# ------------------------------------------------------------ phase 10
+# xLSTM training at full xlstm-1.3b width and depth: bf16 params, f32
+# moments, batch 4 x 128 (512 tokens a step: the step is held by the host's
+# eager time loops, whose length is the sequence's, so 2 x 256 took ~8 s a
+# step), 3 steps; faults planted before step 2.  The
+# chunked mLSTM trains in chunks of XT_CHUNK (the same function, another
+# tiling): at the config's chunk of 128 the gradient of the reference's
+# ``_chunked_mlstm`` is NaN in both packages, at 64 in the reference's
+# (its stabilised denominator underflows; ROADMAP §3)
+XT_B, XT_S, XT_STEPS, XT_PLANT_STEP, XT_CHUNK = 4, 128, 3, 1, 32
+XT_PLANTS = (("params/mlstm_groups/mlstm/w_q", (2, 3, 100, 200), float("nan")),
+             ("params/mlstm_groups/mlstm/w_q", (5, 6, 4000, 7), float("inf")),
+             ("opt/nu/slstm_layers/slstm/w", (1, 1000, 5000), float("nan")),
+             ("opt/nu/slstm_layers/slstm/w", (4, 7, 8000), float("-inf")))
+# card vs CPU, one group (8 blocks) in f32, 64 tokens: the loss and each
+# gradient leaf (relative L2) within this
+XT_CPU_RTOL = 1e-4
+# the profiled step windows tried before its device groups and idle share
+# are printed as null (the profiler can drop device events in a step's
+# ~250k; a window counts only if it recorded every scrub launch)
+XT_PROFILE_TRIES = 2
+
+
+def _xlstm_train_flops(n_params: int, B: int, S: int) -> float:
+    """6 FLOPs per parameter and token (forward and backward)."""
+    return 6.0 * n_params * B * S
+
+
+def xlstm_train_phase(report: dict) -> None:
+    """xLSTM training at full width and depth on the card (ROADMAP §1 item
+    14): memory mode through the boundary scrub kernel over ~35 GB, repair
+    off poisoned, card against CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import detect
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import common, scrub as scrub_kernel
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import XLSTMLM
+    from repro_torch.runtime import ApproxConfig, ApproxSpace
+
+    card = gpu_line()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), ssm_chunk=XT_CHUNK,
+                              repair=ApproxConfig(mode="memory", policy="zero"))
+    model = XLSTMLM(cfg, device="cuda", seed=0)
+    tree = model.param_tree()
+    n_params = sum(t.numel() for t in tree.values())
+    data = SyntheticStream(cfg, seed=0, batch=XT_B, seq=XT_S, device="cuda")
+    batches = [data(i) for i in range(XT_STEPS)]
+    opt = ttrain.make_optimizer(peak_lr=3e-4, warmup=2, total=XT_STEPS)
+
+    def plant(state):
+        with torch.no_grad():
+            for path, idx, value in XT_PLANTS:
+                state[path][idx] = value
+
+    space = ApproxSpace(cfg.repair)
+    state = ttrain.init_train_state(model, opt, space=space)
+    raw = ttrain.raw_train_step(model, opt)
+    plain: dict = {}
+
+    def checked(state, batch):
+        for path, want in plain.pop("leaves", {}).items():
+            if not torch.equal(detect.bits_of(state[path]), detect.bits_of(want)):
+                raise AssertionError(f"xlstm train: the boundary scrub of {path} "
+                                     "differs from scrub_plain's")
+            for p, idx, _ in XT_PLANTS:
+                if p == path and float(state[path][idx]) != 0.0:
+                    raise AssertionError(f"xlstm train: {path}{idx} does not "
+                                         "hold the zero fill")
+        return raw(state, batch)
+
+    step_fn = space.wrap_train_step(checked)
+    losses, step_ms, deltas, want = [], [], [], []
+    common.reset_launches()                  # the train path's counts from 0
+    for i, batch in enumerate(batches):
+        if i == XT_PLANT_STEP:
+            plant(state)
+            counts = torch.zeros(3, dtype=torch.int64, device="cuda")
+            plain["leaves"] = {}
+            for path in sorted({p for p, _, _ in XT_PLANTS}):
+                rule = space.ruleset.rule_for(path)[1]
+                policy, constant = common.kernel_fill(rule.fill)
+                clone = state[path].detach().clone()
+                counts += scrub_kernel.scrub_plain(
+                    clone, policy=policy, constant=constant,
+                    detector=rule.detect)[1].to(torch.int64)
+                plain["leaves"][path] = clone
+            want = counts.tolist()
+            del clone
+        before = dict(state["stats"])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step_fn(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        deltas.append([state["stats"][k] - before[k]
+                       for k in ("nan_found", "inf_found", "events")])
+    launches = dict(common.LAUNCHES)
+    if plain or not want:
+        raise AssertionError("xlstm train: the checked step never ran")
+    if deltas[XT_PLANT_STEP][:2] != want[:2] or deltas[XT_PLANT_STEP][2] != 1:
+        raise AssertionError(f"xlstm train: boundary scrub counted "
+                             f"{deltas[XT_PLANT_STEP]}, scrub_plain {want}")
+    if any(any(d) for i, d in enumerate(deltas) if i != XT_PLANT_STEP):
+        raise AssertionError(f"xlstm train: clean steps counted {deltas}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"xlstm train: memory mode lost the loss: {losses}")
+    resident = {p: t for p, t in ttrain.resident(state).items()
+                if t.is_floating_point()}
+    n_leaves = len(resident)
+    if launches != {"scrub": n_leaves * XT_STEPS}:
+        raise AssertionError(f"xlstm train: launches {launches}, want scrub "
+                             f"{n_leaves} a step and no mLSTM kernel")
+    state = ttrain._fold_rule_counts(space, state)
+    log(f"xlstm train ok arm=memory: xlstm-1.3b {cfg.n_layers} blocks "
+        f"{cfg.dtype_name} "
+        f"params={n_params} batch {XT_B}x{XT_S}, losses "
+        f"{[round(v, 4) for v in losses]}, plants before step "
+        f"{XT_PLANT_STEP + 1} counted [nan, inf, events] {deltas[XT_PLANT_STEP]}, "
+        f"scrub_plain's [nan, inf] {want[:2]}, leaves bit-equal, planted lanes "
+        f"hold 0; scrub launches {n_leaves} a step ({n_leaves // 3} params + "
+        f"{2 * n_leaves // 3} moments), no mLSTM kernel; rule stats "
+        f"{space.rule_stats()} ({card})")
+
+    wall = {"memory_arm_s": time.perf_counter() - t_phase}
+
+    # -- timing: one profiled step (device activity only), the boundary
+    # scrub alone and the update alone; a window counts only if it recorded
+    # every scrub launch (the profiler can drop device events)
+    warm_ms = statistics.median(step_ms[1:])
+    step_recorded = []
+    for _ in range(XT_PROFILE_TRIES):
+        step_counts: dict = {}
+        per = device_profile(lambda: step_fn(state, batches[0]),
+                             counts=step_counts)
+        step_recorded.append(sum(c for k, c in step_counts.items()
+                                 if "scrub_stream" in k))
+        if step_recorded[-1] == n_leaves:
+            break
+    else:
+        per = None
+    plan = space.plan_for(resident, scope="tree", trigger="boundary")
+    for _ in range(5):
+        counts = {}
+        scrub_per = device_profile(
+            lambda: plan.run(resident, rules_out=np.zeros(
+                (space.ruleset.n_rules, 3), np.int64)), counts=counts)
+        keys = [k for k in scrub_per if "scrub_stream" in k]
+        if sum(counts[k] for k in keys) == n_leaves:
+            scrub_ms = sum(scrub_per[k] for k in keys)
+            break
+    else:
+        raise AssertionError(f"xlstm train: the profiler dropped scrub "
+                             f"launches in 5 windows: {counts}")
+    groups = {"scrub": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
+    for key, ms in (per or {}).items():
+        low = key.lower()
+        if "scrub_stream" in key:
+            groups["scrub"] += ms
+        elif any(n in low for n in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+            groups["gemm"] += ms
+        elif "memcpy" in low or "memset" in low:
+            groups["copy"] += ms
+        else:
+            groups["other"] += ms
+    busy = sum(groups.values())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grads = model.bind_grads()
+    opt_state = {k[4:]: v for k, v in state.items() if k.startswith("opt/")}
+    adam_ms = sum(device_profile(lambda: opt.update(grads, opt_state, tree)).values())
+    p_bytes = sum(t.numel() * t.element_size() for t in tree.values())
+    m_bytes = sum(t.numel() * t.element_size() for p, t in state.items()
+                  if p.startswith(("opt/mu/", "opt/nu/")))
+    flops = _xlstm_train_flops(n_params, XT_B, XT_S)
+    wall["profile_s"] = time.perf_counter() - t_phase - wall["memory_arm_s"]
+    row = dict(
+        ms_per_step=warm_ms, step_ms=step_ms,
+        tokens_per_s=XT_B * XT_S / warm_ms * 1e3,
+        device_idle_share=(1.0 - busy / warm_ms) if busy else None,
+        device_ms_per_step=groups if per else None,
+        launches_per_step={k: v / XT_STEPS for k, v in launches.items()},
+        max_memory_allocated_gb=peak_gb,
+        scrub_device_ms=scrub_ms,
+        scrub_bound_ms=(p_bytes + m_bytes) / HBM_BYTES_PER_S * 1e3,
+        scrub_bytes=p_bytes + m_bytes, scrub_leaves=n_leaves,
+        step_profile_scrub_launches=step_recorded,
+        adamw_device_ms=adam_ms,
+        adamw_bound_ms=(3 * p_bytes + 2 * m_bytes) / HBM_BYTES_PER_S * 1e3,
+        model_tflop=flops / 1e12,
+        flops_bound_ms=flops / PEAK_FLOPS["bfloat16"] * 1e3,
+        top_kernels_ms=[(k[:60], v) for k, v in
+                        sorted((per or {}).items(), key=lambda kv: -kv[1])[:8]],
+        wall_s=wall,
+    )
+    report["xlstm_train"] = row
+    log(f"timing xlstm train: {json.dumps(row)} ({card})")
+
+    # -- repair off: the same plants poison the run
+    del state, opt_state, step_fn, raw, resident, plan
+    torch.cuda.empty_cache()
+    model.init_weights(0)
+    off = ApproxSpace(dataclasses.replace(cfg.repair, mode="off"))
+    state = ttrain.init_train_state(model, opt, space=off)
+    off_step = ttrain.build_train_step(model, opt, space=off)
+    off_losses = []
+    for i, batch in enumerate(batches[:XT_PLANT_STEP + 1]):
+        if i == XT_PLANT_STEP:
+            plant(state)
+        state, metrics = off_step(state, batch)
+        off_losses.append(float(metrics["loss"]))
+    finite = all(bool(torch.isfinite(t).all()) for p, t in state.items()
+                 if p.startswith("params/"))
+    if math.isfinite(off_losses[XT_PLANT_STEP]) and finite:
+        raise AssertionError(f"xlstm train: repair off survived: {off_losses}")
+    log(f"xlstm train ok arm=off: losses {off_losses}, params finite {finite} "
+        f"(poisoned at the step after the plants) ({card})")
+    del state, off_step, grads, tree, model
+    torch.cuda.empty_cache()
+    t_parity = time.perf_counter()
+
+    # -- card against CPU: one group (8 blocks), f32, TF32 off, 64 tokens
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fcfg = dataclasses.replace(cfg, n_layers=cfg.slstm_every,
+                               dtype_name="float32", remat=False)
+    cpu = XLSTMLM(fcfg, device="cpu", seed=0)
+    gpu = XLSTMLM(fcfg, device="cuda", seed=1)
+    cpu_tree = cpu.param_tree()
+    with torch.no_grad():
+        for path, t in gpu.param_tree().items():
+            t.copy_(cpu_tree[path])
+    tokens = SyntheticStream(fcfg, seed=1, batch=1, seq=64, device="cpu")(0)
+    outs = []
+    for m in (gpu, cpu):
+        g = m.bind_grads()
+        loss, _ = m.loss({"tokens": tokens["tokens"].to(m.device)})
+        loss.backward()
+        outs.append((float(loss.detach()), {p: v.cpu() for p, v in g.items()}))
+        del g, loss
+    loss_rel = abs(outs[0][0] - outs[1][0]) / abs(outs[1][0])
+    grad_rel = {p: float((outs[0][1][p] - w).norm() / w.norm().clamp_min(1e-30))
+                for p, w in outs[1][1].items()}
+    worst = max((v, p) for p, v in grad_rel.items())
+    bad = [p for p, v in grad_rel.items() if not v <= XT_CPU_RTOL]
+    if not loss_rel <= XT_CPU_RTOL or bad:
+        raise AssertionError(f"xlstm train parity: loss rel {loss_rel}, "
+                             f"grads beyond {XT_CPU_RTOL}: {bad}")
+    log(f"xlstm train parity ok: card vs CPU, {fcfg.n_layers} blocks at full "
+        f"width, f32, 64 tokens: loss {outs[0][0]:.6f} vs {outs[1][0]:.6f} "
+        f"(rel {loss_rel:.2e}), worst grad {worst[1]} {worst[0]:.2e}; bar "
+        f"{XT_CPU_RTOL} on each; {time.perf_counter() - t_parity:.1f} s ({card})")
+
+
 def _kernel_name(mangled: str) -> str:
     """A mangled kernel's own name, the last component of its (nested)
     name, with its template arguments: ``_ZN..2wg16mlstm_scan_wgmmaE..``
@@ -3314,8 +3818,9 @@ def ptxas_summary(text: str) -> dict:
 
 PHASES = ("kernel_phase", "ops_phase", "engine_phase", "fallback_phase",
           "prefix_tier_phase", "parity_phase", "injection_phase", "train_phase",
-          "mlstm_phase", "xlstm_forward_phase", "xlstm_generate_phase",
-          "xlstm_depth_phase", "xlstm_parity_phase")
+          "checkpoint_phase", "mlstm_phase", "xlstm_forward_phase",
+          "xlstm_generate_phase", "xlstm_depth_phase", "xlstm_parity_phase",
+          "xlstm_train_phase")
 
 
 def main(argv=None) -> int:

@@ -12,25 +12,32 @@ applied to a training loop instead of one matmul):
 The approximate-memory window (BER) strikes params + optimizer moments
 between steps.  Data and flips come from seeded ``torch.Generator`` streams
 (``data.SyntheticStream``, ``launch.train.inject_state``), so the numbers
-differ from the original's ``jax.random`` ones.  No checkpointing yet: the
-checkpoint manager is still to be ported (ROADMAP §1 item 13), so the
-original's ``--ckpt-dir``/``--ckpt-every`` are not offered.
+differ from the original's ``jax.random`` ones.  Every ``--ckpt-every``
+steps a ``CheckpointManager`` (keep 2, scrub-on-save) writes the state to
+``--ckpt-dir``, by default ``repro_torch_ckpt`` in the temporary directory
+(apart from the original's ``repro_ckpt``).  Both families train:
+``--arch qwen2-1.5b`` or ``--arch xlstm-1.3b`` (register mode is not
+ported for the xLSTM).
 
     python examples/torch_train_approx_lm.py [--steps 300] [--ber 1e-8] \\
-        [--repair memory] [--arch qwen2-1.5b]
+        [--repair memory] [--arch qwen2-1.5b] [--ckpt-dir DIR] \\
+        [--ckpt-every 100]
     python examples/torch_train_approx_lm.py --steps 3 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch import device as device_lib  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import SyntheticStream  # noqa: E402
 from repro_torch.launch.train import make_optimizer, train_loop  # noqa: E402
@@ -73,13 +80,16 @@ def main(argv=None) -> list:
     opt = make_optimizer(peak_lr=1e-3, warmup=20, total=args.steps)
     data = SyntheticStream(cfg, seed=0, batch=args.batch, seq=args.seq,
                            device=dev)
+    mgr = CheckpointManager(args.ckpt_dir, keep=2, scrub=True)
     # one ApproxSpace owns the run: the boundary scrub inside the step, the
     # injection window between steps, one stats stream (flips included)
     space = ApproxSpace(cfg.repair, ber=args.ber)
 
     t0 = time.time()
     _, hist = train_loop(model, opt, data, steps=args.steps, seed=0,
-                         ber=args.ber, log_every=10, space=space)
+                         ber=args.ber, checkpoint_manager=mgr,
+                         checkpoint_every=args.ckpt_every, log_every=10,
+                         space=space)
     dt = time.time() - t0
 
     print(f"\n{'step':>6} {'loss':>9} {'acc':>7} {'flips':>7} "
@@ -88,7 +98,8 @@ def main(argv=None) -> list:
         print(f"{h['step']:>6} {h['loss']:>9.4f} {h['accuracy']:>7.4f} "
               f"{h['flips']:>7} {h['nan_found']:>9}/{h['inf_found']}")
     print(f"\n{args.steps} steps in {dt:.1f}s "
-          f"({1000 * dt / args.steps:.0f} ms/step)")
+          f"({1000 * dt / args.steps:.0f} ms/step); "
+          f"final checkpoint: step {mgr.latest_step()}")
     return hist
 
 
@@ -103,6 +114,9 @@ def _args(argv=None):
                     choices=["off", "register", "memory"])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=100)
     return ap.parse_args(argv)
 
 

@@ -5,9 +5,10 @@ Both directions go through numpy, so this module needs no JAX:
   params_from_jax(tree, cfg)   the reference's parameter tree (nested dicts of
                                numpy arrays) → the port's model for
                                ``cfg.family``: a ``TransformerLM``
-                               (``layers/...`` stacked on axis 0, as the
-                               model stores them) or an ``XLSTMLM``
-                               (``xlstm_params_from_jax``); the tied
+                               (``layers/...`` stacked (L, ...)) or an
+                               ``XLSTMLM`` (``mlstm_groups/...`` stacked
+                               (G, M, ...), ``slstm_layers/...`` (G, ...)),
+                               as the models store them; the tied
                                embedding stays one table
   train_state_from_jax(state, cfg)
                                a reference train state (params, AdamW
@@ -57,14 +58,22 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 @torch.no_grad()
 def params_from_jax(tree: Any, cfg: ArchConfig, *, device=None):
-    """The port's model for ``cfg`` holding the reference's weights."""
-    if cfg.family == "ssm":
-        return xlstm_params_from_jax(tree, cfg, device=device)
-    model = TransformerLM(cfg, device=device)
+    """The port's model for ``cfg`` holding the reference's weights: each
+    reference leaf copied into the model's tensor under the same path
+    (``param_tree``, the layer weights stacked as the reference stacks
+    them).  Raises on a path it does not map, on a parameter left unset
+    and on a shape that differs."""
+    family = XLSTMLM if cfg.family == "ssm" else TransformerLM
+    model = family(cfg, device=device)
     own = model.param_tree()
     flat = flatten(tree)
-    if set(flat) != set(own):
-        raise KeyError(f"parameter paths differ: {sorted(set(flat) ^ set(own))}")
+    extra = sorted(set(flat) - set(own))
+    if extra:
+        raise KeyError(f"no ported parameter for reference path {extra[0]!r}")
+    missing = sorted(set(own) - set(flat))
+    if missing:
+        raise KeyError(f"reference tree lacks {len(missing)} parameters, "
+                       f"e.g. {missing[:4]}")
     for path, arr in flat.items():
         src = to_torch(arr, model.device)
         if src.shape != own[path].shape:
@@ -105,60 +114,14 @@ def train_state_from_jax(state: Any, cfg: ArchConfig, *, device=None):
     return model, out
 
 
-def _block_param(block, module: str, name: str, path: str) -> torch.nn.Parameter:
-    p = getattr(getattr(block, module, None), name, None)
-    if not isinstance(p, torch.nn.Parameter):
-        raise KeyError(f"no ported parameter for reference path {path!r}")
-    return p
-
-
-@torch.no_grad()
 def xlstm_params_from_jax(tree: Any, cfg: ArchConfig, *, device=None) -> XLSTMLM:
     """An ``XLSTMLM`` for ``cfg`` holding the reference's weights: leaves
     ``mlstm_groups/<module>/<name>`` stacked (n_groups, m_per_group, ...)
-    and ``slstm_layers/<module>/<name>`` stacked (n_groups, ...).  Raises
-    on a path it does not map and on a parameter left unset."""
-    model = XLSTMLM(cfg, device=device)
-    G, M = model.n_groups, model.m_per_group
-    dev = model.device
-    done = set()
-
-    def put(p, value, path):
-        if value.shape != p.shape:
-            raise ValueError(f"{path}: {tuple(value.shape)} vs the port's "
-                             f"{tuple(p.shape)}")
-        p.copy_(value)
-        done.add(id(p))
-
-    for path, arr in flatten(tree).items():
-        parts = path.split("/")
-        src = to_torch(arr, dev)
-        if path == "embed/table":
-            put(model.embed.table, src, path)
-        elif path == "final_norm/scale":
-            put(model.final_norm.scale, src, path)
-        elif parts[0] == "mlstm_groups" and len(parts) == 3:
-            if tuple(src.shape[:2]) != (G, M):
-                raise ValueError(f"{path}: stacked {tuple(src.shape[:2])}, "
-                                 f"model has ({G}, {M})")
-            for g in range(G):
-                for i in range(M):
-                    put(_block_param(model.mblock(g, i), *parts[1:], path),
-                        src[g, i], path)
-        elif parts[0] == "slstm_layers" and len(parts) == 3:
-            if src.shape[0] != G:
-                raise ValueError(f"{path}: {src.shape[0]} stacked groups, "
-                                 f"model has {G}")
-            for g in range(G):
-                put(_block_param(model.slstm_layers[g], *parts[1:], path),
-                    src[g], path)
-        else:
-            raise KeyError(f"no ported parameter for reference path {path!r}")
-    unset = [n for n, p in model.named_parameters() if id(p) not in done]
-    if unset:
-        raise KeyError(f"reference tree lacks {len(unset)} parameters, "
-                       f"e.g. {unset[:4]}")
-    return model
+    and ``slstm_layers/<module>/<name>`` stacked (n_groups, ...), as the
+    model stores them (``params_from_jax``)."""
+    if cfg.family != "ssm":
+        raise ValueError(f"{cfg.name} is not an xLSTM config")
+    return params_from_jax(tree, cfg, device=device)
 
 
 @torch.no_grad()

@@ -1,9 +1,10 @@
 """Repair-value policies: ``(x, mask) -> repaired values``; the caller does
 the final ``where``.
 
-Ported: zero, constant, the sign-preserving ``clamp_finite_max`` and the
+Ported: zero, constant, the sign-preserving ``clamp_finite_max``, the
 tile-local ``neighbor_mean`` (bit-equal to the reference: the same tile
-grid and the same order-fixed pairwise f32 fold).  The kernels' in-tile
+grid and the same order-fixed pairwise f32 fold) and ``from_reference``
+(a checkpointed tensor's values).  The kernels' in-tile
 ``neighbor_mean`` is a different, kernel-level fill (``kernels.common``).
 """
 from __future__ import annotations
@@ -91,6 +92,15 @@ neighbor_mean = RepairPolicy("neighbor_mean", _neighbor_mean)
 
 def constant(c: float) -> RepairPolicy:
     return RepairPolicy(f"constant({c})", _constant(c))
+
+
+def from_reference(ref: torch.Tensor) -> RepairPolicy:
+    """Repair from a reference tensor of the same shape, the checkpointed
+    leaf of the ``last_checkpoint`` policy (``core.checkpoint_repair``):
+    the exact pre-flip value up to one checkpoint interval of staleness."""
+    def fn(x, mask):
+        return ref.to(device=x.device, dtype=x.dtype)
+    return RepairPolicy("from_reference", fn)
 
 
 _REGISTRY = {

@@ -11,16 +11,23 @@ Step anatomy (memory mode, the paper's recommendation):
   3. the AdamW update (f32 moments, the step counter in exact memory)
 
 The train state is flat, ``{path: value}`` under the reference's paths:
-``params/<path>`` (the model's own tensors, layer weights stacked
-(L, ...)), ``opt/step``, ``opt/mu/<path>``, ``opt/nu/<path>``, ``stats``
-(host counters) and, with a space, ``rule_counts`` (int64 [n_rules, 3],
-the boundary scrub's per-rule ledger, folded into ``space.rule_stats()``
-by ``train_loop``).  The step updates the tensors in place.
+``params/<path>`` (the model's own tensors, layer weights stacked as the
+reference stacks them: (L, ...) for the transformer, (G, M, ...) and
+(G, ...) for the xLSTM's groups), ``opt/step``, ``opt/mu/<path>``,
+``opt/nu/<path>``, ``stats`` (host counters) and, with a space,
+``rule_counts`` (int64 [n_rules, 3], the boundary scrub's per-rule ledger,
+folded into ``space.rule_stats()`` by ``train_loop``).  The step updates
+the tensors in place.  Both ported families train: ``TransformerLM`` and
+``XLSTMLM``.
+
+``train_loop`` saves through a ``checkpoint.CheckpointManager`` every
+``checkpoint_every`` steps (the rule ledger folded and zeroed first), and
+resumes from a restored state: ``bind_state`` copies its params into the
+model's tensors.
 
 Injection (``ber > 0``) simulates approximate memory between steps, from a
 ``torch.Generator`` seeded by (seed, step): its flips cannot be the
-reference's, only their statistics.  Not ported: meshes (ROADMAP slice 6)
-and the checkpoint manager (ROADMAP §1 item 13).
+reference's, only their statistics.  Not ported: meshes (ROADMAP slice 6).
 """
 from __future__ import annotations
 
@@ -60,6 +67,20 @@ def init_train_state(model, opt: AdamW,
     if space is not None:
         state["rule_counts"] = np.zeros((space.ruleset.n_rules, 3), np.int64)
     return state
+
+
+@torch.no_grad()
+def bind_state(model, state: State) -> State:
+    """``state`` with its params in ``model``'s own tensors, which the step
+    updates in place: a ``params/...`` leaf that is another tensor (a
+    restored checkpoint's) is copied into the model's."""
+    out = dict(state)
+    for path, own in model.param_tree().items():
+        leaf = out[f"params/{path}"]
+        if leaf is not own:
+            own.copy_(leaf)
+            out[f"params/{path}"] = own
+    return out
 
 
 def resident(state: State) -> Dict[str, torch.Tensor]:
@@ -164,20 +185,24 @@ def train_loop(
     each step when ``ber > 0`` (its generator seeded by ``seed`` and the
     step), then the step.  One ``ApproxSpace`` owns the run.  Returns
     ``(state, history)``: every ``log_every``-th step and the last, with
-    the step's metrics and the cumulative stats."""
+    the step's metrics and the cumulative stats.
+
+    With ``checkpoint_manager`` and ``checkpoint_every``, the state is
+    saved after every ``checkpoint_every``-th step (as step ``i + 1``),
+    its rule ledger folded and zeroed first, so a restored checkpoint never
+    re-folds what the space already holds; the loop waits for the last
+    write.  A given ``state`` (a restored checkpoint) is bound to the
+    model first (``bind_state``)."""
     if mesh is not None:
         raise NotImplementedError(
             "train_loop(mesh=...) is not ported: ROADMAP slice 6 (multi-GPU)"
-        )
-    if checkpoint_manager is not None:
-        raise NotImplementedError(
-            "the checkpoint manager is not ported: ROADMAP §1 item 13 "
-            "(Modules still to port)"
         )
     space = space or ApproxSpace(model.cfg.repair,
                                  ber=ber if ber > 0 else None)
     if state is None:
         state = init_train_state(model, opt, space=space)
+    else:
+        state = bind_state(model, state)
     step_fn = build_train_step(model, opt, n_micro=n_micro, space=space)
     history = []
     for i in range(start_step, steps):
@@ -189,6 +214,13 @@ def train_loop(
             history.append({"step": i,
                             **{k: float(v) for k, v in metrics.items()},
                             **stats_lib.as_dict(state["stats"])})
+        if checkpoint_manager is not None and checkpoint_every and \
+                (i + 1) % checkpoint_every == 0:
+            state = _fold_rule_counts(space, state)
+            checkpoint_manager.save(i + 1, state)
+    if checkpoint_manager is not None:
+        checkpoint_manager.wait()
+    # the tail since the last checkpoint (or the whole run), folded once
     return _fold_rule_counts(space, state), history
 
 

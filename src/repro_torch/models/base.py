@@ -1,10 +1,12 @@
 """Shared model pieces: the causal LM loss (reference
-``models/base.py::next_token_loss``)."""
+``models/base.py::next_token_loss``) and the stacked weight layout both
+families train on (``stack_blocks``, ``bind_stacked_grads``)."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 
 def next_token_loss(
@@ -32,3 +34,40 @@ def next_token_loss(
         "accuracy": (acc * m).sum() / denom,
         "tokens": m.sum(),
     }
+
+
+def stack_blocks(blocks: Sequence[nn.Module], modules: Sequence[str],
+                 prefix: str, lead: Tuple[int, ...]) -> Dict[str, torch.Tensor]:
+    """One contiguous tensor per block weight, shaped ``lead`` + the
+    weight's shape, under the reference's path ``prefix/module/name``; each
+    block's parameter becomes the view of its slot (the blocks in row-major
+    order over ``lead``)."""
+    stacked = {}
+    for mod in modules:
+        for name, p0 in getattr(blocks[0], mod).named_parameters(recurse=False):
+            whole = torch.empty(tuple(lead) + tuple(p0.shape), dtype=p0.dtype,
+                                device=p0.device)
+            rows = whole.view((-1,) + tuple(p0.shape))
+            for blk, row in zip(blocks, rows):
+                setattr(getattr(blk, mod), name,
+                        nn.Parameter(row, requires_grad=False))
+            stacked[f"{prefix}/{mod}/{name}"] = whole
+    return stacked
+
+
+def bind_stacked_grads(tree: Dict[str, torch.Tensor],
+                       views: Callable[[str], List[nn.Parameter]]
+                       ) -> Dict[str, torch.Tensor]:
+    """Make the weights trainable and return ``{path: gradient}``: one
+    zeroed buffer shaped like each ``tree`` leaf, whose slots are the
+    ``.grad`` of the parameters ``views(path)`` gives, so the backward
+    accumulates into it in place."""
+    grads = {}
+    for path, leaf in tree.items():
+        buf = torch.zeros_like(leaf)
+        params = views(path)
+        for p, g in zip(params, buf.view((len(params),) + tuple(params[0].shape))):
+            p.requires_grad_(True)
+            p.grad = g
+        grads[path] = buf
+    return grads

@@ -37,7 +37,7 @@ from ..nn import initializers as ini
 from ..nn.attention import Attention
 from ..nn.layers import Embedding, RMSNorm
 from ..nn.mlp import SwiGLU
-from .base import next_token_loss
+from .base import bind_stacked_grads, next_token_loss, stack_blocks
 
 _BLOCK_MODULES = ("norm1", "attn", "norm2", "mlp")
 
@@ -92,24 +92,11 @@ class TransformerLM(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=dev,
                                   rcfg=cfg.repair, path="final_norm")
-        self._stacked = self._stack_layers()
+        # one (L, ...) tensor per layer weight, the blocks' parameters its views
+        self._stacked = stack_blocks(self.layers, _BLOCK_MODULES, "layers",
+                                     (cfg.n_layers,))
         self._grads: Optional[Dict[str, torch.Tensor]] = None
         self.init_weights(seed)
-
-    def _stack_layers(self) -> Dict[str, torch.Tensor]:
-        """One (L, ...) tensor per layer weight, under its reference path;
-        each block's parameter becomes the view of its layer."""
-        stacked = {}
-        for mod in _BLOCK_MODULES:
-            for name, p0 in getattr(self.layers[0], mod).named_parameters(
-                    recurse=False):
-                whole = torch.empty((len(self.layers),) + tuple(p0.shape),
-                                    dtype=p0.dtype, device=p0.device)
-                for i, blk in enumerate(self.layers):
-                    setattr(getattr(blk, mod), name,
-                            nn.Parameter(whole[i], requires_grad=False))
-                stacked[f"layers/{mod}/{name}"] = whole
-        return stacked
 
     def param_tree(self) -> Dict[str, torch.Tensor]:
         """``{reference path: tensor}`` in the reference's leaf order: the
@@ -137,15 +124,7 @@ class TransformerLM(nn.Module):
         it in place.  The serving entry points run without grad, so this
         changes nothing there."""
         if self._grads is None:
-            grads = {}
-            for path, leaf in self.param_tree().items():
-                buf = torch.zeros_like(leaf)
-                stacked = path in self._stacked
-                for i, p in enumerate(self._views(path)):
-                    p.requires_grad_(True)
-                    p.grad = buf[i] if stacked else buf
-                grads[path] = buf
-            self._grads = grads
+            self._grads = bind_stacked_grads(self.param_tree(), self._views)
         return self._grads
 
     @property

@@ -8,8 +8,19 @@ external FFN).
 
 Ported surface: ``forward`` (the prefill path: the chunked mLSTM kernel
 runs once per mLSTM block), ``serve_step`` (one decode token through the
-recurrent cache), ``init_cache`` and the tied readout.  ``loss`` raises:
-training waits for ROADMAP §1 item 14.  The decode cache is
+recurrent cache), ``init_cache``, the tied readout, and training
+(``loss``: the trunk under autograd through the reference's own chunked
+mLSTM, ``nn.xlstm._chunked_mlstm``, as the kernel has no backward; with
+``cfg.remat`` each mLSTM block and each group recomputed in the backward,
+the reference's nested ``jax.checkpoint``).
+
+Each block weight lives in one contiguous tensor under the reference's
+stacked path (``param_tree``): (n_groups, m_per_group, ...) for the mLSTM
+blocks' ``mlstm_groups/{norm,mlstm}/...``, (n_groups, ...) for the sLSTM
+blocks' ``slstm_layers/{norm,slstm}/...``; the blocks' parameters are its
+views, so the train state, the scrub, the injection and the optimizer act
+on the blocks' bytes, and ``bind_grads`` gives each weight one gradient
+buffer.  The decode cache is
 a flat dict under the reference's paths (``mlstm_groups/C``,
 ``slstm_layers/h``, …), leaves stacked (n_groups, m_per_group, …) for the
 mLSTM blocks and (n_groups, …) for the sLSTM blocks, as the reference's
@@ -18,10 +29,11 @@ the same tile grid) as the reference's.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as device_lib
 from ..configs.base import ArchConfig
@@ -29,6 +41,7 @@ from ..core import rules as rules_lib
 from ..nn import initializers as ini
 from ..nn.layers import Embedding, RMSNorm
 from ..nn.xlstm import MLSTM, SLSTM
+from .base import bind_stacked_grads, next_token_loss, stack_blocks
 
 Cache = Dict[str, torch.Tensor]
 
@@ -74,14 +87,55 @@ class XLSTMLM(nn.Module):
         self.slstm_layers = nn.ModuleList(
             SBlock(cfg, dev) for _ in range(self.n_groups))
         self.final_norm = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=dev)
-        ini.init_weights(self, seed, dev)
+        G, M = self.n_groups, self.m_per_group
+        self._stacked = stack_blocks(self.mlstm_layers, ("norm", "mlstm"),
+                                     "mlstm_groups", (G, M))
+        self._stacked.update(stack_blocks(self.slstm_layers, ("norm", "slstm"),
+                                          "slstm_layers", (G,)))
+        self._grads: Optional[Dict[str, torch.Tensor]] = None
+        self.init_weights(seed)
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
 
+    def init_weights(self, seed: int) -> None:
+        """Random weights under the reference's init scheme, drawn in module
+        order from one generator seeded with ``seed`` on the weights'
+        device."""
+        ini.init_weights(self, seed, self.device)
+
     def mblock(self, g: int, i: int) -> MBlock:
         return self.mlstm_layers[g * self.m_per_group + i]
+
+    def param_tree(self) -> Dict[str, torch.Tensor]:
+        """``{reference path: tensor}`` in the reference's leaf order: the
+        tied table, the final norm and the stacked block weights, the
+        model's own tensors (not copies)."""
+        tree = dict(self._stacked)
+        tree["embed/table"] = self.embed.table
+        tree["final_norm/scale"] = self.final_norm.scale
+        return {p: tree[p] for p in sorted(tree)}
+
+    def _views(self, path: str):
+        """The parameters that hold ``path``: the per-block views of a
+        stacked weight in block order, or the one parameter."""
+        if path == "embed/table":
+            return [self.embed.table]
+        if path == "final_norm/scale":
+            return [self.final_norm.scale]
+        stack, mod, name = path.split("/")
+        blocks = self.mlstm_layers if stack == "mlstm_groups" else self.slstm_layers
+        return [getattr(getattr(blk, mod), name) for blk in blocks]
+
+    def bind_grads(self) -> Dict[str, torch.Tensor]:
+        """Make the weights trainable and return ``{path: gradient}``: one
+        zeroed buffer shaped like each ``param_tree`` leaf, whose per-block
+        slots are the views' ``.grad``.  The serving entry points run
+        without grad, so this changes nothing there."""
+        if self._grads is None:
+            self._grads = bind_stacked_grads(self.param_tree(), self._views)
+        return self._grads
 
     # ---------------------------------------------------------------- forward
     @torch.no_grad()
@@ -101,13 +155,40 @@ class XLSTMLM(nn.Module):
         logits = self.embed.attend(self.final_norm(h))
         return (logits, counts) if with_counts else logits
 
-    def loss(self, batch):
-        """Training the xLSTM is not ported: the mLSTM kernel has no
-        backward, so it waits for the plain chunked mLSTM under autograd."""
-        raise NotImplementedError(
-            "xLSTM training is not ported: ROADMAP §1 item 14 (Modules still "
-            "to port)"
-        )
+    def loss(self, batch: Dict[str, Any]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token loss of ``batch["tokens"]`` (B, S) under autograd,
+        as the reference's ``loss``: ``(scalar f32, {"loss", "accuracy",
+        "tokens"})``, the metrics detached.  The mLSTM blocks run
+        ``MLSTM.train_forward``; with ``cfg.remat`` each mLSTM block and
+        each group is recomputed in the backward (non-reentrant
+        checkpoints, nested as the reference nests ``jax.checkpoint``)."""
+        tokens = batch["tokens"]
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        h = self.embed(tokens)
+        for g in range(self.n_groups):
+            if remat:
+                h = checkpoint(self._train_group, g, h, True,
+                               use_reentrant=False)
+            else:
+                h = self._train_group(g, h, False)
+        logits = self.embed.attend(self.final_norm(h))
+        loss, metrics = next_token_loss(logits, tokens)
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    @staticmethod
+    def _train_mblock(blk: MBlock, h: torch.Tensor) -> torch.Tensor:
+        return h + blk.mlstm.train_forward(blk.norm(h))
+
+    def _train_group(self, g: int, h: torch.Tensor, remat: bool) -> torch.Tensor:
+        for i in range(self.m_per_group):
+            blk = self.mblock(g, i)
+            if remat:
+                h = checkpoint(self._train_mblock, blk, h, use_reentrant=False)
+            else:
+                h = self._train_mblock(blk, h)
+        blk = self.slstm_layers[g]
+        return h + blk.slstm(blk.norm(h))
 
     # ----------------------------------------------------------------- decode
     def cache_defs(self, batch: int) -> Dict[str, Tuple[tuple, torch.dtype]]:

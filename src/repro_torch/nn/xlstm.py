@@ -5,13 +5,14 @@ mLSTM recurrence (per head, d_k×d_v matrix memory — arXiv:2405.04517 §2.3):
     C_t = f_t C_{t-1} + i_t k_t v_tᵀ          n_t = f_t n_{t-1} + i_t k_t
     y_t = (q_tᵀ C_t) / max(|q_tᵀ n_t|, 1)
 with exponential gating stabilized by the running max m_t and a
-log-sigmoid forget gate.  ``MLSTM.forward`` runs the chunked form through
-``kernels.mlstm_chunk.mlstm_chunked`` (the reference wrote that kernel as
-the drop-in for its ``_chunked_mlstm``, which it still calls): fatal q/k/v
-lanes are repaired with the kernel's zero fill, the identity on clean
-inputs, and ``W·v`` takes ``W`` in f32 where ``_chunked_mlstm`` casts it to
-the value dtype.  ``_chunked_mlstm`` itself is kept line for line, for the
-tests only.
+log-sigmoid forget gate.  ``MLSTM.forward`` (serving) runs the chunked
+form through ``kernels.mlstm_chunk.mlstm_chunked`` (the reference wrote
+that kernel as the drop-in for its ``_chunked_mlstm``, which it still
+calls): fatal q/k/v lanes are repaired with the kernel's zero fill, the
+identity on clean inputs, and ``W·v`` takes ``W`` in f32 where
+``_chunked_mlstm`` casts it to the value dtype.  ``MLSTM.train_forward``
+(training) runs ``_chunked_mlstm``, kept line for line, under autograd:
+the reference's forward and its gradient, as the kernel has no backward.
 
 sLSTM is inherently sequential (h_{t-1} feeds the gates through a
 nonlinearity); it runs as a Python loop over time with per-head
@@ -107,17 +108,28 @@ class MLSTM(nn.Module):
         y = (y * F_.silu(z.float())).to(self.dtype)
         return _mm(y, self.w_down, self.dtype)
 
+    def _inputs(self, x: torch.Tensor):
+        """(B, S, D) -> (q, k, v, log_i, log_f, z)."""
+        up = _mm(x, self.w_up, self.dtype)
+        x_inner, z = up[..., :self.d_inner], up[..., self.d_inner:]
+        return (*self._qkvif(self._conv(x_inner), x_inner), z)
+
     def forward(self, x: torch.Tensor):
         """(B, S, D) -> ``(out (B, S, D), counts int32[8])``: the chunked
         kernel's repair counts (``kernels.mlstm_chunk`` layout)."""
         B, S, _ = x.shape
-        up = _mm(x, self.w_up, self.dtype)
-        x_inner, z = up[..., :self.d_inner], up[..., self.d_inner:]
-        xc = self._conv(x_inner)
-        q, k, v, log_i, log_f = self._qkvif(xc, x_inner)
+        q, k, v, log_i, log_f, z = self._inputs(x)
         y, counts = mlstm_chunk.mlstm_chunked(q, k, v, log_i, log_f,
                                               chunk=self.chunk)
         return self._out(y.reshape(B, S, self.d_inner), z), counts
+
+    def train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, D) -> (B, S, D) under autograd through ``_chunked_mlstm``,
+        the reference's own forward (it never calls its kernel)."""
+        B, S, _ = x.shape
+        q, k, v, log_i, log_f, z = self._inputs(x)
+        y = _chunked_mlstm(q, k, v, log_i, log_f, chunk=self.chunk)
+        return self._out(y.reshape(B, S, self.d_inner), z)
 
     # -------------------------------------------------------------- decode
     def cache_defs(self, batch: int):
@@ -170,7 +182,8 @@ def _chunked_mlstm(q, k, v, log_i, log_f, *, chunk: int) -> torch.Tensor:
     """The reference's chunked-parallel mLSTM (``nn/xlstm.py:205``), line
     for line: per-chunk max stabilization, ``W`` cast to the value dtype
     before ``W·v``, no repair.  q, k, v (B, S, H, P); gates (B, S, H).
-    Returns y (B, S, H, P) f32.  The tests' oracle twin."""
+    Returns y (B, S, H, P) f32.  The train path (``MLSTM.train_forward``)
+    and the tests' oracle twin."""
     B, S, H, P = q.shape
     Q = min(chunk, S)
     assert S % Q == 0

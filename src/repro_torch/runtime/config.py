@@ -9,6 +9,7 @@ from typing import Any, Optional, Tuple
 
 from ..core import injection as injection_lib
 from ..core import regions as regions_lib
+from ..core import repair as repair_lib
 from ..core import rules as rules_lib
 
 _MODES = ("off", "register", "memory")
@@ -89,3 +90,18 @@ class ApproxConfig:
         )
         fields.update(overrides)
         return ApproxConfig(**fields)
+
+    def legacy(self):
+        """The equivalent legacy ``RepairConfig`` (for shim delegation)."""
+        return repair_lib.RepairConfig(
+            mode=self.mode,
+            policy=self.policy,
+            include_inf=self.include_inf,
+            max_magnitude=self.max_magnitude,
+        )
+
+    def memory_forced(self) -> "ApproxConfig":
+        """Same config with mode pinned to "memory": the save scrub and the
+        cache scrubs run the memory-repairing mechanism even when the run
+        itself is register-mode or off."""
+        return dataclasses.replace(self, mode="memory")

@@ -26,7 +26,7 @@ eagerly and update the state dict's tensors in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -153,7 +153,7 @@ class RepairPlan:
             return tree, self._inject(tree, generator)
         if self.scope == "reference":
             return tree, self._fold([
-                (p, self._reference_leaf(leaf, rule, reference[p]))
+                (p, reference_leaf(leaf, rule, reference[p]))
                 for p, leaf, rule in self._firing(tree)
             ])
         if self.scope == "tree":
@@ -171,6 +171,25 @@ class RepairPlan:
             (p, self._scrub_pages_leaf(leaf, rule, padded, ids.size))
             for p, leaf, rule in self._firing(tree)
         ])
+
+    @torch.no_grad()
+    def run_copies(self, tree: Dict[str, torch.Tensor],
+                   sink: Callable[[str, torch.Tensor], None]) -> stats_lib.Stats:
+        """The pass on copies, one leaf at a time: each leaf the pass
+        repairs is cloned on its device, the clone repaired as ``run``
+        repairs it and handed to ``sink(path, clone)``; every other leaf
+        goes to ``sink`` as it is.  ``tree`` keeps its bits, and the extra
+        device memory is one leaf.  The counts are one pass's, as ``run``
+        gives them (the save scrub of ``checkpoint.CheckpointManager``)."""
+        assert self.scope == "tree", self.scope
+        firing = {p for p, _, _ in self._firing(tree)}
+        per_leaf = []
+        for path, leaf in tree.items():
+            if path in firing:
+                leaf = leaf.clone()
+                per_leaf.append((path, self._scrub_leaf(leaf, self.rules[path])))
+            sink(path, leaf)
+        return self._fold(per_leaf)
 
     def _scrub_leaf(self, leaf, rule) -> torch.Tensor:
         if self.placement == "kernel":
@@ -198,14 +217,6 @@ class RepairPlan:
         valid = valid.reshape((-1,) + (1,) * (rows.dim() - 1))
         return torch.stack([(nan_m & valid).sum(), (inf_m & valid).sum()])
 
-    @staticmethod
-    def _reference_leaf(leaf, rule, ref) -> torch.Tensor:
-        """Fatal lanes (by the rule's detector) take ``ref``'s bits."""
-        nan_m, inf_m = rule.detect.masks(leaf)
-        ref = ref.to(device=leaf.device, dtype=leaf.dtype)
-        leaf.copy_(torch.where(nan_m | inf_m, ref, leaf))
-        return torch.stack([nan_m.sum(), inf_m.sum()])
-
     def _inject(self, tree, generator) -> int:
         flips = 0
         for path, leaf in tree.items():
@@ -215,6 +226,15 @@ class RepairPlan:
             leaf.copy_(flipped)
             flips += n
         return flips
+
+
+def reference_leaf(leaf, rule, ref) -> torch.Tensor:
+    """Reference repair of one leaf, in place: its fatal lanes (by the
+    rule's detector) take ``ref``'s bits.  Returns its [nan, inf] counts."""
+    nan_m, inf_m = rule.detect.masks(leaf)
+    ref = ref.to(device=leaf.device, dtype=leaf.dtype)
+    leaf.copy_(torch.where(nan_m | inf_m, ref, leaf))
+    return torch.stack([nan_m.sum(), inf_m.sum()])
 
 
 def plan_for(

@@ -8,11 +8,12 @@ its tensors in place and return the same dict.  Every mechanism has a pure
 form (pass ``stats``, get ``(tree, stats')`` back) and a convenience form
 (omit ``stats``; deltas accumulate in ``self.stats``).  ``use`` is the
 register-mode read of one tensor; unlike the passes it returns a repaired
-copy and leaves its input as it was.  ``scrub_with_reference`` restores
-fatal lanes from a reference tree (the prefix cache's page snapshots).
-``wrap_serve_step`` and ``wrap_train_step`` install the boundary scrub
-around a serve step and a train step.  Not ported yet: the checkpoint
-manager's use of reference repair and meshes (ROADMAP).
+copy and leaves its input as it was, as does ``scrub_copies`` (the
+checkpoint manager's save scrub).  ``scrub_with_reference`` restores
+fatal lanes from a reference tree (the prefix cache's page snapshots, a
+restored checkpoint).  ``wrap_serve_step`` and ``wrap_train_step`` install
+the boundary scrub around a serve step and a train step.  Not ported:
+meshes (ROADMAP slice 6).
 """
 from __future__ import annotations
 
@@ -175,6 +176,17 @@ class ApproxSpace:
         out, delta = plan.run(tree, reference=ref_tree)
         self.scrubbed_bytes += plan.bytes_per_run
         return self._thread_stats(out, delta, stats)
+
+    def scrub_copies(self, tree: Tree, sink) -> None:
+        """``scrub``'s pass on copies: each repaired leaf is cloned, the
+        clone scrubbed (through the scrub kernel where ``scrub`` would use
+        it) and handed to ``sink(path, clone)`` one leaf at a time, every
+        other leaf as it is (``RepairPlan.run_copies``).  ``tree`` keeps
+        its bits; the counts land in ``self.stats`` and the rule ledger as
+        ``scrub``'s do."""
+        plan = self.plan_for(tree, scope="tree")
+        self.stats = stats_lib.merge(self.stats, plan.run_copies(tree, sink))
+        self.scrubbed_bytes += plan.bytes_per_run
 
     def _thread_stats(self, out, delta, stats):
         if stats is None:

@@ -1,7 +1,9 @@
 """The port under autograd: the CUDA kernel wrappers refuse inputs that
 require grad (a kernel writes raw device memory and has no backward, so
-its result would silently leave the graph), and ``matmul_f32``'s backward
-on the card keeps the f32 cotangent.
+its result would silently leave the graph), ``matmul_f32``'s backward
+on the card keeps the f32 cotangent, the xLSTM's loss and gradients on the
+card match the CPU's, and a checkpoint of card tensors (the save scrub on
+the card) round-trips.
 
 The guard's own test runs on the CPU; one test per wrapper, and the
 backward check, need the card (marked ``cuda``) and skip without one.  The
@@ -13,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.checkpoint import CheckpointManager, save_checkpoint  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import common, scrub, tile_fill  # noqa: E402
 from repro_torch.kernels import mlstm_chunk as mc  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -164,3 +168,66 @@ def test_matmul_f32_backward_on_the_card(cuda):
     ctrl = g.bfloat16().reshape(-1, 384) @ w.detach().t()
     beyond, share = _bwd_bar(ctrl, exact_a, mag_a, 384)
     assert beyond > 0 or share > 1e-2, (beyond, share)
+
+
+@pytest.mark.cuda
+def test_xlstm_loss_and_grads_on_the_card(cuda):
+    """The reduced xLSTM (f32, TF32 off, remat on) on the card against the
+    same weights on the CPU: the loss within 1e-5 relative and every
+    gradient within 1e-4 of its norm; the trunk runs no kernel (the train
+    path is the plain chunked mLSTM under autograd)."""
+    from repro_torch.models import XLSTMLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("xlstm-1.3b").reduced()
+    cpu, card = XLSTMLM(cfg, device="cpu", seed=0), XLSTMLM(cfg, device=cuda, seed=1)
+    with torch.no_grad():
+        for path, t in card.param_tree().items():
+            t.copy_(cpu.param_tree()[path])
+    tokens = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(0))
+    out = []
+    common.reset_launches()
+    for m in (card, cpu):
+        grads = m.bind_grads()
+        loss, _ = m.loss({"tokens": tokens.to(m.device)})
+        loss.backward()
+        out.append((float(loss.detach()), {p: g.cpu() for p, g in grads.items()}))
+    assert not common.LAUNCHES
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[1][0])
+    for path, want in out[1][1].items():
+        got = out[0][1][path]
+        assert torch.isfinite(got).all(), path
+        err = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        assert err <= 1e-4, (path, err)
+
+
+@pytest.mark.cuda
+def test_save_checkpoint_of_card_tensors(cuda, tmp_path):
+    """A bf16 weight and an f32 moment on the card, each with planted
+    faults: the save scrub (the scrub kernel, one launch a leaf) writes a
+    clean file and leaves the card tensors as they were; the restore lands
+    on the card, bit-equal to the plain scrub of the same values."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"params/w": torch.randn((64, 96), generator=gen, device=cuda).bfloat16(),
+            "opt/mu/w": torch.randn((64, 96), generator=gen, device=cuda),
+            "opt/step": torch.zeros((), dtype=torch.int32, device=cuda)}
+    tree["params/w"][3, 5] = float("nan")
+    tree["opt/mu/w"][7, 1] = float("-inf")
+    before = {p: t.clone() for p, t in tree.items()}
+    mgr = CheckpointManager(str(tmp_path))
+    common.reset_launches()
+    mgr.save(1, tree)
+    mgr.wait()
+    assert common.LAUNCHES == {"scrub": 2}
+    for p, t in tree.items():
+        assert torch.equal(t.view(torch.uint8) if t.dim() else t,
+                           before[p].view(torch.uint8) if t.dim() else before[p]), p
+    restored, step = mgr.restore(like=tree)
+    assert step == 1 and mgr.space.stats_dict()["nan_found"] == 1
+    for p in ("params/w", "opt/mu/w"):
+        want = before[p].clone()
+        scrub.scrub_plain(want, policy="zero")
+        assert restored[p].device.type == "cuda"
+        assert torch.equal(restored[p].view(torch.uint8), want.view(torch.uint8)), p
+    save_checkpoint(str(tmp_path), 2, restored, scrub=False)

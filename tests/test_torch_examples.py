@@ -62,3 +62,27 @@ def test_train_twin_runs_on_the_cpu(capsys):
     assert all(h["loss"] == h["loss"] for h in hist)        # not NaN
     assert hist[-1]["flips"] > 0
     assert "3 steps in" in capsys.readouterr().out
+
+
+def test_train_twin_checkpoints_on_the_cpu(tmp_path, capsys):
+    """``--ckpt-dir`` under ``tmp_path``, a checkpoint after step 2 of 2
+    (1 x 32 tokens): the twin prints the original's final line, and the
+    directory holds the step-2 checkpoint."""
+    _example("torch_train_approx_lm").main(
+        ["--steps", "2", "--device", "cpu", "--batch", "1", "--seq", "32",
+         "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"])
+    assert "final checkpoint: step 2" in capsys.readouterr().out
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000002"]
+
+
+def test_train_twin_trains_the_xlstm_on_the_cpu(tmp_path, capsys):
+    """``--arch xlstm-1.3b`` at the twin's ~100M width, cut to one step of
+    1 x 32 tokens, with a checkpoint after it."""
+    hist = _example("torch_train_approx_lm").main(
+        ["--arch", "xlstm-1.3b", "--steps", "1", "--device", "cpu",
+         "--batch", "1", "--seq", "32", "--ckpt-dir", str(tmp_path),
+         "--ckpt-every", "1"])
+    assert [h["step"] for h in hist] == [0]
+    assert hist[0]["loss"] == hist[0]["loss"]                # not NaN
+    out = capsys.readouterr().out
+    assert "arch=xlstm-1.3b-100m" in out and "final checkpoint: step 1" in out
