@@ -168,6 +168,29 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      chunked mLSTM under autograd); the same plants with repair off poison
      the run; the card's loss and gradients against the CPU's at one group
      (8 blocks, f32, 64 tokens) within XT_CPU_RTOL.  One ``timing xlstm train:`` line, as train_phase's
+  11. the autopilot (``autopilot_phase``): (a) the campaign's serve
+     episodes on the engine cell's Qwen2-1.5B (28 layers, bf16) over the
+     transformer preset's groups (``ffn_weights``: range-guarded
+     ``neighbor_mean``, the tensor-level repair; ``kv_cache``: zero fill,
+     the scrub kernel) at its four refresh points, 8 steps, batch 2, prompt
+     8: one line per cell (quality, flips beside their Poisson mean, held
+     within AP_SIGMAS, faults a step, approximate bytes, energy saving,
+     the episode's seconds and scrub launches a step); the first two
+     windows of every cell change no leaf outside the group; the first two
+     cells run again identical; (b) ``solve_frontier`` at AP_BUDGET (each
+     point the longest within the budget, or collapsed), the profile's and
+     frontier's JSON round-tripping; (c) the engine cell with the
+     frontier's rules: with its guard at BER 0 (0 trips; tokens, launches
+     and scrubbed bytes as without it; ms a step in turns), then the
+     ``kv_cache`` rule under a zero-expectation guard with NaN/±Inf planted
+     in live K/V pages after every step from AP_PLANT_FROM while the label
+     is not exact: trips stricter then exact, every request finished with
+     finite logits, each trip's decision, lanes and launches printed;
+     (d) ``train_loop`` at qwen2-1.5b width cut to AP_TRAIN_LAYERS layers,
+     ber=AP_TRAIN_BER, one ``resident`` rule under the same guard: a trip,
+     a stricter or exact rule deployed, every loss finite, the scrub
+     kernel's launches a step as each step's rule implies.  One ``timing
+     autopilot:`` line
 
 Prints the kernel report as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -250,20 +273,34 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+# idle host time on each side of a profiled call: the profiler keeps only
+# the device events that it places inside its window, so a skew between
+# the device's and the host's clocks drops the events at the window's ends
+# (a whole short window's, late in a long run)
+PROFILE_PAD_S = 0.25
+
+
+class ProfilerDropped(AssertionError):
+    """Every profiler window of a reading lost device events."""
+
+
 def device_profile(fn, table: str = "", counts: dict | None = None):
     """Device milliseconds by kernel name for one call of ``fn`` under
-    ``torch.profiler`` (empty when the profiler records no device time).
-    With ``table``, host and device activity are both recorded and their
-    summary tables written to ``chiprun_out/<table>``; with ``counts``, the
-    number of launches recorded per name is added to it."""
+    ``torch.profiler`` (empty when the profiler records no device time),
+    the window padded by ``PROFILE_PAD_S`` on each side.  With ``table``,
+    host and device activity are both recorded and their summary tables
+    written to ``chiprun_out/<table>``; with ``counts``, the number of
+    launches recorded per name is added to it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if table else [])
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     if table:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -311,7 +348,7 @@ def kernel_device_ms(fn, names, iters: int = 20):
     return total or None
 
 
-def kernel_breakdown(fn, names, iters: int = 20, tries: int = 3,
+def kernel_breakdown(fn, names, iters: int = 20, tries: int = 5,
                      per_launch: bool = False) -> dict:
     """Device ms per call of each named kernel (0.0 where none ran), or with
     ``per_launch`` per launch of it.  The profiler can drop a window's
@@ -319,8 +356,10 @@ def kernel_breakdown(fn, names, iters: int = 20, tries: int = 3,
     counts only when it recorded some and every kernel's launches are a
     multiple of ``iters``; per launch, the average over the launches it
     recorded is unbiased, so a window counts when every named kernel
-    recorded one.  Otherwise it is taken again, up to ``tries`` times."""
+    recorded one.  Otherwise it is taken again, up to ``tries`` times, and
+    then ``ProfilerDropped`` lists what each window recorded."""
     fn()
+    recorded = []
     for _ in range(tries):
         counts: dict = {}
         per = device_profile(lambda: [fn() for _ in range(iters)], counts=counts)
@@ -332,8 +371,9 @@ def kernel_breakdown(fn, names, iters: int = 20, tries: int = 3,
                         for n in names}
         elif counts and all(c % iters == 0 for c in counts.values()):
             return {n: sum(per[k] for k in keys[n]) / iters for n in names}
-    raise AssertionError(f"the profiler dropped device events in {tries} "
-                         f"windows of {iters} calls: {counts}")
+        recorded.append(counts)
+    raise ProfilerDropped(f"the profiler dropped device events in {tries} "
+                          f"windows of {iters} calls: {recorded}")
 
 
 KERNEL_NAMES = {
@@ -360,19 +400,21 @@ MLSTM_KERNELS = {"ffma": ("mlstm_qk", "mlstm_scan<"),
 COUNT_PASS = ("flash_scan",)
 
 
-def device_ops(fn, iters: int = 20, tries: int = 3):
+def device_ops(fn, iters: int = 20, tries: int = 5):
     """(device ms, device operations) per call of ``fn`` over every kernel,
     memset and copy the profiler records, and their names; a window counts
     only when every operation's count is a multiple of ``iters``."""
     fn()
+    recorded = []
     for _ in range(tries):
         counts: dict = {}
         per = device_profile(lambda: [fn() for _ in range(iters)], counts=counts)
         if counts and all(c % iters == 0 for c in counts.values()):
             return (sum(per.values()) / iters, sum(counts.values()) / iters,
                     sorted(per))
-    raise AssertionError(f"the profiler dropped device events in {tries} "
-                         f"windows of {iters} calls: {counts}")
+        recorded.append(counts)
+    raise ProfilerDropped(f"the profiler dropped device events in {tries} "
+                          f"windows of {iters} calls: {recorded}")
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -3131,19 +3173,25 @@ def mlstm_phase(report: dict) -> None:
         # device ms from a full queue of launches; the profiler splits it
         timed.setdefault(name, []).append(queued_ms(lambda: mc.mlstm_chunk_raw(*x)))
     for name, x in ops.items():
-        # per launch: the profiler drops some of these kernels' events
-        split = kernel_breakdown(lambda: mc.mlstm_chunk_raw(*x), MLSTM_KERNELS[name],
-                                 iters=5, per_launch=True)
+        # per launch: the profiler drops some of these kernels' events; the
+        # split only apportions the device time above, so a split that every
+        # window dropped is written as not measured (null)
+        try:
+            split = {k.rstrip("<"): v for k, v in kernel_breakdown(
+                lambda: mc.mlstm_chunk_raw(*x), MLSTM_KERNELS[name], iters=5,
+                per_launch=True).items()}
+            split_text = " + ".join(f"{k} {v:.4f}" for k, v in split.items())
+        except ProfilerDropped as exc:
+            split, split_text = None, f"not measured ({exc})"
         call = cuda_ms(lambda: mc.mlstm_chunk_raw(*x), iters=10)
         off = ", q/k/v 2 bytes off alignment" if name == "ffma" else ""
         log(f"timing mlstm_chunk ({name} route{off}): "
             f"device {min(timed[name]):.4f} ms (turns "
             f"{', '.join(f'{t:.4f}' for t in timed[name])}; profiler "
-            + " + ".join(f"{k.rstrip('<')} {v:.4f}" for k, v in split.items())
-            + f"), call {call:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+            f"{split_text}), call {call:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by})")
         if name == "wgmma":
-            row = dict(ms=call, device_ms=min(timed[name]),
-                       split={k.rstrip("<"): v for k, v in split.items()})
+            row = dict(ms=call, device_ms=min(timed[name]), split=split)
     x = ops["wgmma"]
     row.update(plain_ms=cuda_ms(lambda: mc.mlstm_chunk_plain(*x), iters=5),
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
@@ -3296,8 +3344,9 @@ def xlstm_forward_phase(report: dict) -> None:
         plain_vs_kernel=_divergence(plain, logits),
         one_ulp_control_vs_kernel=_divergence(control, logits),
         profiled_tokens=PROFILE_TOKENS, profiled_wall_ms=short_ms,
-        profiled_device_ms=groups,
-        profiled_idle_share=1.0 - sum(groups.values()) / short_ms,
+        # null where the profiler recorded no device time
+        profiled_device_ms=groups if per else None,
+        profiled_idle_share=1.0 - sum(groups.values()) / short_ms if per else None,
     )
     log("xlstm forward: " + json.dumps(report["xlstm_forward"]))
 
@@ -3760,6 +3809,348 @@ def xlstm_train_phase(report: dict) -> None:
         f"{XT_CPU_RTOL} on each; {time.perf_counter() - t_parity:.1f} s ({card})")
 
 
+# the autopilot (ROADMAP §1 item 15): the campaign's Poisson bar on each
+# cell's flips, the frontier's quality budget, the guard contract of the
+# drift arms, and the train guard's geometry (qwen2-1.5b width cut to
+# AP_TRAIN_LAYERS layers: ~0.42 B parameters, 4.2 GB of params and moments)
+AP_SIGMAS = 6.0
+AP_BUDGET = 0.3
+AP_GUARD = dict(window=2, tolerance=1.0, floor=0.0, patience=1, cooldown=0)
+AP_TRAIN_LAYERS, AP_TRAIN_B, AP_TRAIN_S, AP_TRAIN_STEPS = 4, 2, 128, 4
+AP_TRAIN_BER = 1e-6
+AP_PLANT_FROM = 3       # the drift arm plants after every step from this one
+
+
+def _bits_sum(t) -> int:
+    """A tensor's stored words summed as int64: one bit flip changes it."""
+    import torch
+
+    from repro_torch.core import detect
+
+    return int(torch.sum(detect.bits_of(t), dtype=torch.int64))
+
+
+def _plant_live(engine, step: int) -> int:
+    """NaN in a K lane and ±Inf in a V lane of page 0 of the decoding
+    requests (offset 1, below every write slot), at a layer that moves with
+    ``step``.  Returns the lanes planted."""
+    running = [r for r in engine.sched.running
+               if r.prefill_pos is None and r.n_context > PG + 1]
+    tree = engine.pool.tree
+    layers = tree["layers/k"].shape[1]
+    for i, req in enumerate(running[:2]):
+        layer = (step + 7 * i) % layers
+        tree["layers/k"][req.pages[0], layer, 1, 0, 5 + i] = float("nan")
+        tree["layers/v"][req.pages[0], layer, 1, 1, 9 + i] = (
+            float("inf") if step % 2 else float("-inf"))
+    return 2 * len(running[:2])
+
+
+def autopilot_phase(report: dict) -> None:
+    """The autopilot on the card (ROADMAP §1 item 15): (a) the campaign's
+    serve episodes at qwen2-1.5b full width and depth over the transformer
+    preset's two groups and four refresh points, (b) the frontier, (c) the
+    engine's online guard, steady and under drift, (d) the train loop's
+    guard."""
+    import torch
+
+    from repro_torch import autopilot
+    from repro_torch.autopilot import campaign as campaign_lib
+    from repro_torch.configs import get_config, get_preset
+    from repro_torch.core.regions import Region
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import common
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import TransformerLM
+    from repro_torch.runtime import (ApproxConfig, ApproxSpace, AutopilotConfig,
+                                     Detector, RepairRule, RuleSet, ScrubSchedule)
+    from repro_torch.serving import Engine
+
+    card = gpu_line()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = report.get("model") or TransformerLM(get_config("qwen2-1.5b"),
+                                                 device="cuda", seed=0)
+    ccfg = get_preset("transformer", steps=8).campaign
+    groups = {g.name: g for g in ccfg.groups}
+    names = {g.pattern: g.name for g in ccfg.groups}
+    windows = ccfg.prompt_len + ccfg.steps - 1
+
+    # -- (a) the campaign ------------------------------------------------
+    space = campaign_lib.campaign_space(ccfg.groups)
+    resident = {f"params/{p}": t for p, t in model.param_tree().items()}
+    resident.update({f"cache/{p}": t for p, t in model.init_cache(
+        ccfg.batch, ccfg.prompt_len + ccfg.steps + 1).items()})
+    plan = space.plan_for(resident, scope="tree", trigger="boundary")
+    routes = {
+        g.name: "/".join(sorted({"kernel" if p in plan.kernel_paths else "tensor-level"
+                                 for p in resident if re.search(g.pattern, p)}))
+        for g in ccfg.groups
+    }
+    if routes != {"ffn_weights": "tensor-level", "kv_cache": "kernel"}:
+        raise AssertionError(f"autopilot: scrub routes {routes}")
+    del resident, plan, space
+
+    episodes, checked = [], collections.Counter()
+    real_serve, real_inject = campaign_lib._serve_episode, ApproxSpace.inject
+
+    def timed_serve(model_, space_, cfg_, pattern, ber, ep_key, force=None):
+        before = collections.Counter(common.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_serve(model_, space_, cfg_, pattern, ber, ep_key, force=force)
+        torch.cuda.synchronize()
+        launched = collections.Counter(common.LAUNCHES) - before
+        episodes.append(dict(group=names.get(pattern, "clean"), ber=ber,
+                             s=time.perf_counter() - t0,
+                             scrub_per_step=launched["scrub"] / windows))
+        return out
+
+    def confined_inject(self, tree, generator, ber=None, *, regions=None, **kw):
+        """The first two windows of each cell: no leaf outside the mask
+        may change."""
+        if regions is None or checked[id(regions)] >= 2:
+            return real_inject(self, tree, generator, ber, regions=regions, **kw)
+        checked[id(regions)] += 1
+        outside = [p for p, r in regions.items()
+                   if r is not Region.APPROX and tree[p].is_floating_point()]
+        sums = {p: _bits_sum(tree[p]) for p in outside}
+        out = real_inject(self, tree, generator, ber, regions=regions, **kw)
+        moved = [p for p in outside if _bits_sum(tree[p]) != sums[p]]
+        if moved:
+            raise AssertionError(f"autopilot: flips outside the group in {moved}")
+        return out
+
+    campaign_lib._serve_episode, ApproxSpace.inject = timed_serve, confined_inject
+    try:
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        profile = autopilot.run_campaign(model, ccfg)
+        torch.cuda.synchronize()
+        campaign_s = time.perf_counter() - t0
+        campaign_launches = dict(common.LAUNCHES)
+        n_confined = sum(checked.values())
+        again = autopilot.run_campaign(model, dataclasses.replace(
+            ccfg, groups=ccfg.groups[:1], refresh_points=ccfg.refresh_points[:2]))
+    finally:
+        campaign_lib._serve_episode, ApproxSpace.inject = real_serve, real_inject
+    if campaign_launches.get("scrub", 0) < 1:
+        raise AssertionError(f"autopilot: the campaign never launched the scrub "
+                             f"kernel ({campaign_launches})")
+    if again.cells != profile.cells[:2]:
+        raise AssertionError(f"autopilot: a repeated cell differs: {again.cells} "
+                             f"vs {profile.cells[:2]}")
+    for c, ep in zip(profile.cells, episodes[1:1 + len(profile.cells)]):
+        lam = windows * c.approx_bytes * 8 * c.ber
+        if abs(c.flips - lam) > AP_SIGMAS * math.sqrt(lam):
+            raise AssertionError(f"autopilot: {c.group} at {c.refresh_s} s: "
+                                 f"{c.flips} flips vs Poisson mean {lam:.1f}")
+        log(f"autopilot cell {c.group} refresh={c.refresh_s} s ber={c.ber:.3g}: "
+            f"quality {c.quality:.4f}, flips {c.flips} (Poisson mean {lam:.1f}), "
+            f"faults/step {c.faults_per_step}, approx bytes {c.approx_bytes}, "
+            f"energy saving {c.energy_saving:.4f}; episode {ep['s']:.2f} s, "
+            f"{ep['scrub_per_step']:.2f} scrub launches a step "
+            f"({routes[c.group]} repair) ({card})")
+    log(f"autopilot campaign ok: qwen2-1.5b L={model.cfg.n_layers} "
+        f"{model.cfg.dtype_name}, {len(profile.cells)} cells + clean in "
+        f"{campaign_s:.2f} s (clean episode {episodes[0]['s']:.2f} s), "
+        f"{n_confined} windows held to their group, the first "
+        f"{len(again.cells)} cells repeated bit for bit, launches "
+        f"{campaign_launches} ({card})")
+
+    # -- (b) the frontier ------------------------------------------------
+    frontier = autopilot.solve_frontier(profile, AP_BUDGET)
+    for a in frontier.assignments:
+        ok = [c for c in profile.group_cells(a.group)
+              if math.isfinite(c.quality) and c.quality <= AP_BUDGET]
+        if a.collapsed != (not ok) or (ok and a.refresh_s != max(c.refresh_s for c in ok)):
+            raise AssertionError(f"autopilot: frontier assignment {a}")
+        log(f"autopilot frontier {a.group}: refresh {a.refresh_s} s, "
+            f"collapsed {a.collapsed}, quality {a.quality:.4f}, expected "
+            f"faults/step {a.expected_faults_per_step}")
+    if autopilot.ToleranceProfile.from_json(profile.to_json()) != profile:
+        raise AssertionError("autopilot: the profile's JSON does not round-trip")
+    text = frontier.to_json()
+    if autopilot.FrontierAssignment.from_json(text).to_json() != text:
+        raise AssertionError("autopilot: the frontier's JSON does not round-trip")
+    log(f"autopilot frontier ok: budget {AP_BUDGET}, byte-weighted energy "
+        f"saving {frontier.energy_saving:.4f}, JSON round-trips")
+
+    # -- (c) the engine's guard ------------------------------------------
+    prompts = requests(model.cfg.vocab)
+    base = serving_config()
+
+    def engine_space(rules):
+        return ApproxSpace(model.cfg.repair, mode="memory", policy="zero",
+                           max_magnitude=None, rules=rules,
+                           scrub=ScrubSchedule(boundary=False, interval=0))
+
+    steady = collections.defaultdict(list)
+    arms = (("plain", base), ("guarded", dataclasses.replace(
+        base, autopilot=frontier.autopilot())))
+    for _ in range(2):                      # in turns
+        for name, cfg in arms:
+            eng = Engine(model, cfg, space=engine_space(frontier.ruleset()),
+                         device="cuda")
+            before = collections.Counter(common.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = drive(eng, prompts, plant_after=None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            m = eng.metrics()
+            launched = collections.Counter(common.LAUNCHES) - before
+            steady[name].append(dict(
+                ms=1e3 * wall / m["steps"], tokens=[r["tokens"] for r in results],
+                launches={k: v / m["steps"] for k, v in sorted(launched.items())},
+                scrubbed=m["scrubbed_bytes"], trips=m["autopilot_trips"],
+                guard_ms=1e3 * m["stage_wall_s"]["guard"] / m["steps"]))
+    ref = steady["plain"][0]
+    for name, runs in steady.items():
+        for run in runs:
+            for key in ("tokens", "launches", "scrubbed"):
+                if run[key] != ref[key]:
+                    raise AssertionError(f"autopilot steady arm {name}: {key} differs")
+    if any(run["trips"] for runs in steady.values() for run in runs):
+        raise AssertionError("autopilot steady arm: the guard tripped at BER 0")
+    log(f"autopilot steady ok: frontier rules and guard at BER 0, 0 trips, "
+        f"tokens, launches a step {ref['launches']} and scrubbed bytes "
+        f"{ref['scrubbed']} as without the guard; ms a step in turns: plain "
+        f"{[round(r['ms'], 3) for r in steady['plain']]}, guarded "
+        f"{[round(r['ms'], 3) for r in steady['guarded']]}, the guard's tick "
+        f"{[round(r['guard_ms'], 4) for r in steady['guarded']]} ms a step ({card})")
+
+    kv = groups["kv_cache"]
+    eng = Engine(model, dataclasses.replace(base, autopilot=AutopilotConfig(
+        **AP_GUARD, expected=((kv.name, 0.0),))),
+        space=engine_space(RuleSet(((kv.pattern, kv.labeled_rule()),))),
+        device="cuda")
+    finite = []
+
+    def checking(fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            finite.append(bool(torch.isfinite(out[0]).all()))
+            return out
+        return call
+
+    hooked = ("serve_step_paged", "prefill_paged", "serve_step", "prefill")
+    for name in hooked:
+        setattr(model, name, checking(getattr(model, name)))
+    try:
+        rids = [eng.add_request(p, max_new=16) for p in prompts]
+        common.reset_launches()
+        trace, planted, step = [], 0, 0
+        while eng.has_work:
+            before = collections.Counter(common.LAUNCHES)
+            g0 = eng.stage_wall_s["guard"]
+            eng.step()
+            launched = collections.Counter(common.LAUNCHES) - before
+            trace.append(dict(paged=eng.paged_plan is not None,
+                              decode=launched["paged_decode"],
+                              prefill=launched["paged_prefill"],
+                              scrub=launched["scrub"], trips=len(eng.guard.trips),
+                              guard_ms=1e3 * (eng.stage_wall_s["guard"] - g0)))
+            if step >= AP_PLANT_FROM and not eng.space.ruleset.entries[0][1].exact:
+                planted += _plant_live(eng, step)
+            step += 1
+        drift_launches = dict(common.LAUNCHES)
+    finally:
+        for name in hooked:
+            delattr(model, name)
+    trips = eng.guard.trips
+    if min(drift_launches.get(k, 0) for k in ("paged_decode", "paged_prefill", "scrub")) < 1:
+        raise AssertionError(f"autopilot drift arm: launches {drift_launches}")
+    if [t["action"] for t in trips] != ["stricter", "exact"]:
+        raise AssertionError(f"autopilot drift arm: trips {trips}")
+    done = [len(eng.results[r]["generated"]) for r in rids]
+    if done != [16] * len(rids) or not all(finite) or not all(
+            bool(torch.isfinite(t).all()) for t in eng.pool.tree.values()):
+        raise AssertionError(f"autopilot drift arm: generated {done}, "
+                             f"{finite.count(False)} non-finite logits")
+    at = [next(i for i, s in enumerate(trace) if s["trips"] > n) for n in range(len(trips))]
+    for trip, i in zip(trips, at):
+        after = trace[i + 1] if i + 1 < len(trace) else None
+        log(f"autopilot trip at step {i}: {json.dumps(trip)}; paged_decode "
+            f"{trace[i]['paged']}; launches paged_decode/paged_prefill/scrub "
+            f"step {i} {trace[i]['decode']}/{trace[i]['prefill']}/{trace[i]['scrub']}, "
+            f"step {i + 1} " + (f"{after['decode']}/{after['prefill']}/{after['scrub']}"
+                                if after else "none") +
+            f"; the tick with the plan rebuild {trace[i]['guard_ms']:.3f} ms")
+    quiet = [s["guard_ms"] for j, s in enumerate(trace) if j not in at]
+    log(f"autopilot drift ok: {planted} lanes planted over steps "
+        f"{AP_PLANT_FROM}-{at[-1]}, trips stricter at step {at[0]} and exact at "
+        f"step {at[1]}, {len(rids)} requests x 16 tokens, {len(finite)} logits "
+        f"checks finite, rule stats {eng.rule_stats()[kv.name]}, launches "
+        f"{drift_launches}, the guard's tick {statistics.median(quiet):.4f} ms "
+        f"median without a trip ({card})")
+
+    # -- (d) the train loop's guard --------------------------------------
+    tcfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=AP_TRAIN_LAYERS,
+                               repair=ApproxConfig(mode="memory", policy="zero"))
+    tmodel = TransformerLM(tcfg, device="cuda", seed=0)
+    pattern = r"params/|opt/"
+    resident_rule = RepairRule(detect=Detector(nan=True, inf=True), fill="zero",
+                               trigger="boundary", label="resident")
+    tspace = ApproxSpace(ApproxConfig(
+        mode="memory", rules=RuleSet(((pattern, resident_rule),)),
+        autopilot=AutopilotConfig(**AP_GUARD, expected=(("resident", 0.0),))))
+    data = SyntheticStream(tcfg, seed=0, batch=AP_TRAIN_B, seq=AP_TRAIN_S,
+                           device="cuda")
+    seen = []
+
+    def data_fn(i):
+        seen.append((collections.Counter(common.LAUNCHES), tspace.ruleset.entries[0][1]))
+        return data(i)
+
+    common.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, history = ttrain.train_loop(
+        tmodel, ttrain.make_optimizer(warmup=1, total=AP_TRAIN_STEPS), data_fn,
+        steps=AP_TRAIN_STEPS, seed=0, ber=AP_TRAIN_BER, space=tspace, log_every=1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    seen.append((collections.Counter(common.LAUNCHES), None))
+    resident = ttrain.resident(state)
+    n_bytes = sum(t.numel() * t.element_size() for t in resident.values())
+
+    def implied(rule):
+        rs = ApproxSpace(ApproxConfig(mode="memory", rules=RuleSet(((pattern, rule),))))
+        return len(rs.plan_for(resident, scope="tree", trigger="boundary").kernel_paths)
+
+    per_step = [(seen[i + 1][0] - seen[i][0])["scrub"] for i in range(AP_TRAIN_STEPS)]
+    want = [implied(seen[i][1]) for i in range(AP_TRAIN_STEPS)]
+    decisions = [d for h in history if "autopilot" in h for d in h["autopilot"]]
+    losses = [h["loss"] for h in history if "loss" in h]
+    deployed = tspace.ruleset.entries[0][1]
+    if not decisions or not (deployed.exact or deployed.detect.max_magnitude is not None):
+        raise AssertionError(f"autopilot train guard: decisions {decisions}, "
+                             f"deployed {deployed}")
+    if per_step != want or not sum(per_step) or len(losses) != AP_TRAIN_STEPS or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"autopilot train guard: scrub launches {per_step} vs "
+                             f"{want}, losses {losses}")
+    log(f"autopilot train ok: qwen2-1.5b width, {AP_TRAIN_LAYERS} layers, "
+        f"{AP_TRAIN_B}x{AP_TRAIN_S}, ber={AP_TRAIN_BER:g} over {n_bytes} bytes, "
+        f"flips {[h.get('flips') for h in history if 'loss' in h]}, losses "
+        f"{[round(x, 4) for x in losses]} (ln V = {math.log(tcfg.vocab):.4f}), trips "
+        f"{[(d['action'], d['window'], d['observed']) for d in decisions]}, "
+        f"deployed {'exact' if deployed.exact else 'stricter'}, scrub launches "
+        f"a step {per_step} (implied by each step's rule: {want}), "
+        f"{train_s:.2f} s ({card})")
+    del tmodel, state, resident
+    torch.cuda.empty_cache()
+    timing = dict(
+        campaign_s=campaign_s, episode_s=[e["s"] for e in episodes],
+        steady_ms_per_step={k: [r["ms"] for r in v] for k, v in steady.items()},
+        guard_tick_ms=statistics.median(quiet),
+        trip_tick_ms=[trace[i]["guard_ms"] for i in at], train_s=train_s,
+        phase_s=time.perf_counter() - t_phase)
+    log(f"timing autopilot: {json.dumps(timing)} ({card})")
+
+
 def _kernel_name(mangled: str) -> str:
     """A mangled kernel's own name, the last component of its (nested)
     name, with its template arguments: ``_ZN..2wg16mlstm_scan_wgmmaE..``
@@ -3820,7 +4211,7 @@ PHASES = ("kernel_phase", "ops_phase", "engine_phase", "fallback_phase",
           "prefix_tier_phase", "parity_phase", "injection_phase", "train_phase",
           "checkpoint_phase", "mlstm_phase", "xlstm_forward_phase",
           "xlstm_generate_phase", "xlstm_depth_phase", "xlstm_parity_phase",
-          "xlstm_train_phase")
+          "xlstm_train_phase", "autopilot_phase")
 
 
 def main(argv=None) -> int:

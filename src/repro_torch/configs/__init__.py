@@ -14,3 +14,13 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(
             f"config {name!r} is not ported; ported: {sorted(_CONFIGS)}"
         ) from None
+
+
+# the autopilot's campaign presets, imported after the registry exists:
+# their recipes resolve through get_config
+from .autopilot_presets import (  # noqa: E402,F401
+    PRESETS,
+    AutopilotPreset,
+    get_preset,
+    preset_names,
+)

@@ -50,3 +50,18 @@ def annotate(
 ) -> Dict[str, Region]:
     """``{path: Region}`` for a flat state dict."""
     return {path: classify(path, rules) for path in tree}
+
+
+def count_bytes(tree: Mapping[str, Any],
+                regions: Mapping[str, Region]) -> Tuple[int, int]:
+    """(approx_bytes, exact_bytes) of a flat state dict under ``{path:
+    Region}``: the energy model's split (savings apply only to the
+    approximate bytes).  Every tensor or array counts, whatever its dtype."""
+    approx = exact = 0
+    for path, leaf in tree.items():
+        nbytes = int(getattr(leaf, "nbytes", 0))
+        if regions[path] is Region.APPROX:
+            approx += nbytes
+        else:
+            exact += nbytes
+    return approx, exact

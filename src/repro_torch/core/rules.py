@@ -250,6 +250,23 @@ class RuleSet:
             indices[path], rules[path] = self.rule_for(path)
         return rules, indices
 
+    def with_rule(self, label: str, rule: RepairRule) -> "RuleSet":
+        """A copy with the entry labeled ``label`` replaced by ``rule``:
+        same pattern, same position, same label (the replacement is
+        relabeled), so the per-rule ledger and the autopilot guard's
+        expectations stay keyed identically across a tighten.  Raises
+        ``KeyError`` when no entry carries the label."""
+        entries, found = [], False
+        for pattern, existing in self.entries:
+            if not found and existing.label == label:
+                entries.append((pattern, dataclasses.replace(rule, label=label)))
+                found = True
+            else:
+                entries.append((pattern, existing))
+        if not found:
+            raise KeyError(f"no rule labeled {label!r} in this RuleSet")
+        return RuleSet(entries=tuple(entries))
+
     @property
     def n_rules(self) -> int:
         return len(self.entries) + 1

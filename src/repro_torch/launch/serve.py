@@ -98,7 +98,7 @@ def generate(
         )
     space = space or serve_space(model, scrub_every)
     batched = model.supports_batched_prefill
-    cache = model.init_cache(B, max_seq) if batched else model.init_cache(B)
+    cache = model.init_cache(B, max_seq)
     step_fn = space.wrap_serve_step(build_serve_step(model))
     stats = stats_lib.zeros()
     tokens = prompt.to(model.device)

@@ -20,6 +20,11 @@ folded into ``space.rule_stats()`` by ``train_loop``).  The step updates
 the tensors in place.  Both ported families train: ``TransformerLM`` and
 ``XLSTMLM``.
 
+``train_loop`` arms the autopilot's online guard when the space's config
+carries an ``AutopilotConfig``: every ``window`` steps the state's rule
+ledger is folded into the space and the guard observes it; a trip's
+decisions go into the history.
+
 ``train_loop`` saves through a ``checkpoint.CheckpointManager`` every
 ``checkpoint_every`` steps (the rule ledger folded and zeroed first), and
 resumes from a restored state: ``bind_state`` copies its params into the
@@ -192,7 +197,13 @@ def train_loop(
     its rule ledger folded and zeroed first, so a restored checkpoint never
     re-folds what the space already holds; the loop waits for the last
     write.  A given ``state`` (a restored checkpoint) is bound to the
-    model first (``bind_state``)."""
+    model first (``bind_state``).
+
+    With ``space.config.autopilot`` the online guard observes after every
+    ``window``-th step, the rule ledger folded first; a trip appends
+    ``{"step": i, "autopilot": decisions}`` to the history.  The step
+    plans its boundary scrub from the space's rules on every call, so a
+    tightened rule takes effect from the next step without a rebuild."""
     if mesh is not None:
         raise NotImplementedError(
             "train_loop(mesh=...) is not ported: ROADMAP slice 6 (multi-GPU)"
@@ -204,12 +215,22 @@ def train_loop(
     else:
         state = bind_state(model, state)
     step_fn = build_train_step(model, opt, n_micro=n_micro, space=space)
+    guard = None
+    if space.config.autopilot is not None:
+        from ..autopilot.guard import OnlineGuard   # deferred: autopilot imports us
+        guard = OnlineGuard(space, space.config.autopilot)
     history = []
     for i in range(start_step, steps):
         if ber > 0.0:
             state = inject_state(state, _window_generator(model.device, seed, i),
                                  ber, space)
         state, metrics = step_fn(state, data_fn(i))
+        if guard is not None and (i + 1) % guard.cfg.window == 0:
+            # the step's ledger must reach rule_stats() before the window
+            state = _fold_rule_counts(space, state)
+            decisions = guard.observe()
+            if decisions:
+                history.append({"step": i, "autopilot": decisions})
         if log_every and (i % log_every == 0 or i == steps - 1):
             history.append({"step": i,
                             **{k: float(v) for k, v in metrics.items()},

@@ -202,8 +202,10 @@ class XLSTMLM(nn.Module):
                      for k, (shape, dt) in s.items()})
         return dict(sorted(defs.items()))
 
-    def init_cache(self, batch: int) -> Cache:
-        """The decode cache: every leaf zeros, as the reference's."""
+    def init_cache(self, batch: int, max_seq: Optional[int] = None) -> Cache:
+        """The decode cache: every leaf zeros, as the reference's.  The
+        recurrent state has no sequence axis: ``max_seq`` is accepted, as
+        the transformer's signature has it, and ignored."""
         return {
             path: torch.zeros(shape, dtype=dt, device=self.device)
             for path, (shape, dt) in self.cache_defs(batch).items()

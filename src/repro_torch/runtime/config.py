@@ -1,7 +1,8 @@
 """`ApproxConfig` — the one frozen configuration of the approximate-memory
 runtime: repair mode and fill, the refresh→BER point, region rules, the
-scrub schedule and an optional ``RuleSet``.  Attribute-compatible with the
-reference's; the autopilot contract is not ported (ROADMAP)."""
+scrub schedule, an optional ``RuleSet`` and the autopilot's online-guard
+contract (``AutopilotConfig``).  Attribute-compatible with the
+reference's."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,9 +29,57 @@ class ScrubSchedule:
 
 
 @dataclasses.dataclass(frozen=True)
+class AutopilotConfig:
+    """The online guard's contract, emitted by the autopilot's frontier
+    solver (``autopilot.frontier``).  Every ``window`` steps the guard takes
+    each guarded label's fatal-event delta from ``rule_stats()`` and calls
+    it a strike above ``tolerance × expected × window + floor``
+    (``threshold``); ``patience`` consecutive strikes tighten the label's
+    rule one stage, after which ``cooldown`` windows are ignored for it.
+
+      window     steps per observation window
+      tolerance  multiplier over the profiled expectation
+      floor      absolute event slack added to every threshold
+      patience   consecutive over-threshold windows before tightening
+      cooldown   windows to ignore a label after tightening it
+      expected   ordered (rule label, expected fatal events per step); a
+                 dict is normalised to its sorted items
+    """
+
+    window: int = 8
+    tolerance: float = 4.0
+    floor: float = 4.0
+    patience: int = 2
+    cooldown: int = 2
+    expected: Tuple[Tuple[str, float], ...] = ()
+
+    def __post_init__(self):
+        if self.window <= 0:
+            raise ValueError("autopilot window must be positive")
+        if self.patience <= 0:
+            raise ValueError("autopilot patience must be positive")
+        if isinstance(self.expected, dict):
+            object.__setattr__(self, "expected", tuple(sorted(self.expected.items())))
+
+    def expected_rate(self, label: str) -> float:
+        """Profiled fatal events per step for ``label`` (0.0 if unknown)."""
+        for name, rate in self.expected:
+            if name == label:
+                return float(rate)
+        return 0.0
+
+    def threshold(self, label: str) -> float:
+        """Observed events per window above this are a strike."""
+        return self.tolerance * self.expected_rate(label) * self.window + self.floor
+
+
+@dataclasses.dataclass(frozen=True)
 class ApproxConfig:
     """Repair (mode, policy, include_inf, max_magnitude), the simulated
-    memory (refresh_interval_s, ber), regions, schedule and rules."""
+    memory (refresh_interval_s, ber), regions, schedule, rules and the
+    online guard (``autopilot``: ``None`` disables it; an
+    ``AutopilotConfig`` arms it in ``launch.train.train_loop``, while
+    serving has its own switch, ``ServingConfig.autopilot``)."""
 
     mode: str = "memory"
     policy: Any = "neighbor_mean"
@@ -45,6 +94,7 @@ class ApproxConfig:
     )
     scrub: ScrubSchedule = ScrubSchedule()
     rules: Optional[rules_lib.RuleSet] = None
+    autopilot: Optional[AutopilotConfig] = None
 
     def __post_init__(self):
         if self.mode not in _MODES:

@@ -8,12 +8,16 @@
                         repair mode, plain ``torch.where`` on each rule's
                         fatal masks, as the reference's has no kernel
               "inject"  the simulation boundary (one bit-flip window)
-  placement   "kernel"  tree and pages scrubs go through the scrub wrapper
-                        (``kernels.scrub``): its CUDA kernel for tensors on
-                        the card, its plain version on the CPU.  Chosen
-                        when every leaf the pass repairs has a kernel fill
-                        and an encodable detector (pages scope: ndim ≥ 2)
-              "local"   the tensor-level rule repair, for anything else
+  placement   decided per leaf: a leaf whose rule has a kernel fill and an
+              encodable detector (pages scope: ndim ≥ 2) is scrubbed by the
+              scrub wrapper (``kernels.scrub``: its CUDA kernel for tensors
+              on the card, its plain version on the CPU), any other leaf by
+              the tensor-level rule repair.  Both give the same bits and
+              counts for a kernel fill, so a pass that mixes the two (the
+              autopilot campaign's ``neighbor_mean`` weights beside a zero-
+              fill cache) keeps the kernel for the leaves that have one
+              (``kernel_paths``); the reference decides once a pass, since
+              its kernel pass is one executable
 
 Page scrubs pad their id list to the next power of two with duplicates of
 the first id, whose lanes are repaired but masked out of the counts — the
@@ -64,21 +68,18 @@ def _bucket(n: int, cap: int) -> int:
     return max(1, min(b, cap))
 
 
-def _kernel_eligible(tree, regions, rules, trigger, scope) -> bool:
-    for path, leaf in tree.items():
-        rule = rules[path]
-        if not is_approx_float(leaf, regions[path]):
-            continue
-        if not rule.fires(trigger) or not leaf.numel():
-            continue
-        if kernels_common.kernel_fill(rule.fill) is None:
-            return False
-        if scope == "pages" and leaf.dim() < 2:
-            return False
-        try:
-            rule.detect.constants(leaf.dtype)
-        except (TypeError, ValueError):
-            return False
+def _kernel_leaf(leaf, rule, scope) -> bool:
+    """Whether the scrub kernel repairs ``leaf`` under ``rule`` bit for bit:
+    a kernel fill, a detector that encodes into the kernel's constants and,
+    for page scrubs, a page axis in front of at least one more."""
+    if kernels_common.kernel_fill(rule.fill) is None:
+        return False
+    if scope == "pages" and leaf.dim() < 2:
+        return False
+    try:
+        rule.detect.constants(leaf.dtype)
+    except (TypeError, ValueError):
+        return False
     return True
 
 
@@ -92,7 +93,6 @@ def finish_rule_counts(rc: np.ndarray) -> np.ndarray:
 class RepairPlan:
     space: Any
     scope: str
-    placement: str
     regions: Dict[str, regions_lib.Region]
     rules: Dict[str, Any]
     indices: Dict[str, int]
@@ -102,6 +102,7 @@ class RepairPlan:
     page_row_bytes: int
     page_capacity: int
     ber: Optional[float] = None
+    kernel_paths: frozenset = frozenset()
 
     def _firing(self, tree):
         for path, leaf in tree.items():
@@ -158,7 +159,8 @@ class RepairPlan:
             ])
         if self.scope == "tree":
             return tree, self._fold(
-                [(p, self._scrub_leaf(leaf, rule)) for p, leaf, rule in self._firing(tree)],
+                [(p, self._scrub_leaf(p, leaf, rule))
+                 for p, leaf, rule in self._firing(tree)],
                 rules_out,
             )
         ids = np.asarray(page_ids, np.int64).reshape(-1)
@@ -168,7 +170,7 @@ class RepairPlan:
         padded = np.full((bucket,), ids[0], np.int64)
         padded[: ids.size] = ids
         return tree, self._fold([
-            (p, self._scrub_pages_leaf(leaf, rule, padded, ids.size))
+            (p, self._scrub_pages_leaf(p, leaf, rule, padded, ids.size))
             for p, leaf, rule in self._firing(tree)
         ])
 
@@ -187,12 +189,12 @@ class RepairPlan:
         for path, leaf in tree.items():
             if path in firing:
                 leaf = leaf.clone()
-                per_leaf.append((path, self._scrub_leaf(leaf, self.rules[path])))
+                per_leaf.append((path, self._scrub_leaf(path, leaf, self.rules[path])))
             sink(path, leaf)
         return self._fold(per_leaf)
 
-    def _scrub_leaf(self, leaf, rule) -> torch.Tensor:
-        if self.placement == "kernel":
+    def _scrub_leaf(self, path, leaf, rule) -> torch.Tensor:
+        if path in self.kernel_paths:
             policy, constant = kernels_common.kernel_fill(rule.fill)
             return scrub_kernel.scrub(
                 leaf, policy=policy, constant=constant, detector=rule.detect
@@ -201,8 +203,8 @@ class RepairPlan:
         leaf.copy_(fixed)
         return torch.stack([n, i])
 
-    def _scrub_pages_leaf(self, leaf, rule, padded, n_valid) -> torch.Tensor:
-        if self.placement == "kernel":
+    def _scrub_pages_leaf(self, path, leaf, rule, padded, n_valid) -> torch.Tensor:
+        if path in self.kernel_paths:
             policy, constant = kernels_common.kernel_fill(rule.fill)
             return scrub_kernel.scrub_pages(
                 leaf, padded, policy=policy, constant=constant,
@@ -244,9 +246,12 @@ def plan_for(
     scope: str = "tree",
     ber: Optional[float] = None,
     trigger: str = "forced",
+    regions: Optional[Dict[str, regions_lib.Region]] = None,
 ) -> RepairPlan:
     """Plan one pass over ``tree`` for ``space`` (cached per scope, trigger,
-    layout and rule set)."""
+    layout, rule set and region mask).  ``regions`` (``{path: Region}``)
+    overrides the space's region classification: the autopilot campaign's
+    mask that confines an injection window to one group."""
     if scope not in SCOPES:
         raise ValueError(f"bad plan scope {scope!r}; expected one of {SCOPES}")
     if scope in ("tree", "pages") and space.config.mode != "memory":
@@ -257,17 +262,21 @@ def plan_for(
         (path, tuple(leaf.shape), str(leaf.dtype)) for path, leaf in tree.items()
     )
     extra = float(ber) if scope == "inject" else None
-    key = (scope, trigger, layout, extra, space.ruleset.digest())
+    mask = None if regions is None else tuple(regions[p] for p in tree)
+    key = (scope, trigger, layout, extra, space.ruleset.digest(), mask)
     plan = space._plan_cache.get(key)
     if plan is not None:
         return plan
-    regions = space.regions_for(tree)
+    if regions is None:
+        regions = space.regions_for(tree)
     rules, indices = space.rules_for(tree)
-    placement = "local"
-    if scope in ("tree", "pages") and _kernel_eligible(
-        tree, regions, rules, trigger, scope
-    ):
-        placement = "kernel"
+    firing = [
+        p for p, leaf in tree.items()
+        if is_approx_float(leaf, regions[p]) and rules[p].fires(trigger)
+        and leaf.numel()
+    ] if scope in ("tree", "pages") else []
+    kernel_paths = frozenset(
+        p for p in firing if _kernel_leaf(tree[p], rules[p], scope))
     approx_bytes = page_row_bytes = page_capacity = 0
     for path, leaf in tree.items():
         if not is_approx_float(leaf, regions[path]):
@@ -283,11 +292,11 @@ def plan_for(
                 else min(page_capacity, leaf.shape[0])
             )
     plan = RepairPlan(
-        space=space, scope=scope, placement=placement, regions=regions,
+        space=space, scope=scope, regions=regions,
         rules=rules, indices=indices, n_rules=space.ruleset.n_rules,
         trigger=trigger, bytes_per_run=0 if scope == "none" else approx_bytes,
         page_row_bytes=page_row_bytes, page_capacity=max(page_capacity, 1),
-        ber=extra,
+        ber=extra, kernel_paths=kernel_paths,
     )
     space._plan_cache[key] = plan
     return plan

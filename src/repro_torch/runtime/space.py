@@ -12,11 +12,13 @@ copy and leaves its input as it was, as does ``scrub_copies`` (the
 checkpoint manager's save scrub).  ``scrub_with_reference`` restores
 fatal lanes from a reference tree (the prefix cache's page snapshots, a
 restored checkpoint).  ``wrap_serve_step`` and ``wrap_train_step`` install
-the boundary scrub around a serve step and a train step.  Not ported:
+the boundary scrub around a serve step and a train step.  ``set_rules``
+swaps the rule set at run time (the autopilot guard).  Not ported:
 meshes (ROADMAP slice 6).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -103,10 +105,27 @@ class ApproxSpace:
         return self._ruleset
 
     def plan_for(self, tree: Tree, *, scope: str = "tree",
-                 ber: Optional[float] = None, trigger: str = "forced"):
+                 ber: Optional[float] = None, trigger: str = "forced",
+                 regions: Optional[Dict[str, regions_lib.Region]] = None):
         from . import plan as plan_lib
 
-        return plan_lib.plan_for(self, tree, scope=scope, ber=ber, trigger=trigger)
+        return plan_lib.plan_for(self, tree, scope=scope, ber=ber,
+                                 trigger=trigger, regions=regions)
+
+    def set_rules(self, ruleset: rules_lib.RuleSet) -> "ApproxSpace":
+        """Swap in a new ``RuleSet`` at run time (the autopilot guard's
+        tightening).  The rule, region and plan caches are cleared; the
+        per-rule ledger survives when the labels are unchanged (the guard
+        replaces rules in place) and is reset when they change."""
+        old_labels = self._ruleset.labels()
+        self.config = dataclasses.replace(self.config, rules=ruleset)
+        self._ruleset = self.config.ruleset
+        self._rule_cache.clear()
+        self._region_cache.clear()
+        self._plan_cache.clear()
+        if self._rule_counts is not None and self._ruleset.labels() != old_labels:
+            self._rule_counts = None
+        return self
 
     # ---------------------------------------------------------------- regions
     def rules_for(self, tree: Tree) -> Tuple[Dict[str, Any], Dict[str, int]]:
@@ -132,6 +151,10 @@ class ApproxSpace:
             }
             self._region_cache[key] = hit
         return hit
+
+    def region_bytes(self, tree: Tree) -> Tuple[int, int]:
+        """(approx_bytes, exact_bytes) of ``tree`` under this space's rules."""
+        return regions_lib.count_bytes(tree, self.regions_for(tree))
 
     # ------------------------------------------------------------- mechanisms
     def use(self, x: torch.Tensor, stats: Optional[stats_lib.Stats] = None,
@@ -196,19 +219,25 @@ class ApproxSpace:
 
     def inject(self, tree: Tree, generator: torch.Generator,
                ber: Optional[float] = None, *,
-               stats: Optional[stats_lib.Stats] = None):
+               stats: Optional[stats_lib.Stats] = None,
+               record: bool = True,
+               regions: Optional[Dict[str, regions_lib.Region]] = None):
         """One approximate-memory window of bit flips over the approximate
         region (in place).  With ``stats``: ``(tree, stats')``; otherwise
-        ``(tree, n_flips)``, recorded into ``self.stats``."""
+        ``(tree, n_flips)``, recorded into ``self.stats`` unless
+        ``record=False``.  ``regions`` (``{path: Region}``) overrides
+        ``regions_for``: the autopilot campaign's mask confining a window
+        to one region group."""
         ber = self.config.resolved_ber if ber is None else ber
         if ber <= 0.0:
             flips = 0
         else:
-            plan = self.plan_for(tree, scope="inject", ber=ber)
+            plan = self.plan_for(tree, scope="inject", ber=ber, regions=regions)
             tree, flips = plan.run(tree, generator=generator)
         if stats is not None:
             return tree, stats_lib.record_flips(stats, flips)
-        self.stats = stats_lib.record_flips(self.stats, flips)
+        if record:
+            self.stats = stats_lib.record_flips(self.stats, flips)
         return tree, flips
 
     def wrap_serve_step(self, fn):

@@ -1,8 +1,8 @@
 """`ServingConfig` — the knob surface of the continuous-batching engine.
 
-Same fields, defaults and validation as the reference.  The one option
-whose code is not ported yet, ``autopilot``, raises ``NotImplementedError``
-naming the ROADMAP item.  Field meanings are documented on the reference's
+Same fields, defaults and validation as the reference (``autopilot`` is
+an ``AutopilotConfig`` that arms the engine's online guard, or ``None``).
+Field meanings are documented on the reference's
 ``repro.serving.config.ServingConfig``.
 """
 from __future__ import annotations
@@ -18,8 +18,6 @@ _SWAP_POLICIES = ("swap", "recompute")
 # split-K auto heuristic: engage flash decoding once the block-table walk is
 # at least this many pages wide
 _SPLIT_K_MIN_PAGES = 8
-
-_ROADMAP = "ROADMAP 'Modules still to port'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,10 +76,6 @@ class ServingConfig:
             raise ValueError(
                 "max_cached_pages must lie in [0, n_pages] "
                 f"({self.max_cached_pages} vs {self.n_pages})"
-            )
-        if self.autopilot is not None:
-            raise NotImplementedError(
-                f"ServingConfig autopilot is not ported: {_ROADMAP}, autopilot/"
             )
 
     @property

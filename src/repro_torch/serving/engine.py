@@ -29,6 +29,11 @@ One step:
      gathered fallback, the probe of the touched pages, their scrub, then
      ``Model.serve_step`` over the gathered view
   5. the background sweep tick
+  6. the online autopilot guard (``cfg.autopilot``): every ``window``
+     steps it reads ``rule_stats()``; a trip tightens a drifting label's
+     rule (``space.set_rules``), and the engine decides its paged lanes
+     again from the new rules (``_plan_lanes``), draining the deferred
+     counters first if the paged lanes went away
 
 The paged paths run wherever the model and the pool rules allow
 (``_paged_decode_plan``); the gathered view is the fallback the reference
@@ -58,6 +63,7 @@ import numpy as np
 import torch
 
 from .. import device as device_lib
+from ..autopilot.guard import OnlineGuard
 from ..core import stats as stats_lib
 from ..core.regions import Region
 from ..kernels import common as kernels_common
@@ -176,6 +182,7 @@ class Engine:
         self.n_host_syncs = 0
         self.stage_wall_s: Dict[str, float] = {
             "admit": 0.0, "prefill": 0.0, "decode": 0.0, "repair": 0.0,
+            "guard": 0.0,
         }
         self.tiers = (TierManager(self.pool, self.space, self.cfg)
                       if self.cfg.host_pages > 0 else None)
@@ -188,19 +195,13 @@ class Engine:
         )
         # the greedy step of the gathered fallback, shared with generate
         self._step_fn = self.space.wrap_serve_step(build_serve_step(model))
-        self.paged_plan = (
-            _paged_decode_plan(model, self.space, self.pool, self.cfg)
-            if self.cfg.paged_decode == "auto" else None
-        )
-        self._paged_prefill = (
-            self.paged_plan is not None and self.paged_plan.prefill
-        )
+        self._plan_lanes()
         self._split_k = self.cfg.resolve_split_k()
         self._prefilling: List[Request] = []
         self.kernel_counts = np.zeros(8, np.int64)
-        # desynchronized drain: the paged lanes' counters accumulate on the
-        # device, (n_pages + 1 + 8,) int32, read back once per drain
-        self._desync = self.cfg.drain_interval > 0 and self.paged_plan is not None
+        # desynchronized drain (``_desync``): the paged lanes' counters
+        # accumulate on the device, (n_pages + 1 + 8,) int32, read back
+        # once per drain
         self._pending: Optional[torch.Tensor] = None
         self._pending_covered: set = set()
         self._pending_attr: List[Tuple[List[int], int]] = []
@@ -217,6 +218,23 @@ class Engine:
         self.prefill_tokens_saved = 0
         # tokens a re-prefill processed again after a recompute preemption
         self.prefill_tokens_recomputed = 0
+        self.guard = (OnlineGuard(self.space, self.cfg.autopilot)
+                      if self.cfg.autopilot is not None else None)
+        self.autopilot_trips = 0
+
+    def _plan_lanes(self) -> None:
+        """Decide the paged lanes from the space's rules as they stand: the
+        kernels' detectors and fills, whether admission runs the paged
+        prefill, and whether the drain is desynchronized.  At construction,
+        and again after an autopilot trip."""
+        self.paged_plan = (
+            _paged_decode_plan(self.model, self.space, self.pool, self.cfg)
+            if self.cfg.paged_decode == "auto" else None
+        )
+        self._paged_prefill = (
+            self.paged_plan is not None and self.paged_plan.prefill
+        )
+        self._desync = self.cfg.drain_interval > 0 and self.paged_plan is not None
 
     # ------------------------------------------------------------------ admit
     def add_request(self, prompt: Sequence[int], max_new: int) -> int:
@@ -364,6 +382,18 @@ class Engine:
         t_rep = time.perf_counter()
         self._stream = self.repair.sweep_step(t, self._stream)
         self.stage_wall_s["repair"] += time.perf_counter() - t_rep
+
+        # (6) the autopilot guard closes its window; a trip swapped the
+        # rules the paged plan was decided from
+        if self.guard is not None:
+            t_grd = time.perf_counter()
+            decisions = self.guard.tick()
+            if decisions:
+                self.autopilot_trips += len(decisions)
+                self._plan_lanes()
+                if not self._desync:    # flush before the paged lanes go
+                    self.drain()
+            self.stage_wall_s["guard"] += time.perf_counter() - t_grd
 
         if self._desync:
             self._steps_since_drain += 1
@@ -645,5 +675,6 @@ class Engine:
             "pool_gathers": self.pool.n_gathers,
             "pool_scatters": self.pool.n_scatters,
             "paged_kernel_events": int(self.kernel_counts[6]),
+            "autopilot_trips": self.autopilot_trips,
             **self.repair.summary(),
         }

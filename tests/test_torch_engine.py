@@ -212,13 +212,6 @@ def test_default_device_is_the_card(models, monkeypatch):
                                              max_pages_per_request=4))
 
 
-@pytest.mark.parametrize("option", [dict(autopilot=object())])
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingConfig(page_size=4, n_pages=8, max_batch=2,
-                      max_pages_per_request=4, **option)
-
-
 def test_configurations_needing_the_gathered_fallback_raise(models):
     """The gathered fallback serves ``repair="off"`` and fills without a
     kernel form (the parity cases above); a mesh-native space still

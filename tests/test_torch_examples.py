@@ -86,3 +86,16 @@ def test_train_twin_trains_the_xlstm_on_the_cpu(tmp_path, capsys):
     assert hist[0]["loss"] == hist[0]["loss"]                # not NaN
     out = capsys.readouterr().out
     assert "arch=xlstm-1.3b-100m" in out and "final checkpoint: step 1" in out
+
+
+def test_autopilot_twin_runs_on_the_cpu(capsys):
+    """At the original's sizes: 2 groups x 2 refresh points, the frontier,
+    and the engine under drift, where the guard tightens the KV group."""
+    out = _example("torch_autopilot").main(["--device", "cpu"])
+    assert len(out["profile"].cells) == 4
+    assert out["profile"].cell("ffn_weights", 2.0).flips > 0
+    assert {a.group for a in out["frontier"].assignments} == {"ffn_weights",
+                                                             "kv_cache"}
+    assert out["metrics"]["autopilot_trips"] == len(out["trips"]) >= 1
+    assert len(out["results"][0]["tokens"]) == 8 + 8
+    assert "served under drift: autopilot_trips=" in capsys.readouterr().out
