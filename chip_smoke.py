@@ -72,7 +72,8 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      the zero fill's)
   3. the engine at full width (28 layers, bf16, random weights from seed
      0): 6 requests, faults planted after step 3, repair and launch checks
-  3b. the fallback arms on the same model and requests, each cold (its
+  3b. the fallback arms on the same requests, on a model of their own
+     (Qwen2-1.5B width cut to FALLBACK_LAYERS = 8 layers), each cold (its
      checks) then warm (one ``timing engine arm=`` line: ms and host syncs,
      gathers, scatters, launches and stage wall times a step, the device's
      idle share): (a) ``paged_decode="off"`` (everything gathered, the
@@ -101,6 +102,29 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      paged, (a), (b), (c), register mode, a ``neighbor_mean`` space and
      ``drain_interval=2``
   5. the injection arm: ber=1e-7 for 4 steps
+  5a. the dense variants (``dense_variants_phase``): StableLM-1.6B
+     (LayerNorm, SwiGLU, 25 % rotary, 32 KV heads of 64, untied head) and
+     StarCoder2-15B (LayerNorm, the GeLU MLP with biases, QKV bias, 48
+     heads on 4 KV heads of 128, untied head).  The paged kernels at each
+     model's bf16 pool (P=65, pg=16, B=4, M=8; StableLM L=24, Kh=32,
+     Dh=64, H=32; StarCoder2 L=40, Kh=4, Dh=128, H=48), planted as in
+     phase 2, under two detectors, against their plain versions (decode at
+     splits 1 and 4 on the fused route for StableLM and the walk route for
+     StarCoder2, whose fused block needs more shared memory than a block
+     has; prefill at C and C_LONG on the wgmma route; the engine's page
+     scrub of three pages bucketed to four, bits and counts), then timed beside
+     their bound and SDPA on the gathered view; each model served at full
+     width in bf16 (seed 0) through ``Engine.step`` with the engine
+     cell's requests and plants, cold (its checks), warm (timed) and
+     profiled: one ``timing dense <arch>:`` line (ms a step, tokens/s,
+     launches and device ms a step by group, idle share, init s, peak
+     memory; the profile must show the expected routes' kernels); card
+     against CPU at 2 layers in f32 with the biases and norm parameters
+     drawn nonzero (StarCoder2 on the paged path; StableLM on the
+     gathered view: its f32 pool needs more shared memory than the FFMA
+     prefill and the walk decode have, so the engine refuses its paged
+     lanes before any launch, with the bytes in its message).  Every
+     model is freed before the phase returns
   5b. training at full qwen2-1.5b width and depth (``train_phase``): bf16
      params, f32 AdamW moments, batch 4 x 512, 5 steps in memory mode with
      a zero fill.  NaN and ±Inf planted in ``params/layers/mlp/w_down`` and
@@ -223,8 +247,31 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,  # dense 16-bit TC
 # chunks of C and C_LONG rows (the engine's prompts are 20-100 tokens)
 P, L, PG, KH, DH, H, B, M, C = 65, 28, 16, 2, 128, 12, 4, 8, 64
 C_LONG = 100
-NULL = P - 1
 LAYER = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolShape:
+    """One paged pool's geometry for the kernel checks: pages (the last the
+    null page), layers, page size, KV heads, head dim, query heads,
+    requests and block-table slots."""
+    P: int
+    L: int
+    PG: int
+    KH: int
+    DH: int
+    H: int
+    B: int = 4
+    M: int = 8
+
+
+QWEN2_POOL = PoolShape(P, L, PG, KH, DH, H, B, M)
+# the dense variants' pools at the serving config: StableLM-1.6B (MHA,
+# head dim 64: the fused decode route) and StarCoder2-15B (48 query heads
+# on 4 KV heads: the walk route, its fused block needs more shared memory
+# than a block may have)
+STABLELM_POOL = PoolShape(65, 24, 16, 32, 64, 32)
+STARCODER2_POOL = PoolShape(65, 40, 16, 4, 128, 48)
 # float tolerances, kernel vs plain version on the same card:
 #   f32  — both accumulate in f32 but sum in different orders (the kernel
 #          sequentially per thread, the plain version through cuBLAS)
@@ -276,7 +323,8 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
 # idle host time on each side of a profiled call: the profiler keeps only
 # the device events that it places inside its window, so a skew between
 # the device's and the host's clocks drops the events at the window's ends
-# (a whole short window's, late in a long run)
+# (a whole short window's, late in a long run); a reading taken again
+# doubles it on each try
 PROFILE_PAD_S = 0.25
 
 
@@ -284,10 +332,11 @@ class ProfilerDropped(AssertionError):
     """Every profiler window of a reading lost device events."""
 
 
-def device_profile(fn, table: str = "", counts: dict | None = None):
+def device_profile(fn, table: str = "", counts: dict | None = None,
+                   pad: float = PROFILE_PAD_S):
     """Device milliseconds by kernel name for one call of ``fn`` under
     ``torch.profiler`` (empty when the profiler records no device time),
-    the window padded by ``PROFILE_PAD_S`` on each side.  With ``table``,
+    the window padded by ``pad`` seconds on each side.  With ``table``,
     host and device activity are both recorded and their summary tables
     written to ``chiprun_out/<table>``; with ``counts``, the number of
     launches recorded per name is added to it."""
@@ -297,10 +346,10 @@ def device_profile(fn, table: str = "", counts: dict | None = None):
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if table else [])
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
-        time.sleep(PROFILE_PAD_S)
+        time.sleep(pad)
         fn()
         torch.cuda.synchronize()
-        time.sleep(PROFILE_PAD_S)
+        time.sleep(pad)
     if table:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -348,6 +397,17 @@ def kernel_device_ms(fn, names, iters: int = 20):
     return total or None
 
 
+def library_device_ms(fn, iters: int = 20):
+    """Device time per call of a PyTorch library call (the yardstick beside
+    a kernel; its call time is what the kernels line reports), or the text
+    "not measured" when every profiler window dropped some of its events."""
+    try:
+        return kernel_device_ms(fn, ("",), iters)
+    except ProfilerDropped as exc:
+        log(f"library device time not measured: {exc}")
+        return "not measured"
+
+
 def kernel_breakdown(fn, names, iters: int = 20, tries: int = 5,
                      per_launch: bool = False) -> dict:
     """Device ms per call of each named kernel (0.0 where none ran), or with
@@ -356,13 +416,15 @@ def kernel_breakdown(fn, names, iters: int = 20, tries: int = 5,
     counts only when it recorded some and every kernel's launches are a
     multiple of ``iters``; per launch, the average over the launches it
     recorded is unbiased, so a window counts when every named kernel
-    recorded one.  Otherwise it is taken again, up to ``tries`` times, and
-    then ``ProfilerDropped`` lists what each window recorded."""
+    recorded one.  Otherwise it is taken again with twice the pad, up to
+    ``tries`` times, and then ``ProfilerDropped`` lists what each window
+    recorded."""
     fn()
     recorded = []
-    for _ in range(tries):
+    for i in range(tries):
         counts: dict = {}
-        per = device_profile(lambda: [fn() for _ in range(iters)], counts=counts)
+        per = device_profile(lambda: [fn() for _ in range(iters)], counts=counts,
+                             pad=PROFILE_PAD_S * 2 ** i)
         keys = {n: [k for k in per if n in k] for n in names}
         if per_launch:
             launches = {n: sum(counts[k] for k in keys[n]) for n in names}
@@ -393,6 +455,11 @@ KERNEL_NAMES = {
     "mlstm_chunk": ("mlstm_qk", "mlstm_prep", "mlstm_scan"),
     "tile_fill": ("tile_fill",),
 }
+# the paged routes' device operations, named apart for their device-time
+# split (the fused decode's and the wgmma prefill's counts memset included)
+DECODE_KERNELS = {"fused": ("decode_fused", "Memset"),
+                  "walk": ("decode_partials", "lse_merge")}
+PREFILL_KERNELS = ("prefill_scan", "prefill_repair_wgmma", "Memset")
 # the mLSTM routes' kernels, named apart for their device-time split
 MLSTM_KERNELS = {"ffma": ("mlstm_qk", "mlstm_scan<"),
                  "wgmma": ("mlstm_prep_wgmma", "mlstm_scan_wgmma")}
@@ -403,12 +470,14 @@ COUNT_PASS = ("flash_scan",)
 def device_ops(fn, iters: int = 20, tries: int = 5):
     """(device ms, device operations) per call of ``fn`` over every kernel,
     memset and copy the profiler records, and their names; a window counts
-    only when every operation's count is a multiple of ``iters``."""
+    only when every operation's count is a multiple of ``iters`` (else it
+    is taken again with twice the pad, as in ``kernel_breakdown``)."""
     fn()
     recorded = []
-    for _ in range(tries):
+    for i in range(tries):
         counts: dict = {}
-        per = device_profile(lambda: [fn() for _ in range(iters)], counts=counts)
+        per = device_profile(lambda: [fn() for _ in range(iters)], counts=counts,
+                             pad=PROFILE_PAD_S * 2 ** i)
         if counts and all(c % iters == 0 for c in counts.values()):
             return (sum(per.values()) / iters, sum(counts.values()) / iters,
                     sorted(per))
@@ -423,6 +492,292 @@ def bound(nbytes: float, flops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _errs(a, b) -> float:
+    return float((a.float() - b.float()).abs().nan_to_num(0.0).max())
+
+
+def _same(a, b, what) -> None:
+    import torch
+
+    if not torch.equal(a.cpu(), b.cpu()):
+        raise AssertionError(f"{what}: integer outputs differ\n{a}\n{b}")
+
+
+def _close_nonfinite(out, ref, tol, what) -> int:
+    """Non-finite lanes exactly where the plain version's are, the finite
+    ones within the tolerance, equal Inf where both are Inf; returns how
+    many lanes are NaN in one and ±Inf in the other (an infinite V lane
+    gives Inf where p > 0 and NaN where p rounds to 0, and p may be rounded
+    against another running max than the plain version's)."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    fin = ref.isfinite()
+    _same(out.isfinite(), fin, f"finite lanes {what}")
+    torch.testing.assert_close(out[fin], ref[fin], rtol=tol, atol=tol)
+    both_inf = out.isinf() & ref.isinf()
+    _same(out[both_inf], ref[both_inf], f"Inf lanes {what}")
+    return int((out.isnan() != ref.isnan()).sum())
+
+
+class PagedCheck:
+    """The paged kernels against their plain versions on one pool shape:
+    the block tables (request b holds 8, 5, 3 and 1 real pages, the rest
+    null-padded, pages drawn from a seeded permutation), decode positions
+    and prefill starts, planted pools and queries (``fresh``), and the
+    decode and prefill checks, which keep the largest output error in
+    ``max_err``."""
+
+    def __init__(self, shape: PoolShape):
+        import torch
+
+        self.shape, sh = shape, shape
+        self.dev = dev = torch.device("cuda")
+        self.null = sh.P - 1
+        gen = torch.Generator(device=dev).manual_seed(0)
+        n_real = [8, 5, 3, 1][:sh.B]
+        perm = torch.randperm(sh.P - 1, generator=gen, device=dev).tolist()
+        self.bt_rows, cursor = [], 0
+        for n in n_real:
+            self.bt_rows.append(perm[cursor:cursor + n] + [self.null] * (sh.M - n))
+            cursor += n
+        self.bt = torch.tensor(self.bt_rows, dtype=torch.int32, device=dev)
+        self.pos = torch.tensor([n * sh.PG - 3 for n in n_real],
+                                dtype=torch.int32, device=dev)
+        self.q_starts = {c: torch.tensor([max(0, n * sh.PG - c) for n in n_real],
+                                         dtype=torch.int32, device=dev)
+                         for c in (C, C_LONG)}
+        self.cols = sh.PG * sh.KH * sh.DH     # one page of one layer: its nm tile
+        # the page scrub's pages: two planted resident pages and the null page
+        self.scrub_ids = [self.bt_rows[0][1], self.bt_rows[1][0], self.null]
+        self.max_err = {"paged_decode": 0.0, "paged_prefill": 0.0,
+                        "decode_own_partition": 0.0, "scrub": 0.0}
+
+    def fresh(self, dtype, nm=False):
+        """The pools, decode q and prefill chunks, planted (lanes and KV
+        heads clamped to the pool's).  With ``nm``, the neighbor_mean
+        operands: each page of the layer carries its own offset (the page
+        is one logical tile), and request 3, whose lanes all sit in one
+        page (page p3, offset NM_OFFSETS[0] > 0), gets lanes a wrong fill
+        must move: V lane 5 of KV head 0 NaN in every slot (its output lane
+        there is V's fill, whatever the weights), K of slot 1 of KV head 1
+        NaN in every lane, and q of that head group biased against p3's
+        sign (p3's keys score alike with the right fill; slot 1 takes the
+        row over with a zero or negative one)."""
+        import torch
+
+        sh, dev, bt_rows, null = self.shape, self.dev, self.bt_rows, self.null
+        g = torch.Generator(device=dev).manual_seed(1)
+        kp = torch.randn((sh.P, sh.L, sh.PG, sh.KH, sh.DH), generator=g, device=dev)
+        vp = torch.randn((sh.P, sh.L, sh.PG, sh.KH, sh.DH), generator=g, device=dev)
+        if nm:
+            for t in (kp, vp):
+                t[:, LAYER] += _tile_offsets(sh.P, self.cols, (1, self.cols), dev,
+                                             first=bt_rows[3][0]).view(
+                    sh.P, sh.PG, sh.KH, sh.DH)
+        kp, vp = kp.to(dtype), vp.to(dtype)
+
+        def at(page, slot, head, lane):
+            return (page, LAYER, slot, min(head, sh.KH - 1), min(lane, sh.DH - 1))
+
+        plant = [
+            (kp, at(bt_rows[0][1], 3, 0, 10), float("nan")),
+            (kp, at(bt_rows[1][0], 0, 1, 100), float("inf")),
+            (vp, at(bt_rows[2][2], 7, 1, 5), float("-inf")),
+            (vp, at(null, 0, 0, 0), float("nan")),
+            (kp, at(null, 2, 1, 9), 3.0e4),           # range guard
+            (vp, at(bt_rows[0][3], 5, 0, 1), -5.0e3),  # range guard
+            (kp, at(bt_rows[3][0], 1, 0, 2), 3.0),     # bit pattern
+            (vp, at(bt_rows[0][1], 4, 1, 7), 3.0),     # bit pattern
+            # the last page of request 0: dead for its first prefill row
+            # blocks, live for the last
+            (kp, at(bt_rows[0][7], 0, 1, 11), float("nan")),
+            (vp, at(bt_rows[0][7], 1, 0, 12), float("nan")),
+        ]
+        for t, idx, val in plant:
+            t[idx] = val
+        q = torch.randn((sh.B, sh.H, sh.DH), generator=g, device=dev)
+        qcs = {c: torch.randn((sh.B, c, sh.H, sh.DH), generator=g, device=dev)
+               for c in (C, C_LONG)}
+        if nm:
+            G = sh.H // sh.KH
+            p3 = bt_rows[3][0]
+            vp[p3, LAYER, :, 0, 5] = float("nan")
+            kp[p3, LAYER, 1, 1, :] = float("nan")
+            q[3, G:2 * G] -= 1.0
+            for qc in qcs.values():
+                qc[3, :, G:2 * G] -= 1.0
+        return (kp, vp, q.to(dtype),
+                {c: qc.to(dtype) for c, qc in qcs.items()})
+
+    def prefill_cases(self, dtype, qcs, q_off=True):
+        """``(label, chunk, q_start, route)`` at C and C_LONG, and (with
+        ``q_off``) for a 16-bit pool q 2 bytes off alignment at C: 16-bit
+        pools take the wgmma route, f32 and the offset view the FFMA one."""
+        import torch
+
+        want = "ffma" if dtype == torch.float32 else "wgmma"
+        cases = [(f"C={c}", qc, self.q_starts[c], want) for c, qc in qcs.items()]
+        if q_off and dtype != torch.float32:
+            cases.append((f"C={C} q-off", _at_offset(qcs[C], 1), self.q_starts[C],
+                          "ffma"))
+        return cases
+
+    def decode_cases(self, q, route="fused", q_off=True):
+        """``(label, q, splits, route)`` at splits 1 and 4 on ``route``, and
+        (with ``q_off``) q 2 bytes off alignment (4 for f32) at splits 4 on
+        the walk route."""
+        cases = [("s=1", q, 1, route), ("s=4", q, 4, route)]
+        if q_off:
+            cases.append(("s=4 q-off", _at_offset(q, 1), 4, "walk"))
+        return cases
+
+    def check_prefill(self, dtype, label, kw, kp, vp, qcs, q_off=True):
+        """Prefill against its plain version at C and C_LONG, and (with
+        ``q_off``) for 16-bit pools with q 2 bytes off alignment at C:
+        integer outputs equal, outputs within the tolerance (NaN where the
+        plain version's are), on the expected route (16-bit pools wgmma, f32
+        and the offset view FFMA).  Returns the ``kernels ok`` parts."""
+        import torch
+
+        from repro_torch.kernels import paged_attention as pa
+
+        name = str(dtype).split(".")[-1]
+        parts = []
+        for what, qc, qs, want_r in self.prefill_cases(dtype, qcs, q_off):
+            prefill_route = pa.route(qc, kp, vp)
+            if prefill_route != want_r:
+                raise AssertionError(f"prefill {name} {what} took the "
+                                     f"{prefill_route} route")
+            got = pa.paged_prefill_raw(qc, kp, vp, self.bt, qs, LAYER, **kw)
+            want = pa.paged_prefill_plain(qc, kp, vp, self.bt, qs, LAYER, **kw)
+            _same(got[1], want[1], f"prefill slot_counts {name} {label} {what}")
+            _same(got[2], want[2], f"prefill counts {name} {label} {what}")
+            # finite outputs unless V lanes were left non-finite
+            fin = want[0].float().isfinite()
+            if bool(fin.all()) == (label == "v-off"):
+                raise AssertionError(f"prefill {name} {label} {what}: "
+                                     f"finite outputs not as expected")
+            # the wgmma route rounds p per tile, not per page
+            nan_inf = _close_nonfinite(got[0], want[0], TOL[name],
+                                       f"prefill {name} {label} {what}")
+            self.max_err["paged_prefill"] = max(self.max_err["paged_prefill"],
+                                                _errs(got[0], want[0]))
+            part = f"{what} ({prefill_route}) {got[2].tolist()}"
+            if label == "v-off":
+                part += f" non-finite {int((~fin).sum())}, NaN vs Inf {nan_inf}"
+            parts.append(part)
+        return parts
+
+    def check_decode(self, dtype, label, kw, kp, vp, q, route="fused",
+                     q_off=True):
+        """Decode against its plain version at splits 1 and 4 on ``route``,
+        and (with ``q_off``) with q 2 bytes off alignment (4 for f32) at
+        splits 4 on the walk route: integer outputs equal, outputs within
+        the tolerance (non-finite lanes where the plain version's are).
+        Returns the ``kernels ok`` parts and the last call's counts."""
+        from repro_torch.kernels import paged_attention as pa
+
+        name = str(dtype).split(".")[-1]
+        bt, pos = self.bt, self.pos
+        parts = []
+        for what, qd, splits, want_r in self.decode_cases(q, route, q_off):
+            decode_route = pa.decode_route(qd, kp, vp)
+            if decode_route != want_r:
+                raise AssertionError(f"decode {name} {what} took the "
+                                     f"{decode_route} route")
+            got = pa.paged_attention_splitk_raw(qd, kp, vp, bt, pos, LAYER,
+                                                splits=splits, **kw)
+            want = pa.paged_decode_plain(qd, kp, vp, bt, pos, LAYER,
+                                         splits=splits, **kw)
+            _same(got[1], want[1], f"decode slot_counts {name} {label} {what}")
+            _same(got[2], want[2], f"decode counts {name} {label} {what}")
+            if int(got[2][6]) == 0:
+                raise AssertionError("decode saw none of the planted lanes")
+            fin = want[0].float().isfinite()
+            if bool(fin.all()) == (label == "v-off"):
+                raise AssertionError(f"decode {name} {label} {what}: finite "
+                                     f"outputs not as expected")
+            nan_inf = _close_nonfinite(got[0], want[0], TOL[name],
+                                       f"decode {name} {label} {what}")
+            self.max_err["paged_decode"] = max(self.max_err["paged_decode"],
+                                               _errs(got[0], want[0]))
+            if decode_route == "fused":
+                # the plain twin of the kernel's own partition rounds p
+                # against the same running maxima
+                twin = pa.paged_decode_fused_plain(qd, kp, vp, bt, pos, LAYER, **kw)
+                _same(got[1], twin[1], f"decode twin slot_counts {name} {label}")
+                _close_nonfinite(got[0], twin[0], TOL[name],
+                                 f"decode twin {name} {label} {what}")
+                self.max_err["decode_own_partition"] = max(
+                    self.max_err["decode_own_partition"], _errs(got[0], twin[0]))
+            part = f"{what} ({decode_route})"
+            if label == "v-off":
+                part += f" non-finite {int((~fin).sum())}, NaN vs Inf {nan_inf}"
+            parts.append(part)
+        return parts, got[2].tolist()
+
+    def check_scrub(self, dtype, label, kw, kp):
+        """The engine's page scrub of ``scrub_ids`` bucketed to 4 (a padding
+        duplicate, n_valid 3) on a copy of the K pool against
+        ``scrub_pages_plain`` on another, under ``kw``'s K detector (the
+        default one for "default"): counts and bits equal, a planted lane
+        found.  Returns the counts."""
+        from repro_torch.core import detect
+        from repro_torch.kernels import scrub as sk
+
+        name = str(dtype).split(".")[-1]
+        det = kw["detector_k"] if label != "default" else None
+        skw = dict(policy="zero", detector=det, n_valid=3)
+        ids = self.scrub_ids + [self.scrub_ids[0]]
+        a, b = kp.clone(), kp.clone()
+        _, c_kernel = sk.scrub_pages(a, ids, **skw)
+        _, c_plain = sk.scrub_pages_plain(b, ids, **skw)
+        _same(c_kernel, c_plain, f"scrub_pages counts {name} {label}")
+        _same(detect.bits_of(a), detect.bits_of(b), f"scrub_pages bits {name}")
+        self.max_err["scrub"] = max(self.max_err["scrub"], _errs(a, b))
+        if int(c_kernel[0] + c_kernel[1]) == 0:
+            raise AssertionError("scrub saw none of the planted lanes")
+        return c_kernel.tolist()
+
+    def decode_bound(self, dtype_name: str, es: int):
+        """(ms, "bytes" or "operations") of a decode call: q and out, every
+        visited page's K and V tile at the layer, the tables and counts
+        once; QK and PV over each request's valid keys."""
+        sh = self.shape
+        visited = len({p for row in self.bt_rows for p in row})
+        valid_keys = sum(min(int(p) + 1, sh.M * sh.PG) for p in self.pos.tolist())
+        page = sh.PG * sh.KH * sh.DH * es
+        nbytes = (2 * sh.B * sh.H * sh.DH * es + 2 * visited * page
+                  + sh.B * sh.M * 4 * 2 + sh.B * 4 + 32)
+        return bound(nbytes, 4.0 * sh.H * sh.DH * valid_keys, dtype_name)
+
+    def prefill_bound(self, c: int, q_start: int, dtype_name: str, es: int):
+        """(ms, "bytes" or "operations") of a one-request prefill call of
+        ``c`` rows from ``q_start``: the chunk and its output, the
+        request's M pages' K and V tiles, once; QK and PV over each row's
+        causal keys."""
+        sh = self.shape
+        p_valid = sum(min(q_start + r + 1, sh.M * sh.PG) for r in range(c)) * sh.H
+        nbytes = (2 * c * sh.H * sh.DH * es + 2 * sh.M * sh.PG * sh.KH * sh.DH * es
+                  + sh.M * 4 * 2 + 4 + 32)
+        return bound(nbytes, 4.0 * sh.DH * p_valid, dtype_name)
+
+    def gathered_kv(self, kp, vp):
+        """SDPA's yardstick operands: the layer's pages gathered into a
+        head-expanded contiguous view, non-finite lanes zeroed (the
+        repaired view)."""
+        sh = self.shape
+        t_keys = sh.M * sh.PG
+
+        def gather(x):
+            x = x[self.bt.long(), LAYER].reshape(sh.B, t_keys, sh.KH, sh.DH)
+            x = x.repeat_interleave(sh.H // sh.KH, dim=2).transpose(1, 2)
+            return x.contiguous().nan_to_num(0.0)
+
+        return gather(kp), gather(vp)
+
+
 # ---------------------------------------------------------------- phase 2
 def kernel_phase(report: dict) -> None:
     import numpy as np
@@ -433,185 +788,16 @@ def kernel_phase(report: dict) -> None:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import scrub as sk
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    pc = PagedCheck(QWEN2_POOL)
+    dev = pc.dev
     report["nm_launches"] = collections.Counter()
     report["nm_err"] = nm_err = dict(tile_fill=0.0, paged=0.0, scrub=0.0,
                                      repair_matmul=0.0, flash_attention=0.0,
                                      mlstm_chunk=0.0)
-    n_real = [8, 5, 3, 1]
-    cols = PG * KH * DH                 # one page of one layer: its nm tile
+    bt_rows, bt, pos, q_starts = pc.bt_rows, pc.bt, pc.pos, pc.q_starts
+    cols = pc.cols
     layer_view = dict(row_stride=L * cols, offset=LAYER * cols)
-    perm = torch.randperm(P - 1, generator=gen, device=dev).tolist()
-    bt_rows, cursor = [], 0
-    for n in n_real:
-        bt_rows.append(perm[cursor:cursor + n] + [NULL] * (M - n))
-        cursor += n
-    bt = torch.tensor(bt_rows, dtype=torch.int32, device=dev)
-    pos = torch.tensor([n * PG - 3 for n in n_real], dtype=torch.int32, device=dev)
-    q_starts = {c: torch.tensor([max(0, n * PG - c) for n in n_real],
-                                dtype=torch.int32, device=dev) for c in (C, C_LONG)}
-    scrub_ids = [bt_rows[0][1], bt_rows[1][0], NULL]
-
-    def fresh(dtype, nm=False):
-        """The pools, decode q and prefill chunks, planted.  With ``nm``,
-        the neighbor_mean operands: each page of the layer carries its own
-        offset (the page is one logical tile), and request 3, whose lanes
-        all sit in one page (page p3, offset NM_OFFSETS[0] > 0), gets lanes
-        a wrong fill must move: V lane 5 of KV head 0 NaN in every slot
-        (its output lane there is V's fill, whatever the weights), K of
-        slot 1 of KV head 1 NaN in every lane, and q of that head group
-        biased against p3's sign (p3's keys score alike with the right
-        fill; slot 1 takes the row over with a zero or negative one)."""
-        g = torch.Generator(device=dev).manual_seed(1)
-        kp = torch.randn((P, L, PG, KH, DH), generator=g, device=dev)
-        vp = torch.randn((P, L, PG, KH, DH), generator=g, device=dev)
-        if nm:
-            for t in (kp, vp):
-                t[:, LAYER] += _tile_offsets(P, cols, (1, cols), dev,
-                                             first=bt_rows[3][0]).view(
-                    P, PG, KH, DH)
-        kp, vp = kp.to(dtype), vp.to(dtype)
-        plant = [
-            (kp, (bt_rows[0][1], LAYER, 3, 0, 10), float("nan")),
-            (kp, (bt_rows[1][0], LAYER, 0, 1, 100), float("inf")),
-            (vp, (bt_rows[2][2], LAYER, 7, 1, 5), float("-inf")),
-            (vp, (NULL, LAYER, 0, 0, 0), float("nan")),
-            (kp, (NULL, LAYER, 2, 1, 9), 3.0e4),           # range guard
-            (vp, (bt_rows[0][3], LAYER, 5, 0, 1), -5.0e3),  # range guard
-            (kp, (bt_rows[3][0], LAYER, 1, 0, 2), 3.0),     # bit pattern
-            (vp, (bt_rows[0][1], LAYER, 4, 1, 7), 3.0),     # bit pattern
-            # the last page of request 0: dead for its first prefill row
-            # blocks, live for the last
-            (kp, (bt_rows[0][7], LAYER, 0, 1, 11), float("nan")),
-            (vp, (bt_rows[0][7], LAYER, 1, 0, 12), float("nan")),
-        ]
-        for t, idx, val in plant:
-            t[idx] = val
-        q = torch.randn((B, H, DH), generator=g, device=dev)
-        qcs = {c: torch.randn((B, c, H, DH), generator=g, device=dev)
-               for c in (C, C_LONG)}
-        if nm:
-            p3 = bt_rows[3][0]
-            vp[p3, LAYER, :, 0, 5] = float("nan")
-            kp[p3, LAYER, 1, 1, :] = float("nan")
-            q[3, H // KH:] -= 1.0
-            for qc in qcs.values():
-                qc[3, :, H // KH:] -= 1.0
-        return (kp, vp, q.to(dtype),
-                {c: qc.to(dtype) for c, qc in qcs.items()})
-
-    def errs(a, b):
-        return float((a.float() - b.float()).abs().nan_to_num(0.0).max())
-
-    def same(a, b, what):
-        if not torch.equal(a.cpu(), b.cpu()):
-            raise AssertionError(f"{what}: integer outputs differ\n{a}\n{b}")
-
-    def close_nonfinite(out, ref, tol, what):
-        """Non-finite lanes exactly where the plain version's are, the
-        finite ones within the tolerance, equal Inf where both are Inf;
-        returns how many lanes are NaN in one and ±Inf in the other (an
-        infinite V lane gives Inf where p > 0 and NaN where p rounds to 0,
-        and p may be rounded against another running max than the plain
-        version's)."""
-        out, ref = out.float(), ref.float()
-        fin = ref.isfinite()
-        same(out.isfinite(), fin, f"finite lanes {what}")
-        torch.testing.assert_close(out[fin], ref[fin], rtol=tol, atol=tol)
-        both_inf = out.isinf() & ref.isinf()
-        same(out[both_inf], ref[both_inf], f"Inf lanes {what}")
-        return int((out.isnan() != ref.isnan()).sum())
-
-    # 16-bit pools take the prefill's wgmma route, f32 its FFMA route; a
-    # 16-bit q off 16-byte alignment takes the FFMA route
-    want_route = {torch.float32: "ffma", torch.bfloat16: "wgmma",
-                  torch.float16: "wgmma"}
-    max_err = {"scrub": 0.0, "paged_decode": 0.0, "paged_prefill": 0.0,
-               "decode_own_partition": 0.0}
-
-    def check_prefill(dtype, label, kw, kp, vp, qcs):
-        """Prefill against its plain version at C and C_LONG, and for
-        16-bit pools with q 2 bytes off alignment at C: integer outputs
-        equal, outputs within the tolerance (NaN where the plain version's
-        are), on the expected route.  Returns the ``kernels ok`` parts."""
-        name = str(dtype).split(".")[-1]
-        cases = [(f"C={c}", qc, q_starts[c], want_route[dtype])
-                 for c, qc in qcs.items()]
-        if dtype != torch.float32:
-            cases.append((f"C={C} q-off", _at_offset(qcs[C], 1), q_starts[C],
-                          "ffma"))
-        parts = []
-        for what, qc, qs, want_r in cases:
-            prefill_route = pa.route(qc, kp, vp)
-            if prefill_route != want_r:
-                raise AssertionError(f"prefill {name} {what} took the "
-                                     f"{prefill_route} route")
-            got = pa.paged_prefill_raw(qc, kp, vp, bt, qs, LAYER, **kw)
-            want = pa.paged_prefill_plain(qc, kp, vp, bt, qs, LAYER, **kw)
-            same(got[1], want[1], f"prefill slot_counts {name} {label} {what}")
-            same(got[2], want[2], f"prefill counts {name} {label} {what}")
-            # finite outputs unless V lanes were left non-finite
-            fin = want[0].float().isfinite()
-            if bool(fin.all()) == (label == "v-off"):
-                raise AssertionError(f"prefill {name} {label} {what}: "
-                                     f"finite outputs not as expected")
-            # the wgmma route rounds p per tile, not per page
-            nan_inf = close_nonfinite(got[0], want[0], TOL[name],
-                                      f"prefill {name} {label} {what}")
-            max_err["paged_prefill"] = max(max_err["paged_prefill"],
-                                           errs(got[0], want[0]))
-            part = f"{what} ({prefill_route}) {got[2].tolist()}"
-            if label == "v-off":
-                part += f" non-finite {int((~fin).sum())}, NaN vs Inf {nan_inf}"
-            parts.append(part)
-        return parts
-
-    def check_decode(dtype, label, kw, kp, vp, q):
-        """Decode against its plain version at splits 1 and 4 on the fused
-        route, and with q 2 bytes off alignment (4 for f32) at splits 4 on
-        the walk route: integer outputs equal, outputs within the tolerance
-        (non-finite lanes where the plain version's are).  Returns the
-        ``kernels ok`` parts."""
-        name = str(dtype).split(".")[-1]
-        parts = []
-        for what, qd, splits, want_r in (("s=1", q, 1, "fused"),
-                                         ("s=4", q, 4, "fused"),
-                                         ("s=4 q-off", _at_offset(q, 1), 4, "walk")):
-            decode_route = pa.decode_route(qd, kp, vp)
-            if decode_route != want_r:
-                raise AssertionError(f"decode {name} {what} took the "
-                                     f"{decode_route} route")
-            got = pa.paged_attention_splitk_raw(qd, kp, vp, bt, pos, LAYER,
-                                                splits=splits, **kw)
-            want = pa.paged_decode_plain(qd, kp, vp, bt, pos, LAYER,
-                                         splits=splits, **kw)
-            same(got[1], want[1], f"decode slot_counts {name} {label} {what}")
-            same(got[2], want[2], f"decode counts {name} {label} {what}")
-            if int(got[2][6]) == 0:
-                raise AssertionError("decode saw none of the planted lanes")
-            fin = want[0].float().isfinite()
-            if bool(fin.all()) == (label == "v-off"):
-                raise AssertionError(f"decode {name} {label} {what}: finite "
-                                     f"outputs not as expected")
-            nan_inf = close_nonfinite(got[0], want[0], TOL[name],
-                                      f"decode {name} {label} {what}")
-            max_err["paged_decode"] = max(max_err["paged_decode"],
-                                          errs(got[0], want[0]))
-            if decode_route == "fused":
-                # the plain twin of the kernel's own partition rounds p
-                # against the same running maxima
-                twin = pa.paged_decode_fused_plain(qd, kp, vp, bt, pos, LAYER, **kw)
-                same(got[1], twin[1], f"decode twin slot_counts {name} {label}")
-                close_nonfinite(got[0], twin[0], TOL[name],
-                                f"decode twin {name} {label} {what}")
-                max_err["decode_own_partition"] = max(
-                    max_err["decode_own_partition"], errs(got[0], twin[0]))
-            part = f"{what} ({decode_route})"
-            if label == "v-off":
-                part += f" non-finite {int((~fin).sum())}, NaN vs Inf {nan_inf}"
-            parts.append(part)
-        return parts, got[2].tolist()
+    max_err = pc.max_err
 
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         name = str(dtype).split(".")[-1]
@@ -623,37 +809,26 @@ def kernel_phase(report: dict) -> None:
                                       constant_v=0.5)),
         ]
         for label, kw in configs:
-            kp, vp, q, qcs = fresh(dtype)
-            decode_parts, decode_counts = check_decode(dtype, label, kw, kp, vp, q)
-            routes = check_prefill(dtype, label, kw, kp, vp, qcs)
-            # page scrub: 3 ids bucketed to 4 with a padding duplicate
-            det = kw["detector_k"] if label != "default" else None
-            skw = dict(policy="zero", detector=det, n_valid=3)
-            ids = scrub_ids + [scrub_ids[0]]
-            a, b = kp.clone(), kp.clone()
-            _, c_kernel = sk.scrub_pages(a, ids, **skw)
-            _, c_plain = sk.scrub_pages_plain(b, ids, **skw)
-            same(c_kernel, c_plain, f"scrub_pages counts {name} {label}")
-            same(detect.bits_of(a), detect.bits_of(b), f"scrub_pages bits {name}")
-            max_err["scrub"] = max(max_err["scrub"], errs(a, b))
-            if int(c_kernel[0] + c_kernel[1]) == 0:
-                raise AssertionError("scrub saw none of the planted lanes")
+            kp, vp, q, qcs = pc.fresh(dtype)
+            decode_parts, decode_counts = pc.check_decode(dtype, label, kw, kp, vp, q)
+            routes = pc.check_prefill(dtype, label, kw, kp, vp, qcs)
+            scrub_counts = pc.check_scrub(dtype, label, kw, kp)
             log(f"kernels ok  dtype={name} detector={label} decode "
                 f"{'; '.join(decode_parts)} {decode_counts} prefill "
-                f"{'; '.join(routes)} scrub_counts={c_kernel.tolist()}")
+                f"{'; '.join(routes)} scrub_counts={scrub_counts}")
         # V detection off: the planted V lanes stay non-finite and reach
         # every row of their KV head through 0 x NaN, rows that mask them
         # too (request 0's last page, dead for its early row blocks, among
         # them); every route must put them where the plain version does
-        kp, vp, q, qcs = fresh(dtype)
-        decode_parts, _ = check_decode(dtype, "v-off", dict(detector_v=None),
+        kp, vp, q, qcs = pc.fresh(dtype)
+        decode_parts, _ = pc.check_decode(dtype, "v-off", dict(detector_v=None),
                                        kp, vp, q)
-        routes = check_prefill(dtype, "v-off", dict(detector_v=None), kp, vp, qcs)
+        routes = pc.check_prefill(dtype, "v-off", dict(detector_v=None), kp, vp, qcs)
         log(f"kernels ok  dtype={name} detector=v-off decode "
             f"{'; '.join(decode_parts)} prefill {'; '.join(routes)}")
         a, b = vp.clone(), vp.clone()
-        same(sk.scrub(a)[1], sk.scrub_plain(b)[1], f"scrub counts {name}")
-        same(detect.bits_of(a), detect.bits_of(b), f"scrub bits {name}")
+        _same(sk.scrub(a)[1], sk.scrub_plain(b)[1], f"scrub counts {name}")
+        _same(detect.bits_of(a), detect.bits_of(b), f"scrub bits {name}")
 
     # ---- neighbor_mean on the engine pool's paged calls: each page's mean
     # over both KV heads from tile_fill's per-page table, on every decode
@@ -662,7 +837,7 @@ def kernel_phase(report: dict) -> None:
     # the count
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        kp, vp, q, qcs = fresh(dtype, nm=True)
+        kp, vp, q, qcs = pc.fresh(dtype, nm=True)
         table_err = 0.0
         for pool in (kp, vp):
             for d in (None, _det2(dtype)):
@@ -672,7 +847,7 @@ def kernel_phase(report: dict) -> None:
                                             **layer_view)
                 want_t = tile_fill.tile_fill_plain(pool, P, cols, (1, cols),
                                                    consts, **layer_view)
-                table_err = max(table_err, errs(tile_fill.values(got_t, dtype),
+                table_err = max(table_err, _errs(tile_fill.values(got_t, dtype),
                                                 tile_fill.values(want_t, dtype)))
         nm_err["tile_fill"] = max(nm_err["tile_fill"], table_err)
         for label, kw, zero_kw, tabled in (
@@ -682,13 +857,8 @@ def kernel_phase(report: dict) -> None:
                  dict(detector_k=_det2(dtype), detector_v=_det2(dtype),
                       policy_k="neighbor_mean", policy_v="zero"),
                  dict(policy_k="zero"), dict(K=kp))):
-            decode_cases = [("s=4", q, 4, "fused"), ("s=1", q, 1, "fused"),
-                            ("s=4 q-off", _at_offset(q, 1), 4, "walk")]
-            prefill_cases = [(f"C={c}", qc, q_starts[c], want_route[dtype])
-                             for c, qc in qcs.items()]
-            if dtype != torch.float32:
-                prefill_cases.append((f"C={C} q-off", _at_offset(qcs[C], 1),
-                                      q_starts[C], "ffma"))
+            decode_cases = pc.decode_cases(q)
+            prefill_cases = pc.prefill_cases(dtype, qcs)
 
             def call(case, **over):
                 _, x, arg, _ = case
@@ -714,10 +884,10 @@ def kernel_phase(report: dict) -> None:
                           else pa.route(x, kp, vp))
                 if routed != want_r:
                     raise AssertionError(f"nm {name} {what} took {routed}")
-                same(g[1], w[1], f"nm slot_counts {name} {label} {what}")
-                same(g[2], w[2], f"nm counts {name} {label} {what}")
-                close_nonfinite(g[0], w[0], TOL[name], f"nm {name} {label} {what}")
-                out_err = max(out_err, errs(g[0], w[0]))
+                _same(g[1], w[1], f"nm slot_counts {name} {label} {what}")
+                _same(g[2], w[2], f"nm counts {name} {label} {what}")
+                _close_nonfinite(g[0], w[0], TOL[name], f"nm {name} {label} {what}")
+                out_err = max(out_err, _errs(g[0], w[0]))
                 parts.append(f"{what} ({routed})")
                 for k_, r_ in _nm_controls(
                         lambda case=case, **o: call(case, **o), tabled, zero_kw,
@@ -732,7 +902,7 @@ def kernel_phase(report: dict) -> None:
                 f"least over the routes: {_fmt_controls(controls)}")
         # the page scrub, 3 unique ids, on a copy of the K pool whose
         # gathered view's logical tiles carry their own offsets
-        ids = [bt_rows[0][1], bt_rows[1][0], NULL]
+        ids = pc.scrub_ids
         _, rpp, s_cols, _, s_block, _ = sk._pages_args(kp, ids, True, None,
                                                         None, 0)
         base = kp.clone()
@@ -747,10 +917,10 @@ def kernel_phase(report: dict) -> None:
         _, c_kernel = sk.scrub_pages(a, ids, policy="neighbor_mean")
         report["nm_launches"].update(common.LAUNCHES)
         _, c_plain = sk.scrub_pages_plain(b, ids, policy="neighbor_mean")
-        same(c_kernel, c_plain, f"nm scrub_pages counts {name}")
-        same(detect.bits_of(a)[~fatal], detect.bits_of(b)[~fatal],
+        _same(c_kernel, c_plain, f"nm scrub_pages counts {name}")
+        _same(detect.bits_of(a)[~fatal], detect.bits_of(b)[~fatal],
              f"nm scrub_pages untouched lanes {name}")
-        lane_err = errs(a[fatal], b[fatal])
+        lane_err = _errs(a[fatal], b[fatal])
         torch.testing.assert_close(a[fatal].float(), b[fatal].float(),
                                    **NM_FILL_TOL[name])
         nm_err["scrub"] = max(nm_err["scrub"], lane_err)
@@ -777,16 +947,15 @@ def kernel_phase(report: dict) -> None:
     # ---- timings at the main path's shapes (bf16 pool, layer LAYER) ----
     dtype, name = torch.bfloat16, "bfloat16"
     es = 2
-    kp, vp, q, qcs = fresh(dtype)
+    kp, vp, q, qcs = pc.fresh(dtype)
     kw = dict(detector_k="default", detector_v="default", policy="zero")
     page_bytes = PG * KH * DH * es
-    visited = len({p for row in bt_rows for p in row})
     t_keys = M * PG
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def library_times(fn):
         """(call ms, device ms) of one PyTorch call."""
-        return cuda_ms(fn), kernel_device_ms(fn, ("",))
+        return cuda_ms(fn), library_device_ms(fn)
 
     # decode at splits 4 (the engine's) and 1 (the serial entry point, off
     # the main path at M = 8), on the fused route: device time split into
@@ -799,7 +968,7 @@ def kernel_phase(report: dict) -> None:
     if pa.decode_route(q, kp, vp) != "fused" or pa.decode_route(q_off, kp, vp) != "walk":
         raise AssertionError("decode bf16 timing operands are not on the "
                              "fused and walk routes")
-    dnames, wnames = ("decode_fused", "Memset"), ("decode_partials", "lse_merge")
+    dnames, wnames = DECODE_KERNELS["fused"], DECODE_KERNELS["walk"]
     decode = {}
     for splits in (4, 1):
         def dcall(k=kp, v=vp, qd=q, splits=splits):
@@ -819,16 +988,9 @@ def kernel_phase(report: dict) -> None:
             walk_ms=cuda_ms(lambda: dcall(qd=q_off)),
             plain_ms=cuda_ms(lambda splits=splits: pa.paged_decode_plain(
                 q, kp, vp, bt, pos, LAYER, splits=splits, **kw)))
-    valid_keys = sum(min(int(p) + 1, t_keys) for p in pos.tolist())
-    nbytes = (2 * B * H * DH * es + 2 * visited * page_bytes + B * M * 4 * 2
-              + B * 4 + 32)
-    d_bound, d_by = bound(nbytes, 4.0 * H * DH * valid_keys, name)
+    d_bound, d_by = pc.decode_bound(name, es)
     # yardstick: SDPA over a gathered, head-expanded contiguous view
-    kg = kp[bt.long(), LAYER].reshape(B, t_keys, KH, DH).repeat_interleave(
-        H // KH, dim=2).transpose(1, 2).contiguous()
-    vg = vp[bt.long(), LAYER].reshape(B, t_keys, KH, DH).repeat_interleave(
-        H // KH, dim=2).transpose(1, 2).contiguous()
-    kg, vg = kg.nan_to_num(0.0), vg.nan_to_num(0.0)
+    kg, vg = pc.gathered_kv(kp, vp)
     mask = (torch.arange(t_keys, device=dev)[None, :] <= pos[:, None].long())
     mask = mask[:, None, None, :]
     decode_lib_ms, decode_lib_dev = library_times(
@@ -840,7 +1002,7 @@ def kernel_phase(report: dict) -> None:
     # (3 of the 8 pages flagged: K of slots 1 and 7, V of slot 7) and on a
     # clean copy, beside SDPA's device and call times; the FFMA kernel on
     # the same bf16 operands (q 2 bytes off alignment) at C
-    pnames = ("prefill_scan", "prefill_repair_wgmma", "Memset")
+    pnames = PREFILL_KERNELS
     prefill = {}
     for c, qc in qcs.items():
         qc1, qs1 = qc[:1], q_starts[c][:1]
@@ -855,9 +1017,7 @@ def kernel_phase(report: dict) -> None:
             raise AssertionError(f"prefill bf16 C={c} ran no wgmma kernel: {parts}")
         clean = kernel_breakdown(lambda: call(k=kc, v=vc), pnames)
         qs0 = int(qs1[0])
-        p_valid = sum(min(qs0 + r + 1, t_keys) for r in range(c)) * H
-        nbytes = (2 * c * H * DH * es + 2 * M * page_bytes + M * 4 * 2 + 4 + 32)
-        p_bound, p_by = bound(nbytes, 4.0 * DH * p_valid, name)
+        p_bound, p_by = pc.prefill_bound(c, qs0, name, es)
         cmask = (torch.arange(t_keys, device=dev)[None, :]
                  <= (qs0 + torch.arange(c, device=dev))[:, None])
         lib_ms, lib_dev = library_times(lambda qc1=qc1, cmask=cmask: sdpa(
@@ -1618,7 +1778,7 @@ def ops_phase(report: dict) -> None:
     clean = kernel_breakdown(lambda: rm.repair_matmul_raw(ca, cb), names, iters=10)
     clean_call = cuda_ms(lambda: rm.repair_matmul_raw(ca, cb))
     clean_lib = cuda_ms(lambda: torch.matmul(ca, cb))
-    lib_dev = kernel_device_ms(lambda: torch.matmul(ca, cb), ("",), iters=10)
+    lib_dev = library_device_ms(lambda: torch.matmul(ca, cb), iters=10)
     for label, pr in (("planted", parts), ("clean", clean)):
         dev_ms = sum(pr.values())
         log(f"timing repair_matmul gate/up bf16 {label} (wgmma route): device "
@@ -1712,7 +1872,7 @@ def ops_phase(report: dict) -> None:
     scan_bound = kv_bytes / HBM_BYTES_PER_S * 1e3
     clean = kernel_breakdown(lambda: ra.flash_attention_raw(q, fk, fv), names, iters=10)
     clean_call = cuda_ms(lambda: ra.flash_attention_raw(q, fk, fv))
-    lib_dev = kernel_device_ms(library, ("",), iters=10)
+    lib_dev = library_device_ms(library, iters=10)
     # the same call captured once in a CUDA graph and replayed: what a
     # caller pays without the wrapper's host path (Python, ctypes, launches)
     graph = torch.cuda.CUDAGraph()
@@ -1801,16 +1961,19 @@ def serving_config(ber: float = 0.0):
 
 def plant(engine):
     """NaN in a K page and Inf in a V page of two decoding requests, at
-    positions below each request's next write slot (page 0, offset 1)."""
+    positions below each request's next write slot (page 0, offset 1);
+    KV heads and lanes clamped to the pool's."""
     running = [r for r in engine.sched.running
                if r.prefill_pos is None and r.n_context > PG + 1]
     if len(running) < 2:
         raise AssertionError("fewer than two decoding requests to plant in")
     a, b = running[0], running[1]
     tree = engine.pool.tree
-    top = tree["layers/k"].shape[1] - 1          # the pool's last layer
+    _, n_layers, _, kh, dh = tree["layers/k"].shape
+    top = n_layers - 1                            # the pool's last layer
     tree["layers/k"][a.pages[0], min(3, top), 1, 0, 7] = float("nan")
-    tree["layers/k"][a.pages[0], min(9, top), 1, 1, 70] = float("nan")
+    tree["layers/k"][a.pages[0], min(9, top), 1, min(1, kh - 1),
+                     min(70, dh - 1)] = float("nan")
     tree["layers/v"][b.pages[0], 0, 1, 1, 3] = float("inf")
     return [a.pages[0], b.pages[0]], 2, 1
 
@@ -1855,6 +2018,28 @@ def drive(engine, prompts, *, plant_after: int | None = 3, max_new: int = 16,
         engine.drain()
         _check_repaired(engine, planted, at_plant)
     return [engine.results[r] for r in rids]
+
+
+def device_groups(per: dict):
+    """Device ms of a profile (``device_profile``'s ``{kernel: ms}``) by
+    group — the repair kernels, GEMMs, copies and memsets, the rest
+    (elementwise) — and the repair kernels' ms by wrapper."""
+    groups = {"repair_kernels": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
+    ours = tuple(n for names in KERNEL_NAMES.values() for n in names)
+    by_kernel = {k: 0.0 for k in KERNEL_NAMES}
+    for key, ms in per.items():
+        low = key.lower()
+        if any(n in key for n in ours):
+            groups["repair_kernels"] += ms
+            by_kernel[next(k for k, names in KERNEL_NAMES.items()
+                           if any(n in key for n in names))] += ms
+        elif any(n in low for n in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+            groups["gemm"] += ms
+        elif "memcpy" in low or "memset" in low:
+            groups["copy"] += ms
+        else:
+            groups["other"] += ms
+    return groups, by_kernel
 
 
 def engine_phase(report: dict) -> None:
@@ -1904,21 +2089,7 @@ def engine_phase(report: dict) -> None:
     per = device_profile(lambda: drive(
         Engine(model, serving_config(), device="cuda"), prompts),
         table="engine_profile.txt")
-    groups = {"repair_kernels": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
-    ours = tuple(n for names in KERNEL_NAMES.values() for n in names)
-    by_kernel = {k: 0.0 for k in KERNEL_NAMES}
-    for key, ms in per.items():
-        low = key.lower()
-        if any(n in key for n in ours):
-            groups["repair_kernels"] += ms
-            by_kernel[next(k for k, names in KERNEL_NAMES.items()
-                           if any(n in key for n in names))] += ms
-        elif any(n in low for n in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
-            groups["gemm"] += ms
-        elif "memcpy" in low or "memset" in low:
-            groups["copy"] += ms
-        else:
-            groups["other"] += ms
+    groups, by_kernel = device_groups(per)
     busy = sum(groups.values())
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     report["engine"] = dict(
@@ -2049,18 +2220,27 @@ def _register_forward(model, tokens):
     return reg
 
 
+# the fallback arms' depth: Qwen2-1.5B width cut to this many layers (the
+# arms are host-bound, their time grows with depth)
+FALLBACK_LAYERS = 8
+
+
 def fallback_phase(report: dict) -> None:
     """The gathered-view fallback, the no-repair arm, the desynchronized
-    drain, register mode and generate, at full width on the card."""
+    drain, register mode and generate, at full width on the card, on a
+    model of their own cut to FALLBACK_LAYERS layers."""
     import numpy as np
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import common
     from repro_torch.launch import serve
+    from repro_torch.models import TransformerLM
     from repro_torch.runtime import ApproxConfig, ApproxSpace, ScrubSchedule
     from repro_torch.serving import Engine
 
-    model = report["model"]
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=FALLBACK_LAYERS)
+    model = TransformerLM(cfg, device="cuda", seed=0)
     prompts = requests(model.cfg.vocab)
     base = serving_config()
     arms = {}
@@ -2148,7 +2328,8 @@ def fallback_phase(report: dict) -> None:
 
     deltas, sp = [], space()
     _plant_before(sp, 2, [("layers/k", (3, 1, 10, 0, 5), float("nan")),
-                          ("layers/v", (20, 2, 30, 1, 77), float("inf"))], deltas)
+                          ("layers/v", (FALLBACK_LAYERS - 1, 2, 30, 1, 77),
+                           float("inf"))], deltas)
     common.reset_launches()
     dense, stats = serve.generate(model, gp, max_new=16, max_seq=80, space=sp)
     dense_launches = dict(common.LAUNCHES)
@@ -2460,6 +2641,274 @@ def injection_phase(report: dict) -> None:
     if stats["flips"] < 1:
         raise AssertionError(f"no flips recorded: {stats}")
     log(f"injection ok: 4 steps at ber=1e-7, stats {stats}")
+
+
+# ------------------------------------------------------------ phase 5a
+# the dense variants served at full width: (arch, the pool its kernels are
+# checked at, the decode route its bf16 pool takes, the engine arm of its
+# f32 card-vs-CPU parity: at StableLM's f32 pool the FFMA prefill and the
+# walk decode need more shared memory than a block has, so the engine
+# refuses its paged lanes (``paged_attention.pool_refusal``) and its
+# parity takes the gathered view)
+DENSE_VARIANTS = (("stablelm-1.6b", STABLELM_POOL, "fused", "a-gathered"),
+                  ("starcoder2-15b", STARCODER2_POOL, "walk", "paged"))
+# the leaves the init leaves at 0 or 1 (biases, norm scales), drawn nonzero
+# before the card-vs-CPU parity so a dropped one shows
+DRAWN_LEAVES = ("/bias", "/scale", "/b_up", "/b_down", "/bq", "/bk", "/bv")
+
+
+def _dense_pool_kernels(arch: str, shape: PoolShape, decode_route: str) -> dict:
+    """The paged kernels and the page scrub at one dense variant's bf16
+    pool against their plain versions under two detectors (decode at
+    splits 1 and 4 on ``decode_route``, prefill at C and C_LONG on the
+    wgmma route, the scrub of three pages bucketed to four), then each
+    paged call's device ms (split by kernel) and call ms beside its bound
+    and SDPA's on the gathered view, on the planted pool."""
+    import torch
+
+    from repro_torch.kernels import paged_attention as pa
+
+    pc = PagedCheck(shape)
+    dtype, name, es = torch.bfloat16, "bfloat16", 2
+    for label, kw in (
+            ("default", dict(detector_k="default", detector_v="default",
+                             policy="zero")),
+            ("range+bitpattern", dict(detector_k=_det2(dtype), detector_v=_det2(dtype),
+                                      policy_k="zero", policy_v="constant",
+                                      constant_v=0.5))):
+        kp, vp, q, qcs = pc.fresh(dtype)
+        d_parts, d_counts = pc.check_decode(dtype, label, kw, kp, vp, q,
+                                            route=decode_route, q_off=False)
+        p_parts = pc.check_prefill(dtype, label, kw, kp, vp, qcs, q_off=False)
+        scrub_counts = pc.check_scrub(dtype, label, kw, kp)
+        log(f"kernels ok  {arch} pool {dataclasses.astuple(shape)} dtype={name} "
+            f"detector={label} decode {'; '.join(d_parts)} {d_counts} prefill "
+            f"{'; '.join(p_parts)} scrub_counts={scrub_counts}")
+    kp, vp, q, qcs = pc.fresh(dtype)
+    kw = dict(detector_k="default", detector_v="default", policy="zero")
+    kg, vg = pc.gathered_kv(kp, vp)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    keys = torch.arange(shape.M * shape.PG, device=pc.dev)
+    dmask = (keys[None, :] <= pc.pos[:, None].long())[:, None, None, :]
+
+    def dsdpa():
+        return sdpa(q[:, :, None, :], kg, vg, attn_mask=dmask)
+
+    d_bound, d_by = pc.decode_bound(name, es)
+    rows = {}
+    for splits in (1, 4):
+        def dcall(splits=splits):
+            return pa.paged_attention_splitk_raw(q, kp, vp, pc.bt, pc.pos, LAYER,
+                                                 splits=splits, **kw)
+
+        rows[f"decode splits={splits}"] = dict(
+            route=decode_route, names=DECODE_KERNELS[decode_route],
+            parts=kernel_breakdown(dcall, DECODE_KERNELS[decode_route]),
+            ms=cuda_ms(dcall), bound_ms=d_bound, bound_by=d_by,
+            plain_ms=cuda_ms(lambda splits=splits: pa.paged_decode_plain(
+                q, kp, vp, pc.bt, pc.pos, LAYER, splits=splits, **kw)),
+            sdpa_ms=cuda_ms(dsdpa), sdpa_device_ms=library_device_ms(dsdpa))
+    for c, qc in qcs.items():
+        qc1, qs1 = qc[:1], pc.q_starts[c][:1]
+        qs0 = int(qs1[0])
+        cmask = keys[None, :] <= (qs0 + torch.arange(c, device=pc.dev))[:, None]
+
+        def pcall(qc1=qc1, qs1=qs1):
+            return pa.paged_prefill_raw(qc1, kp, vp, pc.bt[:1], qs1, LAYER, **kw)
+
+        def psdpa(qc1=qc1, cmask=cmask):
+            return sdpa(qc1.transpose(1, 2), kg[:1], vg[:1], attn_mask=cmask)
+
+        p_bound, p_by = pc.prefill_bound(c, qs0, name, es)
+        rows[f"prefill C={c}"] = dict(
+            route=pa.route(qc1, kp, vp), names=PREFILL_KERNELS,
+            parts=kernel_breakdown(pcall, PREFILL_KERNELS), ms=cuda_ms(pcall),
+            bound_ms=p_bound, bound_by=p_by,
+            plain_ms=cuda_ms(lambda qc1=qc1, qs1=qs1: pa.paged_prefill_plain(
+                qc1, kp, vp, pc.bt[:1], qs1, LAYER, **kw)),
+            sdpa_ms=cuda_ms(psdpa), sdpa_device_ms=library_device_ms(psdpa))
+    for what, r in rows.items():
+        main = r["names"][0] if r["names"][0] != "prefill_scan" else r["names"][1]
+        if not r["parts"][main] > 0:
+            raise AssertionError(f"{arch} {what}: {main} did not run: {r['parts']}")
+        r["device_ms"] = sum(r["parts"].values())
+        split = " + ".join(f"{k} {v:.4f}" for k, v in r["parts"].items())
+        log(f"timing {arch} paged {what} bf16 planted ({r['route']} route): device "
+            f"{r['device_ms']:.4f} ms = {split}; call {r['ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}); SDPA device "
+            f"{r['sdpa_device_ms']} ms, call {r['sdpa_ms']:.4f} ms; plain "
+            f"{r['plain_ms']:.4f} ms ({gpu_line()})")
+    return {k: {f: v for f, v in r.items() if f != "names"} for k, r in rows.items()}
+
+
+def _serve_dense(arch: str, decode_route: str) -> dict:
+    """``arch`` at full width in bf16 (seed 0) through ``Engine.step``: the
+    engine cell's six requests, 16 new tokens each, faults planted after
+    step 3 (``drive``); then a warm run and one profiled pass.  Returns
+    the timing row; the model is freed."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine
+
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = requests(cfg.vocab)
+    common.reset_launches()
+    t0 = time.perf_counter()
+    cold = Engine(model, serving_config(), device="cuda")
+    results = drive(cold, prompts)
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    for res in results:
+        gen = res["generated"]
+        if len(gen) != 16 or not all(0 <= t < cfg.vocab for t in gen):
+            raise AssertionError(f"{arch}: bad generation {gen}")
+    for k in ("paged_decode", "paged_prefill", "scrub"):
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f"{arch}: kernel {k} never launched on its path")
+    steps = cold.metrics()["steps"]
+    warm = Engine(model, serving_config(), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drive(warm, prompts)
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t0
+    wm = warm.metrics()
+    other = "walk" if decode_route == "fused" else "fused"
+    pairs = ((DECODE_KERNELS[decode_route][0], DECODE_KERNELS[other][0]),
+             ("prefill_repair_wgmma", "prefill_partials"))
+    # a pass whose window dropped the route's kernels is taken again with
+    # twice the pad (as ``kernel_breakdown`` does), up to five times
+    for i in range(5):
+        per = device_profile(lambda: drive(
+            Engine(model, serving_config(), device="cuda"), prompts),
+            pad=PROFILE_PAD_S * 2 ** i)
+        if all(any(want in k for k in per) for want, _ in pairs):
+            break
+    for want, avoid in pairs:
+        if not any(want in k for k in per) or any(avoid in k for k in per):
+            raise AssertionError(f"{arch}: the profile shows no {want} or a "
+                                 f"{avoid}: {sorted(per)}")
+    groups, by_kernel = device_groups(per)
+    busy = sum(groups.values())
+    row = dict(
+        arch=arch, layers=cfg.n_layers, dtype=cfg.dtype_name,
+        params=sum(p.numel() for p in model.parameters()), init_s=init_s,
+        decode_route=decode_route, prefill_route="wgmma",
+        tokens=wm["tokens_emitted"], steps=wm["steps"],
+        ms_per_step=1e3 * warm_wall / wm["steps"],
+        tokens_per_s=wm["tokens_emitted"] / warm_wall,
+        first_run_ms_per_step=1e3 * cold_wall / steps,
+        launches_per_step={k: v / steps for k, v in sorted(launches.items())},
+        device_ms_per_step={k: v / wm["steps"] for k, v in groups.items()},
+        repair_ms_per_step={k: v / wm["steps"] for k, v in by_kernel.items() if v},
+        device_idle_share=(1.0 - busy / (1e3 * warm_wall)) if busy else None,
+        top_kernels_ms=[(k[:60], v) for k, v in
+                        sorted(per.items(), key=lambda kv: -kv[1])[:8]],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        stats=cold.stats_dict(), kernel_counts=cold.kernel_counts.tolist(),
+    )
+    log(f"dense serve ok {arch}: {len(results)} requests x 16 tokens at full width, "
+        f"planted faults charged and repaired, paged_decode/paged_prefill/scrub "
+        f"launched {[launches[k] for k in ('paged_decode', 'paged_prefill', 'scrub')]}, "
+        f"decode {decode_route}, prefill wgmma")
+    log(f"timing dense {arch}: {json.dumps(row)} ({gpu_line()})")
+    del cold, warm, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _dense_parity(arch: str, arm: str) -> None:
+    """``arch`` at full width with 2 layers in f32 (TF32 off), its biases
+    and norm parameters drawn nonzero, on the card (kernels) and on the CPU
+    (plain versions): the engine in ``arm`` ("paged", or "a-gathered": the
+    card's engine refuses this pool's paged lanes, so both run
+    ``paged_decode="off"``), 8 new tokens a request, the same plants;
+    tokens, page events, stats, kernel counts and host syncs equal."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype_name="float32")
+    gpu = build_model(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    drawn = []
+    with torch.no_grad():
+        for path, leaf in gpu.param_tree().items():
+            if path.endswith(DRAWN_LEAVES):
+                d = 0.3 * torch.randn(leaf.shape, generator=gen, device=leaf.device)
+                leaf.copy_(1.0 + d if path.endswith("/scale") else d)
+                drawn.append(path)
+    cpu = build_model(cfg, device="cpu", seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    prompts = requests(cfg.vocab)
+    scfg = serving_config()
+    # the paged lanes on this f32 pool: planned, or refused before a launch
+    try:
+        refused = None
+        Engine(gpu, scfg, device="cuda")
+    except NotImplementedError as e:
+        refused = str(e)
+    if (refused is None) != (arm == "paged"):
+        raise AssertionError(f"{arch}: f32 paged lanes refused: {refused or 'no'}")
+    if refused:
+        log(f"dense f32 pool {arch}: the engine refuses its paged lanes: {refused}")
+        scfg = dataclasses.replace(scfg, paged_decode="off")
+    outs = []
+    for model in (gpu, cpu):
+        eng = Engine(model, scfg, device=model.device)
+        res = drive(eng, prompts, max_new=8)
+        outs.append(dict(
+            tokens=[r["tokens"] for r in res],
+            page_events=eng.pool.page_events.tolist(), stats=eng.stats_dict(),
+            kernel_counts=eng.kernel_counts.tolist(),
+            n_host_syncs=eng.metrics()["n_host_syncs"],
+            gathers=eng.metrics()["pool_gathers"]))
+    if (outs[0]["gathers"] > 0) != (arm == "a-gathered"):
+        raise AssertionError(f"dense parity {arch}: not on the {arm} path")
+    for key in outs[0]:
+        if outs[0][key] != outs[1][key]:
+            raise AssertionError(f"dense parity {arch}: {key} differs between "
+                                 "card and CPU")
+    log(f"dense parity ok {arch} arm={arm}: 2-layer f32, {len(drawn)} bias/norm leaves drawn "
+        f"nonzero, stats {outs[0]['stats']}, kernel_counts "
+        f"{outs[0]['kernel_counts']}, host syncs {outs[0]['n_host_syncs']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_variants_phase(report: dict) -> None:
+    """StableLM-1.6B and StarCoder2-15B: the paged kernels at their pools,
+    each model served at full width with its timing, and card-vs-CPU
+    parity at 2 layers; every model freed before the phase returns."""
+    report["dense_variants"] = {
+        arch: dict(kernels=_dense_pool_kernels(arch, shape, route))
+        for arch, shape, route, _ in DENSE_VARIANTS}
+    for arch, _, route, _ in DENSE_VARIANTS:
+        report["dense_variants"][arch]["serve"] = _serve_dense(arch, route)
+    for arch, _, _, arm in DENSE_VARIANTS:
+        _dense_parity(arch, arm)
 
 
 # ------------------------------------------------------------ phase 5b
@@ -4208,7 +4657,8 @@ def ptxas_summary(text: str) -> dict:
 
 
 PHASES = ("kernel_phase", "ops_phase", "engine_phase", "fallback_phase",
-          "prefix_tier_phase", "parity_phase", "injection_phase", "train_phase",
+          "prefix_tier_phase", "parity_phase", "injection_phase",
+          "dense_variants_phase", "train_phase",
           "checkpoint_phase", "mlstm_phase", "xlstm_forward_phase",
           "xlstm_generate_phase", "xlstm_depth_phase", "xlstm_parity_phase",
           "xlstm_train_phase", "autopilot_phase")

@@ -1,10 +1,18 @@
 """Config registry of the ported architectures."""
 from __future__ import annotations
 
-from . import qwen2_1_5b, xlstm_1_3b
+from . import (
+    mistral_large_123b,
+    qwen2_1_5b,
+    stablelm_1_6b,
+    starcoder2_15b,
+    xlstm_1_3b,
+)
 from .base import ArchConfig  # noqa: F401
 
-_CONFIGS = {m.CONFIG.name: m.CONFIG for m in (qwen2_1_5b, xlstm_1_3b)}
+_CONFIGS = {m.CONFIG.name: m.CONFIG for m in (
+    starcoder2_15b, qwen2_1_5b, mistral_large_123b, stablelm_1_6b, xlstm_1_3b,
+)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -8,8 +8,10 @@ Both directions go through numpy, so this module needs no JAX:
                                (``layers/...`` stacked (L, ...)) or an
                                ``XLSTMLM`` (``mlstm_groups/...`` stacked
                                (G, M, ...), ``slstm_layers/...`` (G, ...)),
-                               as the models store them; the tied
-                               embedding stays one table
+                               as the models store them; a tied
+                               embedding stays one table (``embed/table``,
+                               also the readout), an untied head is its
+                               own leaf (``lm_head/w``)
   train_state_from_jax(state, cfg)
                                a reference train state (params, AdamW
                                moments and step, stats, rule_counts) → the

@@ -38,6 +38,10 @@ class FloatLayout:
     def sign_mask(self) -> int:
         return 1 << (self.width - 1)
 
+    @property
+    def abs_mask(self) -> int:
+        return self.sign_mask - 1  # everything but the sign bit
+
 
 _LAYOUTS = {
     torch.float64: FloatLayout(64, 11, 52, torch.int64),
@@ -52,6 +56,10 @@ def layout_of(dtype: torch.dtype) -> FloatLayout:
     if dtype not in _LAYOUTS:
         raise TypeError(f"no IEEE layout registered for dtype {dtype}")
     return _LAYOUTS[dtype]
+
+
+def supported_dtypes():
+    return tuple(_LAYOUTS.keys())
 
 
 def signed(value: int, width: int) -> int:
@@ -123,6 +131,10 @@ def is_extreme_bits(
     return (bits & lay.exp_mask) >= (field << lay.man_bits)
 
 
+def extreme_mask(x: torch.Tensor, threshold: float) -> torch.Tensor:
+    return is_extreme_bits(bits_of(x), x.dtype, threshold)
+
+
 def nonfinite_mask(x: torch.Tensor, *, include_inf: bool = True) -> torch.Tensor:
     """Lanes the legacy detector considers fatal: NaN, optionally ±Inf."""
     bits = bits_of(x)
@@ -130,3 +142,8 @@ def nonfinite_mask(x: torch.Tensor, *, include_inf: bool = True) -> torch.Tensor
     if include_inf:
         m = m | is_inf_bits(bits, x.dtype)
     return m
+
+
+def count_nonfinite(x: torch.Tensor, *, include_inf: bool = True) -> torch.Tensor:
+    """Total number of fatal lanes (an int32 scalar tensor)."""
+    return nonfinite_mask(x, include_inf=include_inf).sum(dtype=torch.int32)

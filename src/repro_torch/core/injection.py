@@ -117,3 +117,12 @@ def inject_nan(
     tag = detect.signed(lay.exp_mask | (lay.man_mask & 0x4241424142414241), lay.width)
     bits[perm[:n]] = tag
     return detect.from_bits(bits, x.dtype).reshape(x.shape)
+
+
+def expected_nan_fraction(dtype: torch.dtype, ber: float) -> float:
+    """The reference's analytic estimate of P[a value becomes NaN/Inf after
+    one window]: ``ber`` times the fraction of typical small-weight
+    exponents one flip away from all ones, ≈ ``exp_bits · 2^-(exp_bits-1)``.
+    For test assertions only."""
+    lay = detect.layout_of(dtype)
+    return ber * lay.exp_bits * (2.0 ** -(lay.exp_bits - 1))

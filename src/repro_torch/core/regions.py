@@ -52,6 +52,13 @@ def annotate(
     return {path: classify(path, rules) for path in tree}
 
 
+def approx_mask(tree: Mapping[str, Any],
+                regions: Mapping[str, Region]) -> Dict[str, bool]:
+    """``{path: bool}``: True where the leaf is in approximate memory
+    (``regions`` is ``annotate``'s flat mapping)."""
+    return {path: r is Region.APPROX for path, r in regions.items()}
+
+
 def count_bytes(tree: Mapping[str, Any],
                 regions: Mapping[str, Region]) -> Tuple[int, int]:
     """(approx_bytes, exact_bytes) of a flat state dict under ``{path:

@@ -8,18 +8,30 @@
   in ``kernels.ops``).
 
 ``repair_tensor`` and ``fatal_masks`` are the primitives shared with the
-runtime.  The reference's deprecated pytree shims (``scrub_pytree``,
-``inject_pytree``) are not ported: ``ApproxSpace.scrub``/``inject`` are
-their replacements there too.
+runtime.  The state-level entry points here (``scrub_pytree``,
+``inject_pytree``) are deprecated shims over ``runtime.ApproxSpace``'s
+``scrub`` and ``inject`` that warn a ``DeprecationWarning`` on every call,
+as the reference's do.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+import warnings
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from . import policies, rules as rules_lib, stats as stats_lib
+from . import policies, regions as regions_lib, rules as rules_lib
+from . import stats as stats_lib
+
+
+def _deprecated(name: str, replacement: str) -> None:
+    warnings.warn(
+        f"core.repair.{name} is a deprecated shim; use {replacement} "
+        "(README §Migration)",
+        DeprecationWarning,
+        stacklevel=3,
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,3 +103,48 @@ def use(
     config = cfg.config if isinstance(cfg, ApproxSpace) else ApproxSpace(cfg).config
     fixed, stats = use_tensor(x, config, stats, path)
     return fixed if stats is None else (fixed, stats)
+
+
+def scrub_pytree(
+    tree: Dict[str, torch.Tensor],
+    cfg: Any,
+    stats: stats_lib.Stats,
+    region_tree: Optional[Dict[str, regions_lib.Region]] = None,
+) -> Tuple[Dict[str, torch.Tensor], stats_lib.Stats]:
+    """Memory-mode repair of every approximate float leaf of the flat state
+    ``tree``, in place: ``(tree, stats')``.  ``region_tree`` (``{path:
+    Region}``) defaults to ``regions.annotate(tree)``.
+
+    Deprecated shim: delegates to ``runtime.ApproxSpace.scrub``'s plan."""
+    from ..runtime import ApproxSpace  # deferred: runtime builds on core
+
+    _deprecated("scrub_pytree", "runtime.ApproxSpace.scrub")
+    if region_tree is None:
+        region_tree = regions_lib.annotate(tree)
+    space = ApproxSpace(cfg)
+    out, delta = space.plan_for(tree, scope="tree", regions=region_tree).run(tree)
+    return out, stats_lib.merge(stats, delta)
+
+
+def inject_pytree(
+    tree: Dict[str, torch.Tensor],
+    generator: Union[torch.Generator, int],
+    ber: float,
+    region_tree: Optional[Dict[str, regions_lib.Region]] = None,
+) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Simulation only: one window of bit flips over the approximate float
+    leaves of the flat state ``tree``, in place, drawn from ``generator``
+    (a ``torch.Generator``, or a seed for one on the state's device) where
+    the reference takes a key.  Returns ``(tree, n_flips)``.
+
+    Deprecated shim: delegates to ``runtime.ApproxSpace.inject``."""
+    from ..runtime import ApproxSpace  # deferred: runtime builds on core
+
+    _deprecated("inject_pytree", "runtime.ApproxSpace.inject")
+    if region_tree is None:
+        region_tree = regions_lib.annotate(tree)
+    if not isinstance(generator, torch.Generator):
+        device = next(iter(tree.values())).device if tree else "cpu"
+        generator = torch.Generator(device=device).manual_seed(int(generator))
+    return ApproxSpace().inject(tree, generator, ber, record=False,
+                                regions=region_tree)

@@ -64,7 +64,11 @@ operands' dtypes, shapes and data pointers, decided before any launch):
                offset views): unnormalised partials on the FP32 pipe, then
                :func:`prefill_normalize`.
 
-A failure on either route raises; neither falls back to the other.
+A failure on either route raises; neither falls back to the other.  The
+walk decode and the FFMA prefill stage one page of every KV head as f32,
+so a pool whose page is too wide for a block's shared memory (StableLM's
+f32 pool: 32 KV heads of 64) is refused before any launch
+(:func:`smem_refusal`, :func:`pool_refusal`).
 """
 from __future__ import annotations
 
@@ -96,10 +100,13 @@ _WGMMA_HEAD_DIMS = (64, 128)
 _WGMMA_MAX_LANES = 1 << 31     # csrc: pw::shape_ok
 
 
+# a block's dynamic shared memory on the H100 (227 KB), every route's cap
+BLOCK_SMEM = 232448
 # the fused decode route (csrc/paged_decode.cu, namespace fd): clusters of
-# at most FUSED_MAX_CLUSTER blocks, a block's dynamic shared memory
+# at most FUSED_MAX_CLUSTER blocks
 FUSED_MAX_CLUSTER = 8
-_FUSED_SMEM = 232448
+# the FFMA prefill's q rows a block (csrc/paged_prefill.cu: kRows)
+FFMA_ROWS = 16
 _FUSED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _FUSED_HEAD_DIMS = (64, 128)
 
@@ -283,9 +290,68 @@ def decode_route(q: torch.Tensor, k_pages: torch.Tensor,
             and all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops)):
         H, Dh = q.shape[1:]
         pg, Kh = k_pages.shape[2:4]
-        if fused_smem(H, Dh, pg, Kh, q.element_size()) <= _FUSED_SMEM:
+        if fused_smem(H, Dh, pg, Kh, q.element_size()) <= BLOCK_SMEM:
             return "fused"
     return "walk"
+
+
+def walk_smem(H: int, Dh: int, pg: int, Kh: int) -> int:
+    """Dynamic shared-memory bytes of a walk decode block: q and the
+    accumulator of every head, one page's K (padded rows) and V tiles of
+    every KV head as f32, a page's scores and the running m, l and scale
+    per head, the counts (csrc/paged_decode.cu: ``launch``)."""
+    rows = pg * Kh
+    return 4 * (2 * H * Dh + rows * (Dh + 1) + rows * Dh + H * pg + 3 * H) + 16
+
+
+def ffma_smem(Dh: int, pg: int, Kh: int) -> int:
+    """Dynamic shared-memory bytes of an FFMA prefill block: its FFMA_ROWS
+    q rows (padded) and accumulators, one page's K (padded rows) and V
+    tiles of every KV head as f32, the rows' scores and running m, l and
+    scale, the counts (csrc/paged_prefill.cu: ``launch``)."""
+    rows, r = pg * Kh, FFMA_ROWS
+    return 4 * (r * (Dh + 1) + rows * (Dh + 1) + rows * Dh + r * Dh + r * pg
+                + 3 * r) + 16
+
+
+def smem_refusal(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor) -> Optional[str]:
+    """Why the card cannot take this call: the route :func:`decode_route`
+    (a 3-D q) or :func:`route` (a 4-D q) picks needs more shared memory a
+    block than BLOCK_SMEM; ``None`` where it fits."""
+    H, Dh = q.shape[-2:]
+    pg, Kh = k_pages.shape[2:4]
+    if q.dim() == 3:
+        if decode_route(q, k_pages, v_pages) == "fused":
+            return None
+        what, need = "paged decode (walk route)", walk_smem(H, Dh, pg, Kh)
+    else:
+        if route(q, k_pages, v_pages) == "wgmma":
+            return None
+        what, need = "paged prefill (ffma route)", ffma_smem(Dh, pg, Kh)
+    if need <= BLOCK_SMEM:
+        return None
+    return (f"{what} needs {need} B of shared memory a block, over the "
+            f"{BLOCK_SMEM} B a block has, at {H} heads of {Dh} on pages of "
+            f"{pg} x {Kh} KV heads in {str(q.dtype).split('.')[-1]}")
+
+
+def pool_refusal(n_heads: int, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                 prefill: bool = True) -> Optional[str]:
+    """:func:`smem_refusal` of the decode (and, with ``prefill``, the
+    prefill) a contiguous q of ``n_heads`` heads takes on these pools;
+    ``None`` where the card can run both."""
+    Dh = k_pages.shape[-1]
+    shapes = [(1, n_heads, Dh)] + ([(1, 1, n_heads, Dh)] if prefill else [])
+    why = [smem_refusal(torch.empty(s, dtype=k_pages.dtype, device=k_pages.device),
+                        k_pages, v_pages) for s in shapes]
+    return "; ".join(w for w in why if w) or None
+
+
+def _check_smem(q, k_pages, v_pages):
+    why = smem_refusal(q, k_pages, v_pages)
+    if why:
+        raise ValueError(f"{why} (ROADMAP.md §3)")
 
 
 def live_slots(q_start, C: int, G: int, pg: int, M: int,
@@ -405,6 +471,7 @@ def _check_operands(q, k_pages, v_pages, bt, vec, what):
 def _decode_kernel(q, k_pages, v_pages, bt, pos, layer, splits, spec):
     consts_k, consts_v, fill_k, fill_v = spec
     _check_operands(q, k_pages, v_pages, bt, pos, "paged decode")
+    _check_smem(q, k_pages, v_pages)
     B, H, Dh = q.shape
     P, L, pg, Kh, _ = k_pages.shape
     M = bt.shape[1]
@@ -435,6 +502,7 @@ def _decode_kernel(q, k_pages, v_pages, bt, pos, layer, splits, spec):
 def _prefill_kernel(q, k_pages, v_pages, bt, q_start, layer, spec):
     consts_k, consts_v, fill_k, fill_v = spec
     _check_operands(q, k_pages, v_pages, bt, q_start, "paged prefill")
+    _check_smem(q, k_pages, v_pages)
     B, C, H, Dh = q.shape
     P, L, pg, Kh, _ = k_pages.shape
     M = bt.shape[1]

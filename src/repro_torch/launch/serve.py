@@ -13,6 +13,7 @@ run onto the serving engine, one request per prompt row.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -35,6 +36,22 @@ def build_serve_step(model) -> Callable:
         return nxt, logits, cache
 
     return serve_step
+
+
+def scrub_cache(model, cache, stats=None, space: Optional[ApproxSpace] = None):
+    """Memory-mode repair of the decode cache, one shot, in place: ``(cache,
+    stats')``.  ``space`` defaults to ``serve_space(model)``.
+
+    Deprecated shim: delegates to a memory-forced ``ApproxSpace.scrub``."""
+    warnings.warn(
+        "launch.serve.scrub_cache is a deprecated shim; use "
+        "runtime.ApproxSpace.scrub (README §Migration)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    stats = stats if stats is not None else stats_lib.zeros()
+    space = space or serve_space(model)
+    return space.scrub(cache, stats)
 
 
 # One serving space per (model config, cadence): its region and plan

@@ -1,16 +1,22 @@
-"""Decoder-only transformer LM (the dense Qwen2 family).
+"""Decoder-only transformer LM: the dense family (Qwen2, StarCoder2,
+StableLM, Mistral-Large).
 
 A Python loop over per-layer blocks replaces the reference's ``lax.scan``;
 the layer index reaches the kernels as an argument, so one kernel serves
 every layer.  Ported surface: ``forward`` (the whole sequence), the dense
 cache (``cache_defs``, ``init_cache``, ``serve_step``, ``prefill``), the
 paged paths (``serve_step_paged``: one decode token per request;
-``prefill_paged``: one causal prompt chunk), final norm and the tied
-readout, and training (``loss``: the whole sequence under autograd, each
-block recomputed in the backward with ``cfg.remat``).  Every block reads
+``prefill_paged``: one causal prompt chunk), final norm and the readout
+(``_readout``: the tied table's f32 product, or an untied ``lm_head``
+whose product is rounded to the activations' dtype before it is widened
+to f32, as the reference's ``Linear`` does), and training (``loss``: the
+whole sequence under autograd, each block recomputed in the backward with
+``cfg.remat``).  Every block reads
 its weights through the use-site repair of ``cfg.repair`` with the
 reference's parameter paths (``layers/attn/wq``, ``embed/table``, ...).
-Other families (LayerNorm, GeLU, MoE, untied heads) are not ported.
+The config picks the norm (``rms``: RMSNorm, ``ln``: LayerNorm), the MLP
+(``swiglu``, or ``gelu``: the GeLU MLP with biases), the QKV bias, the
+rotary fraction and the head's tying.  MoE is not ported.
 
 Each layer weight lives in one contiguous (L, ...) tensor, the reference's
 stacked leaf (``param_tree``); the blocks' parameters are its per-layer
@@ -35,19 +41,26 @@ from .. import device as device_lib
 from ..configs.base import ArchConfig
 from ..nn import initializers as ini
 from ..nn.attention import Attention
-from ..nn.layers import Embedding, RMSNorm
-from ..nn.mlp import SwiGLU
+from ..nn.layers import Embedding, LayerNorm, Linear, RMSNorm
+from ..nn.mlp import GeluMLP, SwiGLU
 from .base import bind_stacked_grads, next_token_loss, stack_blocks
 
 _BLOCK_MODULES = ("norm1", "attn", "norm2", "mlp")
+# the modules outside the blocks whose parameters are ``param_tree`` leaves
+_TOP_MODULES = ("embed", "final_norm", "lm_head")
+
+
+def _norm(cfg: ArchConfig, device, path: str):
+    norm = RMSNorm if cfg.norm == "rms" else LayerNorm
+    return norm(cfg.d_model, dtype=cfg.dtype, device=device, rcfg=cfg.repair,
+                path=path)
 
 
 class Block(nn.Module):
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
         dt, rcfg = cfg.dtype, cfg.repair
-        self.norm1 = RMSNorm(cfg.d_model, dtype=dt, device=device, rcfg=rcfg,
-                             path="layers/norm1")
+        self.norm1 = _norm(cfg, device, "layers/norm1")
         self.attn = Attention(
             cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim,
             qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta,
@@ -55,10 +68,10 @@ class Block(nn.Module):
             path="layers/attn", q_block=cfg.attn_q_block,
             kv_block=cfg.attn_kv_block,
         )
-        self.norm2 = RMSNorm(cfg.d_model, dtype=dt, device=device, rcfg=rcfg,
-                             path="layers/norm2")
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt, device=device,
-                          rcfg=rcfg, path="layers/mlp")
+        self.norm2 = _norm(cfg, device, "layers/norm2")
+        mlp = GeluMLP if cfg.mlp == "gelu" else SwiGLU
+        self.mlp = mlp(cfg.d_model, cfg.d_ff, dtype=dt, device=device,
+                       rcfg=rcfg, path="layers/mlp")
 
 
 class TransformerLM(nn.Module):
@@ -71,27 +84,19 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, device=None, seed: int = 0):
         super().__init__()
-        unported = []
-        if cfg.norm != "rms":
-            unported.append(f"norm={cfg.norm!r}")
-        if cfg.mlp != "swiglu":
-            unported.append(f"mlp={cfg.mlp!r}")
         if cfg.n_experts:
-            unported.append("MoE")
-        if not cfg.tie_embeddings:
-            unported.append("untied lm_head")
-        if unported:
             raise NotImplementedError(
-                f"{', '.join(unported)} not ported: ROADMAP slice 5 "
-                "(the other families)"
+                "MoE not ported: ROADMAP slice 5 (the other families)"
             )
         dev = device_lib.resolve(device)
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab, cfg.d_model, dtype=cfg.dtype,
                                device=dev, rcfg=cfg.repair, path="embed")
         self.layers = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=dev,
-                                  rcfg=cfg.repair, path="final_norm")
+        self.final_norm = _norm(cfg, dev, "final_norm")
+        if not cfg.tie_embeddings:
+            self.lm_head = Linear(cfg.d_model, cfg.vocab, dtype=cfg.dtype,
+                                  device=dev, rcfg=cfg.repair, path="lm_head")
         # one (L, ...) tensor per layer weight, the blocks' parameters its views
         self._stacked = stack_blocks(self.layers, _BLOCK_MODULES, "layers",
                                      (cfg.n_layers,))
@@ -100,20 +105,21 @@ class TransformerLM(nn.Module):
 
     def param_tree(self) -> Dict[str, torch.Tensor]:
         """``{reference path: tensor}`` in the reference's leaf order: the
-        tied table, the final norm and the stacked layer weights, the
-        model's own tensors (not copies)."""
+        embedding table, the final norm, an untied head's ``lm_head/w`` and
+        the stacked layer weights, the model's own tensors (not copies)."""
         tree = dict(self._stacked)
-        tree["embed/table"] = self.embed.table
-        tree["final_norm/scale"] = self.final_norm.scale
+        for mod in _TOP_MODULES:
+            if hasattr(self, mod):
+                for name, p in getattr(self, mod).named_parameters(recurse=False):
+                    tree[f"{mod}/{name}"] = p
         return {p: tree[p] for p in sorted(tree)}
 
     def _views(self, path: str):
         """The parameters that hold ``path``: the per-layer views of a
         stacked weight, or the one parameter."""
-        if path == "embed/table":
-            return [self.embed.table]
-        if path == "final_norm/scale":
-            return [self.final_norm.scale]
+        if not path.startswith("layers/"):
+            mod, name = path.split("/")
+            return [getattr(getattr(self, mod), name)]
         _, mod, name = path.split("/")
         return [getattr(getattr(blk, mod), name) for blk in self.layers]
 
@@ -176,7 +182,15 @@ class TransformerLM(nn.Module):
                                use_reentrant=False)
             else:
                 h = self._block(blk, h, positions)
-        return self.embed.attend(self.final_norm(h))
+        return self._readout(self.final_norm(h))
+
+    def _readout(self, h: torch.Tensor) -> torch.Tensor:
+        """f32 logits of the final hidden ``h``: the tied table's f32
+        product, or the untied head's product rounded to ``h.dtype`` (the
+        reference's ``Linear``) and widened to f32."""
+        if self.cfg.tie_embeddings:
+            return self.embed.attend(h)
+        return self.lm_head(h).float()
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -210,7 +224,7 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(self.layers):
             h = h + blk.attn.decode(blk.norm1(h), kc[i], vc[i], pos)
             h = h + blk.mlp(blk.norm2(h))
-        return self.embed.attend(self.final_norm(h)), cache
+        return self._readout(self.final_norm(h)), cache
 
     def prefill(self, cache, tokens, pos):
         """The whole prompt in one ``serve_step`` call."""
@@ -265,7 +279,7 @@ class TransformerLM(nn.Module):
             )
 
         h, slot_counts, counts = self._walk(self.embed(tokens), attend)
-        return self.embed.attend(h), slot_counts, counts
+        return self._readout(h), slot_counts, counts
 
     @torch.no_grad()
     def prefill_paged(
@@ -293,4 +307,4 @@ class TransformerLM(nn.Module):
             )
 
         h, slot_counts, counts = self._walk(self.embed(tokens), attend)
-        return self.embed.attend(h), slot_counts, counts
+        return self._readout(h), slot_counts, counts

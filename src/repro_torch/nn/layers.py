@@ -1,5 +1,6 @@
-"""Basic layers: RMSNorm and the token embedding with its tied readout, and
-the use-site read every layer's weights go through.
+"""Basic layers: ``Linear``, RMSNorm, LayerNorm and the token embedding
+with its tied readout, and the use-site read every layer's weights go
+through.
 
 Every module declares ``inits`` — ``{parameter name: initializer}`` — which
 ``nn.initializers.init_weights`` draws from one generator.  Weights
@@ -127,6 +128,45 @@ class RMSNorm(nn.Module):
         var = (xf * xf).mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps)
         return (y * scale.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """The reference's LayerNorm: mean and variance in f32, ``y·scale +
+    bias`` in f32, rounded once to the input dtype."""
+
+    def __init__(self, d: int, *, eps: float = 1e-5, dtype=torch.bfloat16,
+                 device=None, rcfg: Any = None, path: str = ""):
+        super().__init__()
+        self.eps = eps
+        self.scale = param((d,), dtype, device)
+        self.bias = param((d,), dtype, device)
+        self.inits = {"scale": ini.ones, "bias": ini.zeros}
+        self.reads = UseSites(rcfg, path, ("scale", "bias"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = self.reads.read("scale", self.scale)
+        bias = self.reads.read("bias", self.bias)
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+class Linear(nn.Module):
+    """``y = x @ w``, ``w`` (d_in, d_out) with fan-in init: the product in
+    f32, rounded once to ``x.dtype`` (the reference's bias-free
+    ``Linear``, the untied head's only form)."""
+
+    def __init__(self, d_in: int, d_out: int, *, dtype=torch.bfloat16,
+                 device=None, rcfg: Any = None, path: str = ""):
+        super().__init__()
+        self.w = param((d_in, d_out), dtype, device)
+        self.inits = {"w": ini.fan_in()}
+        self.reads = UseSites(rcfg, path, ("w",))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return matmul_f32(x, self.reads.read("w", self.w)).to(x.dtype)
 
 
 class Embedding(nn.Module):

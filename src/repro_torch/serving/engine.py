@@ -40,7 +40,10 @@ The paged paths run wherever the model and the pool rules allow
 keeps for the rest: ``paged_decode="off"``, ``repair="off"`` (the kernels
 always repair what they read), non-memory spaces, a register-mode model
 (its use-site repair replaces the kernels'), and fills without a kernel
-form.  ``paged_prefill="off"`` gathers only the prefill.
+form.  ``paged_prefill="off"`` gathers only the prefill.  On the card, a
+pool whose paged lanes need more shared memory a block than the card has
+(``kernels.paged_attention.pool_refusal``: StableLM's f32 pool) is refused
+when the lanes are planned, before any launch.
 
 Lockstep (``drain_interval == 0``) reads each lane's kernel counters back
 and acts on them within the step.  With ``drain_interval = N`` the paged
@@ -67,6 +70,7 @@ from ..autopilot.guard import OnlineGuard
 from ..core import stats as stats_lib
 from ..core.regions import Region
 from ..kernels import common as kernels_common
+from ..kernels import paged_attention as paged_kernel
 from ..launch.serve import build_serve_step
 from ..runtime import ApproxSpace, ScrubSchedule
 from ..runtime.plan import serving_scope
@@ -234,6 +238,16 @@ class Engine:
         self._paged_prefill = (
             self.paged_plan is not None and self.paged_plan.prefill
         )
+        if self.paged_plan is not None and self.device.type == "cuda":
+            why = paged_kernel.pool_refusal(
+                self.model.cfg.n_heads, self.pool.tree["layers/k"],
+                self.pool.tree["layers/v"], prefill=self._paged_prefill,
+            )
+            if why:
+                raise NotImplementedError(
+                    f"{why}: serve this pool with paged_decode='off' "
+                    "(ROADMAP.md §3)"
+                )
         self._desync = self.cfg.drain_interval > 0 and self.paged_plan is not None
 
     # ------------------------------------------------------------------ admit

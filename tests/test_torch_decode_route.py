@@ -105,6 +105,34 @@ def test_fused_shared_memory_limit(H, Dh, pg, Kh, itemsize):
         assert one == 70176 if itemsize == 2 else one > 70176
 
 
+@pytest.mark.parametrize("dtype,H,Dh,Kh,need", [
+    (F32, 32, 64, 32, {"decode (walk": 283024, "prefill (ffma": 273680}),  # StableLM
+    (BF16, 32, 64, 32, {}),                                 # fused, wgmma
+    (F32, 48, 128, 4, {}),                                  # StarCoder2: walk, ffma
+    (BF16, 48, 128, 4, {}),                                 # walk, wgmma
+    (F32, 12, 128, 2, {}),                                  # Qwen2: fused, ffma
+])
+def test_pool_refusal_names_each_route_over_the_block(dtype, H, Dh, Kh, need):
+    """The walk decode and the FFMA prefill stage one page of every KV head
+    as f32 (the kernels' layouts): a pool whose page is too wide for a
+    block is refused before any launch, naming each route and its bytes."""
+    pg = 16
+    assert pa.walk_smem(H, Dh, pg, Kh) == 4 * (
+        2 * H * Dh + pg * Kh * (2 * Dh + 1) + H * pg + 3 * H) + 16
+    assert pa.ffma_smem(Dh, pg, Kh) == 4 * (
+        16 * (2 * Dh + 1) + pg * Kh * (2 * Dh + 1) + 16 * pg + 48) + 16
+    k = _view((3, 2, pg, Kh, Dh), dtype)
+    why = pa.pool_refusal(H, k, k)
+    if not need:
+        assert why is None
+        return
+    for route, nbytes in need.items():
+        assert f"paged {route} route) needs {nbytes} B" in why
+    assert pa.pool_refusal(H, k, k, prefill=False).count("needs") == 1
+    with pytest.raises(ValueError, match="ROADMAP"):
+        pa._check_smem(_view((2, H, Dh), dtype), k, k)
+
+
 @pytest.mark.parametrize("M", list(range(1, 41)) + [64, 100, 127, 128, 129])
 def test_fused_partition(M):
     """Every slot in exactly one block, consecutive slots a block, at most

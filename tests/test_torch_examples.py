@@ -19,8 +19,9 @@ def _example(name):
     return mod
 
 
-def test_serve_engine_twin_runs_on_the_cpu(capsys):
-    out = _example("torch_serve_engine").main(device="cpu")
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "starcoder2-15b", "stablelm-1.6b"])
+def test_serve_engine_twin_runs_on_the_cpu(arch, capsys):
+    out = _example("torch_serve_engine").main(device="cpu", arch=arch)
     assert len(out["results"]) == 8
     assert out["metrics"]["tokens_emitted"] == 80
     assert out["metrics"]["n_preemptions"] > 0          # the pool is short

@@ -145,6 +145,6 @@ def test_params_carry_across_and_init_scheme(models):
 def test_unported_families_raise():
     from repro_torch.models import TransformerLM
 
-    cfg = dataclasses.replace(tiny_cfg(), mlp="gelu")
+    cfg = dataclasses.replace(tiny_cfg(), n_experts=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransformerLM(cfg, device="cpu")
