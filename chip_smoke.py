@@ -98,33 +98,34 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      swapped-out page's host copy must equal its scrubbed device bits and
      every swapped-in page its host copy, the pool finite
   4. parity at full width with 2 layers in f32: the same engine and faults
-     on the card (kernels) and on the CPU (plain versions), in seven arms:
-     paged, (a), (b), (c), register mode, a ``neighbor_mean`` space and
-     ``drain_interval=2``
+     on the card (kernels) and on the CPU (plain versions), in six arms:
+     paged, (a), (b), (c), a ``neighbor_mean`` space and
+     ``drain_interval=2``; and register mode (a NaN weight lane) on the
+     card against the same model with that lane 0, both gathered
   5. the injection arm: ber=1e-7 for 4 steps
   5a. the dense variants (``dense_variants_phase``): StableLM-1.6B
      (LayerNorm, SwiGLU, 25 % rotary, 32 KV heads of 64, untied head) and
      StarCoder2-15B (LayerNorm, the GeLU MLP with biases, QKV bias, 48
      heads on 4 KV heads of 128, untied head).  The paged kernels at each
-     model's bf16 pool (P=65, pg=16, B=4, M=8; StableLM L=24, Kh=32,
-     Dh=64, H=32; StarCoder2 L=40, Kh=4, Dh=128, H=48), planted as in
-     phase 2, under two detectors, against their plain versions (decode at
-     splits 1 and 4 on the fused route for StableLM and the walk route for
-     StarCoder2, whose fused block needs more shared memory than a block
-     has; prefill at C and C_LONG on the wgmma route; the engine's page
-     scrub of three pages bucketed to four, bits and counts), then timed beside
-     their bound and SDPA on the gathered view; each model served at full
-     width in bf16 (seed 0) through ``Engine.step`` with the engine
-     cell's requests and plants, cold (its checks), warm (timed) and
-     profiled: one ``timing dense <arch>:`` line (ms a step, tokens/s,
-     launches and device ms a step by group, idle share, init s, peak
-     memory; the profile must show the expected routes' kernels); card
-     against CPU at 2 layers in f32 with the biases and norm parameters
-     drawn nonzero (StarCoder2 on the paged path; StableLM on the
-     gathered view: its f32 pool needs more shared memory than the FFMA
-     prefill and the walk decode have, so the engine refuses its paged
-     lanes before any launch, with the bytes in its message).  Every
-     model is freed before the phase returns
+     model's pool (P=65, pg=16, B=4, M=8; StableLM L=24, Kh=32, Dh=64,
+     H=32; StarCoder2 L=40, Kh=4, Dh=128, H=48) in bf16 and in f32, planted
+     as in phase 2, under two detectors, against their plain versions
+     (decode at splits 1 and 4 on the fused route, but on the walk route
+     for StableLM's f32 pool, whose slot needs 256 KiB: its page is staged
+     in groups of KV heads; a q off alignment on the walk route; prefill at
+     C and C_LONG on the wgmma route in bf16 and the FFMA route in f32, and
+     a bf16 q off alignment on FFMA; the engine's page scrub of three pages
+     bucketed to four, bits and counts), then timed on the planted pool and
+     a clean copy beside their bound and SDPA on the gathered view (the
+     fused decode beside the walk route's times on a q off alignment);
+     each model served at full width in bf16 (seed 0) through
+     ``Engine.step`` with the engine cell's requests and plants, cold (its
+     checks), warm (timed) and profiled: one ``timing dense <arch>:`` line
+     (ms a step, tokens/s, launches and device ms a step by group, idle
+     share, init s, peak memory; the profile must show the fused decode
+     and the wgmma prefill and neither other route); card against CPU at 2
+     layers in f32 with the biases and norm parameters drawn nonzero, both
+     on the paged lanes.  Every model is freed before the phase returns
   5b. training at full qwen2-1.5b width and depth (``train_phase``): bf16
      params, f32 AdamW moments, batch 4 x 512, 5 steps in memory mode with
      a zero fill.  NaN and ±Inf planted in ``params/layers/mlp/w_down`` and
@@ -267,9 +268,9 @@ class PoolShape:
 
 QWEN2_POOL = PoolShape(P, L, PG, KH, DH, H, B, M)
 # the dense variants' pools at the serving config: StableLM-1.6B (MHA,
-# head dim 64: the fused decode route) and StarCoder2-15B (48 query heads
-# on 4 KV heads: the walk route, its fused block needs more shared memory
-# than a block may have)
+# head dim 64: the fused decode route in bf16, the walk route in f32, whose
+# slot needs 256 KiB) and StarCoder2-15B (48 query heads on 4 KV heads: the
+# fused route, 73 KB a block in bf16)
 STABLELM_POOL = PoolShape(65, 24, 16, 32, 64, 32)
 STARCODER2_POOL = PoolShape(65, 40, 16, 4, 128, 48)
 # float tolerances, kernel vs plain version on the same card:
@@ -460,6 +461,7 @@ KERNEL_NAMES = {
 DECODE_KERNELS = {"fused": ("decode_fused", "Memset"),
                   "walk": ("decode_partials", "lse_merge")}
 PREFILL_KERNELS = ("prefill_scan", "prefill_repair_wgmma", "Memset")
+PREFILL_ROUTE_KERNELS = {"wgmma": PREFILL_KERNELS, "ffma": ("prefill_partials",)}
 # the mLSTM routes' kernels, named apart for their device-time split
 MLSTM_KERNELS = {"ffma": ("mlstm_qk", "mlstm_scan<"),
                  "wgmma": ("mlstm_prep_wgmma", "mlstm_scan_wgmma")}
@@ -2557,7 +2559,12 @@ def prefix_tier_phase(report: dict) -> None:
 def parity_phase(report: dict) -> None:
     """Each engine arm at full width with 2 layers in f32 (TF32 off), on the
     card (kernels) and on the CPU (plain versions): tokens, page events,
-    stats, kernel counts and host syncs must be equal."""
+    stats, kernel counts and host syncs must be equal.  The register arm
+    (a NaN weight lane, use-site repair, the gathered path) is held on the
+    card against the same model in the default mode with that lane 0 on
+    the gathered path (``paged_decode="off"``): its CPU side took two
+    minutes of the phase, register mode runs no kernel, and the CPU tests
+    hold it against the reference."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2573,13 +2580,12 @@ def parity_phase(report: dict) -> None:
     cpu = TransformerLM(cfg, device="cpu", seed=1)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
 
-    def register_twin(m):
-        rcfg = dataclasses.replace(cfg, repair=ApproxConfig(mode="register",
-                                                            policy="zero"))
-        twin = TransformerLM(rcfg, device=m.device, seed=0)
-        twin.load_state_dict(m.state_dict())
-        twin.layers[1].mlp.w_up[5, 300] = float("nan")
-        return twin
+    def twin(lane, **repair):
+        tcfg = dataclasses.replace(cfg, repair=ApproxConfig(**repair)) if repair else cfg
+        m = TransformerLM(tcfg, device="cuda", seed=0)
+        m.load_state_dict(gpu.state_dict())
+        m.layers[1].mlp.w_up[5, 300] = lane
+        return m
 
     # the arms after the first serve 8 new tokens a request (16 steps, the
     # plants after step 3 as before): the CPU side's full-width readout
@@ -2594,7 +2600,9 @@ def parity_phase(report: dict) -> None:
                                    drive=short),
         "c-repair-off": dict(cfg=dataclasses.replace(base, repair="off"),
                              drive=dict(plant_after=None, **short)),
-        "register": dict(cfg=base, model=register_twin, drive=short),
+        "register": dict(drive=short, sides=lambda: (
+            (twin(float("nan"), mode="register", policy="zero"), base),
+            (twin(0.0), dataclasses.replace(base, paged_decode="off")))),
         "neighbor-mean": dict(cfg=base, space=dict(mode="memory",
                                                    policy="neighbor_mean"),
                               drive=short),
@@ -2605,11 +2613,11 @@ def parity_phase(report: dict) -> None:
     for name, arm in arms.items():
         t0 = time.perf_counter()
         outs = []
-        for model in (gpu, cpu):
-            if "model" in arm:
-                model = arm["model"](model)
+        sides = (arm["sides"]() if "sides" in arm
+                 else ((gpu, arm["cfg"]), (cpu, arm["cfg"])))
+        for model, acfg in sides:
             space = ApproxSpace(**arm["space"]) if "space" in arm else None
-            eng = Engine(model, arm["cfg"], space=space, device=model.device)
+            eng = Engine(model, acfg, space=space, device=model.device)
             res = drive(eng, prompts, **arm.get("drive", {}))
             m = eng.metrics()
             outs.append(dict(
@@ -2618,11 +2626,13 @@ def parity_phase(report: dict) -> None:
                 stats=eng.stats_dict(), kernel_counts=eng.kernel_counts.tolist(),
                 n_host_syncs=m["n_host_syncs"], gathers=m["pool_gathers"],
             ))
+        against = ("the lane 0 in the default mode, gathered, on the card"
+                   if "sides" in arm else "the CPU")
         for key in outs[0]:
             if outs[0][key] != outs[1][key]:
-                raise AssertionError(f"parity arm {name}: {key} differs between "
-                                     "card and CPU")
-        log(f"parity ok arm={name}: 2-layer f32, stats {outs[0]['stats']}, "
+                raise AssertionError(f"parity arm {name}: {key} differs from "
+                                     f"{against}")
+        log(f"parity ok arm={name} against {against}: 2-layer f32, stats {outs[0]['stats']}, "
             f"kernel_counts {outs[0]['kernel_counts']}, host syncs "
             f"{outs[0]['n_host_syncs']}, pool gathers {outs[0]['gathers']} "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -2645,31 +2655,36 @@ def injection_phase(report: dict) -> None:
 
 # ------------------------------------------------------------ phase 5a
 # the dense variants served at full width: (arch, the pool its kernels are
-# checked at, the decode route its bf16 pool takes, the engine arm of its
-# f32 card-vs-CPU parity: at StableLM's f32 pool the FFMA prefill and the
-# walk decode need more shared memory than a block has, so the engine
-# refuses its paged lanes (``paged_attention.pool_refusal``) and its
-# parity takes the gathered view)
-DENSE_VARIANTS = (("stablelm-1.6b", STABLELM_POOL, "fused", "a-gathered"),
-                  ("starcoder2-15b", STARCODER2_POOL, "walk", "paged"))
+# checked at, the decode route of that pool in bf16 and in f32; the prefill
+# takes the wgmma route in bf16 and the FFMA one in f32).  The engine runs
+# each model's paged lanes in bf16 at full width and in f32 at 2 layers
+DENSE_VARIANTS = (("stablelm-1.6b", STABLELM_POOL, "fused", "walk"),
+                  ("starcoder2-15b", STARCODER2_POOL, "fused", "fused"))
 # the leaves the init leaves at 0 or 1 (biases, norm scales), drawn nonzero
 # before the card-vs-CPU parity so a dropped one shows
 DRAWN_LEAVES = ("/bias", "/scale", "/b_up", "/b_down", "/bq", "/bk", "/bv")
 
 
-def _dense_pool_kernels(arch: str, shape: PoolShape, decode_route: str) -> dict:
-    """The paged kernels and the page scrub at one dense variant's bf16
-    pool against their plain versions under two detectors (decode at
-    splits 1 and 4 on ``decode_route``, prefill at C and C_LONG on the
-    wgmma route, the scrub of three pages bucketed to four), then each
-    paged call's device ms (split by kernel) and call ms beside its bound
-    and SDPA's on the gathered view, on the planted pool."""
+def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
+                        decode_route: str, timed: bool = True) -> dict:
+    """The paged kernels and the page scrub at one dense variant's pool in
+    ``dtype_name`` against their plain versions under two detectors
+    (decode at splits 1 and 4 on ``decode_route`` and a q off alignment at
+    splits 4 on the walk route; prefill at C and C_LONG, wgmma in bf16 and
+    FFMA in f32, and a bf16 q off alignment at C on FFMA; the scrub of
+    three pages bucketed to four), then (with ``timed``) each paged call's
+    device ms (split by kernel), on the planted pool and a clean copy, and
+    call ms beside its bound and SDPA's on the gathered view; on the fused
+    route, the walk route's times on the same operands (q off alignment)
+    beside them.  Returns the timing rows (none without ``timed``)."""
     import torch
 
     from repro_torch.kernels import paged_attention as pa
 
+    t0 = time.perf_counter()
     pc = PagedCheck(shape)
-    dtype, name, es = torch.bfloat16, "bfloat16", 2
+    dtype, name = getattr(torch, dtype_name), dtype_name
+    es = torch.tensor([], dtype=dtype).element_size()
     for label, kw in (
             ("default", dict(detector_k="default", detector_v="default",
                              policy="zero")),
@@ -2678,13 +2693,18 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, decode_route: str) -> dict:
                                       constant_v=0.5))):
         kp, vp, q, qcs = pc.fresh(dtype)
         d_parts, d_counts = pc.check_decode(dtype, label, kw, kp, vp, q,
-                                            route=decode_route, q_off=False)
-        p_parts = pc.check_prefill(dtype, label, kw, kp, vp, qcs, q_off=False)
+                                            route=decode_route)
+        p_parts = pc.check_prefill(dtype, label, kw, kp, vp, qcs)
         scrub_counts = pc.check_scrub(dtype, label, kw, kp)
         log(f"kernels ok  {arch} pool {dataclasses.astuple(shape)} dtype={name} "
             f"detector={label} decode {'; '.join(d_parts)} {d_counts} prefill "
             f"{'; '.join(p_parts)} scrub_counts={scrub_counts}")
+    if not timed:
+        log(f"dense kernels {arch} {name}: {time.perf_counter() - t0:.1f} s")
+        return {}
     kp, vp, q, qcs = pc.fresh(dtype)
+    kc, vc = (x.nan_to_num(0.0, 0.0, 0.0) for x in (kp, vp))
+    q_off = _at_offset(q, 1)
     kw = dict(detector_k="default", detector_v="default", policy="zero")
     kg, vg = pc.gathered_kv(kp, vp)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2695,49 +2715,72 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, decode_route: str) -> dict:
         return sdpa(q[:, :, None, :], kg, vg, attn_mask=dmask)
 
     d_bound, d_by = pc.decode_bound(name, es)
+    sdpa_ms, sdpa_dev = cuda_ms(dsdpa), library_device_ms(dsdpa)
     rows = {}
     for splits in (1, 4):
-        def dcall(splits=splits):
-            return pa.paged_attention_splitk_raw(q, kp, vp, pc.bt, pc.pos, LAYER,
+        def dcall(k=kp, v=vp, qd=q, splits=splits):
+            return pa.paged_attention_splitk_raw(qd, k, v, pc.bt, pc.pos, LAYER,
                                                  splits=splits, **kw)
 
-        rows[f"decode splits={splits}"] = dict(
-            route=decode_route, names=DECODE_KERNELS[decode_route],
-            parts=kernel_breakdown(dcall, DECODE_KERNELS[decode_route]),
-            ms=cuda_ms(dcall), bound_ms=d_bound, bound_by=d_by,
+        names = DECODE_KERNELS[decode_route]
+        row = dict(
+            route=decode_route, names=names, main=names[0],
+            parts=kernel_breakdown(dcall, names), ms=cuda_ms(dcall),
+            clean=kernel_breakdown(lambda: dcall(k=kc, v=vc), names),
+            clean_ms=cuda_ms(lambda: dcall(k=kc, v=vc)),
+            bound_ms=d_bound, bound_by=d_by,
             plain_ms=cuda_ms(lambda splits=splits: pa.paged_decode_plain(
                 q, kp, vp, pc.bt, pc.pos, LAYER, splits=splits, **kw)),
-            sdpa_ms=cuda_ms(dsdpa), sdpa_device_ms=library_device_ms(dsdpa))
+            sdpa_ms=sdpa_ms, sdpa_device_ms=sdpa_dev)
+        if decode_route == "fused":
+            row["walk"] = kernel_breakdown(lambda: dcall(qd=q_off),
+                                           DECODE_KERNELS["walk"])
+            row["walk_ms"] = cuda_ms(lambda: dcall(qd=q_off))
+        rows[f"decode splits={splits}"] = row
     for c, qc in qcs.items():
         qc1, qs1 = qc[:1], pc.q_starts[c][:1]
         qs0 = int(qs1[0])
         cmask = keys[None, :] <= (qs0 + torch.arange(c, device=pc.dev))[:, None]
 
-        def pcall(qc1=qc1, qs1=qs1):
-            return pa.paged_prefill_raw(qc1, kp, vp, pc.bt[:1], qs1, LAYER, **kw)
+        def pcall(qc1=qc1, qs1=qs1, k=kp, v=vp):
+            return pa.paged_prefill_raw(qc1, k, v, pc.bt[:1], qs1, LAYER, **kw)
 
         def psdpa(qc1=qc1, cmask=cmask):
             return sdpa(qc1.transpose(1, 2), kg[:1], vg[:1], attn_mask=cmask)
 
         p_bound, p_by = pc.prefill_bound(c, qs0, name, es)
+        p_route = pa.route(qc1, kp, vp)
+        names = PREFILL_ROUTE_KERNELS[p_route]
         rows[f"prefill C={c}"] = dict(
-            route=pa.route(qc1, kp, vp), names=PREFILL_KERNELS,
-            parts=kernel_breakdown(pcall, PREFILL_KERNELS), ms=cuda_ms(pcall),
+            route=p_route, names=names, main=names[p_route == "wgmma"],
+            parts=kernel_breakdown(pcall, names), ms=cuda_ms(pcall),
+            clean=kernel_breakdown(lambda: pcall(k=kc, v=vc), names),
+            clean_ms=cuda_ms(lambda: pcall(k=kc, v=vc)),
             bound_ms=p_bound, bound_by=p_by,
             plain_ms=cuda_ms(lambda qc1=qc1, qs1=qs1: pa.paged_prefill_plain(
                 qc1, kp, vp, pc.bt[:1], qs1, LAYER, **kw)),
             sdpa_ms=cuda_ms(psdpa), sdpa_device_ms=library_device_ms(psdpa))
     for what, r in rows.items():
-        main = r["names"][0] if r["names"][0] != "prefill_scan" else r["names"][1]
-        if not r["parts"][main] > 0:
-            raise AssertionError(f"{arch} {what}: {main} did not run: {r['parts']}")
+        if not (r["parts"][r["main"]] > 0 and r["clean"][r["main"]] > 0):
+            raise AssertionError(f"{arch} {what}: {r['main']} did not run: "
+                                 f"{r['parts']} {r['clean']}")
         r["device_ms"] = sum(r["parts"].values())
-        split = " + ".join(f"{k} {v:.4f}" for k, v in r["parts"].items())
-        log(f"timing {arch} paged {what} bf16 planted ({r['route']} route): device "
-            f"{r['device_ms']:.4f} ms = {split}; call {r['ms']:.4f} ms; bound "
-            f"{r['bound_ms']:.6f} ms ({r['bound_by']}); SDPA device "
-            f"{r['sdpa_device_ms']} ms, call {r['sdpa_ms']:.4f} ms; plain "
-            f"{r['plain_ms']:.4f} ms ({gpu_line()})")
+        r["clean_device_ms"] = sum(r["clean"].values())
+        for label, pt, ms in (("planted", r["parts"], r["ms"]),
+                              ("clean", r["clean"], r["clean_ms"])):
+            split = " + ".join(f"{k} {v:.4f}" for k, v in pt.items())
+            log(f"timing {arch} paged {what} {name} {label} ({r['route']} route): "
+                f"device {sum(pt.values()):.4f} ms = {split}; call {ms:.4f} ms; "
+                f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); SDPA device "
+                f"{r['sdpa_device_ms']} ms, call {r['sdpa_ms']:.4f} ms; plain "
+                f"{r['plain_ms']:.4f} ms ({gpu_line()})")
+        if "walk" in r:
+            wk = r["walk"]
+            log(f"timing {arch} paged {what} {name} planted (walk route, q "
+                f"{es} bytes off alignment): device {sum(wk.values()):.4f} ms = "
+                f"decode_partials {wk['decode_partials']:.4f} + lse_merge "
+                f"{wk['lse_merge']:.4f}; call {r['walk_ms']:.4f} ms")
+    log(f"dense kernels {arch} {name}: {time.perf_counter() - t0:.1f} s")
     return {k: {f: v for f, v in r.items() if f != "names"} for k, r in rows.items()}
 
 
@@ -2758,7 +2801,7 @@ def _serve_dense(arch: str, decode_route: str) -> dict:
     cfg = get_config(arch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -2823,20 +2866,21 @@ def _serve_dense(arch: str, decode_route: str) -> dict:
         f"planted faults charged and repaired, paged_decode/paged_prefill/scrub "
         f"launched {[launches[k] for k in ('paged_decode', 'paged_prefill', 'scrub')]}, "
         f"decode {decode_route}, prefill wgmma")
-    log(f"timing dense {arch}: {json.dumps(row)} ({gpu_line()})")
+    log(f"timing dense {arch}: {json.dumps(row)} ({gpu_line()}; "
+        f"{time.perf_counter() - t_phase:.1f} s)")
     del cold, warm, model
     gc.collect()
     torch.cuda.empty_cache()
     return row
 
 
-def _dense_parity(arch: str, arm: str) -> None:
+def _dense_parity(arch: str) -> None:
     """``arch`` at full width with 2 layers in f32 (TF32 off), its biases
     and norm parameters drawn nonzero, on the card (kernels) and on the CPU
-    (plain versions): the engine in ``arm`` ("paged", or "a-gathered": the
-    card's engine refuses this pool's paged lanes, so both run
-    ``paged_decode="off"``), 8 new tokens a request, the same plants;
-    tokens, page events, stats, kernel counts and host syncs equal."""
+    (plain versions): the engine on its paged lanes (StableLM-1.6B's f32
+    pool takes the walk decode and the FFMA prefill, each page in groups
+    of KV heads), 8 new tokens a request, the same plants; tokens, page
+    events, stats, kernel counts and host syncs equal, and no gather."""
     import gc
 
     import torch
@@ -2861,21 +2905,11 @@ def _dense_parity(arch: str, arm: str) -> None:
     cpu = build_model(cfg, device="cpu", seed=1)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     prompts = requests(cfg.vocab)
-    scfg = serving_config()
-    # the paged lanes on this f32 pool: planned, or refused before a launch
-    try:
-        refused = None
-        Engine(gpu, scfg, device="cuda")
-    except NotImplementedError as e:
-        refused = str(e)
-    if (refused is None) != (arm == "paged"):
-        raise AssertionError(f"{arch}: f32 paged lanes refused: {refused or 'no'}")
-    if refused:
-        log(f"dense f32 pool {arch}: the engine refuses its paged lanes: {refused}")
-        scfg = dataclasses.replace(scfg, paged_decode="off")
     outs = []
     for model in (gpu, cpu):
-        eng = Engine(model, scfg, device=model.device)
+        eng = Engine(model, serving_config(), device=model.device)
+        if eng.paged_plan is None or not eng.paged_plan.prefill:
+            raise AssertionError(f"dense parity {arch}: the paged lanes are off")
         res = drive(eng, prompts, max_new=8)
         outs.append(dict(
             tokens=[r["tokens"] for r in res],
@@ -2883,14 +2917,14 @@ def _dense_parity(arch: str, arm: str) -> None:
             kernel_counts=eng.kernel_counts.tolist(),
             n_host_syncs=eng.metrics()["n_host_syncs"],
             gathers=eng.metrics()["pool_gathers"]))
-    if (outs[0]["gathers"] > 0) != (arm == "a-gathered"):
-        raise AssertionError(f"dense parity {arch}: not on the {arm} path")
+    if outs[0]["gathers"] > 0:
+        raise AssertionError(f"dense parity {arch}: not on the paged path")
     for key in outs[0]:
         if outs[0][key] != outs[1][key]:
             raise AssertionError(f"dense parity {arch}: {key} differs between "
                                  "card and CPU")
-    log(f"dense parity ok {arch} arm={arm}: 2-layer f32, {len(drawn)} bias/norm leaves drawn "
-        f"nonzero, stats {outs[0]['stats']}, kernel_counts "
+    log(f"dense parity ok {arch} arm=paged: 2-layer f32, {len(drawn)} bias/norm "
+        f"leaves drawn nonzero, stats {outs[0]['stats']}, kernel_counts "
         f"{outs[0]['kernel_counts']}, host syncs {outs[0]['n_host_syncs']} "
         f"({time.perf_counter() - t0:.1f} s)")
     del gpu, cpu
@@ -2899,16 +2933,22 @@ def _dense_parity(arch: str, arm: str) -> None:
 
 
 def dense_variants_phase(report: dict) -> None:
-    """StableLM-1.6B and StarCoder2-15B: the paged kernels at their pools,
-    each model served at full width with its timing, and card-vs-CPU
-    parity at 2 layers; every model freed before the phase returns."""
+    """StableLM-1.6B and StarCoder2-15B: the paged kernels at their pools
+    in bf16 and f32, each model served at full width with its timing, and
+    card-vs-CPU parity at 2 layers on the paged lanes; every model freed
+    before the phase returns."""
+    # f32 is timed only where it takes the walk decode (with the FFMA
+    # prefill): StableLM's pool, the engine's f32 paged lanes there
     report["dense_variants"] = {
-        arch: dict(kernels=_dense_pool_kernels(arch, shape, route))
-        for arch, shape, route, _ in DENSE_VARIANTS}
+        arch: dict(kernels={
+            "bfloat16": _dense_pool_kernels(arch, shape, "bfloat16", bf16_route),
+            "float32": _dense_pool_kernels(arch, shape, "float32", f32_route,
+                                           timed=f32_route == "walk")})
+        for arch, shape, bf16_route, f32_route in DENSE_VARIANTS}
     for arch, _, route, _ in DENSE_VARIANTS:
         report["dense_variants"][arch]["serve"] = _serve_dense(arch, route)
-    for arch, _, _, arm in DENSE_VARIANTS:
-        _dense_parity(arch, arm)
+    for arch, *_ in DENSE_VARIANTS:
+        _dense_parity(arch)
 
 
 # ------------------------------------------------------------ phase 5b

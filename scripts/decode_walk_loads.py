@@ -4,9 +4,9 @@
     python3 scripts/decode_walk_loads.py        # on an H100, from the repo root
 
 The walk route's ``decode_partials`` (``src/repro_torch/csrc/paged_decode.cu``)
-repairs each K and V tile with ``repro::repair_tile``: one 2-byte load per
-lane per loop step, each followed by a shared-memory store, so a thread's
-loads go out one after another.  This script builds a variant of the same
+repairs each group of KV heads' K and V rows with ``repro::repair_rows``: one
+2-byte load per lane per loop step, each followed by a shared-memory store,
+so a thread's loads go out one after another.  This script builds a variant of the same
 source whose tile repair issues 16 loads per thread before it classifies
 and stores any of them (``nvcc`` into ``build/decode_walk_loads/``), then
 times ``decode_partials`` and ``lse_merge`` of both builds with the
@@ -31,21 +31,21 @@ sys.path.insert(0, str(ROOT))
 
 BATCHED = r'''
 namespace {
-// repro::repair_tile with each thread's U loads issued before any is used.
+// repro::repair_rows with each thread's U loads issued before any is used.
 template <int DT>
-__device__ __forceinline__ void repair_tile_batched(
-    const typename repro::Storage<DT>::bits_t* src, int rows, int dh, int stride,
-    const repro::Detector& det, const repro::Fill& fill, long long page,
-    float* dst, int* cnt) {
+__device__ __forceinline__ void repair_rows_batched(
+    const typename repro::Storage<DT>::bits_t* src, int rows, int run,
+    long long run_stride, int dh, int stride, const repro::Detector& det,
+    const repro::Fill& fill, long long page, float* dst, int* cnt) {
   constexpr int U = 16;
   int n_nan = 0, n_inf = 0;
-  const int n = rows * dh;
+  const int n = rows * dh, run_lanes = run * dh;
   for (int e0 = threadIdx.x; e0 < n; e0 += blockDim.x * U) {
     uint32_t v[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int e = e0 + u * blockDim.x;
-      v[u] = e < n ? (uint32_t)src[e] : 0u;
+      const int e = e0 + u * blockDim.x, r = e / run_lanes;
+      v[u] = e < n ? (uint32_t)src[r * run_stride + (e - r * run_lanes)] : 0u;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -70,10 +70,10 @@ __device__ __forceinline__ void repair_tile_batched(
 def build_variant(native) -> ctypes.CDLL:
     src = (native.CSRC / "paged_decode.cu").read_text()
     anchor = "namespace {\n\nusing repro::Detector;"
-    if anchor not in src or src.count("repro::repair_tile<DT>(") != 2:
+    if anchor not in src or src.count("repro::repair_rows<DT>(") != 2:
         raise RuntimeError("paged_decode.cu no longer has the walk kernel's shape")
     src = src.replace(anchor, BATCHED + anchor, 1)
-    src = src.replace("repro::repair_tile<DT>(", "repair_tile_batched<DT>(")
+    src = src.replace("repro::repair_rows<DT>(", "repair_rows_batched<DT>(")
     out_dir = native.BUILD_DIR.parent / "decode_walk_loads"
     out_dir.mkdir(parents=True, exist_ok=True)
     cu, lib = out_dir / "paged_decode_batched.cu", out_dir / "libbatched.so"

@@ -22,15 +22,19 @@
 // accumulation, out = acc / max(l, 1e-30); a partial with no live key
 // gets zero weight in the merge.
 //
-// walk route (`decode_partials` + `lse_merge`): any shape.  One block walks
-// one (request b, split s) slice of the block table: for each slot it
-// loads the K and V tiles, repairs them into shared memory as f32 and runs
-// the online softmax, then writes its unnormalised (acc, m, l) partial; a
-// second launch merges the partials.  With splits == 1 the merge is exactly
-// the serial flush.  Loads are serialised (one scalar load per lane per
-// step, a round trip per step), a score is one thread's serial dot
-// product, and B x splits blocks fill few SMs: at the engine's shapes it
-// loses several times to SDPA's device time (PERF.md section 6).
+// walk route (`decode_partials` + `lse_merge`): any shape where one KV
+// head's page fits a block's shared memory as f32.  One block walks one
+// (request b, split s) slice of the block table: for each slot it stages the
+// page in groups of KV heads (the largest group that fits, chosen by the
+// wrapper, kernels/paged_attention.py::walk_group: all of them at the Qwen2
+// and StarCoder2 pools, 25 of 32 at StableLM's f32 pool), repairs each group's K and V rows into shared memory as f32 and
+// runs the online softmax of the group's query heads, then writes its
+// unnormalised (acc, m, l) partial; a second launch merges the partials.
+// With splits == 1 the merge is exactly the serial flush.  Loads are
+// serialised (one scalar load per lane per step, a round trip per step), a
+// score is one thread's serial dot product, and B x splits blocks fill few
+// SMs: at the engine's shapes it loses several times to SDPA's device time
+// (PERF.md section 6).
 //
 // fused route (`decode_fused`): q and both pools all f32, bf16 or f16, Dh
 // 64 or 128, each contiguous and 16-byte aligned, one slot's K and V tiles
@@ -66,12 +70,19 @@
 //     repair reaches its KV head's output through 0 * NaN as in the
 //     reference.
 //   * Each block keeps its unnormalised partial (m, l per head, acc H x Dh)
-//     in shared memory; at the end every block but the cluster's leader
-//     writes it into the leader's shared memory through distributed shared
-//     memory and leaves (a cluster barrier arrived at entry and waited for
-//     here shows the leader has started; a second one, arrived after the
-//     writes, releases them to the leader), and the leader merges the
-//     partials and writes the normalised output in vector stores.
+//     in shared memory, and the merge is shared: block r owns a contiguous
+//     1/nb of the (head, float4) items.  Every block stores the slices of
+//     its partial into their owners' inboxes through distributed shared
+//     memory (a cluster barrier arrived at entry and waited for here shows
+//     every block has started; a second one, arrived after the stores,
+//     releases them), then merges its own share from its inbox in rank
+//     order (the plain twin's) and writes that share of the normalised
+//     output in vector stores.  So a block holds its partial and one
+//     partial's worth of slices, not the cluster's eight partials:
+//     StarCoder2-15B's pool (H = 48, Kh = 4, Dh = 128) needs 101 KB a
+//     block in bf16 and 146 KB in f32.  (Reading the slices from the other
+//     blocks after one barrier, with a second one before leaving, was 2-4 %
+//     slower on an H100: scripts/decode_fused_variants.py.)
 //   The counts are zeroed by a memset on the stream before the launch.
 //   Against the plain version with `splits`, p is rounded against another
 //   running max where the partitions differ, so outputs agree within the
@@ -91,29 +102,41 @@ using repro::Storage;
 
 constexpr int kThreads = 256;
 
+// One block walks one (request b, split s) slice of the block table.  Each
+// slot's page is staged in groups of kg KV heads, one group after another
+// (shared memory: q and acc (H, Dh), the group's K rows padded to Dh + 1
+// and its V rows (pg * kg each), the group's scores (kg * G, pg), m, l and
+// the rescale factor (H each), 4 counts: kernels/paged_attention.py::
+// walk_smem):
+// the group's K and V rows are repaired into shared memory as f32 and
+// counted into the slot's four counters, then the query heads of those KV
+// heads take the page's scores, online-softmax step and P . V.  Each query
+// head still sees each page once, in page order, so its arithmetic is the
+// ungrouped walk's; the slot's counts and events are written once, after
+// its last group (a visit is one tile over every KV head).
 template <int DT>
 __global__ void decode_partials(
     const typename Storage<DT>::bits_t* q, const typename Storage<DT>::bits_t* kp,
     const typename Storage<DT>::bits_t* vp, const int* bt, const int* pos,
-    int H, int Dh, int L, int pg, int Kh, int M, int ns, int layer,
+    int H, int Dh, int L, int pg, int Kh, int kg, int M, int ns, int layer,
     float sm_scale, Detector det_k, Detector det_v, repro::Fill fill_k,
     repro::Fill fill_v, float* o_part, float* m_part, float* l_part,
     int* slot_counts, int* counts) {
   extern __shared__ float smem[];
   const int ks = Dh + 1;                  // padded K row stride
-  const int rows = pg * Kh;               // (token, kv head) rows per page
+  const int G = H / Kh;
+  const int rows = pg * kg;               // (token, kv head) rows of a group
   float* q_s = smem;                      // H x Dh
   float* k_s = q_s + H * Dh;              // rows x ks
   float* v_s = k_s + rows * ks;           // rows x Dh
   float* acc = v_s + rows * Dh;           // H x Dh
-  float* p_s = acc + H * Dh;              // H x pg
-  float* m_s = p_s + H * pg;              // H
+  float* p_s = acc + H * Dh;              // kg * G x pg
+  float* m_s = p_s + kg * G * pg;         // H
   float* l_s = m_s + H;                   // H
   float* a_s = l_s + H;                   // H (rescale factors)
   int* cnt = reinterpret_cast<int*>(a_s + H);  // nan_k, inf_k, nan_v, inf_v
 
   const int b = blockIdx.x, s = blockIdx.y, S = gridDim.y;
-  const int G = H / Kh;
   const int tid = threadIdx.x;
   for (int i = tid; i < H * Dh; i += blockDim.x) {
     q_s[i] = Storage<DT>::to_float(q[(long long)b * H * Dh + i]);
@@ -124,65 +147,71 @@ __global__ void decode_partials(
     l_s[h] = 0.f;
   }
   const int bound = pos[b];
-  const long long tile = (long long)rows * Dh;
+  const long long tile = (long long)pg * Kh * Dh;
   for (int jj = 0; jj < ns; ++jj) {
     const int j = s * ns + jj;
     const long long page = bt[b * M + j];
     const long long base = (page * L + layer) * tile;
     if (tid < 4) cnt[tid] = 0;
     __syncthreads();
-    repro::repair_tile<DT>(kp + base, rows, Dh, ks, det_k, fill_k, page, k_s,
-                           &cnt[0]);
-    repro::repair_tile<DT>(vp + base, rows, Dh, Dh, det_v, fill_v, page, v_s,
-                           &cnt[2]);
-    __syncthreads();
-    if (tid == 0) {
-      const int fk = cnt[0] + cnt[1], fv = cnt[2] + cnt[3];
-      slot_counts[b * M + j] = fk + fv;
-      if (cnt[0]) atomicAdd(&counts[0], cnt[0]);
-      if (cnt[1]) atomicAdd(&counts[1], cnt[1]);
-      if (fk) atomicAdd(&counts[2], 1);
-      if (cnt[2]) atomicAdd(&counts[3], cnt[2]);
-      if (cnt[3]) atomicAdd(&counts[4], cnt[3]);
-      if (fv) atomicAdd(&counts[5], 1);
-      if (fk || fv) atomicAdd(&counts[6], 1);
-    }
-    // scores of this page, masked by position
-    for (int i = tid; i < H * pg; i += blockDim.x) {
-      const int h = i / pg, t = i % pg;
-      const float* qr = q_s + h * Dh;
-      const float* kr = k_s + (t * Kh + h / G) * ks;
-      float dot = 0.f;
-      for (int d = 0; d < Dh; ++d) dot += qr[d] * kr[d];
-      p_s[i] = (j * pg + t <= bound) ? dot * sm_scale : NEG_INF;
-    }
-    __syncthreads();
-    // online-softmax state, one thread per head
-    for (int h = tid; h < H; h += blockDim.x) {
-      float mx = m_s[h];
-      for (int t = 0; t < pg; ++t) mx = fmaxf(mx, p_s[h * pg + t]);
-      float sum = 0.f;
-      for (int t = 0; t < pg; ++t) {
-        const float sv = p_s[h * pg + t];
-        const float p = sv > NEG_INF * 0.5f ? expf(sv - mx) : 0.f;
-        sum += p;
-        p_s[h * pg + t] = Storage<DT>::quantize(p);
+    for (int k0 = 0; k0 < Kh; k0 += kg) {
+      const int nk = min(kg, Kh - k0);    // KV heads k0 .. k0 + nk - 1
+      const int h0 = k0 * G, nh = nk * G;  // their query heads
+      repro::repair_rows<DT>(kp + base + k0 * Dh, pg * nk, nk, (long long)Kh * Dh,
+                             Dh, ks, det_k, fill_k, page, k_s, &cnt[0]);
+      repro::repair_rows<DT>(vp + base + k0 * Dh, pg * nk, nk, (long long)Kh * Dh,
+                             Dh, Dh, det_v, fill_v, page, v_s, &cnt[2]);
+      __syncthreads();
+      if (tid == 0 && k0 + nk == Kh) {
+        const int fk = cnt[0] + cnt[1], fv = cnt[2] + cnt[3];
+        slot_counts[b * M + j] = fk + fv;
+        if (cnt[0]) atomicAdd(&counts[0], cnt[0]);
+        if (cnt[1]) atomicAdd(&counts[1], cnt[1]);
+        if (fk) atomicAdd(&counts[2], 1);
+        if (cnt[2]) atomicAdd(&counts[3], cnt[2]);
+        if (cnt[3]) atomicAdd(&counts[4], cnt[3]);
+        if (fv) atomicAdd(&counts[5], 1);
+        if (fk || fv) atomicAdd(&counts[6], 1);
       }
-      const float alpha = expf(m_s[h] - mx);
-      a_s[h] = alpha;
-      l_s[h] = l_s[h] * alpha + sum;
-      m_s[h] = mx;
+      // scores of this page for the group's heads, masked by position
+      for (int i = tid; i < nh * pg; i += blockDim.x) {
+        const int hl = i / pg, t = i % pg;
+        const float* qr = q_s + (h0 + hl) * Dh;
+        const float* kr = k_s + (t * nk + hl / G) * ks;
+        float dot = 0.f;
+        for (int d = 0; d < Dh; ++d) dot += qr[d] * kr[d];
+        p_s[i] = (j * pg + t <= bound) ? dot * sm_scale : NEG_INF;
+      }
+      __syncthreads();
+      // online-softmax state, one thread per head
+      for (int hl = tid; hl < nh; hl += blockDim.x) {
+        const int h = h0 + hl;
+        float* pr = p_s + hl * pg;
+        float mx = m_s[h];
+        for (int t = 0; t < pg; ++t) mx = fmaxf(mx, pr[t]);
+        float sum = 0.f;
+        for (int t = 0; t < pg; ++t) {
+          const float sv = pr[t];
+          const float p = sv > NEG_INF * 0.5f ? expf(sv - mx) : 0.f;
+          sum += p;
+          pr[t] = Storage<DT>::quantize(p);
+        }
+        const float alpha = expf(m_s[h] - mx);
+        a_s[h] = alpha;
+        l_s[h] = l_s[h] * alpha + sum;
+        m_s[h] = mx;
+      }
+      __syncthreads();
+      for (int i = tid; i < nh * Dh; i += blockDim.x) {
+        const int hl = i / Dh, d = i % Dh, h = h0 + hl;
+        const float* pr = p_s + hl * pg;
+        const float* vc = v_s + (hl / G) * Dh + d;
+        float pv = 0.f;
+        for (int t = 0; t < pg; ++t) pv += pr[t] * vc[t * nk * Dh];
+        acc[h * Dh + d] = acc[h * Dh + d] * a_s[h] + pv;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int i = tid; i < H * Dh; i += blockDim.x) {
-      const int h = i / Dh, d = i % Dh;
-      const float* pr = p_s + h * pg;
-      const float* vc = v_s + (h / G) * Dh + d;
-      float pv = 0.f;
-      for (int t = 0; t < pg; ++t) pv += pr[t] * vc[t * Kh * Dh];
-      acc[i] = acc[i] * a_s[h] + pv;
-    }
-    __syncthreads();
   }
   const long long o = ((long long)b * S + s) * H;
   for (int i = tid; i < H * Dh; i += blockDim.x) o_part[o * Dh + i] = acc[i];
@@ -219,22 +248,18 @@ __global__ void lse_merge(const float* o_part, const float* m_part,
 template <int DT>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int* bt, const int* pos, int B, int H, int Dh, int L,
-                   int pg, int Kh, int M, int splits, int layer,
-                   const int* det_k, const int* det_v, repro::Fill fill_k,
-                   repro::Fill fill_v, float* o_part, float* m_part,
-                   float* l_part, int* slot_counts, int* counts, void* out,
-                   cudaStream_t stream) {
+                   int pg, int Kh, int kg, size_t smem, int M, int splits,
+                   int layer, const int* det_k, const int* det_v,
+                   repro::Fill fill_k, repro::Fill fill_v, float* o_part,
+                   float* m_part, float* l_part, int* slot_counts, int* counts,
+                   void* out, cudaStream_t stream) {
   using bits_t = typename Storage<DT>::bits_t;
-  const int rows = pg * Kh;
-  const size_t smem = sizeof(float) * ((size_t)H * Dh * 2 + (size_t)rows * (Dh + 1) +
-                                       (size_t)rows * Dh + (size_t)H * pg + 3 * H) +
-                      4 * sizeof(int);
   cudaError_t err = repro::allow_smem((const void*)decode_partials<DT>, smem);
   if (err != cudaSuccess) return err;
   const float sm_scale = 1.0f / sqrtf((float)Dh);
   decode_partials<DT><<<dim3(B, splits), kThreads, smem, stream>>>(
       static_cast<const bits_t*>(q), static_cast<const bits_t*>(kp),
-      static_cast<const bits_t*>(vp), bt, pos, H, Dh, L, pg, Kh, M, M / splits,
+      static_cast<const bits_t*>(vp), bt, pos, H, Dh, L, pg, Kh, kg, M, M / splits,
       layer, sm_scale, repro::detector_from(det_k), repro::detector_from(det_v),
       fill_k, fill_v, o_part, m_part, l_part, slot_counts, counts);
   err = cudaGetLastError();
@@ -280,25 +305,26 @@ struct Decode {
 
 // Byte offsets into a block's dynamic shared memory: the mbarrier, q's row
 // (H, D) and the round's tiles (per slot K then V, (pg, Kh, D) each) in the
-// storage dtype, then f32 acc (H, D), the other blocks' acc (parts, H, D:
-// filled in the cluster's leader only), a page's scores and softmax weights
-// for each head warp (H, pg), m and l (H each), the other blocks' m and l
-// (parts, H each), and int32 counts (round, 4: NaN K, Inf K, NaN V, Inf V).
+// storage dtype, then f32: the block's own acc (H, D); its inbox, the
+// slices of every block's partial that its share of the merge takes (acc:
+// nb shares of ceil(H * D / 4 / nb) float4s, at most H * D / 4 + 8; (m, l)
+// of each head: MAX_CLUSTER x H float2s); a page's scores and softmax
+// weights for each head warp (H, pg); the block's own m and l (H each);
+// and int32 counts (round, 4: NaN K, Inf K, NaN V, Inf V)
+// (kernels/paged_attention.py::fused_smem).
 struct Layout {
-  long long q, tiles, acc, pacc, s, m, l, pm, pl, cnt, total;
-  __host__ __device__ Layout(int H, int D, int pg, int Kh, int es, int round,
-                             int parts) {
+  long long q, tiles, acc, inbox, inml, s, m, l, cnt, total;
+  __host__ __device__ Layout(int H, int D, int pg, int Kh, int es, int round) {
     const long long tb = (long long)pg * Kh * D * es;
     q = 16;
     tiles = q + (long long)H * D * es;
     acc = tiles + 2 * round * tb;
-    pacc = acc + 4ll * H * D;
-    s = pacc + 4ll * parts * H * D;
+    inbox = acc + 4ll * H * D;
+    inml = inbox + 4ll * H * D + 16ll * MAX_CLUSTER;
+    s = inml + 8ll * MAX_CLUSTER * H;
     m = s + 4ll * H * pg;
     l = m + 4ll * H;
-    pm = l + 4ll * H;
-    pl = pm + 4ll * parts * H;
-    cnt = pl + 4ll * parts * H;
+    cnt = l + 4ll * H;
     total = cnt + 16ll * round;
   }
 };
@@ -513,7 +539,7 @@ __device__ __forceinline__ void head_walk(const Decode& p, int h, int n, int jr,
 
 // Grid (nb, B), clusters of (nb, 1, 1), blocks of 32 * (min(H, 16) + 1)
 // threads: block `rank` of request b owns slots rank * spb .. min(M, rank
-// * spb + spb) - 1, both KV heads.  Warp w < min(H, 16) walks heads w, w +
+// * spb + spb) - 1, every KV head.  Warp w < min(H, 16) walks heads w, w +
 // 16, ...; the last warp counts.
 template <int DT, int D>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -528,7 +554,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int H = p.H, pg = p.pg;
   const int j0 = rank * p.spb, j1 = min(p.M, j0 + p.spb);
   const uint32_t tb = (uint32_t)(pg * p.Kh * D * ES);   // one tile's bytes
-  const Layout lay(H, D, pg, p.Kh, ES, p.round, nb - 1);
+  const Layout lay(H, D, pg, p.Kh, ES, p.round);
   const uint32_t bar = smem_u32(smem);
   uint8_t* q_s = smem + lay.q;
   uint8_t* tiles = smem + lay.tiles;
@@ -635,46 +661,47 @@ __global__ void __launch_bounds__(MAX_THREADS)
     __syncthreads();
   }
 
-  // ---- merge: every block but the cluster's leader (rank 0) writes its
-  // unnormalised partial into the leader's shared memory and leaves; the
-  // leader merges, a float4 of one head's acc per thread: w_r = exp(m_r -
+  // ---- merge, shared across the cluster: block `owner` takes a contiguous
+  // share of the (head, float4) items.  Every block stores the slices of
+  // its unnormalised partial into their owners' inboxes through
+  // distributed shared memory (acc, and (m, l) of each head that an
+  // owner's share touches); a cluster barrier releases the stores; then
+  // each block merges its share from its own inbox, the blocks' partials
+  // in rank order 0 .. nb - 1 (the plain twin's order): w_r = exp(m_r -
   // max m) for live partials, 0 for dead ones (0 * NaN still reaches the
-  // output, as in the reference's merge)
+  // output, as in the reference's merge), and writes its share of out in
+  // vector stores
+  const int items = H * (D / 4), share = (items + nb - 1) / nb;
+  float4* inbox = reinterpret_cast<float4*>(smem + lay.inbox);
+  float2* inml = reinterpret_cast<float2*>(smem + lay.inml);
   cluster_wait();
-  float* pacc = reinterpret_cast<float*>(smem + lay.pacc);
-  float* pm = reinterpret_cast<float*>(smem + lay.pm);
-  float* pl = reinterpret_cast<float*>(smem + lay.pl);
-  if (rank > 0) {
-    const int part = rank - 1;
-    float4* dst = reinterpret_cast<float4*>(
-        cluster.map_shared_rank(pacc + (long long)part * H * D, 0));
-    const float4* src4 = reinterpret_cast<const float4*>(acc);
-    for (int i = tid; i < H * D / 4; i += nthreads) dst[i] = src4[i];
-    float* dm = cluster.map_shared_rank(pm + part * H, 0);
-    float* dl = cluster.map_shared_rank(pl + part * H, 0);
-    for (int h = tid; h < H; h += nthreads) {
-      dm[h] = m_s[h];
-      dl[h] = l_s[h];
-    }
-    cluster_arrive();
-    return;
+  const float4* acc4 = reinterpret_cast<const float4*>(acc);
+  for (int item = tid; item < items; item += nthreads) {
+    const int owner = item / share;
+    *cluster.map_shared_rank(inbox + rank * share + item - owner * share,
+                             owner) = acc4[item];
+  }
+  for (int i = tid; i < H * nb; i += nthreads) {
+    const int h = i / nb, owner = i - h * nb;
+    if (h * (D / 4) < (owner + 1) * share && (h + 1) * (D / 4) > owner * share)
+      *cluster.map_shared_rank(inml + rank * H + h, owner) =
+          make_float2(m_s[h], l_s[h]);
   }
   cluster_arrive();
   cluster_wait();
-  for (int item = tid; item < H * (D / 4); item += nthreads) {
+  const int i1 = min(items, (rank + 1) * share);
+  for (int item = rank * share + tid; item < i1; item += nthreads) {
     const int h = item / (D / 4), c4 = item - h * (D / 4);
+    const int slot = item - rank * share;
     float mr[MAX_CLUSTER], lr[MAX_CLUSTER];
     float4 ar[MAX_CLUSTER];
-    mr[0] = m_s[h];
-    lr[0] = l_s[h];
-    ar[0] = reinterpret_cast<const float4*>(acc + h * D)[c4];
 #pragma unroll
-    for (int r = 1; r < MAX_CLUSTER; ++r) {
+    for (int r = 0; r < MAX_CLUSTER; ++r) {
       if (r < nb) {
-        mr[r] = pm[(r - 1) * H + h];
-        lr[r] = pl[(r - 1) * H + h];
-        ar[r] = reinterpret_cast<const float4*>(
-            pacc + ((long long)(r - 1) * H + h) * D)[c4];
+        const float2 ml = inml[r * H + h];
+        mr[r] = ml.x;
+        lr[r] = ml.y;
+        ar[r] = inbox[r * share + slot];
       }
     }
     float m_star = NEG_INF;
@@ -712,21 +739,18 @@ inline void partition(int M, int* nb, int* spb) {
 // most MAX_ROUND; 0 when not even one slot fits.
 inline int round_slots(int H, int D, int pg, int Kh, int es, int spb) {
   int r = spb < MAX_ROUND ? spb : MAX_ROUND;
-  while (r > 0 && Layout(H, D, pg, Kh, es, r, MAX_CLUSTER - 1).total > SMEM_LIMIT)
-    --r;
+  while (r > 0 && Layout(H, D, pg, Kh, es, r).total > SMEM_LIMIT) --r;
   return r;
 }
 
 template <int DT, int D>
 cudaError_t launch(const Decode& p, int B, int nb, cudaStream_t stream) {
   constexpr int ES = DT == repro::DT_F32 ? 4 : 2;
-  const size_t smem =
-      (size_t)Layout(p.H, D, p.pg, p.Kh, ES, p.round, nb - 1).total;
+  const size_t smem = (size_t)Layout(p.H, D, p.pg, p.Kh, ES, p.round).total;
   static size_t smem_set = 48 * 1024;  // the attribute, raised as needed
   if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        (const void*)decode_fused<DT, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        repro::allow_smem((const void*)decode_fused<DT, D>, smem);
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
@@ -742,7 +766,9 @@ cudaError_t launch(const Decode& p, int B, int nb, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, decode_fused<DT, D>, p);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, decode_fused<DT, D>, p);
+  if (err != cudaSuccess) cudaGetLastError();   // as repro::allow_smem
+  return err;
 }
 
 }  // namespace fd
@@ -753,36 +779,39 @@ cudaError_t launch(const Decode& p, int B, int nb, cudaStream_t stream) {
 // bt (B, M) and pos (B,) int32 on the device; det_k/det_v host int32[8];
 // fill_k/fill_v the repaired lanes' bit patterns, or with fills_k/fills_v
 // (device uint32 per page of the layer, from repro_tile_fill; null: none)
-// the page's entry.  Outputs: o_part (B, splits, H, Dh), m_part/l_part
+// the page's entry; kg the KV heads a block stages at a time (1 .. Kh) and
+// smem its dynamic shared-memory bytes (kernels/paged_attention.py::
+// walk_group, walk_smem).  Outputs: o_part (B, splits, H, Dh), m_part/l_part
 // (B, splits, H) f32 scratch, slot_counts (B, M) int32, counts int32[8]
 // (zeroed by the caller), out (B, H, Dh) in `dtype`.  Returns
 // cudaGetLastError() after the launches.
 extern "C" int repro_paged_decode(
     const void* q, const void* kp, const void* vp, const int* bt,
     const int* pos, int dtype, int B, int H, int Dh, int L, int pg, int Kh,
-    int M, int splits, int layer, const int* det_k, const int* det_v,
-    unsigned int fill_k_bits, unsigned int fill_v_bits,
+    int kg, int smem, int M, int splits, int layer, const int* det_k,
+    const int* det_v, unsigned int fill_k_bits, unsigned int fill_v_bits,
     const unsigned int* fills_k, const unsigned int* fills_v, float* o_part,
     float* m_part, float* l_part, int* slot_counts, int* counts, void* out,
     void* stream) {
-  if (splits < 1 || M % splits != 0 || H % Kh != 0)
+  if (splits < 1 || M % splits != 0 || H % Kh != 0 || kg < 1 || kg > Kh ||
+      smem < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const repro::Fill fill_k{fills_k, fill_k_bits}, fill_v{fills_v, fill_v_bits};
   switch (dtype) {
     case repro::DT_F32:
       return (int)launch<repro::DT_F32>(q, kp, vp, bt, pos, B, H, Dh, L, pg, Kh,
-                                        M, splits, layer, det_k, det_v, fill_k,
-                                        fill_v, o_part, m_part, l_part,
+                                        kg, smem, M, splits, layer, det_k, det_v,
+                                        fill_k, fill_v, o_part, m_part, l_part,
                                         slot_counts, counts, out, s);
     case repro::DT_BF16:
       return (int)launch<repro::DT_BF16>(q, kp, vp, bt, pos, B, H, Dh, L, pg,
-                                         Kh, M, splits, layer, det_k, det_v,
-                                         fill_k, fill_v, o_part, m_part, l_part,
-                                         slot_counts, counts, out, s);
+                                         Kh, kg, smem, M, splits, layer, det_k,
+                                         det_v, fill_k, fill_v, o_part, m_part,
+                                         l_part, slot_counts, counts, out, s);
     case repro::DT_F16:
-      return (int)launch<repro::DT_F16>(q, kp, vp, bt, pos, B, H, Dh, L, pg,
-                                        Kh, M, splits, layer, det_k, det_v,
+      return (int)launch<repro::DT_F16>(q, kp, vp, bt, pos, B, H, Dh, L, pg, Kh,
+                                        kg, smem, M, splits, layer, det_k, det_v,
                                         fill_k, fill_v, o_part, m_part, l_part,
                                         slot_counts, counts, out, s);
   }

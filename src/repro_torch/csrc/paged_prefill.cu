@@ -18,12 +18,16 @@
 // ev_total, 0].  Two routes, chosen by the wrapper from dtypes, shapes and
 // alignment alone (kernels/paged_attention.py::route):
 //
-// FFMA route (`prefill_partials`): f32/bf16/f16, any Dh and pg.  The chunk's
-// rows are flattened to R = C * H rows in (C, Kh, G) order; a block takes
-// kRows rows of one request and walks all M page slots of its block table,
-// repairing each page it reads into its own shared memory (the same fill
-// on every copy); only the request's first row block reports the page
-// visit.  It emits unnormalised partials (acc (B, C, H, Dh), m and l
+// FFMA route (`prefill_partials`): f32/bf16/f16, any Dh and pg where one
+// KV head's page fits a block's shared memory as f32.  The chunk's rows are
+// flattened to R = C * H rows in (C, Kh, G) order; a block takes kRows rows
+// of one request and walks all M page slots of its block table, staging
+// each page in groups of KV heads (the largest group that fits, chosen by
+// the wrapper, kernels/paged_attention.py::ffma_group: 27 of 32 at
+// StableLM-1.6B's f32 pool) and repairing each
+// group it reads into its own shared memory (the same fill on every copy);
+// only the request's first row block reports the page visit, and it walks
+// every group.  It emits unnormalised partials (acc (B, C, H, Dh), m and l
 // (B, C*H), f32) that the wrapper normalises, as the reference does
 // outside its kernel; FP32 dot products, no tensor cores.  Latency and every
 // row block's re-read and re-repair of all the request's pages hold it.
@@ -87,17 +91,29 @@ using repro::Storage;
 constexpr int kThreads = 256;
 constexpr int kRows = 16;  // q rows per block
 
+// One block takes kRows rows of one request and walks its M slots; each
+// slot's page is staged in groups of kg KV heads, one after another
+// (shared memory: the kRows q rows padded to Dh + 1, the group's K rows
+// padded and its V rows (pg * kg each), the rows' accumulators (kRows, Dh),
+// scores (kRows, pg), m, l and rescale factor, 4 counts:
+// kernels/paged_attention.py::ffma_smem), and
+// the rows whose KV head is in the group take the page's scores, softmax
+// step and P . V (so each row sees each page once, in page order: its
+// arithmetic is the ungrouped walk's).  The reporting block walks every
+// group, so its counts cover the whole page, and writes the slot's counts
+// and events after the last; the others skip the groups none of their
+// rows use.
 template <int DT>
 __global__ void prefill_partials(
     const typename Storage<DT>::bits_t* q, const typename Storage<DT>::bits_t* kp,
     const typename Storage<DT>::bits_t* vp, const int* bt, const int* q_start,
-    int C, int H, int Dh, int L, int pg, int Kh, int M, int layer,
+    int C, int H, int Dh, int L, int pg, int Kh, int kg, int M, int layer,
     float sm_scale, Detector det_k, Detector det_v, repro::Fill fill_k,
     repro::Fill fill_v, float* acc_out, float* m_out, float* l_out,
     int* slot_counts, int* counts) {
   extern __shared__ float smem[];
   const int ks = Dh + 1;
-  const int rows = pg * Kh;
+  const int rows = pg * kg;
   float* q_s = smem;                      // kRows x ks
   float* k_s = q_s + kRows * ks;          // rows x ks
   float* v_s = k_s + rows * ks;           // rows x Dh
@@ -126,65 +142,78 @@ __global__ void prefill_partials(
     m_s[r] = NEG_INF;
     l_s[r] = 0.f;
   }
-  const long long tile = (long long)rows * Dh;
+  const long long tile = (long long)pg * Kh * Dh;
   for (int j = 0; j < M; ++j) {
     const long long page = bt[b * M + j];
     const long long base = (page * L + layer) * tile;
     if (tid < 4) cnt[tid] = 0;
     __syncthreads();
-    repro::repair_tile<DT>(kp + base, rows, Dh, ks, det_k, fill_k, page, k_s,
-                           &cnt[0]);
-    repro::repair_tile<DT>(vp + base, rows, Dh, Dh, det_v, fill_v, page, v_s,
-                           &cnt[2]);
-    __syncthreads();
-    if (reporter && tid == 0) {
-      const int fk = cnt[0] + cnt[1], fv = cnt[2] + cnt[3];
-      slot_counts[b * M + j] = fk + fv;
-      if (cnt[0]) atomicAdd(&counts[0], cnt[0]);
-      if (cnt[1]) atomicAdd(&counts[1], cnt[1]);
-      if (fk) atomicAdd(&counts[2], 1);
-      if (cnt[2]) atomicAdd(&counts[3], cnt[2]);
-      if (cnt[3]) atomicAdd(&counts[4], cnt[3]);
-      if (fv) atomicAdd(&counts[5], 1);
-      if (fk || fv) atomicAdd(&counts[6], 1);
-    }
-    for (int i = tid; i < kRows * pg; i += blockDim.x) {
-      const int r = i / pg, t = i % pg;
-      const int h = (r0 + r) % H;
-      const float* qr = q_s + r * ks;
-      const float* kr = k_s + (t * Kh + h / G) * ks;
-      float dot = 0.f;
-      for (int d = 0; d < Dh; ++d) dot += qr[d] * kr[d];
-      const int tq = qs + (r0 + r) / H;
-      p_s[i] = (j * pg + t <= tq) ? dot * sm_scale : NEG_INF;
-    }
-    __syncthreads();
-    for (int r = tid; r < kRows; r += blockDim.x) {
-      float mx = m_s[r];
-      for (int t = 0; t < pg; ++t) mx = fmaxf(mx, p_s[r * pg + t]);
-      float sum = 0.f;
-      for (int t = 0; t < pg; ++t) {
-        const float sv = p_s[r * pg + t];
-        const float p = sv > NEG_INF * 0.5f ? expf(sv - mx) : 0.f;
-        sum += p;
-        p_s[r * pg + t] = Storage<DT>::quantize(p);
+    for (int k0 = 0; k0 < Kh; k0 += kg) {
+      const int nk = min(kg, Kh - k0);    // KV heads k0 .. k0 + nk - 1
+      bool used = reporter;
+      for (int r = 0; r < nr && !used; ++r) {
+        const int kh = (r0 + r) % H / G;
+        used = kh >= k0 && kh < k0 + nk;
       }
-      const float alpha = expf(m_s[r] - mx);
-      a_s[r] = alpha;
-      l_s[r] = l_s[r] * alpha + sum;
-      m_s[r] = mx;
+      if (!used) continue;                // the same for every thread
+      repro::repair_rows<DT>(kp + base + k0 * Dh, pg * nk, nk, (long long)Kh * Dh,
+                             Dh, ks, det_k, fill_k, page, k_s, &cnt[0]);
+      repro::repair_rows<DT>(vp + base + k0 * Dh, pg * nk, nk, (long long)Kh * Dh,
+                             Dh, Dh, det_v, fill_v, page, v_s, &cnt[2]);
+      __syncthreads();
+      if (reporter && tid == 0 && k0 + nk == Kh) {
+        const int fk = cnt[0] + cnt[1], fv = cnt[2] + cnt[3];
+        slot_counts[b * M + j] = fk + fv;
+        if (cnt[0]) atomicAdd(&counts[0], cnt[0]);
+        if (cnt[1]) atomicAdd(&counts[1], cnt[1]);
+        if (fk) atomicAdd(&counts[2], 1);
+        if (cnt[2]) atomicAdd(&counts[3], cnt[2]);
+        if (cnt[3]) atomicAdd(&counts[4], cnt[3]);
+        if (fv) atomicAdd(&counts[5], 1);
+        if (fk || fv) atomicAdd(&counts[6], 1);
+      }
+      for (int i = tid; i < kRows * pg; i += blockDim.x) {
+        const int r = i / pg, t = i % pg;
+        const int kl = (r0 + r) % H / G - k0;   // the row's KV head in the group
+        if (kl < 0 || kl >= nk) continue;
+        const float* qr = q_s + r * ks;
+        const float* kr = k_s + (t * nk + kl) * ks;
+        float dot = 0.f;
+        for (int d = 0; d < Dh; ++d) dot += qr[d] * kr[d];
+        const int tq = qs + (r0 + r) / H;
+        p_s[i] = (j * pg + t <= tq) ? dot * sm_scale : NEG_INF;
+      }
+      __syncthreads();
+      for (int r = tid; r < kRows; r += blockDim.x) {
+        const int kl = (r0 + r) % H / G - k0;
+        if (kl < 0 || kl >= nk) continue;
+        float mx = m_s[r];
+        for (int t = 0; t < pg; ++t) mx = fmaxf(mx, p_s[r * pg + t]);
+        float sum = 0.f;
+        for (int t = 0; t < pg; ++t) {
+          const float sv = p_s[r * pg + t];
+          const float p = sv > NEG_INF * 0.5f ? expf(sv - mx) : 0.f;
+          sum += p;
+          p_s[r * pg + t] = Storage<DT>::quantize(p);
+        }
+        const float alpha = expf(m_s[r] - mx);
+        a_s[r] = alpha;
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = mx;
+      }
+      __syncthreads();
+      for (int i = tid; i < kRows * Dh; i += blockDim.x) {
+        const int r = i / Dh, d = i % Dh;
+        const int kl = (r0 + r) % H / G - k0;
+        if (kl < 0 || kl >= nk) continue;
+        const float* pr = p_s + r * pg;
+        const float* vc = v_s + kl * Dh + d;
+        float pv = 0.f;
+        for (int t = 0; t < pg; ++t) pv += pr[t] * vc[t * nk * Dh];
+        acc[i] = acc[i] * a_s[r] + pv;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int i = tid; i < kRows * Dh; i += blockDim.x) {
-      const int r = i / Dh, d = i % Dh;
-      const int h = (r0 + r) % H;
-      const float* pr = p_s + r * pg;
-      const float* vc = v_s + (h / G) * Dh + d;
-      float pv = 0.f;
-      for (int t = 0; t < pg; ++t) pv += pr[t] * vc[t * Kh * Dh];
-      acc[i] = acc[i] * a_s[r] + pv;
-    }
-    __syncthreads();
   }
   for (int i = tid; i < nr * Dh; i += blockDim.x)
     acc_out[((long long)b * R + r0) * Dh + i] = acc[i];
@@ -197,17 +226,12 @@ __global__ void prefill_partials(
 template <int DT>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int* bt, const int* q_start, int B, int C, int H,
-                   int Dh, int L, int pg, int Kh, int M, int layer,
-                   const int* det_k, const int* det_v, repro::Fill fill_k,
-                   repro::Fill fill_v, float* acc, float* m, float* l,
-                   int* slot_counts, int* counts, cudaStream_t stream) {
+                   int Dh, int L, int pg, int Kh, int kg, size_t smem, int M,
+                   int layer, const int* det_k, const int* det_v,
+                   repro::Fill fill_k, repro::Fill fill_v, float* acc,
+                   float* m, float* l, int* slot_counts, int* counts,
+                   cudaStream_t stream) {
   using bits_t = typename Storage<DT>::bits_t;
-  const int rows = pg * Kh;
-  const size_t smem =
-      sizeof(float) * ((size_t)kRows * (Dh + 1) + (size_t)rows * (Dh + 1) +
-                       (size_t)rows * Dh + (size_t)kRows * Dh +
-                       (size_t)kRows * pg + 3 * kRows) +
-      4 * sizeof(int);
   cudaError_t err = repro::allow_smem((const void*)prefill_partials<DT>, smem);
   if (err != cudaSuccess) return err;
   const int R = C * H;
@@ -215,7 +239,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   prefill_partials<DT><<<dim3(B, (R + kRows - 1) / kRows), kThreads, smem,
                          stream>>>(
       static_cast<const bits_t*>(q), static_cast<const bits_t*>(kp),
-      static_cast<const bits_t*>(vp), bt, q_start, C, H, Dh, L, pg, Kh, M,
+      static_cast<const bits_t*>(vp), bt, q_start, C, H, Dh, L, pg, Kh, kg, M,
       layer, sm_scale, repro::detector_from(det_k), repro::detector_from(det_v),
       fill_k, fill_v, acc, m, l, slot_counts, counts);
   return cudaGetLastError();
@@ -716,35 +740,38 @@ cudaError_t launch_main(const CUtensorMap& map_k, const CUtensorMap& map_v,
 // 2 f16); bt (B, M), q_start (B,) int32 on the device; det_k/det_v host
 // int32[8]; fill_k/fill_v the repaired lanes' bit patterns, or with
 // fills_k/fills_v (device uint32 per page of the layer, from
-// repro_tile_fill; null: none) the page's entry.  Outputs acc (B, C, H,
-// Dh), m/l (B, C*H) f32, slot_counts (B, M) int32, counts int32[8] (zeroed
-// by the caller).  Returns cudaGetLastError().
+// repro_tile_fill; null: none) the page's entry; kg the KV heads a block
+// stages at a time (1 .. Kh) and smem its dynamic shared-memory bytes
+// (kernels/paged_attention.py::ffma_group, ffma_smem).  Outputs acc (B, C,
+// H, Dh), m/l (B, C*H) f32, slot_counts (B, M) int32, counts int32[8]
+// (zeroed by the caller).  Returns cudaGetLastError().
 extern "C" int repro_paged_prefill(
     const void* q, const void* kp, const void* vp, const int* bt,
     const int* q_start, int dtype, int B, int C, int H, int Dh, int L, int pg,
-    int Kh, int M, int layer, const int* det_k, const int* det_v,
-    unsigned int fill_k_bits, unsigned int fill_v_bits,
+    int Kh, int kg, int smem, int M, int layer, const int* det_k,
+    const int* det_v, unsigned int fill_k_bits, unsigned int fill_v_bits,
     const unsigned int* fills_k, const unsigned int* fills_v, float* acc,
     float* m, float* l, int* slot_counts, int* counts, void* stream) {
-  if (H % Kh != 0 || C < 1) return (int)cudaErrorInvalidValue;
+  if (H % Kh != 0 || C < 1 || kg < 1 || kg > Kh || smem < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const repro::Fill fill_k{fills_k, fill_k_bits}, fill_v{fills_v, fill_v_bits};
   switch (dtype) {
     case repro::DT_F32:
       return (int)launch<repro::DT_F32>(q, kp, vp, bt, q_start, B, C, H, Dh, L,
-                                        pg, Kh, M, layer, det_k, det_v, fill_k,
-                                        fill_v, acc, m, l, slot_counts, counts,
-                                        s);
+                                        pg, Kh, kg, smem, M, layer, det_k, det_v,
+                                        fill_k, fill_v, acc, m, l, slot_counts,
+                                        counts, s);
     case repro::DT_BF16:
       return (int)launch<repro::DT_BF16>(q, kp, vp, bt, q_start, B, C, H, Dh,
-                                         L, pg, Kh, M, layer, det_k, det_v,
-                                         fill_k, fill_v, acc, m, l, slot_counts,
-                                         counts, s);
+                                         L, pg, Kh, kg, smem, M, layer, det_k,
+                                         det_v, fill_k, fill_v, acc, m, l,
+                                         slot_counts, counts, s);
     case repro::DT_F16:
       return (int)launch<repro::DT_F16>(q, kp, vp, bt, q_start, B, C, H, Dh, L,
-                                        pg, Kh, M, layer, det_k, det_v, fill_k,
-                                        fill_v, acc, m, l, slot_counts, counts,
-                                        s);
+                                        pg, Kh, kg, smem, M, layer, det_k, det_v,
+                                        fill_k, fill_v, acc, m, l, slot_counts,
+                                        counts, s);
   }
   return (int)cudaErrorInvalidValue;
 }

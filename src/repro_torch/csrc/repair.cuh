@@ -124,32 +124,49 @@ __device__ __forceinline__ void block_add(int* dst, int v) {
   if ((threadIdx.x & 31) == 0 && v) atomicAdd(dst, v);
 }
 
-// Repairs one (pg, Kh, Dh) page tile of a pool leaf into shared memory as
-// f32 (row stride `stride` floats per (token, kv-head) row of Dh lanes) and
-// counts its fatal lanes into cnt[0] (NaN) and cnt[1] (Inf).  The page is
-// one logical tile: `page` indexes a fill table.
+// Repairs `rows` rows of `dh` lanes of a pool leaf into shared memory as
+// f32 (row r at dst + r * stride floats) and counts their fatal lanes into
+// cnt[0] (NaN) and cnt[1] (Inf).  The source rows come in runs of `run`
+// consecutive rows, one run every `run_stride` lanes: a whole (pg, Kh, Dh)
+// page tile is one run of pg * Kh rows, and the (pg, kg) rows of a group of
+// kg KV heads are pg runs of kg rows, Kh * Dh lanes apart.  The page is one
+// logical tile: `page` indexes a fill table.
 template <int DT>
-__device__ __forceinline__ void repair_tile(
-    const typename Storage<DT>::bits_t* src, int rows, int dh, int stride,
-    const Detector& det, const Fill& fill, long long page, float* dst,
-    int* cnt) {
+__device__ __forceinline__ void repair_rows(
+    const typename Storage<DT>::bits_t* src, int rows, int run,
+    long long run_stride, int dh, int stride, const Detector& det,
+    const Fill& fill, long long page, float* dst, int* cnt) {
+  const int run_lanes = run * dh;
   int n_nan = 0, n_inf = 0;
-  for (int e = threadIdx.x; e < rows * dh; e += blockDim.x) {
-    uint32_t b = src[e];
+  auto lane = [&](int e, long long si) {
+    uint32_t b = src[si];
     const int c = classify(b, det);
     n_nan += c & 1;
     n_inf += c >> 1;
     if (c) b = fill.at(page);
     dst[(e / dh) * stride + (e % dh)] = Storage<DT>::to_float(b);
+  };
+  if (run_stride == run_lanes) {   // one contiguous run: no division a lane
+    for (int e = threadIdx.x; e < rows * dh; e += blockDim.x) lane(e, e);
+  } else {
+    for (int e = threadIdx.x; e < rows * dh; e += blockDim.x) {
+      const int u = e / run_lanes;        // the lane's run
+      lane(e, u * run_stride + (e - u * run_lanes));
+    }
   }
   block_add(&cnt[0], n_nan);
   block_add(&cnt[1], n_inf);
 }
 
+// Raises a kernel's dynamic shared-memory limit to `bytes`.  A refusal is
+// returned and also cleared from the runtime's last error, so that the
+// next launch through this library does not report it.
 inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 }  // namespace repro

@@ -35,15 +35,20 @@ operands' dtypes, shapes and data pointers, decided before any launch):
                ceil(M / 8) consecutive slots, which form one thread-block
                cluster.  A block loads all its slots' K and V tiles at once
                (one bulk copy each), repairs them in shared memory and runs
-               one warp per query head over its pages; the other blocks
-               push their partials into the cluster leader's shared memory,
-               which merges them and writes the normalised output.  The
-               page walk is the reference's; ``splits`` keeps its
-               meaning for the plain version only; the plain twin of the
-               kernel's partition is :func:`paged_decode_fused_plain`.
-  ``"walk"``   everything else (the tests' small head dims; offset views):
-               one block per (request, split) walks its slots one after
-               another, then a second launch merges the partials.
+               one warp per query head over its pages; the blocks then
+               merge their partials together: each stores the slices of
+               its partial into their owners' shared memory (distributed
+               shared memory), and each merges its share of the output
+               from them in rank order.  The page walk is the
+               reference's; ``splits`` keeps its meaning for the plain
+               version only; the plain twin of the kernel's partition is
+               :func:`paged_decode_fused_plain`.
+  ``"walk"``   everything else (the tests' small head dims; offset views;
+               StableLM-1.6B's f32 pool, whose slot needs 256 KiB): one
+               block per (request, split) walks its slots one after
+               another, each page in groups of KV heads
+               (:func:`walk_group`), then a second launch merges the
+               partials.
 
 Prefill routes on the card (:func:`route`, a pure function of the
 operands' dtypes, shapes and data pointers, decided before any launch):
@@ -61,14 +66,16 @@ operands' dtypes, shapes and data pointers, decided before any launch):
                weights to the cache dtype before the value product as the
                reference does, but per tile, not per page.
   ``"ffma"``   everything else (f32; the tests' small pages and head dims;
-               offset views): unnormalised partials on the FP32 pipe, then
+               offset views): unnormalised partials on the FP32 pipe, each
+               page staged in groups of KV heads (:func:`ffma_group`), then
                :func:`prefill_normalize`.
 
 A failure on either route raises; neither falls back to the other.  The
-walk decode and the FFMA prefill stage one page of every KV head as f32,
-so a pool whose page is too wide for a block's shared memory (StableLM's
-f32 pool: 32 KV heads of 64) is refused before any launch
-(:func:`smem_refusal`, :func:`pool_refusal`).
+walk decode and the FFMA prefill stage a page as f32 in groups of KV
+heads, the largest group that fits a block's shared memory, so they take
+every pool of the registry; only a pool where not even one KV head's page
+fits a block is refused before any launch (:func:`smem_refusal`,
+:func:`pool_refusal`).
 """
 from __future__ import annotations
 
@@ -269,12 +276,15 @@ def fused_partition(M: int) -> Tuple[int, int]:
 
 def fused_smem(H: int, Dh: int, pg: int, Kh: int, itemsize: int) -> int:
     """Dynamic shared-memory bytes of a fused decode block that stages one
-    slot in a full cluster: q, the slot's K and V tiles, its own and seven
-    other blocks' partials (acc, m, l), a page's scores per head and the
-    slot's counts (csrc: ``fd::Layout``)."""
+    slot: q, the slot's K and V tiles, the block's own partial (acc, m, l),
+    its inbox for the merge (its share of every block's acc, at most one
+    partial's acc and 8 float4s, and (m, l) of every head from each of
+    FUSED_MAX_CLUSTER blocks), a page's scores per head and the slot's
+    counts (csrc: ``fd::Layout``)."""
     tile = pg * Kh * Dh * itemsize
-    return (16 + H * Dh * itemsize + 2 * tile
-            + 4 * FUSED_MAX_CLUSTER * H * (Dh + 2) + 4 * H * pg + 16)
+    inbox = 4 * H * Dh + 16 * FUSED_MAX_CLUSTER + 8 * FUSED_MAX_CLUSTER * H
+    return (16 + H * Dh * itemsize + 2 * tile + 4 * H * (Dh + 2) + inbox
+            + 4 * H * pg + 16)
 
 
 def decode_route(q: torch.Tensor, k_pages: torch.Tensor,
@@ -295,45 +305,69 @@ def decode_route(q: torch.Tensor, k_pages: torch.Tensor,
     return "walk"
 
 
-def walk_smem(H: int, Dh: int, pg: int, Kh: int) -> int:
-    """Dynamic shared-memory bytes of a walk decode block: q and the
-    accumulator of every head, one page's K (padded rows) and V tiles of
-    every KV head as f32, a page's scores and the running m, l and scale
-    per head, the counts (csrc/paged_decode.cu: ``launch``)."""
-    rows = pg * Kh
-    return 4 * (2 * H * Dh + rows * (Dh + 1) + rows * Dh + H * pg + 3 * H) + 16
+def walk_smem(H: int, Dh: int, pg: int, Kh: int, kg: int) -> int:
+    """Dynamic shared-memory bytes of a walk decode block that stages a
+    page ``kg`` KV heads at a time: q and the accumulator of every head,
+    the group's K (padded rows) and V tiles as f32, a page's scores of the
+    group's query heads, the running m, l and scale per head, the counts
+    (the layout of csrc/paged_decode.cu's ``decode_partials``, which takes
+    these bytes from the wrapper)."""
+    rows = pg * kg
+    return 4 * (2 * H * Dh + rows * (2 * Dh + 1) + kg * (H // Kh) * pg
+                + 3 * H) + 16
 
 
-def ffma_smem(Dh: int, pg: int, Kh: int) -> int:
-    """Dynamic shared-memory bytes of an FFMA prefill block: its FFMA_ROWS
-    q rows (padded) and accumulators, one page's K (padded rows) and V
-    tiles of every KV head as f32, the rows' scores and running m, l and
-    scale, the counts (csrc/paged_prefill.cu: ``launch``)."""
-    rows, r = pg * Kh, FFMA_ROWS
-    return 4 * (r * (Dh + 1) + rows * (Dh + 1) + rows * Dh + r * Dh + r * pg
+def ffma_smem(Dh: int, pg: int, kg: int) -> int:
+    """Dynamic shared-memory bytes of an FFMA prefill block that stages a
+    page ``kg`` KV heads at a time: its FFMA_ROWS q rows (padded) and
+    accumulators, the group's K (padded rows) and V tiles as f32, the
+    rows' scores and running m, l and scale, the counts
+    (the layout of csrc/paged_prefill.cu's ``prefill_partials``, which
+    takes these bytes from the wrapper)."""
+    rows, r = pg * kg, FFMA_ROWS
+    return 4 * (r * (Dh + 1) + rows * (2 * Dh + 1) + r * Dh + r * pg
                 + 3 * r) + 16
+
+
+def _largest_group(smem, Kh: int) -> int:
+    return next((kg for kg in range(Kh, 0, -1) if smem(kg) <= BLOCK_SMEM), 0)
+
+
+def walk_group(H: int, Dh: int, pg: int, Kh: int) -> int:
+    """KV heads a walk decode block stages at a time: the most, up to
+    ``Kh``, whose :func:`walk_smem` fits BLOCK_SMEM; 0 when not even one
+    KV head's page fits.  The wrapper passes it and its bytes to the
+    kernel's launch."""
+    return _largest_group(lambda kg: walk_smem(H, Dh, pg, Kh, kg), Kh)
+
+
+def ffma_group(Dh: int, pg: int, Kh: int) -> int:
+    """KV heads an FFMA prefill block stages at a time, as
+    :func:`walk_group`."""
+    return _largest_group(lambda kg: ffma_smem(Dh, pg, kg), Kh)
 
 
 def smem_refusal(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor) -> Optional[str]:
     """Why the card cannot take this call: the route :func:`decode_route`
-    (a 3-D q) or :func:`route` (a 4-D q) picks needs more shared memory a
-    block than BLOCK_SMEM; ``None`` where it fits."""
+    (a 3-D q) or :func:`route` (a 4-D q) picks stages a page in groups of
+    KV heads, and not even one KV head's page fits BLOCK_SMEM; ``None``
+    where it does."""
     H, Dh = q.shape[-2:]
     pg, Kh = k_pages.shape[2:4]
     if q.dim() == 3:
-        if decode_route(q, k_pages, v_pages) == "fused":
+        if (decode_route(q, k_pages, v_pages) == "fused"
+                or walk_group(H, Dh, pg, Kh)):
             return None
-        what, need = "paged decode (walk route)", walk_smem(H, Dh, pg, Kh)
+        what, need = "paged decode (walk route)", walk_smem(H, Dh, pg, Kh, 1)
     else:
-        if route(q, k_pages, v_pages) == "wgmma":
+        if route(q, k_pages, v_pages) == "wgmma" or ffma_group(Dh, pg, Kh):
             return None
-        what, need = "paged prefill (ffma route)", ffma_smem(Dh, pg, Kh)
-    if need <= BLOCK_SMEM:
-        return None
-    return (f"{what} needs {need} B of shared memory a block, over the "
-            f"{BLOCK_SMEM} B a block has, at {H} heads of {Dh} on pages of "
-            f"{pg} x {Kh} KV heads in {str(q.dtype).split('.')[-1]}")
+        what, need = "paged prefill (ffma route)", ffma_smem(Dh, pg, 1)
+    return (f"{what} needs {need} B of shared memory a block for one KV "
+            f"head's page, over the {BLOCK_SMEM} B a block has, at {H} heads "
+            f"of {Dh} on pages of {pg} x {Kh} KV heads in "
+            f"{str(q.dtype).split('.')[-1]}")
 
 
 def pool_refusal(n_heads: int, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -405,16 +439,18 @@ def prefill_scan_plain(
 _DECODE_SIG = [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.I, _native.I, _native.I, _native.HOST_INTS, _native.HOST_INTS,
-    _native.U, _native.U, _native.P, _native.P, _native.P, _native.P,
-    _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.HOST_INTS, _native.HOST_INTS, _native.U, _native.U, _native.P,
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P,
 ]
 _PREFILL_SIG = [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.I, _native.I, _native.I, _native.HOST_INTS, _native.HOST_INTS,
-    _native.U, _native.U, _native.P, _native.P, _native.P, _native.P,
-    _native.P, _native.P, _native.P, _native.P,
+    _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.HOST_INTS, _native.HOST_INTS, _native.U, _native.U, _native.P,
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.P,
 ]
 
 _PREFILL_WGMMA_SIG = [
@@ -483,11 +519,12 @@ def _decode_kernel(q, k_pages, v_pages, bt, pos, layer, splits, spec):
     counts = torch.zeros(8, dtype=torch.int32, device=dev)
     out = torch.empty_like(q)
     fills_k, fills_v = _pool_tables(k_pages, v_pages, layer, spec)
+    kg = walk_group(H, Dh, pg, Kh)
     err = _native.function("paged_decode", "repro_paged_decode",
                            _DECODE_SIG)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        pos.data_ptr(), common.DTYPE_CODES[q.dtype], B, H, Dh, L, pg, Kh, M, splits,
-        int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
+        pos.data_ptr(), common.DTYPE_CODES[q.dtype], B, H, Dh, L, pg, Kh, kg,
+        walk_smem(H, Dh, pg, Kh, kg), M, splits, int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
         common.fill_bits(*fill_k, q.dtype), common.fill_bits(*fill_v, q.dtype),
         common.table_ptr(fills_k), common.table_ptr(fills_v),
         o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
@@ -513,11 +550,12 @@ def _prefill_kernel(q, k_pages, v_pages, bt, q_start, layer, spec):
     slot_counts = torch.empty((B, M), dtype=torch.int32, device=dev)
     counts = torch.zeros(8, dtype=torch.int32, device=dev)
     fills_k, fills_v = _pool_tables(k_pages, v_pages, layer, spec)
+    kg = ffma_group(Dh, pg, Kh)
     err = _native.function("paged_prefill", "repro_paged_prefill",
                            _PREFILL_SIG)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        q_start.data_ptr(), common.DTYPE_CODES[q.dtype], B, C, H, Dh, L, pg, Kh, M,
-        int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
+        q_start.data_ptr(), common.DTYPE_CODES[q.dtype], B, C, H, Dh, L, pg, Kh,
+        kg, ffma_smem(Dh, pg, kg), M, int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
         common.fill_bits(*fill_k, q.dtype), common.fill_bits(*fill_v, q.dtype),
         common.table_ptr(fills_k), common.table_ptr(fills_v),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), slot_counts.data_ptr(),

@@ -41,9 +41,9 @@ keeps for the rest: ``paged_decode="off"``, ``repair="off"`` (the kernels
 always repair what they read), non-memory spaces, a register-mode model
 (its use-site repair replaces the kernels'), and fills without a kernel
 form.  ``paged_prefill="off"`` gathers only the prefill.  On the card, a
-pool whose paged lanes need more shared memory a block than the card has
-(``kernels.paged_attention.pool_refusal``: StableLM's f32 pool) is refused
-when the lanes are planned, before any launch.
+pool where not even one KV head's page fits a block's shared memory
+(``kernels.paged_attention.pool_refusal``; no pool of the registry) is
+refused when the lanes are planned, before any launch.
 
 Lockstep (``drain_interval == 0``) reads each lane's kernel counters back
 and acts on them within the step.  With ``drain_interval = N`` the paged

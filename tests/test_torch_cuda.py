@@ -509,6 +509,9 @@ PF_CASES = {
     # q 2 bytes off 16-byte alignment; pages of 8 keys
     "bf16-unaligned": ((3, 64, 12, 2, 128, 16, 8), BF16, "ffma", 1),
     "bf16-pg8": ((3, 20, 12, 2, 64, 8, 8), BF16, "ffma", 0),
+    # StableLM-1.6B's f32 pool: each page staged in groups of 27 and 5 of
+    # its 32 KV heads; row blocks of 16 heads use one group or both
+    "f32-Kh32-D64": ((2, 64, 32, 32, 64, 16, 8), F32, "ffma", 0),
 }
 
 
@@ -650,6 +653,12 @@ DC_CASES = {
     "f16-pg48-D64": ((2, 8, 2, 64, 48, 6), F16, "fused", 0),
     # q 2 bytes off 16-byte alignment
     "bf16-unaligned": ((4, 12, 2, 128, 16, 8), BF16, "walk", 1),
+    # StarCoder2-15B's pool: G = 12, 48 heads on 16 head warps (three a
+    # warp), the partials of a cluster of eight merged in shares
+    "bf16-H48-G12": ((4, 48, 4, 128, 16, 8), BF16, "fused", 0),
+    "f32-H48-G12": ((4, 48, 4, 128, 16, 8), F32, "fused", 0),
+    # StableLM-1.6B's f32 pool: each page in groups of 25 and 7 KV heads
+    "f32-Kh32-D64": ((2, 32, 32, 64, 16, 8), F32, "walk", 0),
 }
 
 
@@ -700,7 +709,8 @@ def _dc_operands(dev, case, nm=False):
 def test_paged_decode_kernel_matches_plain(cuda, case):
     """Both decode routes against the plain version at every ``splits``
     that divides M (1, 2, 4): pages of 16, 32 and 48 keys; Dh 64 and 128;
-    G = 1, 6, 7, 8 (28 heads: more than one head a warp); B = 1, 2, 4; M =
+    G = 1, 6, 7, 8, 12 (28 and 48 heads: more than one head a warp; 32
+    KV heads of 64 in f32: the walk's page in two groups); B = 1, 2, 4; M =
     5, 6, 8, 16, 20, 32 (one, two and three slots a block, a short last
     block, slots in two rounds); planted lanes in live
     pages, in a page past the position and in the NULL slots; both
@@ -1256,7 +1266,8 @@ def _nm_paged_configs(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bf16-main", "f32-main", "bf16-M20",
-                                  "f16-pg48-D64", "bf16-unaligned"])
+                                  "f16-pg48-D64", "bf16-unaligned",
+                                  "bf16-H48-G12", "f32-H48-G12", "f32-Kh32-D64"])
 def test_paged_decode_neighbor_mean_matches_plain(cuda, case):
     """Both decode routes with the per-page tables (a page is one logical
     tile over both KV heads; the fused route's groups of slots take each

@@ -58,7 +58,7 @@ POOL = (5, 3, 16, 2, 128)
     ((4, 12, 96), (5, 3, 16, 2, 96), (BF16,) * 3, (0, 0, 0), "walk"),   # Dh 96
     ((4, 12, 256), (5, 3, 16, 2, 256), (BF16,) * 3, (0, 0, 0), "walk"),  # Dh 256
     ((4, 12, 128), (5, 3, 16, 2, 64), (BF16,) * 3, (0, 0, 0), "walk"),  # Dh differ
-    (Q, (5, 3, 100, 2, 128), (F32,) * 3, (0, 0, 0), "walk"),   # 100 KiB a K tile
+    (Q, (5, 3, 112, 2, 128), (F32,) * 3, (0, 0, 0), "walk"),   # 112 KiB a K tile
     (Q, (5, 3, 128, 4, 128), (BF16,) * 3, (0, 0, 0), "walk"),  # 2 x 128 KiB a slot
     (Q, POOL, (BF16,) * 3, (1, 0, 0), "walk"),     # q 2 bytes off
     (Q, POOL, (F32,) * 3, (1, 0, 0), "walk"),      # q 4 bytes off
@@ -68,6 +68,11 @@ POOL = (5, 3, 16, 2, 128)
     (Q, POOL, (F32,) * 3, (4, 8, 12), "fused"),    # 16, 32, 48 bytes off
     ((0, 12, 128), POOL, (BF16,) * 3, (0, 0, 0), "walk"),   # B = 0
     (Q, (0, 3, 16, 2, 128), (BF16,) * 3, (0, 0, 0), "walk"),  # P = 0
+    (Q, (5, 3, 100, 2, 128), (F32,) * 3, (0, 0, 0), "fused"),  # 100 KiB a K tile
+    ((4, 48, 128), (5, 3, 16, 4, 128), (BF16,) * 3, (0, 0, 0), "fused"),  # StarCoder2
+    ((4, 48, 128), (5, 3, 16, 4, 128), (F32,) * 3, (0, 0, 0), "fused"),
+    ((4, 32, 64), (5, 3, 16, 32, 64), (BF16,) * 3, (0, 0, 0), "fused"),  # StableLM
+    ((4, 32, 64), (5, 3, 16, 32, 64), (F32,) * 3, (0, 0, 0), "walk"),  # 256 KiB a slot
 ])
 def test_decode_route_rule(q_shape, pool_shape, dtypes, offs, want):
     q, k, v = (_view(s, d, o) for s, d, o in
@@ -89,43 +94,70 @@ def test_decode_route_needs_contiguous_operands_and_matching_pools():
 @pytest.mark.parametrize("H,Dh,pg,Kh,itemsize", [
     (12, 128, 16, 2, 2), (12, 128, 16, 2, 4), (8, 64, 32, 1, 2),
     (12, 128, 80, 2, 4), (12, 128, 96, 2, 4),
+    (48, 128, 16, 4, 2), (48, 128, 16, 4, 4),    # StarCoder2-15B
+    (32, 64, 16, 32, 2), (32, 64, 16, 32, 4),    # StableLM-1.6B
 ])
 def test_fused_shared_memory_limit(H, Dh, pg, Kh, itemsize):
     """The route takes a pool iff one slot's staging fits a block's shared
-    memory; the bytes are the kernel's layout."""
+    memory; the bytes are the kernel's layout, which holds the block's own
+    partial and its inbox for the merge (its share of every block's acc,
+    and each block's m and l), not the cluster's eight partials."""
     one = pa.fused_smem(H, Dh, pg, Kh, itemsize)
     tile = pg * Kh * Dh * itemsize
     partial = 4 * H * (Dh + 2)          # acc, m and l of one block
-    assert one == (16 + H * Dh * itemsize + 2 * tile + 8 * partial
+    inbox = 4 * H * Dh + 16 * 8 + 8 * 8 * H
+    assert one == (16 + H * Dh * itemsize + 2 * tile + partial + inbox
                    + 4 * H * pg + 16)
     dtype = {2: BF16, 4: F32}[itemsize]
     q, k = _view((2, H, Dh), dtype), _view((3, 2, pg, Kh, Dh), dtype)
     assert pa.decode_route(q, k, k) == ("fused" if one <= 232448 else "walk")
-    if (H, Dh, pg, Kh) == (12, 128, 16, 2):      # the engine's pool, bf16
-        assert one == 70176 if itemsize == 2 else one > 70176
+    want = {(12, 128, 16, 2, 2): 33536,      # the engine's pool, bf16
+            (48, 128, 16, 4, 2): 100896, (48, 128, 16, 4, 4): 145952,
+            (32, 64, 16, 32, 2): 156064}
+    if (H, Dh, pg, Kh, itemsize) in want:
+        assert one == want[H, Dh, pg, Kh, itemsize]
+        assert pa.decode_route(q, k, k) == "fused"
+    if (Kh, itemsize) == (32, 4):            # StableLM f32: 256 KiB of tiles
+        assert pa.decode_route(q, k, k) == "walk"
 
 
 @pytest.mark.parametrize("dtype,H,Dh,Kh,need", [
-    (F32, 32, 64, 32, {"decode (walk": 283024, "prefill (ffma": 273680}),  # StableLM
+    (F32, 32, 64, 32, {}),                                  # StableLM: walk, ffma
     (BF16, 32, 64, 32, {}),                                 # fused, wgmma
-    (F32, 48, 128, 4, {}),                                  # StarCoder2: walk, ffma
-    (BF16, 48, 128, 4, {}),                                 # walk, wgmma
+    (F32, 48, 128, 4, {}),                                  # StarCoder2: fused, ffma
+    (BF16, 48, 128, 4, {}),                                 # fused, wgmma
     (F32, 12, 128, 2, {}),                                  # Qwen2: fused, ffma
+    # one KV head's page alone exceeds a block
+    (F32, 1, 2048, 1, {"decode (walk": 278684, "prefill (ffma": 525648}),
 ])
 def test_pool_refusal_names_each_route_over_the_block(dtype, H, Dh, Kh, need):
-    """The walk decode and the FFMA prefill stage one page of every KV head
-    as f32 (the kernels' layouts): a pool whose page is too wide for a
-    block is refused before any launch, naming each route and its bytes."""
-    pg = 16
-    assert pa.walk_smem(H, Dh, pg, Kh) == 4 * (
-        2 * H * Dh + pg * Kh * (2 * Dh + 1) + H * pg + 3 * H) + 16
-    assert pa.ffma_smem(Dh, pg, Kh) == 4 * (
-        16 * (2 * Dh + 1) + pg * Kh * (2 * Dh + 1) + 16 * pg + 48) + 16
+    """The walk decode and the FFMA prefill stage a page as f32 in groups
+    of KV heads, the largest group that fits a block (the kernels'
+    layouts): StableLM-1.6B's f32 pool goes in groups of 25 and 27 of its
+    32 KV heads.  Only a pool where one KV head's page does not fit is
+    refused before any launch, naming each route and its bytes."""
+    pg, G = 16, H // Kh
+    kg, kf = pa.walk_group(H, Dh, pg, Kh), pa.ffma_group(Dh, pg, Kh)
+    for n in (kg, kg + 1):
+        assert pa.walk_smem(H, Dh, pg, Kh, n) == 4 * (
+            2 * H * Dh + pg * n * (2 * Dh + 1) + n * G * pg + 3 * H) + 16
+    for n in (kf, kf + 1):
+        assert pa.ffma_smem(Dh, pg, n) == 4 * (
+            16 * (2 * Dh + 1) + pg * n * (2 * Dh + 1) + 16 * pg + 48) + 16
+    for group, smem in ((kg, lambda n: pa.walk_smem(H, Dh, pg, Kh, n)),
+                        (kf, lambda n: pa.ffma_smem(Dh, pg, n))):
+        assert 0 <= group <= Kh
+        assert group == Kh or smem(group + 1) > pa.BLOCK_SMEM
+        assert group == 0 or smem(group) <= pa.BLOCK_SMEM
+    if (H, Dh, Kh) == (32, 64, 32):
+        assert (kg, kf) == (25, 27)
     k = _view((3, 2, pg, Kh, Dh), dtype)
     why = pa.pool_refusal(H, k, k)
     if not need:
-        assert why is None
+        assert why is None and kg >= 1 and kf >= 1
+        pa._check_smem(_view((2, H, Dh), dtype), k, k)
         return
+    assert kg == kf == 0
     for route, nbytes in need.items():
         assert f"paged {route} route) needs {nbytes} B" in why
     assert pa.pool_refusal(H, k, k, prefill=False).count("needs") == 1
@@ -242,6 +274,36 @@ def test_fused_twin_matches_reference(dtype, kind, M, splits):
     assert out.dtype == dtype and out.shape == q.shape
     _same_nonfinite_and_close(out, jout, TOL[dtype])
     assert bool(out.isfinite().all()) == (kind != "v_off")
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("splits", [1, 4])
+def test_twins_match_reference_at_twelve_heads_a_kv_head(dtype, splits):
+    """G = 12 (twelve query heads on one KV head), StarCoder2-15B's GQA
+    ratio, which the fused route now takes: the walk's plain version at
+    ``splits`` and the fused route's plain twin against the Pallas kernels
+    in interpret mode, with NaN and ±Inf in live slots, past ``pos`` and in
+    the NULL page.  Slot and AT counts equal, outputs within the file's
+    tolerances."""
+    rng = np.random.default_rng(6)
+    k = rng.standard_normal((P, L, PG, 1, DH)).astype(np.float32)
+    v = rng.standard_normal((P, L, PG, 1, DH)).astype(np.float32)
+    k[2, LAYER, 1, 0, 3] = np.nan         # live
+    v[5, LAYER, 0, 0, 0] = np.inf         # live
+    v[9, LAYER, 3, 0, 2] = np.inf         # past pos
+    k[NULL, LAYER, 2, 0, 2] = -np.inf     # the null page
+    k, v = (convert.to_torch(x).to(dtype) for x in (k, v))
+    q = convert.to_torch(rng.standard_normal((3, 12, DH)).astype(np.float32)).to(dtype)
+    jout, jslot, jcnt = _reference(q, k, v, BT, POS, splits, {}, dtype)
+    bt, pos = torch.from_numpy(BT), torch.from_numpy(POS)
+    for out, slot, cnt in (
+            pa.paged_decode_plain(q, k, v, bt, pos, LAYER, splits=splits),
+            pa.paged_decode_fused_plain(q, k, v, bt, pos, LAYER)):
+        assert torch.equal(slot, jslot.to(torch.int32))
+        assert torch.equal(cnt, jcnt.to(torch.int32))
+        assert int(cnt[pa.EV_TOTAL]) > 0
+        _same_nonfinite_and_close(out, jout, TOL[dtype])
+        assert bool(out.isfinite().all())
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
