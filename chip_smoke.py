@@ -110,14 +110,16 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      model's pool (P=65, pg=16, B=4, M=8; StableLM L=24, Kh=32, Dh=64,
      H=32; StarCoder2 L=40, Kh=4, Dh=128, H=48) in bf16 and in f32, planted
      as in phase 2, under two detectors, against their plain versions
-     (decode at splits 1 and 4 on the fused route, but on the walk route
-     for StableLM's f32 pool, whose slot needs 256 KiB: its page is staged
-     in groups of KV heads; a q off alignment on the walk route; prefill at
-     C and C_LONG on the wgmma route in bf16 and the FFMA route in f32, and
-     a bf16 q off alignment on FFMA; the engine's page scrub of three pages
-     bucketed to four, bits and counts), then timed on the planted pool and
-     a clean copy beside their bound and SDPA on the gathered view (the
-     fused decode beside the walk route's times on a q off alignment);
+     (decode at splits 1 and 4 on the fused route, but on the heads route
+     for StableLM's f32 pool, whose slot needs 256 KiB: one block a KV
+     head after the page scan; a q off alignment on the walk route; prefill
+     at C and C_LONG on the wgmma route in bf16 and the FFMA route (the
+     page scan, then one block per KV head's 32 rows) in f32, and a bf16 q
+     off alignment on FFMA; the engine's page scrub of three pages bucketed
+     to four, bits and counts), then timed, bf16 and f32 at both pools, on
+     the planted pool and a clean copy beside their bound and SDPA on the
+     gathered view (its backend logged; the fused and heads decodes beside
+     the walk route's times on a q off alignment);
      each model served at full width in bf16 (seed 0) through
      ``Engine.step`` with the engine cell's requests and plants, cold (its
      checks), warm (timed) and profiled: one ``timing dense <arch>:`` line
@@ -268,9 +270,9 @@ class PoolShape:
 
 QWEN2_POOL = PoolShape(P, L, PG, KH, DH, H, B, M)
 # the dense variants' pools at the serving config: StableLM-1.6B (MHA,
-# head dim 64: the fused decode route in bf16, the walk route in f32, whose
+# head dim 64: the fused decode route in bf16, the heads route in f32, whose
 # slot needs 256 KiB) and StarCoder2-15B (48 query heads on 4 KV heads: the
-# fused route, 73 KB a block in bf16)
+# fused route, 101 KB a block in bf16)
 STABLELM_POOL = PoolShape(65, 24, 16, 32, 64, 32)
 STARCODER2_POOL = PoolShape(65, 40, 16, 4, 128, 48)
 # float tolerances, kernel vs plain version on the same card:
@@ -398,19 +400,33 @@ def kernel_device_ms(fn, names, iters: int = 20):
     return total or None
 
 
-def library_device_ms(fn, iters: int = 20):
+def library_device_ms(fn, iters: int = 20, kernels: list | None = None):
     """Device time per call of a PyTorch library call (the yardstick beside
     a kernel; its call time is what the kernels line reports), or the text
-    "not measured" when every profiler window dropped some of its events."""
+    "not measured" when every profiler window dropped some of its events.
+    With ``kernels``, the names of the device operations the counted window
+    recorded are appended to it."""
     try:
-        return kernel_device_ms(fn, ("",), iters)
+        return sum(kernel_breakdown(fn, ("",), iters, names_out=kernels).values()) or None
     except ProfilerDropped as exc:
         log(f"library device time not measured: {exc}")
         return "not measured"
 
 
+def sdpa_backend(names) -> str:
+    """Which SDPA backend served a call, read from the names of the device
+    operations its timing window recorded (``library_device_ms``'s
+    ``kernels``): flash, memory-efficient, cuDNN, or the math path's
+    kernels named."""
+    for tag, word in (("flash", "flash"), ("memory-efficient", "fmha"),
+                      ("memory-efficient", "efficient"), ("cudnn", "cudnn")):
+        if any(word in n.lower() for n in names):
+            return f"{tag} ({', '.join(n[:48] for n in names)})"
+    return f"math ({', '.join(n[:48] for n in names)})" if names else "not measured"
+
+
 def kernel_breakdown(fn, names, iters: int = 20, tries: int = 5,
-                     per_launch: bool = False) -> dict:
+                     per_launch: bool = False, names_out: list | None = None) -> dict:
     """Device ms per call of each named kernel (0.0 where none ran), or with
     ``per_launch`` per launch of it.  The profiler can drop a window's
     device events (it does for millisecond kernels).  Per call, a window
@@ -419,7 +435,8 @@ def kernel_breakdown(fn, names, iters: int = 20, tries: int = 5,
     recorded is unbiased, so a window counts when every named kernel
     recorded one.  Otherwise it is taken again with twice the pad, up to
     ``tries`` times, and then ``ProfilerDropped`` lists what each window
-    recorded."""
+    recorded.  ``names_out`` (a list) gets the names of every operation the
+    counted window recorded."""
     fn()
     recorded = []
     for i in range(tries):
@@ -433,6 +450,8 @@ def kernel_breakdown(fn, names, iters: int = 20, tries: int = 5,
                 return {n: sum(per[k] for k in keys[n]) / launches[n]
                         for n in names}
         elif counts and all(c % iters == 0 for c in counts.values()):
+            if names_out is not None:
+                names_out.extend(sorted(per))
             return {n: sum(per[k] for k in keys[n]) / iters for n in names}
         recorded.append(counts)
     raise ProfilerDropped(f"the profiler dropped device events in {tries} "
@@ -441,10 +460,11 @@ def kernel_breakdown(fn, names, iters: int = 20, tries: int = 5,
 
 KERNEL_NAMES = {
     "scrub": ("scrub_stream",),
-    # walk route: partials + merge; fused route: one kernel (+ a memset)
-    "paged_decode": ("decode_partials", "lse_merge", "decode_fused"),
-    # FFMA route: partials; wgmma route: scan + wgmma
-    "paged_prefill": ("prefill_partials", "prefill_scan", "prefill_repair_wgmma"),
+    # walk route: partials + merge; fused route: one kernel (+ a memset);
+    # heads route: page_scan (named under the prefill) + decode_heads
+    "paged_decode": ("decode_partials", "lse_merge", "decode_fused", "decode_heads"),
+    # both routes: page_scan (+ a memset), then FFMA or wgmma
+    "paged_prefill": ("prefill_repair_ffma", "page_scan", "prefill_repair_wgmma"),
     # FFMA route: tiles + counts; wgmma route: scan + wgmma + counts
     "repair_matmul": ("repair_mm_tiles", "repair_mm_scan", "repair_mm_wgmma",
                       "repair_mm_counts"),
@@ -459,9 +479,15 @@ KERNEL_NAMES = {
 # the paged routes' device operations, named apart for their device-time
 # split (the fused decode's and the wgmma prefill's counts memset included)
 DECODE_KERNELS = {"fused": ("decode_fused", "Memset"),
+                  "heads": ("page_scan", "decode_heads", "Memset"),
                   "walk": ("decode_partials", "lse_merge")}
-PREFILL_KERNELS = ("prefill_scan", "prefill_repair_wgmma", "Memset")
-PREFILL_ROUTE_KERNELS = {"wgmma": PREFILL_KERNELS, "ffma": ("prefill_partials",)}
+PREFILL_KERNELS = ("page_scan", "prefill_repair_wgmma", "Memset")
+PREFILL_ROUTE_KERNELS = {"wgmma": PREFILL_KERNELS,
+                         "ffma": ("page_scan", "prefill_repair_ffma", "Memset")}
+# each route's main kernel, which a timed call must show
+ROUTE_MAIN = {"fused": "decode_fused", "heads": "decode_heads",
+              "walk": "decode_partials", "wgmma": "prefill_repair_wgmma",
+              "ffma": "prefill_repair_ffma"}
 # the mLSTM routes' kernels, named apart for their device-time split
 MLSTM_KERNELS = {"ffma": ("mlstm_qk", "mlstm_scan<"),
                  "wgmma": ("mlstm_prep_wgmma", "mlstm_scan_wgmma")}
@@ -492,6 +518,20 @@ def bound(nbytes: float, flops: float, dtype_name: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    """TF32 off for matmuls and cuDNN inside (an f32 yardstick is exact
+    f32, as the FFMA routes are), restored after."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _errs(a, b) -> float:
@@ -704,10 +744,12 @@ class PagedCheck:
                                        f"decode {name} {label} {what}")
             self.max_err["paged_decode"] = max(self.max_err["paged_decode"],
                                                _errs(got[0], want[0]))
-            if decode_route == "fused":
+            if decode_route != "walk":
                 # the plain twin of the kernel's own partition rounds p
                 # against the same running maxima
-                twin = pa.paged_decode_fused_plain(qd, kp, vp, bt, pos, LAYER, **kw)
+                twin = {"fused": pa.paged_decode_fused_plain,
+                        "heads": pa.paged_decode_heads_plain}[decode_route](
+                    qd, kp, vp, bt, pos, LAYER, **kw)
                 _same(got[1], twin[1], f"decode twin slot_counts {name} {label}")
                 _close_nonfinite(got[0], twin[0], TOL[name],
                                  f"decode twin {name} {label} {what}")
@@ -1041,7 +1083,7 @@ def kernel_phase(report: dict) -> None:
                                     LAYER, **kw)
 
     ffma = dict(ms=cuda_ms(ffma_call),
-                device_ms=kernel_device_ms(ffma_call, KERNEL_NAMES["paged_prefill"]))
+                device_ms=kernel_device_ms(ffma_call, PREFILL_ROUTE_KERNELS["ffma"]))
 
     # neighbor_mean at the engine pool: tile_fill over the layer (the paged
     # calls' per-page table) and the fused decode at splits 4 with the mean
@@ -1147,7 +1189,7 @@ def kernel_phase(report: dict) -> None:
         for label, pt, ms in (("planted", pr["parts"], pr["ms"]),
                               ("clean", pr["clean"], pr["clean_ms"])):
             log(f"timing paged_prefill C={c} bf16 {label} (wgmma route): device "
-                f"{sum(pt.values()):.4f} ms = scan {pt['prefill_scan']:.4f} + "
+                f"{sum(pt.values()):.4f} ms = scan {pt['page_scan']:.4f} + "
                 f"wgmma {pt['prefill_repair_wgmma']:.4f} + memset "
                 f"{pt['Memset']:.4f}; call {ms:.4f} ms; bound "
                 f"{pr['bound_ms']:.6f} ms ({pr['bound_by']}); SDPA device "
@@ -1829,10 +1871,17 @@ def ops_phase(report: dict) -> None:
         raise AssertionError("gate/up f32 is not on the FFMA route")
     f32_parts = kernel_breakdown(lambda: rm.repair_matmul_raw(a, b), names, iters=3)
     f32_ms = cuda_ms(lambda: rm.repair_matmul_raw(a, b), iters=5)
+    # the f32 yardstick: torch.matmul on the same operands, TF32 off (exact
+    # f32, as the FFMA route)
+    with _tf32_off():
+        mm_lib_ms = cuda_ms(lambda: torch.matmul(a, b), iters=5)
+        mm_lib_dev = library_device_ms(lambda: torch.matmul(a, b), iters=3)
     log(f"timing repair_matmul gate/up f32 (ffma route): call {f32_ms:.4f} ms, "
         f"device {sum(f32_parts.values()):.4f} ms "
         f"({f32_parts['repair_mm_tiles']:.4f} in repair_mm_tiles), "
-        f"{flops / sum(f32_parts.values()) / 1e9:.1f} TFLOP/s")
+        f"{flops / sum(f32_parts.values()) / 1e9:.1f} TFLOP/s; torch.matmul "
+        f"f32, TF32 off: device {mm_lib_dev} ms, call {mm_lib_ms:.4f} ms "
+        f"({gpu_line()})")
     del a, b, clean_a, clean_b
     # the down projection, off the JSON line
     Md, Kd, Nd = MM_SHAPES["down"]
@@ -1909,11 +1958,24 @@ def ops_phase(report: dict) -> None:
         raise AssertionError("flash_attention f32 is not on the FFMA route")
     f32_parts = kernel_breakdown(lambda: ra.flash_attention_raw(q, k, v), names, iters=3)
     f32_ms = cuda_ms(lambda: ra.flash_attention_raw(q, k, v), iters=5)
+    # the f32 yardstick: SDPA on the same q and the repaired K/V, TF32 off
+    fk, fv = ops.scrub(k.clone())[0], ops.scrub(v.clone())[0]
+
+    def library32():
+        return sdpa(q, fk, fv, is_causal=True, enable_gqa=True)
+
+    at_kernels: list = []
+    with _tf32_off():
+        at_lib_ms = cuda_ms(library32, iters=5)
+        at_lib_dev = library_device_ms(library32, iters=3, kernels=at_kernels)
+    at_backend = sdpa_backend(at_kernels)
     log(f"timing flash_attention causal f32 (ffma route): call {f32_ms:.4f} ms, "
         f"device {sum(f32_parts.values()):.4f} ms ({f32_parts['flash_repair_fwd']:.4f} "
         f"in flash_repair_fwd, {f32_parts['flash_count_tiles']:.4f} in "
-        f"flash_count_tiles), {flops / sum(f32_parts.values()) / 1e9:.1f} TFLOP/s")
-    del q, k, v
+        f"flash_count_tiles), {flops / sum(f32_parts.values()) / 1e9:.1f} TFLOP/s; "
+        f"SDPA f32, TF32 off: device {at_lib_dev} ms, call {at_lib_ms:.4f} ms, "
+        f"{at_backend} ({gpu_line()})")
+    del q, k, v, fk, fv
     torch.cuda.empty_cache()
 
     rows = {
@@ -2658,7 +2720,7 @@ def injection_phase(report: dict) -> None:
 # checked at, the decode route of that pool in bf16 and in f32; the prefill
 # takes the wgmma route in bf16 and the FFMA one in f32).  The engine runs
 # each model's paged lanes in bf16 at full width and in f32 at 2 layers
-DENSE_VARIANTS = (("stablelm-1.6b", STABLELM_POOL, "fused", "walk"),
+DENSE_VARIANTS = (("stablelm-1.6b", STABLELM_POOL, "fused", "heads"),
                   ("starcoder2-15b", STARCODER2_POOL, "fused", "fused"))
 # the leaves the init leaves at 0 or 1 (biases, norm scales), drawn nonzero
 # before the card-vs-CPU parity so a dropped one shows
@@ -2674,9 +2736,10 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
     FFMA in f32, and a bf16 q off alignment at C on FFMA; the scrub of
     three pages bucketed to four), then (with ``timed``) each paged call's
     device ms (split by kernel), on the planted pool and a clean copy, and
-    call ms beside its bound and SDPA's on the gathered view; on the fused
-    route, the walk route's times on the same operands (q off alignment)
-    beside them.  Returns the timing rows (none without ``timed``)."""
+    call ms beside its bound and SDPA's on the gathered view (and the
+    backend that served SDPA); on the fused and heads routes, the walk
+    route's times on the same operands (q off alignment) beside them.
+    Returns the timing rows (none without ``timed``)."""
     import torch
 
     from repro_torch.kernels import paged_attention as pa
@@ -2715,7 +2778,10 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
         return sdpa(q[:, :, None, :], kg, vg, attn_mask=dmask)
 
     d_bound, d_by = pc.decode_bound(name, es)
-    sdpa_ms, sdpa_dev = cuda_ms(dsdpa), library_device_ms(dsdpa)
+    sdpa_kernels: list = []
+    sdpa_ms, sdpa_dev = cuda_ms(dsdpa), library_device_ms(dsdpa, kernels=sdpa_kernels)
+    log(f"{arch} {name}: SDPA ran {sdpa_backend(sdpa_kernels)} (decode, "
+        f"gathered view, a boolean mask)")
     rows = {}
     for splits in (1, 4):
         def dcall(k=kp, v=vp, qd=q, splits=splits):
@@ -2724,7 +2790,7 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
 
         names = DECODE_KERNELS[decode_route]
         row = dict(
-            route=decode_route, names=names, main=names[0],
+            route=decode_route, names=names, main=ROUTE_MAIN[decode_route],
             parts=kernel_breakdown(dcall, names), ms=cuda_ms(dcall),
             clean=kernel_breakdown(lambda: dcall(k=kc, v=vc), names),
             clean_ms=cuda_ms(lambda: dcall(k=kc, v=vc)),
@@ -2732,7 +2798,7 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
             plain_ms=cuda_ms(lambda splits=splits: pa.paged_decode_plain(
                 q, kp, vp, pc.bt, pc.pos, LAYER, splits=splits, **kw)),
             sdpa_ms=sdpa_ms, sdpa_device_ms=sdpa_dev)
-        if decode_route == "fused":
+        if decode_route != "walk":
             row["walk"] = kernel_breakdown(lambda: dcall(qd=q_off),
                                            DECODE_KERNELS["walk"])
             row["walk_ms"] = cuda_ms(lambda: dcall(qd=q_off))
@@ -2750,16 +2816,20 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
 
         p_bound, p_by = pc.prefill_bound(c, qs0, name, es)
         p_route = pa.route(qc1, kp, vp)
+        sdpa_kernels = []
+        psdpa_dev = library_device_ms(psdpa, kernels=sdpa_kernels)
+        log(f"{arch} {name}: SDPA ran {sdpa_backend(sdpa_kernels)} (prefill "
+            f"C={c}, gathered view, a boolean mask)")
         names = PREFILL_ROUTE_KERNELS[p_route]
         rows[f"prefill C={c}"] = dict(
-            route=p_route, names=names, main=names[p_route == "wgmma"],
+            route=p_route, names=names, main=ROUTE_MAIN[p_route],
             parts=kernel_breakdown(pcall, names), ms=cuda_ms(pcall),
             clean=kernel_breakdown(lambda: pcall(k=kc, v=vc), names),
             clean_ms=cuda_ms(lambda: pcall(k=kc, v=vc)),
             bound_ms=p_bound, bound_by=p_by,
             plain_ms=cuda_ms(lambda qc1=qc1, qs1=qs1: pa.paged_prefill_plain(
                 qc1, kp, vp, pc.bt[:1], qs1, LAYER, **kw)),
-            sdpa_ms=cuda_ms(psdpa), sdpa_device_ms=library_device_ms(psdpa))
+            sdpa_ms=cuda_ms(psdpa), sdpa_device_ms=psdpa_dev)
     for what, r in rows.items():
         if not (r["parts"][r["main"]] > 0 and r["clean"][r["main"]] > 0):
             raise AssertionError(f"{arch} {what}: {r['main']} did not run: "
@@ -2828,21 +2898,22 @@ def _serve_dense(arch: str, decode_route: str) -> dict:
     torch.cuda.synchronize()
     warm_wall = time.perf_counter() - t0
     wm = warm.metrics()
-    other = "walk" if decode_route == "fused" else "fused"
-    pairs = ((DECODE_KERNELS[decode_route][0], DECODE_KERNELS[other][0]),
-             ("prefill_repair_wgmma", "prefill_partials"))
+    # the routes' main kernels: these two must show, the others not
+    want = (ROUTE_MAIN[decode_route], ROUTE_MAIN["wgmma"])
+    avoid = tuple(n for r, n in ROUTE_MAIN.items()
+                  if r not in (decode_route, "wgmma"))
     # a pass whose window dropped the route's kernels is taken again with
     # twice the pad (as ``kernel_breakdown`` does), up to five times
     for i in range(5):
         per = device_profile(lambda: drive(
             Engine(model, serving_config(), device="cuda"), prompts),
             pad=PROFILE_PAD_S * 2 ** i)
-        if all(any(want in k for k in per) for want, _ in pairs):
+        if all(any(w in k for k in per) for w in want):
             break
-    for want, avoid in pairs:
-        if not any(want in k for k in per) or any(avoid in k for k in per):
-            raise AssertionError(f"{arch}: the profile shows no {want} or a "
-                                 f"{avoid}: {sorted(per)}")
+    if (not all(any(w in k for k in per) for w in want)
+            or any(a in k for a in avoid for k in per)):
+        raise AssertionError(f"{arch}: the profile shows not all of {want} or "
+                             f"one of {avoid}: {sorted(per)}")
     groups, by_kernel = device_groups(per)
     busy = sum(groups.values())
     row = dict(
@@ -2878,9 +2949,10 @@ def _dense_parity(arch: str) -> None:
     """``arch`` at full width with 2 layers in f32 (TF32 off), its biases
     and norm parameters drawn nonzero, on the card (kernels) and on the CPU
     (plain versions): the engine on its paged lanes (StableLM-1.6B's f32
-    pool takes the walk decode and the FFMA prefill, each page in groups
-    of KV heads), 8 new tokens a request, the same plants; tokens, page
-    events, stats, kernel counts and host syncs equal, and no gather."""
+    pool takes the heads decode and the FFMA prefill, StarCoder2-15B's the
+    fused decode and the FFMA prefill), 8 new tokens a request, the same
+    plants; tokens, page events, stats, kernel counts and host syncs equal,
+    and no gather."""
     import gc
 
     import torch
@@ -2937,14 +3009,23 @@ def dense_variants_phase(report: dict) -> None:
     in bf16 and f32, each model served at full width with its timing, and
     card-vs-CPU parity at 2 layers on the paged lanes; every model freed
     before the phase returns."""
-    # f32 is timed only where it takes the walk decode (with the FFMA
-    # prefill): StableLM's pool, the engine's f32 paged lanes there
+    # f32 is timed at both pools: the engine's f32 paged lanes (the heads
+    # decode at StableLM's, the fused one at StarCoder2's, the FFMA prefill
+    # at both)
     report["dense_variants"] = {
         arch: dict(kernels={
             "bfloat16": _dense_pool_kernels(arch, shape, "bfloat16", bf16_route),
-            "float32": _dense_pool_kernels(arch, shape, "float32", f32_route,
-                                           timed=f32_route == "walk")})
+            "float32": _dense_pool_kernels(arch, shape, "float32", f32_route)})
         for arch, shape, bf16_route, f32_route in DENSE_VARIANTS}
+    # the f32 routes beside the kernel report's rows: StableLM's heads
+    # decode at splits 4 and FFMA prefill at C, planted
+    f32 = report["dense_variants"]["stablelm-1.6b"]["kernels"]["float32"]
+    for name, what, key in (("paged_decode", "decode splits=4", "heads"),
+                            ("paged_prefill", f"prefill C={C}", "ffma")):
+        row = report.get("kernels", {}).get(name)
+        if row is not None:
+            row[f"stablelm_f32_{key}_device_ms"] = f32[what]["device_ms"]
+            row[f"stablelm_f32_{key}_sdpa_device_ms"] = f32[what]["sdpa_device_ms"]
     for arch, _, route, _ in DENSE_VARIANTS:
         report["dense_variants"][arch]["serve"] = _serve_dense(arch, route)
     for arch, *_ in DENSE_VARIANTS:

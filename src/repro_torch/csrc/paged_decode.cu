@@ -1,5 +1,5 @@
 // One-token paged decode attention with fused on-read repair, serial or
-// split-K: two routes, chosen by the wrapper from dtypes, shapes and
+// split-K: three routes, chosen by the wrapper from dtypes, shapes and
 // alignment alone (kernels/paged_attention.py::decode_route).
 //
 // Replaces two Pallas kernels of src/repro/kernels/paged_attention.py:
@@ -22,19 +22,19 @@
 // accumulation, out = acc / max(l, 1e-30); a partial with no live key
 // gets zero weight in the merge.
 //
-// walk route (`decode_partials` + `lse_merge`): any shape where one KV
-// head's page fits a block's shared memory as f32.  One block walks one
-// (request b, split s) slice of the block table: for each slot it stages the
-// page in groups of KV heads (the largest group that fits, chosen by the
-// wrapper, kernels/paged_attention.py::walk_group: all of them at the Qwen2
-// and StarCoder2 pools, 25 of 32 at StableLM's f32 pool), repairs each group's K and V rows into shared memory as f32 and
-// runs the online softmax of the group's query heads, then writes its
+// walk route (`decode_partials` + `lse_merge`): the shapes the fused and
+// heads routes do not take (head dims other than 64 and 128, offset views,
+// mixed dtypes), where one KV head's page fits a block's shared memory as
+// f32.  One block walks one (request b, split s) slice of the block table:
+// for each slot it stages the page in groups of KV heads (the largest group
+// that fits, chosen by the wrapper, kernels/paged_attention.py::
+// walk_group), repairs each group's K and V rows into shared memory as f32
+// and runs the online softmax of the group's query heads, then writes its
 // unnormalised (acc, m, l) partial; a second launch merges the partials.
 // With splits == 1 the merge is exactly the serial flush.  Loads are
 // serialised (one scalar load per lane per step, a round trip per step), a
 // score is one thread's serial dot product, and B x splits blocks fill few
-// SMs: at the engine's shapes it loses several times to SDPA's device time
-// (PERF.md section 6).
+// SMs: it loses several times to SDPA's device time (PERF.md section 6).
 //
 // fused route (`decode_fused`): q and both pools all f32, bf16 or f16, Dh
 // 64 or 128, each contiguous and 16-byte aligned, one slot's K and V tiles
@@ -88,11 +88,35 @@
 //   running max where the partitions differ, so outputs agree within the
 //   dtype's tolerance, not bitwise; the plain twin of the kernel's own
 //   partition is kernels/paged_attention.py::paged_decode_fused_plain.
+//
+// heads route (`page_scan` + `decode_heads`): the fused route's operands
+// where one slot's K and V tiles exceed a block (StableLM-1.6B's f32 pool:
+// 32 KV heads of 64, 2 x 128 KiB a slot).  What bounds it on an H100: at
+// that pool (B = 4, H = Kh = 32, Dh = 64, pg = 16, M = 8) the pages' bytes
+// over 3.35 TB/s, ~0.0014 ms; it is latency again.  The slot's tile is
+// split by KV head instead: blocks per (request b, KV head kh) walk the
+// request's slots with that KV head's pg rows of each and its G query
+// heads, every 16 bytes of a round's rows issued at once by the block's
+// threads as cp.async (at least 4 warps a block for that).  A visit's tile spans
+// every KV head, so no block can count it:
+// `page_scan` (paged.cuh, one block a slot) writes slot_counts, the AT
+// counts and one K and one V flag a slot first, and decode_heads repairs
+// only the flagged slots' rows, in shared memory.  The walk itself, the
+// warps and the merge are decode_fused's (`decode_body`): one warp a query
+// head, the page's online-softmax step in the warp, P . V with the lanes
+// over Dh.  A warp walks its block's pages one after another, so a
+// request's slots are split over a cluster of up to 8 blocks as on the
+// fused route, until it has as many blocks as the card has SMs (4 blocks
+// of 2 slots a KV head at StableLM's pool, 512 blocks at B = 4; all 8 slots
+// in one block took 1.6x the main kernel's time), and merged in shares
+// through distributed shared memory (kernels/paged_attention.py::
+// heads_partition; its plain twin paged_decode_heads_plain).  Launches: the scan's memset of the counts,
+// page_scan, decode_heads.
 #include <cooperative_groups.h>
 
 #include <cmath>
 
-#include "hopper.cuh"
+#include "paged.cuh"
 
 namespace {
 
@@ -269,7 +293,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- fused route
+// ------------------------------------------------- fused and heads routes
 namespace fd {
 
 namespace cg = cooperative_groups;
@@ -278,11 +302,22 @@ using hopper::mbar_expect_tx;
 using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::smem_u32;
+using paged::cp_async16;
+using paged::cp_async_wait_all;
+using paged::load_lanes;
+using paged::nan_max;
+using paged::repair_vec;
+using paged::store4;
+using paged::suspect;
+using paged::unpack;
+using paged::warp_fsum;
+using paged::warp_max;
 
 constexpr int MAX_HEAD_WARPS = 16;  // one warp a query head, up to 16
 constexpr int MAX_THREADS = 32 * (MAX_HEAD_WARPS + 1);  // + the counting warp
 constexpr int MAX_CLUSTER = 8;      // the portable cluster size
 constexpr int MAX_ROUND = 32;       // slots a round: one lane of warp 0 each
+constexpr int HEADS_MIN_WARPS = 4;  // a heads block's warps, at the least
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
 
 // What every block of one call shares.
@@ -293,8 +328,9 @@ struct Decode {
   const int* bt;        // (B, M)
   const int* pos;       // (B,)
   uint8_t* out;         // (B, H, D)
-  int* slot_counts;     // (B, M)
-  int* counts;          // int32[8], zeroed before the launch
+  int* slot_counts;     // fused: (B, M)
+  int* counts;          // fused: int32[8], zeroed before the launch
+  const int* flags;     // heads: page_scan's (B, M, 2) flags
   int H, Kh, M, L, pg, layer;
   int spb, round;       // slots a block, slots a round
   float scale;
@@ -303,15 +339,16 @@ struct Decode {
   repro::Fill fill_k, fill_v;  // a table is indexed by page id
 };
 
-// Byte offsets into a block's dynamic shared memory: the mbarrier, q's row
-// (H, D) and the round's tiles (per slot K then V, (pg, Kh, D) each) in the
-// storage dtype, then f32: the block's own acc (H, D); its inbox, the
-// slices of every block's partial that its share of the merge takes (acc:
-// nb shares of ceil(H * D / 4 / nb) float4s, at most H * D / 4 + 8; (m, l)
-// of each head: MAX_CLUSTER x H float2s); a page's scores and softmax
-// weights for each head warp (H, pg); the block's own m and l (H each);
-// and int32 counts (round, 4: NaN K, Inf K, NaN V, Inf V)
-// (kernels/paged_attention.py::fused_smem).
+// Byte offsets into a block's dynamic shared memory: the mbarrier, q's rows
+// of the block's H heads (H, D) and the round's tiles (per slot K then V,
+// (pg, Kh, D) each, Kh the KV heads a block stages) in the storage dtype,
+// then f32: the block's own acc (H, D); its inbox, the slices of every
+// block's partial that its share of the merge takes (acc: nb shares of
+// ceil(H * D / 4 / nb) float4s, at most H * D / 4 + 8; (m, l) of each
+// head: MAX_CLUSTER x H float2s); a page's scores and softmax weights for
+// each head warp (H, pg); the block's own m and l (H each); and int32
+// counts (round, 4: NaN K, Inf K, NaN V, Inf V; heads: the round's flag
+// masks and page ids) (kernels/paged_attention.py::fused_smem).
 struct Layout {
   long long q, tiles, acc, inbox, inml, s, m, l, cnt, total;
   __host__ __device__ Layout(int H, int D, int pg, int Kh, int es, int round) {
@@ -341,128 +378,16 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;  // NaN wins, as torch.maximum's
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(~0u, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_fsum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
-  return v;
-}
-
-// The 16 / size lanes of a 16-byte chunk as f32.
-template <int DT>
-__device__ __forceinline__ void unpack(const uint4& v, float* f) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if constexpr (DT == repro::DT_F32) {
-      f[i] = __uint_as_float(w[i]);
-    } else if constexpr (DT == repro::DT_BF16) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-    } else {
-      const float2 h = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
-      f[2 * i] = h.x;
-      f[2 * i + 1] = h.y;
-    }
-  }
-}
-
-// N consecutive lanes (N * size = 4, 8 or 16 bytes, aligned) as f32.
-template <int DT, int N>
-__device__ __forceinline__ void load_lanes(const uint8_t* ptr, float* f) {
-  constexpr int WORDS = N * (DT == repro::DT_F32 ? 4 : 2) / 4;
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  if constexpr (WORDS == 4) {
-    const uint4 v = *reinterpret_cast<const uint4*>(ptr);
-    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-  } else if constexpr (WORDS == 2) {
-    const uint2 v = *reinterpret_cast<const uint2*>(ptr);
-    w[0] = v.x, w[1] = v.y;
-  } else {
-    w[0] = *reinterpret_cast<const uint32_t*>(ptr);
-  }
-#pragma unroll
-  for (int i = 0; i < WORDS; ++i) {
-    if constexpr (DT == repro::DT_F32) {
-      f[i] = __uint_as_float(w[i]);
-    } else if constexpr (DT == repro::DT_BF16) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-    } else {
-      const float2 h = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
-      f[2 * i] = h.x;
-      f[2 * i + 1] = h.y;
-    }
-  }
-}
-
-// Four f32 values in the storage dtype (round to nearest even, as the
-// plain version's cast), stored at `ptr` (aligned to their size).
-template <int DT>
-__device__ __forceinline__ void store4(uint8_t* ptr, const float4& v) {
-  if constexpr (DT == repro::DT_F32) {
-    *reinterpret_cast<float4*>(ptr) = v;
-  } else {
-    using S = Storage<DT>;
-    *reinterpret_cast<uint2*>(ptr) = make_uint2(
-        (uint32_t)S::from_float(v.x) | ((uint32_t)S::from_float(v.y) << 16),
-        (uint32_t)S::from_float(v.z) | ((uint32_t)S::from_float(v.w) << 16));
-  }
-}
-
-// Whether a 16-byte chunk may hold a fatal lane: its largest exponent field
-// against the detector's floor (hopper.cuh's prefilter, for 32-bit lanes
-// too).
-template <int DT>
-__device__ __forceinline__ bool suspect(const uint4& v, uint32_t exp_mask,
-                                        uint32_t floor) {
-  if constexpr (DT == repro::DT_F32) {
-    const uint32_t m = max(max(v.x & exp_mask, v.y & exp_mask),
-                           max(v.z & exp_mask, v.w & exp_mask));
-    return m >= floor;
-  } else {
-    return hopper::may_be_fatal(v, exp_mask, floor);
-  }
-}
-
-// Repairs the fatal lanes of a suspect chunk in place; returns its NaN
-// lanes | Inf lanes << 16 (out of line: clean data never calls it).
-template <int DT>
-__device__ __noinline__ int repair_vec(uint4* chunk, const Detector det,
-                                       uint32_t fill) {
-  const uint4 v = *chunk;
-  uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  int n_nan = 0, n_inf = 0;
-  constexpr int LANES = DT == repro::DT_F32 ? 4 : 8;
-#pragma unroll
-  for (int e = 0; e < LANES; ++e) {
-    const int i = DT == repro::DT_F32 ? e : e >> 1;
-    const int sh = DT == repro::DT_F32 ? 0 : (e & 1) * 16;
-    const uint32_t lane_mask = DT == repro::DT_F32 ? 0xFFFFFFFFu : 0xFFFFu;
-    const int c = repro::classify((w[i] >> sh) & lane_mask, det);
-    n_nan += c & 1;
-    n_inf += c >> 1;
-    if (c) w[i] = (w[i] & ~(lane_mask << sh)) | (fill << sh);
-  }
-  if (n_nan | n_inf) *chunk = make_uint4(w[0], w[1], w[2], w[3]);
-  return n_nan | (n_inf << 16);
-}
-
 // One head's online-softmax walk over the round's n pages (one warp):
 // scores of a page by pairs of lanes per key (each half a row, chunks in a
 // rotated order so that a quarter-warp's 16-byte reads hit distinct banks),
 // then the softmax step in the warp (p rounded to the storage dtype), then
-// acc = acc * alpha + P . V with the lanes over D.
+// acc = acc * alpha + P . V with the lanes over D.  The staged tiles hold
+// `ks` KV heads a row; the head reads KV head `kh` of them.
 template <int DT, int D>
-__device__ __forceinline__ void head_walk(const Decode& p, int h, int n, int jr,
-                                          int bound, const uint8_t* q_s,
+__device__ __forceinline__ void head_walk(const Decode& p, int h, int kh,
+                                          int ks, int n, int jr, int bound,
+                                          const uint8_t* q_s,
                                           const uint8_t* tiles, float* acc,
                                           float* sw, float* m_s, float* l_s) {
   constexpr int ES = DT == repro::DT_F32 ? 4 : 2;
@@ -470,8 +395,8 @@ __device__ __forceinline__ void head_walk(const Decode& p, int h, int n, int jr,
   constexpr int CPL = D / VEC / 2;  // chunks of half a row
   constexpr int DPL = D / 32;       // dims of a lane in P . V
   const int lane = threadIdx.x & 31, x = lane & 1;
-  const int Kh = p.Kh, pg = p.pg, kh = h / (p.H / Kh);
-  const uint32_t tb = (uint32_t)(pg * Kh * D * ES);
+  const int pg = p.pg;
+  const uint32_t tb = (uint32_t)(pg * ks * D * ES);
   const int rot = CPL >= 8 ? lane : lane >> 1;
   float o[DPL];
   float* ap = acc + h * D + lane * DPL;
@@ -487,7 +412,7 @@ __device__ __forceinline__ void head_walk(const Decode& p, int h, int n, int jr,
       float dot = 0.f;
       if (t < pg) {
         const uint4* kc =
-            reinterpret_cast<const uint4*>(kt + (t * Kh + kh) * D * ES) + x * CPL;
+            reinterpret_cast<const uint4*>(kt + (t * ks + kh) * D * ES) + x * CPL;
 #pragma unroll
         for (int k = 0; k < CPL; ++k) {
           const int j = (k + rot) & (CPL - 1);
@@ -523,7 +448,7 @@ __device__ __forceinline__ void head_walk(const Decode& p, int h, int n, int jr,
     for (int t = 0; t < pg; ++t) {
       const float w = sw[t];
       float vf[DPL];
-      load_lanes<DT, DPL>(vr + (long long)t * Kh * D * ES, vf);
+      load_lanes<DT, DPL>(vr + (long long)t * ks * D * ES, vf);
 #pragma unroll
       for (int e = 0; e < DPL; ++e) o[e] = fmaf(w, vf[e], o[e]);
     }
@@ -537,24 +462,35 @@ __device__ __forceinline__ void head_walk(const Decode& p, int h, int n, int jr,
   }
 }
 
-// Grid (nb, B), clusters of (nb, 1, 1), blocks of 32 * (min(H, 16) + 1)
-// threads: block `rank` of request b owns slots rank * spb .. min(M, rank
-// * spb + spb) - 1, every KV head.  Warp w < min(H, 16) walks heads w, w +
-// 16, ...; the last warp counts.
-template <int DT, int D>
-__global__ void __launch_bounds__(MAX_THREADS)
-    decode_fused(const __grid_constant__ Decode p) {
+// The body of both kernels.  Fused (HEADS false): grid (nb, B), clusters of
+// (nb, 1, 1), blocks of 32 * (min(H, 16) + 1) threads: block `rank` of
+// request b owns slots rank * spb .. min(M, rank * spb + spb) - 1 with
+// every KV head; warp w < min(H, 16) walks heads w, w + 16, ...; the last
+// warp counts.  Heads (HEADS true): grid (nb, Kh, B), clusters of (nb, 1,
+// 1), blocks of 32 * min(G, 16) threads: block `rank` of (request b, KV
+// head kh) owns the same slots with that KV head alone and its G query
+// heads; page_scan counted the visits, so the block repairs only the pages
+// it flagged, and every warp walks heads.
+template <int DT, int D, bool HEADS>
+__device__ __forceinline__ void decode_body(const Decode& p) {
   constexpr int ES = DT == repro::DT_F32 ? 4 : 2;
   extern __shared__ __align__(128) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthreads = blockDim.x, head_warps = nthreads / 32 - 1;
-  const int rank = blockIdx.x, nb = gridDim.x, b = blockIdx.y;
-  const int H = p.H, pg = p.pg;
+  const int nthreads = blockDim.x;
+  const int head_warps = nthreads / 32 - (HEADS ? 0 : 1);   // heads: every warp
+  const int rank = blockIdx.x, nb = gridDim.x;
+  const int b = HEADS ? blockIdx.z : blockIdx.y;
+  const int kh = HEADS ? blockIdx.y : 0;   // the block's KV head (heads)
+  const int ks = HEADS ? 1 : p.Kh;         // KV heads a staged tile holds
+  const int H = HEADS ? p.H / p.Kh : p.H;  // the block's query heads
+  const int h0 = kh * H;                   // ... from this one
+  const int pg = p.pg;
   const int j0 = rank * p.spb, j1 = min(p.M, j0 + p.spb);
-  const uint32_t tb = (uint32_t)(pg * p.Kh * D * ES);   // one tile's bytes
-  const Layout lay(H, D, pg, p.Kh, ES, p.round);
+  const uint32_t tb = (uint32_t)(pg * ks * D * ES);   // one tile's bytes
+  const long long page_bytes = (long long)pg * p.Kh * D * ES;
+  const Layout lay(H, D, pg, ks, ES, p.round);
   const uint32_t bar = smem_u32(smem);
   uint8_t* q_s = smem + lay.q;
   uint8_t* tiles = smem + lay.tiles;
@@ -564,16 +500,17 @@ __global__ void __launch_bounds__(MAX_THREADS)
   float* l_s = reinterpret_cast<float*>(smem + lay.l);
   int* cnt = reinterpret_cast<int*>(smem + lay.cnt);
 
-  // lane i of warp 0: the byte offset of slot jr + i's tiles at `layer`
+  // lane i of warp 0: the byte offset of slot jr + i's page at `layer`
+  // (fused)
   long long src = 0;
   auto fetch = [&](int jr) {
-    if (warp == 0 && lane < min(p.round, j1 - jr))
+    if (!HEADS && warp == 0 && lane < min(p.round, j1 - jr))
       src = ((long long)p.bt[(long long)b * p.M + jr + lane] * p.L + p.layer) *
-            tb;
+            page_bytes;
   };
   fetch(j0);
   const int bound = p.pos[b];
-  if (tid == 0) {
+  if (!HEADS && tid == 0) {
     mbar_init(bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -582,7 +519,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
     m_s[i] = NEG_INF;
     l_s[i] = 0.f;
   }
-  for (int i = tid; i < 4 * p.round; i += nthreads) cnt[i] = 0;
+  if (!HEADS)
+    for (int i = tid; i < 4 * p.round; i += nthreads) cnt[i] = 0;
   __syncthreads();
   // the first cluster phase: its wait, before the partials move, shows that
   // every block of the cluster has started
@@ -590,39 +528,92 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
   for (int jr = j0, it = 0; jr < j1; jr += p.round, ++it) {
     const int n = min(p.round, j1 - jr);
-    // ---- every load of the round at once, behind one barrier
-    if (warp == 0) {
-      if (it > 0) fetch(jr);
-      if (lane == 0) {
-        const uint32_t qb = it == 0 ? (uint32_t)(H * D * ES) : 0u;
-        mbar_expect_tx(bar, 2u * n * tb + qb);
-        if (qb) bulk_load(smem_u32(q_s), p.q + (long long)b * qb, qb, bar);
+    if (HEADS) {
+      // ---- the round's page ids and flagged slots, then (every thread)
+      // every 16 bytes of its KV head's pg rows a slot by cp.async, and
+      // q's rows in the first round, all in flight at once
+      if (warp == 0) {
+        int id = 0, flagged = 0;
+        if (lane < n) {
+          const long long slot = (long long)b * p.M + jr + lane;
+          id = p.bt[slot];
+          flagged = (p.flags[2 * slot] & 1) | ((p.flags[2 * slot + 1] & 1) << 1);
+          cnt[2 + lane] = id;
+        }
+        const uint32_t fk = __ballot_sync(~0u, flagged & 1);
+        const uint32_t fv = __ballot_sync(~0u, flagged & 2);
+        if (lane == 0) {
+          cnt[0] = (int)fk;
+          cnt[1] = (int)fv;
+        }
       }
-      __syncwarp();
-      if (lane < n) {
-        uint8_t* dst = tiles + 2ll * lane * tb;
-        bulk_load(smem_u32(dst), p.kp + src, tb, bar);
-        bulk_load(smem_u32(dst + tb), p.vp + src, tb, bar);
+      __syncthreads();
+      constexpr int CPR = D * ES / 16;   // 16-byte chunks a row
+      if (it == 0)
+        for (int e = tid; e < H * CPR; e += nthreads)
+          cp_async16(smem_u32(q_s + 16 * e),
+                     p.q + ((long long)b * p.H + h0) * D * ES + 16 * e);
+      for (int e = tid; e < n * pg * CPR; e += nthreads) {
+        const int c = e / CPR, i = c / pg, t = c - i * pg;
+        const long long off = ((long long)cnt[2 + i] * p.L + p.layer) * page_bytes +
+                              ((long long)t * p.Kh + kh) * D * ES + 16 * (e - c * CPR);
+        uint8_t* dst = tiles + 2ll * i * tb + 16 * (e - i * pg * CPR);
+        cp_async16(smem_u32(dst), p.kp + off);
+        cp_async16(smem_u32(dst + tb), p.vp + off);
       }
+      cp_async_wait_all();
+      __syncthreads();
+    } else {
+      // ---- every load of the round at once, behind one barrier
+      if (warp == 0) {
+        if (it > 0) fetch(jr);
+        if (lane == 0) {
+          const uint32_t qb = it == 0 ? (uint32_t)(H * D * ES) : 0u;
+          mbar_expect_tx(bar, 2u * n * tb + qb);
+          if (qb) bulk_load(smem_u32(q_s), p.q + ((long long)b * p.H + h0) * D * ES, qb, bar);
+        }
+        __syncwarp();
+        if (lane < n) {
+          uint8_t* dst = tiles + 2ll * lane * tb;
+          bulk_load(smem_u32(dst), p.kp + src, tb, bar);
+          bulk_load(smem_u32(dst + tb), p.vp + src, tb, bar);
+        }
+      }
+      mbar_wait(bar, it & 1);
     }
-    mbar_wait(bar, it & 1);
 
-    // ---- repair in place, counts per slot
-    {
+    if (HEADS) {
+      // ---- repair the flagged slots' rows in place
+      const int cpt = (int)(tb / 16);   // chunks of a tile
+      for (int op = 0; op < 2; ++op) {
+        const Detector& det = op ? p.det_v : p.det_k;
+        const uint32_t floor = op ? p.floor_v : p.floor_k;
+        const repro::Fill& f = op ? p.fill_v : p.fill_k;
+        for (uint32_t bits = (uint32_t)cnt[op]; bits; bits &= bits - 1) {
+          const int slot = __ffs(bits) - 1;
+          const uint32_t fill = f.table ? f.at(cnt[2 + slot]) : f.value;
+          uint4* chunks = reinterpret_cast<uint4*>(tiles + (2ll * slot + op) * tb);
+          for (int c = tid; c < cpt; c += nthreads)
+            if (suspect<ES>(chunks[c], det.exp_mask, floor))
+              repair_vec<ES>(chunks + c, det, fill);
+        }
+      }
+    } else {
+      // ---- repair in place, counts per slot
       const int cpt = (int)(tb / 16);   // chunks of a tile
       uint4* chunks = reinterpret_cast<uint4*>(tiles);
       for (int c = tid; c < 2 * n * cpt; c += nthreads) {
         const int op = (c / cpt) & 1;   // 0: K, 1: V
         const uint32_t floor = op ? p.floor_v : p.floor_k;
         const uint32_t exp_mask = op ? p.det_v.exp_mask : p.det_k.exp_mask;
-        if (suspect<DT>(chunks[c], exp_mask, floor)) {
+        if (suspect<ES>(chunks[c], exp_mask, floor)) {
           // the fill of the slot's page, whichever block holds the slot
           const int slot = c / (2 * cpt);
           const repro::Fill& f = op ? p.fill_v : p.fill_k;
           const uint32_t fill =
               f.table ? f.at(p.bt[(long long)b * p.M + jr + slot]) : f.value;
-          const int r = op ? repair_vec<DT>(chunks + c, p.det_v, fill)
-                           : repair_vec<DT>(chunks + c, p.det_k, fill);
+          const int r = op ? repair_vec<ES>(chunks + c, p.det_v, fill)
+                           : repair_vec<ES>(chunks + c, p.det_k, fill);
           int* sc = cnt + 4 * slot + 2 * op;
           if (r & 0xFFFF) atomicAdd(sc, r & 0xFFFF);
           if (r >> 16) atomicAdd(sc + 1, r >> 16);
@@ -631,7 +622,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     }
     __syncthreads();
 
-    if (warp == head_warps) {
+    if (!HEADS && warp == head_warps) {
       // ---- slot_counts and the AT counts of the round's visits
       int c4[4] = {0, 0, 0, 0};
       if (lane < n) {
@@ -652,12 +643,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
       }
     } else {
       for (int h = warp; h < H; h += head_warps)
-        head_walk<DT, D>(p, h, n, jr, bound, q_s, tiles, acc, s_s + warp * pg,
-                         m_s, l_s);
+        head_walk<DT, D>(p, h, HEADS ? 0 : h / (H / p.Kh), ks, n, jr, bound,
+                         q_s, tiles, acc, s_s + warp * pg, m_s, l_s);
     }
-    // the next round's bulk copies overwrite what the threads read and
-    // wrote
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    // the next round's copies overwrite what the threads read and wrote
+    if (!HEADS) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncthreads();
   }
 
@@ -722,7 +712,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
       }
     }
     const float den = fmaxf(lt, 1e-30f);
-    store4<DT>(p.out + (((long long)b * H + h) * D + 4 * c4) * ES,
+    store4<DT>(p.out + (((long long)b * p.H + h0 + h) * D + 4 * c4) * ES,
                make_float4(o.x / den, o.y / den, o.z / den, o.w / den));
   }
 }
@@ -744,19 +734,41 @@ inline int round_slots(int H, int D, int pg, int Kh, int es, int spb) {
 }
 
 template <int DT, int D>
+__global__ void __launch_bounds__(MAX_THREADS)
+    decode_fused(const __grid_constant__ Decode p) {
+  decode_body<DT, D, false>(p);
+}
+
+template <int DT, int D>
+__global__ void __launch_bounds__(MAX_THREADS)
+    decode_heads(const __grid_constant__ Decode p) {
+  decode_body<DT, D, true>(p);
+}
+
+// Launches one route's kernel: grid (nb, B) (fused) or (nb, Kh, B)
+// (heads), clusters of nb blocks.
+template <int DT, int D, bool HEADS>
 cudaError_t launch(const Decode& p, int B, int nb, cudaStream_t stream) {
   constexpr int ES = DT == repro::DT_F32 ? 4 : 2;
-  const size_t smem = (size_t)Layout(p.H, D, p.pg, p.Kh, ES, p.round).total;
+  const int H = HEADS ? p.H / p.Kh : p.H;
+  const size_t smem =
+      (size_t)Layout(H, D, p.pg, HEADS ? 1 : p.Kh, ES, p.round).total;
+  const void* kernel = HEADS ? (const void*)decode_heads<DT, D>
+                             : (const void*)decode_fused<DT, D>;
   static size_t smem_set = 48 * 1024;  // the attribute, raised as needed
   if (smem > smem_set) {
-    const cudaError_t err =
-        repro::allow_smem((const void*)decode_fused<DT, D>, smem);
+    const cudaError_t err = repro::allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nb, B, 1);
-  cfg.blockDim = dim3(32 * ((p.H < MAX_HEAD_WARPS ? p.H : MAX_HEAD_WARPS) + 1), 1, 1);
+  cfg.gridDim = HEADS ? dim3(nb, p.Kh, B) : dim3(nb, B, 1);
+  // fused: a warp a head (up to 16) and the counting warp; heads: at
+  // least HEADS_MIN_WARPS, so that more threads issue the loads
+  const int head_warps = H < MAX_HEAD_WARPS ? H : MAX_HEAD_WARPS;
+  const int warps = HEADS ? (head_warps > HEADS_MIN_WARPS ? head_warps : HEADS_MIN_WARPS)
+                          : head_warps + 1;
+  cfg.blockDim = dim3(32 * warps, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -766,9 +778,36 @@ cudaError_t launch(const Decode& p, int B, int nb, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, decode_fused<DT, D>, p);
+  cudaError_t err;
+  if (HEADS)
+    err = cudaLaunchKernelEx(&cfg, decode_heads<DT, D>, p);
+  else
+    err = cudaLaunchKernelEx(&cfg, decode_fused<DT, D>, p);
   if (err != cudaSuccess) cudaGetLastError();   // as repro::allow_smem
   return err;
+}
+
+// Both routes' parameters, checked: the memset (fused) or page_scan
+// (heads) goes first on the stream.
+inline bool decode_shape_ok(int dtype, int B, int H, int Dh, int P, int L,
+                            int pg, int Kh, int M, int layer) {
+  return dtype >= repro::DT_F32 && dtype <= repro::DT_F16 &&
+         (Dh == 64 || Dh == 128) && B >= 1 && H >= 1 && Kh >= 1 &&
+         H % Kh == 0 && P >= 1 && L >= 1 && pg >= 1 && M >= 1 && layer >= 0 &&
+         layer < L && B <= 65535;
+}
+
+template <bool HEADS>
+cudaError_t launch_route(const Decode& p, int dtype, int Dh, int B, int nb,
+                         cudaStream_t s) {
+  switch (dtype * 2 + (Dh == 128)) {
+    case 2 * repro::DT_F32: return launch<repro::DT_F32, 64, HEADS>(p, B, nb, s);
+    case 2 * repro::DT_F32 + 1: return launch<repro::DT_F32, 128, HEADS>(p, B, nb, s);
+    case 2 * repro::DT_BF16: return launch<repro::DT_BF16, 64, HEADS>(p, B, nb, s);
+    case 2 * repro::DT_BF16 + 1: return launch<repro::DT_BF16, 128, HEADS>(p, B, nb, s);
+    case 2 * repro::DT_F16: return launch<repro::DT_F16, 64, HEADS>(p, B, nb, s);
+    default: return launch<repro::DT_F16, 128, HEADS>(p, B, nb, s);
+  }
 }
 
 }  // namespace fd
@@ -832,9 +871,7 @@ extern "C" int repro_paged_decode_fused(
     const unsigned int* fills_v, void* out, int* slot_counts, int* counts,
     void* stream) {
   const int es = dtype == repro::DT_F32 ? 4 : 2;
-  if (dtype < repro::DT_F32 || dtype > repro::DT_F16 || (Dh != 64 && Dh != 128) ||
-      B < 1 || H < 1 || Kh < 1 || H % Kh || P < 1 || L < 1 || pg < 1 ||
-      M < 1 || layer < 0 || layer >= L || B > 65535)
+  if (!fd::decode_shape_ok(dtype, B, H, Dh, P, L, pg, Kh, M, layer))
     return (int)cudaErrorInvalidValue;
   int nb, spb;
   fd::partition(M, &nb, &spb);
@@ -853,6 +890,7 @@ extern "C" int repro_paged_decode_fused(
                      static_cast<uint8_t*>(out),
                      slot_counts,
                      counts,
+                     nullptr,
                      H,
                      Kh,
                      M,
@@ -868,12 +906,59 @@ extern "C" int repro_paged_decode_fused(
                      hopper::fatal_floor(dv),
                      {fills_k, fill_k},
                      {fills_v, fill_v}};
-  switch (dtype * 2 + (Dh == 128)) {
-    case 2 * repro::DT_F32: return (int)fd::launch<repro::DT_F32, 64>(p, B, nb, s);
-    case 2 * repro::DT_F32 + 1: return (int)fd::launch<repro::DT_F32, 128>(p, B, nb, s);
-    case 2 * repro::DT_BF16: return (int)fd::launch<repro::DT_BF16, 64>(p, B, nb, s);
-    case 2 * repro::DT_BF16 + 1: return (int)fd::launch<repro::DT_BF16, 128>(p, B, nb, s);
-    case 2 * repro::DT_F16: return (int)fd::launch<repro::DT_F16, 64>(p, B, nb, s);
-    default: return (int)fd::launch<repro::DT_F16, 128>(p, B, nb, s);
-  }
+  return (int)fd::launch_route<false>(p, dtype, Dh, B, nb, s);
+}
+
+// The heads route: operands as for the fused route; nb and spb the slot
+// blocks a (request, KV head) and slots a block
+// (kernels/paged_attention.py::heads_partition).  Zeroes counts (int32[8
+// + B]: the AT counts, then poison_end) on the stream, launches page_scan
+// (slot_counts (B, M), flags (B, M, 2)), then decode_heads.  Returns the
+// first error.
+extern "C" int repro_paged_decode_heads(
+    const void* q, const void* kp, const void* vp, const int* bt,
+    const int* pos, int dtype, int B, int H, int Dh, int P, int L, int pg,
+    int Kh, int M, int layer, int nb, int spb, const int* det_k,
+    const int* det_v, unsigned int fill_k, unsigned int fill_v,
+    const unsigned int* fills_k, const unsigned int* fills_v, void* out,
+    int* slot_counts, int* flags, int* counts, void* stream) {
+  const int es = dtype == repro::DT_F32 ? 4 : 2;
+  if (!fd::decode_shape_ok(dtype, B, H, Dh, P, L, pg, Kh, M, layer) ||
+      nb < 1 || nb > fd::MAX_CLUSTER || spb < 1 || (nb - 1) * spb >= M ||
+      nb * spb < M)
+    return (int)cudaErrorInvalidValue;
+  const int round = fd::round_slots(H / Kh, Dh, pg, 1, es, spb);
+  if (round < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = paged::launch_scan(kp, vp, bt, dtype, B, M, L, pg, Kh, Dh,
+                                       layer, det_k, det_v, fill_v, fills_v,
+                                       slot_counts, flags, counts, s);
+  if (err != cudaSuccess) return (int)err;
+  const repro::Detector dk = repro::detector_from(det_k),
+                        dv = repro::detector_from(det_v);
+  const fd::Decode p{static_cast<const uint8_t*>(q),
+                     static_cast<const uint8_t*>(kp),
+                     static_cast<const uint8_t*>(vp),
+                     bt,
+                     pos,
+                     static_cast<uint8_t*>(out),
+                     nullptr,
+                     nullptr,
+                     flags,
+                     H,
+                     Kh,
+                     M,
+                     L,
+                     pg,
+                     layer,
+                     spb,
+                     round,
+                     (float)(1.0 / std::sqrt((double)Dh)),
+                     dk,
+                     dv,
+                     hopper::fatal_floor(dk),
+                     hopper::fatal_floor(dv),
+                     {fills_k, fill_k},
+                     {fills_v, fill_v}};
+  return (int)fd::launch_route<true>(p, dtype, Dh, B, nb, s);
 }

@@ -18,21 +18,42 @@
 // ev_total, 0].  Two routes, chosen by the wrapper from dtypes, shapes and
 // alignment alone (kernels/paged_attention.py::route):
 //
-// FFMA route (`prefill_partials`): f32/bf16/f16, any Dh and pg where one
-// KV head's page fits a block's shared memory as f32.  The chunk's rows are
-// flattened to R = C * H rows in (C, Kh, G) order; a block takes kRows rows
-// of one request and walks all M page slots of its block table, staging
-// each page in groups of KV heads (the largest group that fits, chosen by
-// the wrapper, kernels/paged_attention.py::ffma_group: 27 of 32 at
-// StableLM-1.6B's f32 pool) and repairing each
-// group it reads into its own shared memory (the same fill on every copy);
-// only the request's first row block reports the page visit, and it walks
-// every group.  It emits unnormalised partials (acc (B, C, H, Dh), m and l
-// (B, C*H), f32) that the wrapper normalises, as the reference does
-// outside its kernel; FP32 dot products, no tensor cores.  Latency and every
-// row block's re-read and re-repair of all the request's pages hold it.
+// Both routes launch `page_scan` first (paged.cuh, one block a slot),
+// which reads K and V of every (b, j) slot once (16-byte loads, the
+// exponent-floor prefilter, `classify` only on suspect vectors), writes
+// slot_counts and one K and one V flag per slot, and adds the seven AT
+// counts and each request's poison_end (zeroed by a memset first).  A main
+// kernel block then reads only its own KV head's rows of the slots it
+// needs and takes no count.
 //
-// wgmma route (`prefill_scan`, `prefill_repair_wgmma`): q and both pools
+// FFMA route (`page_scan` + `prefill_repair_ffma`): f32, and the 16-bit
+// shapes the wgmma route does not take (pages not of whole 16-key steps,
+// head dims other than 64 and 128, offset views), Dh up to 512, where one
+// KV head's page fits a block's shared memory.  What bounds it on an H100:
+// bytes, q, the visited pages and out over 3.35 TB/s: 0.000939 ms at
+// StableLM-1.6B's f32 pool (B = 1, C = 64, H = Kh = 32, Dh = 64, M = 8, pg
+// = 16), against ~0.05 GFLOP on the FP32 pipe (0.00075 ms).  In practice
+// latency again, so the design is the wgmma route's on the FP32 pipe:
+//   * one block per (b, KV head kh, 32 of that head's C * G rows in (C, G)
+//     order): 64 blocks at that pool, 96 at StarCoder2-15B's (G = 12), at
+//     C = 64 (64-row blocks would give 32 and 48);
+//   * it loads only the live slots (j * pg <= q_start[b] + the block's last
+//     chunk row, and up to the request's poison_end), only its KV head's
+//     pg rows of each, a round of pages at once (every 16 bytes one
+//     cp.async, all the block's threads issuing, all in flight together;
+//     lane by lane for an offset view), and repairs only the flagged pages
+//     in shared memory;
+//   * scores: each thread a tile of 4 rows x 4 keys over float4 reads of q
+//     (f32) and K, masked; then the online-softmax step page by page as the
+//     reference's, eight lanes a row, p rounded to the storage dtype; then
+//     P . V with each thread's (rows, 4 lanes) accumulators in registers
+//     across pages and rounds, acc = acc * alpha + P . V;
+//   * it writes the normalised output acc / max(l, 1e-30) in q's dtype, so
+//     no pass over unnormalised partials follows.
+// Every loaded key enters P . V, masked ones with p = 0.  f32 is exact f32:
+// the plain version's arithmetic up to summation order.
+//
+// wgmma route (`page_scan`, `prefill_repair_wgmma`): q and both pools
 // all bf16 or all f16, Dh 64 or 128, pg a multiple of 16 up to 128,
 // 16-byte aligned.  What bounds it on an H100: bytes, q, the visited pages
 // and out over 3.35 TB/s: 0.000157 ms at the engine's C = 64 (B = 1, H =
@@ -40,11 +61,7 @@
 // In practice it is latency: two launches, a round trip to memory for the
 // block table, one for the pages, a few dependent steps on one SM.  So
 // the design does each step once, in parallel, and keeps every block short:
-//   * `prefill_scan` reads K and V of every (b, j) slot once (16-byte
-//     loads, the exponent-floor prefilter, `classify` only on suspect
-//     vectors), writes slot_counts and one K and one V flag per slot, and
-//     adds the seven AT counts (zeroed by the host's memset); one block per
-//     slot.
+//   * `page_scan`, as above.
 //   * `prefill_repair_wgmma`: one block per (b, KV head, 64 of that head's
 //     C * G rows in (C, G) order), so a block reads only its own head's
 //     K/V, once, and one warpgroup's softmax has an SM's exp2 units to
@@ -81,6 +98,7 @@
 #include <cmath>
 
 #include "attention_wgmma.cuh"
+#include "paged.cuh"
 
 namespace {
 
@@ -88,164 +106,380 @@ using repro::Detector;
 using repro::NEG_INF;
 using repro::Storage;
 
-constexpr int kThreads = 256;
-constexpr int kRows = 16;  // q rows per block
+// ---------------------------------------------------------------- FFMA route
+namespace pf {
 
-// One block takes kRows rows of one request and walks its M slots; each
-// slot's page is staged in groups of kg KV heads, one after another
-// (shared memory: the kRows q rows padded to Dh + 1, the group's K rows
-// padded and its V rows (pg * kg each), the rows' accumulators (kRows, Dh),
-// scores (kRows, pg), m, l and rescale factor, 4 counts:
-// kernels/paged_attention.py::ffma_smem), and
-// the rows whose KV head is in the group take the page's scores, softmax
-// step and P . V (so each row sees each page once, in page order: its
-// arithmetic is the ungrouped walk's).  The reporting block walks every
-// group, so its counts cover the whole page, and writes the slot's counts
-// and events after the last; the others skip the groups none of their
-// rows use.
+using hopper::smem_u32;
+using paged::cp_async16;
+using paged::cp_async_wait_all;
+using paged::load_lanes;
+using paged::nan_max;
+using paged::store4;
+
+constexpr int R = 32;           // q rows a block: one KV head's, in (C, G) order
+constexpr int THREADS = 256;
+constexpr int MAX_ROUND = 32;   // pages a round
+static_assert(THREADS == 8 * R, "the softmax step takes eight lanes a row");
+
+// What every block of one call shares.
+struct Ffma {
+  const uint8_t* q;     // (B, C, H, Dh)
+  const uint8_t* kp;    // (P, L, pg, Kh, Dh)
+  const uint8_t* vp;
+  uint8_t* out;         // (B, C, H, Dh)
+  const int* bt;        // (B, M)
+  const int* q_start;   // (B,)
+  const int* flags;     // (B, M, 2): [K, V] of each slot, from page_scan
+  const int* poison_end;  // (B,): from page_scan
+  int C, H, Kh, Dh, M, L, pg, layer;
+  int round;            // pages a round (kernels/paged_attention.py::ffma_round)
+  float scale;
+  Detector det_k, det_v;
+  repro::Fill fill_k, fill_v;  // a table is indexed by page id
+  bool vec;    // pools 16-byte aligned and a row a multiple of 16 bytes
+  bool vec_q;  // q's and out's rows in whole, aligned 4-lane groups
+};
+
+// Byte offsets into a block's dynamic shared memory
+// (kernels/paged_attention.py::ffma_smem): the block's R q rows as f32 (R,
+// dpad), dpad = Dh rounded up to 4 lanes, zeros past Dh; per page of the
+// round its id and K and V flags (4 ints); the softmax
+// rescale of each (page, row); each row's final l; the round's scores and
+// softmax weights (R, ls); then the round's K rows (ldk bytes apart: a row
+// padded by 16 bytes, so that the lanes of a warp, each on its own key,
+// read distinct banks) and V rows (ldv bytes apart), in the storage dtype.
+struct Layout {
+  int dpad, ls, ldk, ldv;
+  long long q, ids, alpha, l, s, k, v, total;
+  __host__ __device__ Layout(int Dh, int pg, int es, int round) {
+    dpad = (Dh + 3) & ~3;
+    ldv = (dpad * es + 15) & ~15;
+    ldk = ldv + 16;
+    ls = round * pg + 4;
+    q = 0;
+    ids = q + 4ll * R * dpad;
+    alpha = ids + 16ll * round;
+    l = alpha + 4ll * R * round;
+    s = l + 4ll * R;
+    k = s + 4ll * R * ls;
+    v = k + (long long)round * pg * ldk;
+    total = v + (long long)round * pg * ldv;
+  }
+};
+
+// Repairs the fatal lanes of one page's pg rows of Dh lanes (`ld` bytes
+// apart) in shared memory: each lane classified, a fatal one set to `fill`.
 template <int DT>
-__global__ void prefill_partials(
-    const typename Storage<DT>::bits_t* q, const typename Storage<DT>::bits_t* kp,
-    const typename Storage<DT>::bits_t* vp, const int* bt, const int* q_start,
-    int C, int H, int Dh, int L, int pg, int Kh, int kg, int M, int layer,
-    float sm_scale, Detector det_k, Detector det_v, repro::Fill fill_k,
-    repro::Fill fill_v, float* acc_out, float* m_out, float* l_out,
-    int* slot_counts, int* counts) {
-  extern __shared__ float smem[];
-  const int ks = Dh + 1;
-  const int rows = pg * kg;
-  float* q_s = smem;                      // kRows x ks
-  float* k_s = q_s + kRows * ks;          // rows x ks
-  float* v_s = k_s + rows * ks;           // rows x Dh
-  float* acc = v_s + rows * Dh;           // kRows x Dh
-  float* p_s = acc + kRows * Dh;          // kRows x pg
-  float* m_s = p_s + kRows * pg;          // kRows
-  float* l_s = m_s + kRows;               // kRows
-  float* a_s = l_s + kRows;               // kRows
-  int* cnt = reinterpret_cast<int*>(a_s + kRows);
-
-  const int b = blockIdx.x;
-  const int R = C * H, G = H / Kh;
-  const int r0 = blockIdx.y * kRows;
-  const int nr = min(kRows, R - r0);
-  const int tid = threadIdx.x;
-  const bool reporter = blockIdx.y == 0;
-  const int qs = q_start[b];
-  for (int i = tid; i < kRows * Dh; i += blockDim.x) {
-    const int r = i / Dh, d = i % Dh;
-    q_s[r * ks + d] = r < nr ? Storage<DT>::to_float(
-                                   q[((long long)b * R + r0 + r) * Dh + d])
-                             : 0.f;
-    acc[i] = 0.f;
-  }
-  for (int r = tid; r < kRows; r += blockDim.x) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-  const long long tile = (long long)pg * Kh * Dh;
-  for (int j = 0; j < M; ++j) {
-    const long long page = bt[b * M + j];
-    const long long base = (page * L + layer) * tile;
-    if (tid < 4) cnt[tid] = 0;
-    __syncthreads();
-    for (int k0 = 0; k0 < Kh; k0 += kg) {
-      const int nk = min(kg, Kh - k0);    // KV heads k0 .. k0 + nk - 1
-      bool used = reporter;
-      for (int r = 0; r < nr && !used; ++r) {
-        const int kh = (r0 + r) % H / G;
-        used = kh >= k0 && kh < k0 + nk;
-      }
-      if (!used) continue;                // the same for every thread
-      repro::repair_rows<DT>(kp + base + k0 * Dh, pg * nk, nk, (long long)Kh * Dh,
-                             Dh, ks, det_k, fill_k, page, k_s, &cnt[0]);
-      repro::repair_rows<DT>(vp + base + k0 * Dh, pg * nk, nk, (long long)Kh * Dh,
-                             Dh, Dh, det_v, fill_v, page, v_s, &cnt[2]);
-      __syncthreads();
-      if (reporter && tid == 0 && k0 + nk == Kh) {
-        const int fk = cnt[0] + cnt[1], fv = cnt[2] + cnt[3];
-        slot_counts[b * M + j] = fk + fv;
-        if (cnt[0]) atomicAdd(&counts[0], cnt[0]);
-        if (cnt[1]) atomicAdd(&counts[1], cnt[1]);
-        if (fk) atomicAdd(&counts[2], 1);
-        if (cnt[2]) atomicAdd(&counts[3], cnt[2]);
-        if (cnt[3]) atomicAdd(&counts[4], cnt[3]);
-        if (fv) atomicAdd(&counts[5], 1);
-        if (fk || fv) atomicAdd(&counts[6], 1);
-      }
-      for (int i = tid; i < kRows * pg; i += blockDim.x) {
-        const int r = i / pg, t = i % pg;
-        const int kl = (r0 + r) % H / G - k0;   // the row's KV head in the group
-        if (kl < 0 || kl >= nk) continue;
-        const float* qr = q_s + r * ks;
-        const float* kr = k_s + (t * nk + kl) * ks;
-        float dot = 0.f;
-        for (int d = 0; d < Dh; ++d) dot += qr[d] * kr[d];
-        const int tq = qs + (r0 + r) / H;
-        p_s[i] = (j * pg + t <= tq) ? dot * sm_scale : NEG_INF;
-      }
-      __syncthreads();
-      for (int r = tid; r < kRows; r += blockDim.x) {
-        const int kl = (r0 + r) % H / G - k0;
-        if (kl < 0 || kl >= nk) continue;
-        float mx = m_s[r];
-        for (int t = 0; t < pg; ++t) mx = fmaxf(mx, p_s[r * pg + t]);
-        float sum = 0.f;
-        for (int t = 0; t < pg; ++t) {
-          const float sv = p_s[r * pg + t];
-          const float p = sv > NEG_INF * 0.5f ? expf(sv - mx) : 0.f;
-          sum += p;
-          p_s[r * pg + t] = Storage<DT>::quantize(p);
-        }
-        const float alpha = expf(m_s[r] - mx);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = mx;
-      }
-      __syncthreads();
-      for (int i = tid; i < kRows * Dh; i += blockDim.x) {
-        const int r = i / Dh, d = i % Dh;
-        const int kl = (r0 + r) % H / G - k0;
-        if (kl < 0 || kl >= nk) continue;
-        const float* pr = p_s + r * pg;
-        const float* vc = v_s + kl * Dh + d;
-        float pv = 0.f;
-        for (int t = 0; t < pg; ++t) pv += pr[t] * vc[t * nk * Dh];
-        acc[i] = acc[i] * a_s[r] + pv;
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = tid; i < nr * Dh; i += blockDim.x)
-    acc_out[((long long)b * R + r0) * Dh + i] = acc[i];
-  for (int r = tid; r < nr; r += blockDim.x) {
-    m_out[(long long)b * R + r0 + r] = m_s[r];
-    l_out[(long long)b * R + r0 + r] = l_s[r];
+__device__ __forceinline__ void repair_page(uint8_t* rows, int pg, int Dh,
+                                            int ld, const Detector& det,
+                                            uint32_t fill) {
+  using bits_t = typename Storage<DT>::bits_t;
+  for (int e = threadIdx.x; e < pg * Dh; e += THREADS) {
+    const int t = e / Dh;
+    bits_t* x = reinterpret_cast<bits_t*>(rows + t * ld) + (e - t * Dh);
+    if (repro::classify(*x, det)) *x = (bits_t)fill;
   }
 }
 
-template <int DT>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* bt, const int* q_start, int B, int C, int H,
-                   int Dh, int L, int pg, int Kh, int kg, size_t smem, int M,
-                   int layer, const int* det_k, const int* det_v,
-                   repro::Fill fill_k, repro::Fill fill_v, float* acc,
-                   float* m, float* l, int* slot_counts, int* counts,
-                   cudaStream_t stream) {
+// One block per (request b, KV head kh, R of that head's C * G rows in (C,
+// G) order); the last row blocks, which see the most keys, first.  DP: the
+// largest dpad the instance takes (64, 128, 256 or 512), which sizes each
+// thread's accumulator tile.
+template <int DT, int DP>
+__global__ void __launch_bounds__(THREADS)
+    prefill_repair_ffma(const __grid_constant__ Ffma p) {
   using bits_t = typename Storage<DT>::bits_t;
-  cudaError_t err = repro::allow_smem((const void*)prefill_partials<DT>, smem);
-  if (err != cudaSuccess) return err;
-  const int R = C * H;
-  const float sm_scale = 1.0f / sqrtf((float)Dh);
-  prefill_partials<DT><<<dim3(B, (R + kRows - 1) / kRows), kThreads, smem,
-                         stream>>>(
-      static_cast<const bits_t*>(q), static_cast<const bits_t*>(kp),
-      static_cast<const bits_t*>(vp), bt, q_start, C, H, Dh, L, pg, Kh, kg, M,
-      layer, sm_scale, repro::detector_from(det_k), repro::detector_from(det_v),
-      fill_k, fill_v, acc, m, l, slot_counts, counts);
+  constexpr int ES = sizeof(bits_t);
+  // P . V: thread (ry, cx) owns lanes 4 cx .. 4 cx + 3 of rows ry + RG i
+  constexpr int CX = DP / 4, RG = THREADS / CX, TR = R / RG;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int pg = p.pg, Dh = p.Dh;
+  const Layout lay(Dh, pg, ES, p.round);
+  const int dpad = lay.dpad, n4 = dpad / 4, ls = lay.ls;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = p.H / p.Kh, CG = p.C * G;
+  const int b = blockIdx.x, kh = blockIdx.y;
+  const int r0 = (gridDim.z - 1 - blockIdx.z) * R;
+  float* q_s = reinterpret_cast<float*>(smem + lay.q);
+  int* ids = reinterpret_cast<int*>(smem + lay.ids);
+  float* alpha_s = reinterpret_cast<float*>(smem + lay.alpha);
+  float* l_s = reinterpret_cast<float*>(smem + lay.l);
+  float* s_s = reinterpret_cast<float*>(smem + lay.s);
+  uint8_t* k_s = smem + lay.k;
+  uint8_t* v_s = smem + lay.v;
+
+  // the loaded slots: those with j * pg <= q_start + the block's last chunk
+  // row, and every slot up to the request's last one whose V stays
+  // non-finite after the repair (0 * NaN reaches the rows that mask it)
+  const int qs = p.q_start[b];
+  const int c_last = (min(r0 + R, CG) - 1) / G;
+  const int n_live = min(p.M, max((qs + c_last) / pg + 1, p.poison_end[b]));
+  const long long page_bytes = (long long)pg * p.Kh * Dh * ES;
+
+  // each softmax row (8 lanes a row): its running max and sum
+  const int srow = tid >> 3, l8 = tid & 7;
+  float m_row = NEG_INF, l_row = 0.f;
+  float acc[TR][4];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const int cx = tid % CX, ry = tid / CX;
+  // the q rows as f32, zeros past C * G and past Dh (in the first
+  // round, while its K and V copies are in flight)
+  auto load_q = [&]() {
+    for (int i = tid; i < R * n4; i += THREADS) {
+      const int r = i / n4, c4 = i - r * n4, gr = r0 + r;
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      if (gr < CG) {
+        const int c = gr / G, g = gr - c * G;
+        const long long at =
+            (((long long)b * p.C + c) * p.H + kh * G + g) * Dh + 4 * c4;
+        if (p.vec_q) {
+          load_lanes<DT, 4>(p.q + at * ES, f);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (4 * c4 + e < Dh)
+              f[e] = Storage<DT>::to_float(reinterpret_cast<const bits_t*>(p.q)[at + e]);
+        }
+      }
+      *reinterpret_cast<float4*>(q_s + r * dpad + 4 * c4) =
+          make_float4(f[0], f[1], f[2], f[3]);
+    }
+  };
+
+  for (int j0 = 0; j0 < n_live; j0 += p.round) {
+    const int n = min(p.round, n_live - j0), nk = n * pg;
+    // ---- the round's page ids and flags, then its rows of KV head kh
+    if (tid < n) {
+      const long long slot = (long long)b * p.M + j0 + tid;
+      ids[4 * tid] = p.bt[slot];
+      ids[4 * tid + 1] = p.flags[2 * slot] & 1;
+      ids[4 * tid + 2] = p.flags[2 * slot + 1] & 1;
+    }
+    __syncthreads();
+    if (p.vec) {
+      // every 16-byte chunk of every row by cp.async, all in flight at once
+      const int cpr = Dh * ES / 16;   // chunks a row
+      for (int e = tid; e < nk * cpr; e += THREADS) {
+        const int c = e / cpr, x = e - c * cpr, i = c / pg;
+        const long long off = ((long long)ids[4 * i] * p.L + p.layer) * page_bytes +
+                              ((long long)(c - i * pg) * p.Kh + kh) * Dh * ES + 16 * x;
+        cp_async16(smem_u32(k_s + (long long)c * lay.ldk + 16 * x), p.kp + off);
+        cp_async16(smem_u32(v_s + (long long)c * lay.ldv + 16 * x), p.vp + off);
+      }
+      if (j0 == 0) load_q();
+      cp_async_wait_all();
+    } else {
+      if (j0 == 0) load_q();
+      // lane by lane (an offset pool view, or rows not of whole 16 bytes),
+      // zeros past Dh
+      for (long long e = tid; e < (long long)nk * dpad; e += THREADS) {
+        const int c = (int)(e / dpad), d = (int)(e - (long long)c * dpad);
+        const int i = c / pg;
+        bits_t kb = 0, vb = 0;
+        if (d < Dh) {
+          const long long at = ((long long)ids[4 * i] * p.L + p.layer) * pg * p.Kh * Dh +
+                               ((long long)(c - i * pg) * p.Kh + kh) * Dh + d;
+          kb = reinterpret_cast<const bits_t*>(p.kp)[at];
+          vb = reinterpret_cast<const bits_t*>(p.vp)[at];
+        }
+        reinterpret_cast<bits_t*>(k_s + (long long)c * lay.ldk)[d] = kb;
+        reinterpret_cast<bits_t*>(v_s + (long long)c * lay.ldv)[d] = vb;
+      }
+    }
+    __syncthreads();
+    // ---- the flagged pages repaired in place (a page is one logical tile)
+    for (int i = 0; i < n; ++i) {
+      const int id = ids[4 * i];
+      if (ids[4 * i + 1])
+        repair_page<DT>(k_s + (long long)i * pg * lay.ldk, pg, Dh, lay.ldk, p.det_k,
+                        p.fill_k.table ? p.fill_k.at(id) : p.fill_k.value);
+      if (ids[4 * i + 2])
+        repair_page<DT>(v_s + (long long)i * pg * lay.ldv, pg, Dh, lay.ldv, p.det_v,
+                        p.fill_v.table ? p.fill_v.at(id) : p.fill_v.value);
+    }
+    __syncthreads();
+
+    // ---- scores: warp w takes rows w + 8 i and lane x keys x + 32 j (i, j
+    // < 4) of each 128 keys, a 4 x 4 tile of dot products a thread over
+    // float4 reads of q (f32, the same for the whole warp) and K
+    for (int kb = 0; kb < nk; kb += 128) {
+      float dot[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dot[i][j] = 0.f;
+      const uint8_t* kr[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kr[j] = k_s + (long long)min(kb + lane + 32 * j, nk - 1) * lay.ldk;
+#pragma unroll 2
+      for (int c4 = 0; c4 < n4; ++c4) {
+        float4 qv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(q_s + (warp + 8 * i) * dpad + 4 * c4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float kf[4];
+          load_lanes<DT, 4>(kr[j] + 4 * c4 * ES, kf);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dot[i][j] = fmaf(qv[i].x, kf[0], dot[i][j]);
+            dot[i][j] = fmaf(qv[i].y, kf[1], dot[i][j]);
+            dot[i][j] = fmaf(qv[i].z, kf[2], dot[i][j]);
+            dot[i][j] = fmaf(qv[i].w, kf[3], dot[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = kb + lane + 32 * j;
+        if (key >= nk) continue;
+        const int pi = key / pg;
+        const int kpos = (j0 + pi) * pg + (key - pi * pg);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = warp + 8 * i;
+          const int tq = qs + (r0 + r) / G;
+          s_s[r * ls + key] = kpos <= tq ? dot[i][j] * p.scale : NEG_INF;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- the online-softmax step, page by page as the reference's: eight
+    // lanes a row, p rounded to the storage dtype in place
+    {
+      float* sr = s_s + srow * ls;
+      for (int i = 0; i < n; ++i) {
+        float* sp = sr + i * pg;
+        float mx = NEG_INF;
+        for (int t = l8; t < pg; t += 8) mx = nan_max(mx, sp[t]);
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) mx = nan_max(mx, __shfl_xor_sync(~0u, mx, o));
+        const float m_new = nan_max(m_row, mx);
+        float sum = 0.f;
+        for (int t = l8; t < pg; t += 8) {
+          const float sv = sp[t];
+          const float e = sv > NEG_INF * 0.5f ? expf(sv - m_new) : 0.f;
+          sum += e;
+          sp[t] = Storage<DT>::quantize(e);
+        }
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) sum += __shfl_xor_sync(~0u, sum, o);
+        const float alpha = expf(m_row - m_new);
+        l_row = l_row * alpha + sum;
+        m_row = m_new;
+        if (l8 == 0) alpha_s[i * R + srow] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // ---- P . V: acc = acc * alpha + P . V page by page, in registers;
+    // every loaded key enters, masked ones with p = 0 (a V lane that stays
+    // non-finite after the repair reaches its rows through 0 * NaN)
+    if (cx < n4) {
+      for (int i = 0; i < n; ++i) {
+#pragma unroll
+        for (int u = 0; u < TR; ++u) {
+          const float a = alpha_s[i * R + ry + RG * u];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[u][e] *= a;
+        }
+        const uint8_t* vr = v_s + (long long)i * pg * lay.ldv + 4 * cx * ES;
+        const float* pr = s_s + i * pg;
+        int t = 0;
+        if (pg % 4 == 0) {
+          // four keys a step: each row's four weights in one float4 read
+          for (; t < pg; t += 4) {
+            float vf[4][4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              load_lanes<DT, 4>(vr + (long long)(t + k) * lay.ldv, vf[k]);
+#pragma unroll
+            for (int u = 0; u < TR; ++u) {
+              const float4 w =
+                  *reinterpret_cast<const float4*>(pr + (ry + RG * u) * ls + t);
+              const float ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  acc[u][e] = fmaf(ws[k], vf[k][e], acc[u][e]);
+            }
+          }
+        }
+        for (; t < pg; ++t) {
+          float vf[4];
+          load_lanes<DT, 4>(vr + (long long)t * lay.ldv, vf);
+#pragma unroll
+          for (int u = 0; u < TR; ++u) {
+            const float w = pr[(ry + RG * u) * ls + t];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[u][e] = fmaf(w, vf[e], acc[u][e]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // the next round's copies overwrite what was read
+  }
+
+  // ---- out = acc / max(l, 1e-30) in q's dtype
+  if (l8 == 0) l_s[srow] = l_row;
+  __syncthreads();
+  if (cx < n4) {
+#pragma unroll
+    for (int u = 0; u < TR; ++u) {
+      const int r = ry + RG * u, gr = r0 + r;
+      if (gr >= CG) continue;
+      const int c = gr / G, g = gr - c * G;
+      const float den = fmaxf(l_s[r], 1e-30f);
+      const long long at =
+          (((long long)b * p.C + c) * p.H + kh * G + g) * Dh + 4 * cx;
+      const float4 o = make_float4(acc[u][0] / den, acc[u][1] / den,
+                                   acc[u][2] / den, acc[u][3] / den);
+      if (p.vec_q) {
+        store4<DT>(p.out + at * ES, o);
+      } else {
+        const float f[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * cx + e < Dh)
+            reinterpret_cast<bits_t*>(p.out)[at + e] = Storage<DT>::from_float(f[e]);
+      }
+    }
+  }
+}
+
+template <int DT, int DP>
+cudaError_t launch(const Ffma& p, int B, size_t smem, cudaStream_t stream) {
+  static size_t smem_set = 48 * 1024;  // the attribute, raised as needed
+  if (smem > smem_set) {
+    const cudaError_t err =
+        repro::allow_smem((const void*)prefill_repair_ffma<DT, DP>, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  const int row_blocks = (p.C * (p.H / p.Kh) + R - 1) / R;
+  prefill_repair_ffma<DT, DP>
+      <<<dim3(B, p.Kh, row_blocks), THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- wgmma route
+template <int DT>
+cudaError_t launch_dt(const Ffma& p, int B, size_t smem, cudaStream_t stream) {
+  const int dpad = (p.Dh + 3) & ~3;
+  if (dpad <= 64) return launch<DT, 64>(p, B, smem, stream);
+  if (dpad <= 128) return launch<DT, 128>(p, B, smem, stream);
+  if (dpad <= 256) return launch<DT, 256>(p, B, smem, stream);
+  return launch<DT, 512>(p, B, smem, stream);
+}
+
+}  // namespace pf
+
 namespace pw {
 
 using namespace attn;
@@ -277,8 +511,8 @@ struct Prefill {
   uint16_t* out;        // (B, C, H, D)
   const int* bt;        // (B, M)
   const int* q_start;   // (B,)
-  const int* flags;     // (B, M, 2): [K, V] of each slot, from prefill_scan
-  const int* poison_end;  // (B,): from prefill_scan
+  const int* flags;     // (B, M, 2): [K, V] of each slot, from page_scan
+  const int* poison_end;  // (B,): from page_scan
   int C, H, Kh, M, L, pg, layer;
   float scale_log2;
   Detector det_k, det_v;
@@ -518,165 +752,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-constexpr int SCAN_THREADS = 256, SCAN_VECS = 2;
-
-// The scan's view of one call: every (b, j) slot's (pg, Kh, Dh) K and V
-// tiles at `layer`, as `vecs` 16-byte vectors each.
-struct PageScan {
-  const uint4* k;
-  const uint4* v;
-  const int* bt;        // (B * M) page ids
-  int M, L, layer;
-  unsigned vecs;        // pg * Kh * Dh / 8
-  Detector det_k, det_v;
-  uint32_t floor_k, floor_v;  // fatal_floor of each detector
-  uint32_t ieee_exp;    // the storage dtype's exponent field
-  bool fill_v_finite;   // whether the V fill is a finite value
-  const uint32_t* fills_v;  // neighbor_mean: the V fill per page, else null
-  int* slot_counts;     // (B * M)
-  int* flags;           // (B * M, 2)
-  int* counts;          // int32[8], zeroed before the launch
-  int* poison_end;      // (B,), zeroed before the launch
-};
-
-// NaN lanes | Inf lanes << 16 of a suspect vector (out of line: clean data
-// never calls it).
-__device__ __noinline__ int count_vec(const uint4 q, const Detector det) {
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-  int n_nan = 0, n_inf = 0;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int cls = repro::classify((w[e >> 1] >> ((e & 1) * 16)) & 0xFFFFu, det);
-    n_nan += cls & 1;
-    n_inf += cls >> 1;
-  }
-  return n_nan | (n_inf << 16);
-}
-
-// Whether a vector holds a non-finite lane that `det` does not repair
-// (out of line, as count_vec).
-__device__ __noinline__ bool keeps_nonfinite(const uint4 q, uint32_t ieee_exp,
-                                             const Detector det) {
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-  bool any = false;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const uint32_t b = (w[e >> 1] >> ((e & 1) * 16)) & 0xFFFFu;
-    any |= (b & ieee_exp) == ieee_exp && repro::classify(b, det) == 0;
-  }
-  return any;
-}
-
-// One block per (b, j) slot: its K and V tiles read once, SCAN_VECS
-// vectors of each in flight per thread, coalesced.  Flags: K is 1 where
-// the K tile holds a fatal lane; V bit 0 likewise, bit 1 where the V tile
-// stays non-finite after the repair (poison_end[b] then covers the slot).
-__global__ void __launch_bounds__(SCAN_THREADS) prefill_scan(const PageScan s) {
-  __shared__ int cnt[5];
-  if (threadIdx.x < 5) cnt[threadIdx.x] = 0;
-  __syncthreads();
-  const int slot = blockIdx.x;
-  const long long base = ((long long)s.bt[slot] * s.L + s.layer) * s.vecs;
-  const uint4* k = s.k + base;
-  const uint4* v = s.v + base;
-  int nk = 0, ik = 0, nv = 0, iv = 0, kept = 0;
-  for (unsigned v0 = 0; v0 < s.vecs; v0 += SCAN_THREADS * SCAN_VECS) {
-    uint4 qk[SCAN_VECS], qv[SCAN_VECS];
-#pragma unroll
-    for (int i = 0; i < SCAN_VECS; ++i) {
-      const unsigned vi = v0 + threadIdx.x + i * SCAN_THREADS;
-      if (vi < s.vecs) {
-        qk[i] = __ldg(k + vi);
-        qv[i] = __ldg(v + vi);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < SCAN_VECS; ++i) {
-      if (v0 + threadIdx.x + i * SCAN_THREADS >= s.vecs) continue;
-      if (may_be_fatal(qk[i], s.det_k.exp_mask, s.floor_k)) {
-        const int c = count_vec(qk[i], s.det_k);
-        nk += c & 0xFFFF;
-        ik += c >> 16;
-      }
-      if (may_be_fatal(qv[i], s.det_v.exp_mask, s.floor_v)) {
-        const int c = count_vec(qv[i], s.det_v);
-        nv += c & 0xFFFF;
-        iv += c >> 16;
-      }
-      if (may_be_fatal(qv[i], s.ieee_exp, s.ieee_exp))
-        kept |= keeps_nonfinite(qv[i], s.ieee_exp, s.det_v);
-    }
-  }
-  repro::block_add(&cnt[0], nk);
-  repro::block_add(&cnt[1], ik);
-  repro::block_add(&cnt[2], nv);
-  repro::block_add(&cnt[3], iv);
-  repro::block_add(&cnt[4], kept);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int fk = cnt[0] + cnt[1], fv = cnt[2] + cnt[3];
-    // with a table the V fill, and whether it is finite, is the page's
-    // (an f32 sum of large bf16 lanes can overflow to Inf)
-    const bool fill_finite =
-        s.fills_v ? (__ldg(s.fills_v + s.bt[slot]) & s.ieee_exp) != s.ieee_exp
-                  : s.fill_v_finite;
-    const bool poison = cnt[4] > 0 || (fv > 0 && !fill_finite);
-    s.slot_counts[slot] = fk + fv;
-    s.flags[2 * slot] = fk > 0;
-    s.flags[2 * slot + 1] = (fv > 0) | (poison << 1);
-    if (poison) atomicMax(&s.poison_end[slot / s.M], slot % s.M + 1);
-    if (cnt[0]) atomicAdd(&s.counts[0], cnt[0]);
-    if (cnt[1]) atomicAdd(&s.counts[1], cnt[1]);
-    if (fk) atomicAdd(&s.counts[2], 1);
-    if (cnt[2]) atomicAdd(&s.counts[3], cnt[2]);
-    if (cnt[3]) atomicAdd(&s.counts[4], cnt[3]);
-    if (fv) atomicAdd(&s.counts[5], 1);
-    if (fk || fv) atomicAdd(&s.counts[6], 1);
-  }
-}
-
-// Shapes both kernels take: 16-bit lanes, whole 16-lane key steps, lanes
-// that fit an int.
+// Shapes the wgmma route takes: 16-bit lanes, whole 16-lane key steps,
+// lanes that fit an int.
 bool shape_ok(int dt, int B, int M, long long P, int L, int pg, int Kh,
               int Dh) {
   return (dt == repro::DT_BF16 || dt == repro::DT_F16) &&
          (Dh == 64 || Dh == 128) && B > 0 && M > 0 && P > 0 && L > 0 &&
          Kh > 0 && pg >= 16 && pg <= BKV && pg % 16 == 0 &&
          P * L * pg * Kh * Dh < (1ll << 31);
-}
-
-// `counts` holds int32[8 + B]: the AT counts, then poison_end.
-cudaError_t launch_scan(const void* kp, const void* vp, const int* bt, int dt,
-                        int B, int M, int L, int pg, int Kh, int Dh, int layer,
-                        const int* det_k, const int* det_v, unsigned fill_v,
-                        const unsigned* fills_v, int* slot_counts, int* flags,
-                        int* counts, cudaStream_t stream) {
-  cudaError_t err =
-      cudaMemsetAsync(counts, 0, (8 + (size_t)B) * sizeof(int), stream);
-  if (err != cudaSuccess) return err;
-  const Detector dk = repro::detector_from(det_k),
-                 dv = repro::detector_from(det_v);
-  const uint32_t ieee_exp = dt == repro::DT_BF16 ? 0x7F80u : 0x7C00u;
-  const PageScan s{static_cast<const uint4*>(kp),
-                   static_cast<const uint4*>(vp),
-                   bt,
-                   M,
-                   L,
-                   layer,
-                   (unsigned)(pg * Kh * Dh / 8),
-                   dk,
-                   dv,
-                   fatal_floor(dk),
-                   fatal_floor(dv),
-                   ieee_exp,
-                   (fill_v & ieee_exp) != ieee_exp,
-                   fills_v,
-                   slot_counts,
-                   flags,
-                   counts,
-                   counts + 8};
-  prefill_scan<<<(unsigned)B * M, SCAN_THREADS, 0, stream>>>(s);
-  return cudaGetLastError();
 }
 
 // The TMA map of a pool (P, L, pg, Kh, Dh) viewed as (P * L * pg, Kh, Dh) in
@@ -736,72 +819,96 @@ cudaError_t launch_main(const CUtensorMap& map_k, const CUtensorMap& map_v,
 
 }  // namespace
 
-// q (B, C, H, Dh) and pages (P, L, pg, Kh, Dh) in `dtype` (0 f32, 1 bf16,
-// 2 f16); bt (B, M), q_start (B,) int32 on the device; det_k/det_v host
-// int32[8]; fill_k/fill_v the repaired lanes' bit patterns, or with
-// fills_k/fills_v (device uint32 per page of the layer, from
-// repro_tile_fill; null: none) the page's entry; kg the KV heads a block
-// stages at a time (1 .. Kh) and smem its dynamic shared-memory bytes
-// (kernels/paged_attention.py::ffma_group, ffma_smem).  Outputs acc (B, C,
-// H, Dh), m/l (B, C*H) f32, slot_counts (B, M) int32, counts int32[8]
-// (zeroed by the caller).  Returns cudaGetLastError().
+// The FFMA route: q (B, C, H, Dh) and pages (P, L, pg, Kh, Dh) in `dtype`
+// (0 f32, 1 bf16, 2 f16), any views (each contiguous), Dh up to 512; bt
+// (B, M), q_start (B,) int32 on the device; det_k/det_v host int32[8];
+// fill_k/fill_v the repaired lanes' bit patterns, or with fills_k/fills_v
+// (device uint32 per page of the layer, from repro_tile_fill; null: none)
+// the page's entry; round the pages a round and smem the block's dynamic
+// shared-memory bytes (kernels/paged_attention.py::ffma_round,
+// ffma_smem).  Zeroes counts (int32[8 + B]: the AT counts, then
+// poison_end) on the stream, launches page_scan (slot_counts (B, M), flags
+// (B, M, 2)), then prefill_repair_ffma (out (B, C, H, Dh) in `dtype`).
+// Returns the first error.
 extern "C" int repro_paged_prefill(
     const void* q, const void* kp, const void* vp, const int* bt,
-    const int* q_start, int dtype, int B, int C, int H, int Dh, int L, int pg,
-    int Kh, int kg, int smem, int M, int layer, const int* det_k,
-    const int* det_v, unsigned int fill_k_bits, unsigned int fill_v_bits,
-    const unsigned int* fills_k, const unsigned int* fills_v, float* acc,
-    float* m, float* l, int* slot_counts, int* counts, void* stream) {
-  if (H % Kh != 0 || C < 1 || kg < 1 || kg > Kh || smem < 1)
+    const int* q_start, int dtype, int B, int C, int H, int Dh, int P, int L,
+    int pg, int Kh, int M, int layer, int round, int smem, const int* det_k,
+    const int* det_v, unsigned int fill_k, unsigned int fill_v,
+    const unsigned int* fills_k, const unsigned int* fills_v, void* out,
+    int* slot_counts, int* flags, int* counts, void* stream) {
+  const int es = dtype == repro::DT_F32 ? 4 : 2;
+  if (!paged::scan_shape_ok(dtype, B, M, P, L, pg, Kh, Dh, layer) || C < 1 ||
+      H % Kh || Dh > 512 || round < 1 || round > pf::MAX_ROUND ||
+      smem < pf::Layout(Dh, pg, es, round).total || B > 65535 || Kh > 65535 ||
+      (C * (H / Kh) + pf::R - 1) / pf::R > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const repro::Fill fill_k{fills_k, fill_k_bits}, fill_v{fills_v, fill_v_bits};
+  cudaError_t err = paged::launch_scan(kp, vp, bt, dtype, B, M, L, pg, Kh, Dh,
+                                       layer, det_k, det_v, fill_v, fills_v,
+                                       slot_counts, flags, counts, s);
+  if (err != cudaSuccess) return (int)err;
+  const uintptr_t vec = 4 * es;   // a 4-lane group's bytes
+  const pf::Ffma p{static_cast<const uint8_t*>(q),
+                   static_cast<const uint8_t*>(kp),
+                   static_cast<const uint8_t*>(vp),
+                   static_cast<uint8_t*>(out),
+                   bt,
+                   q_start,
+                   flags,
+                   counts + 8,
+                   C,
+                   H,
+                   Kh,
+                   Dh,
+                   M,
+                   L,
+                   pg,
+                   layer,
+                   round,
+                   (float)(1.0 / std::sqrt((double)Dh)),
+                   repro::detector_from(det_k),
+                   repro::detector_from(det_v),
+                   {fills_k, fill_k},
+                   {fills_v, fill_v},
+                   (reinterpret_cast<uintptr_t>(kp) | reinterpret_cast<uintptr_t>(vp)) % 16 == 0 &&
+                       Dh * es % 16 == 0,
+                   (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(out)) % vec == 0 &&
+                       Dh % 4 == 0};
   switch (dtype) {
-    case repro::DT_F32:
-      return (int)launch<repro::DT_F32>(q, kp, vp, bt, q_start, B, C, H, Dh, L,
-                                        pg, Kh, kg, smem, M, layer, det_k, det_v,
-                                        fill_k, fill_v, acc, m, l, slot_counts,
-                                        counts, s);
-    case repro::DT_BF16:
-      return (int)launch<repro::DT_BF16>(q, kp, vp, bt, q_start, B, C, H, Dh,
-                                         L, pg, Kh, kg, smem, M, layer, det_k,
-                                         det_v, fill_k, fill_v, acc, m, l,
-                                         slot_counts, counts, s);
-    case repro::DT_F16:
-      return (int)launch<repro::DT_F16>(q, kp, vp, bt, q_start, B, C, H, Dh, L,
-                                        pg, Kh, kg, smem, M, layer, det_k, det_v,
-                                        fill_k, fill_v, acc, m, l, slot_counts,
-                                        counts, s);
+    case repro::DT_F32: return (int)pf::launch_dt<repro::DT_F32>(p, B, smem, s);
+    case repro::DT_BF16: return (int)pf::launch_dt<repro::DT_BF16>(p, B, smem, s);
+    default: return (int)pf::launch_dt<repro::DT_F16>(p, B, smem, s);
   }
-  return (int)cudaErrorInvalidValue;
 }
 
-// The wgmma route's scan alone: pages (P, L, pg, Kh, Dh) bf16 (dtype 1) or
-// f16 (2), 16-byte aligned, Dh 64 or 128, pg a multiple of 16 up to 128;
-// bt (B, M) int32 on the device; det_k/det_v host int32[8]; fill_v the
-// repaired V lanes' bit pattern, or with fills_v (device uint32 per page of
-// the layer; null: none) the page's entry.  Writes slot_counts (B, M), flags (B, M,
-// 2) [K, V] (bit 0: the slot's tile holds a fatal lane; bit 1 of V: it
-// stays non-finite after the repair) and counts int32[8 + B]: the AT
-// counts, then per request the end of its last slot with V bit 1 (zeroed
-// first, on the stream).
+// page_scan alone (paged.cuh), the twin of
+// kernels/paged_attention.py::prefill_scan_plain: pages (P, L, pg, Kh, Dh)
+// in `dtype` (0 f32, 1 bf16, 2 f16), any view; bt (B, M) int32 on the
+// device; det_k/det_v host int32[8]; fill_v the repaired V lanes' bit
+// pattern, or with fills_v (device uint32 per page of the layer; null:
+// none) the page's entry.  Writes slot_counts (B, M), flags (B, M, 2) [K,
+// V] (bit 0: the slot's tile holds a fatal lane; bit 1 of V: it stays
+// non-finite after the repair) and counts int32[8 + B]: the AT counts,
+// then per request the end of its last slot with V bit 1 (zeroed first, on
+// the stream).
 extern "C" int repro_paged_prefill_scan(
     const void* kp, const void* vp, const int* bt, int dtype, int B, int M,
     int P, int L, int pg, int Kh, int Dh, int layer, const int* det_k,
     const int* det_v, unsigned int fill_v, const unsigned int* fills_v,
     int* slot_counts, int* flags, int* counts, void* stream) {
-  if (!pw::shape_ok(dtype, B, M, P, L, pg, Kh, Dh) || layer < 0 || layer >= L)
+  if (!paged::scan_shape_ok(dtype, B, M, P, L, pg, Kh, Dh, layer))
     return (int)cudaErrorInvalidValue;
-  return (int)pw::launch_scan(kp, vp, bt, dtype, B, M, L, pg, Kh, Dh, layer,
-                              det_k, det_v, fill_v, fills_v, slot_counts,
-                              flags, counts, static_cast<cudaStream_t>(stream));
+  return (int)paged::launch_scan(kp, vp, bt, dtype, B, M, L, pg, Kh, Dh, layer,
+                                 det_k, det_v, fill_v, fills_v, slot_counts,
+                                 flags, counts, static_cast<cudaStream_t>(stream));
 }
 
-// The wgmma route: the scan, then prefill_repair_wgmma.  q (B, C, H, Dh)
-// and the pages as for the scan, all in `dtype`; q_start (B,) int32;
-// fill_k/fill_v and fills_k/fills_v as for repro_paged_prefill; out (B, C,
-// H, Dh) in
-// `dtype`; slot_counts, flags and counts (int32[8 + B]) as the scan's.
+// The wgmma route: page_scan, then prefill_repair_wgmma.  q (B, C, H, Dh)
+// and the pages bf16 (dtype 1) or f16 (2), 16-byte aligned, Dh 64 or 128,
+// pg a multiple of 16 up to 128; the rest as for repro_paged_prefill; out
+// (B, C, H, Dh) in `dtype`; slot_counts, flags and counts (int32[8 + B])
+// as the scan's.
 // Returns cudaGetLastError() after the launches.
 extern "C" int repro_paged_prefill_wgmma(
     const void* q, const void* kp, const void* vp, const int* bt,
@@ -814,10 +921,9 @@ extern "C" int repro_paged_prefill_wgmma(
       layer >= L || C < 1 || H % Kh || (long long)B * C * H * Dh >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = pw::launch_scan(kp, vp, bt, dtype, B, M, L, pg, Kh, Dh,
-                                    layer, det_k, det_v, fill_v, fills_v,
-                                    slot_counts,
-                                    flags, counts, s);
+  cudaError_t err = paged::launch_scan(kp, vp, bt, dtype, B, M, L, pg, Kh, Dh,
+                                       layer, det_k, det_v, fill_v, fills_v,
+                                       slot_counts, flags, counts, s);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)P * L * pg;
   CUtensorMap mk, mv;

@@ -23,7 +23,7 @@ SOURCES = (
     "scrub", "paged_decode", "paged_prefill", "repair_matmul", "flash_attention",
     "mlstm_chunk", "tile_fill",
 )
-_HEADERS = ("repair.cuh", "hopper.cuh", "attention_wgmma.cuh")
+_HEADERS = ("repair.cuh", "hopper.cuh", "attention_wgmma.cuh", "paged.cuh")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

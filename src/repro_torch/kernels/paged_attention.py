@@ -43,10 +43,20 @@ operands' dtypes, shapes and data pointers, decided before any launch):
                reference's; ``splits`` keeps its meaning for the plain
                version only; the plain twin of the kernel's partition is
                :func:`paged_decode_fused_plain`.
+  ``"heads"``  the same operands where one slot's tiles exceed a block
+               (StableLM-1.6B's f32 pool: 2 x 128 KiB) but one KV head's
+               share of them fits (:func:`heads_smem`).  One native call:
+               the scan's memset, the scan kernel (the counts and one K and
+               one V flag a slot, as the prefill's), then one block per
+               (request, KV head) over that head's rows of every slot, the
+               flagged ones repaired, with the fused route's walk, warps
+               and merge; its slots are split over a cluster too until a
+               request has as many blocks as the card has SMs
+               (:func:`heads_partition`; plain twin
+               :func:`paged_decode_heads_plain`).
   ``"walk"``   everything else (the tests' small head dims; offset views;
-               StableLM-1.6B's f32 pool, whose slot needs 256 KiB): one
-               block per (request, split) walks its slots one after
-               another, each page in groups of KV heads
+               mixed dtypes): one block per (request, split) walks its
+               slots one after another, each page in groups of KV heads
                (:func:`walk_group`), then a second launch merges the
                partials.
 
@@ -66,16 +76,19 @@ operands' dtypes, shapes and data pointers, decided before any launch):
                weights to the cache dtype before the value product as the
                reference does, but per tile, not per page.
   ``"ffma"``   everything else (f32; the tests' small pages and head dims;
-               offset views): unnormalised partials on the FP32 pipe, each
-               page staged in groups of KV heads (:func:`ffma_group`), then
-               :func:`prefill_normalize`.
+               offset views), head dims up to 512: the same scan, then
+               FFMA_ROWS of one KV head's rows a block over its live
+               slots' rows of that head, repaired where flagged, on the
+               FP32 pipe with register tiles, the online softmax page by
+               page as the reference's, the normalised output written
+               (:func:`ffma_smem`, :func:`ffma_round`).
 
-A failure on either route raises; neither falls back to the other.  The
-walk decode and the FFMA prefill stage a page as f32 in groups of KV
-heads, the largest group that fits a block's shared memory, so they take
-every pool of the registry; only a pool where not even one KV head's page
-fits a block is refused before any launch (:func:`smem_refusal`,
-:func:`pool_refusal`).
+A failure on any route raises; none falls back to another.  The walk
+decode stages a page as f32 in groups of KV heads, the largest group that
+fits a block's shared memory, and the FFMA prefill stages rounds of one KV
+head's rows, so only a pool where not even one KV head's page fits a block
+is refused before any launch (:func:`smem_refusal`, :func:`pool_refusal`),
+and an FFMA prefill at a head dim over 512.
 """
 from __future__ import annotations
 
@@ -112,8 +125,14 @@ BLOCK_SMEM = 232448
 # the fused decode route (csrc/paged_decode.cu, namespace fd): clusters of
 # at most FUSED_MAX_CLUSTER blocks
 FUSED_MAX_CLUSTER = 8
-# the FFMA prefill's q rows a block (csrc/paged_prefill.cu: kRows)
-FFMA_ROWS = 16
+# the heads decode route splits a request's slots over a cluster too where
+# its KV heads give fewer blocks than the H100's 132 SMs
+HEADS_MIN_BLOCKS = 132
+# the FFMA prefill (csrc/paged_prefill.cu, namespace pf): q rows a block,
+# pages a round, the largest head dim (its register tile)
+FFMA_ROWS = 32
+FFMA_MAX_ROUND = 32
+FFMA_MAX_HEAD_DIM = 512
 _FUSED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _FUSED_HEAD_DIMS = (64, 128)
 
@@ -287,22 +306,46 @@ def fused_smem(H: int, Dh: int, pg: int, Kh: int, itemsize: int) -> int:
             + 4 * H * pg + 16)
 
 
+def heads_smem(H: int, Dh: int, pg: int, Kh: int, itemsize: int) -> int:
+    """Dynamic shared-memory bytes of a heads decode block that stages one
+    slot: the fused layout (:func:`fused_smem`) for the block's G = H / Kh
+    query heads over one KV head's rows of the slot (csrc: ``fd::Layout``
+    with one KV head)."""
+    return fused_smem(H // Kh, Dh, pg, 1, itemsize)
+
+
 def decode_route(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor) -> str:
-    """``"fused"`` or ``"walk"``: which CUDA kernels take a decode call
-    (the rule in the module docstring)."""
+    """``"fused"``, ``"heads"`` or ``"walk"``: which CUDA kernels take a
+    decode call (the rule in the module docstring)."""
     ops = (q, k_pages, v_pages)
     if (q.dtype == k_pages.dtype == v_pages.dtype and q.dtype in _FUSED_DTYPES
             and q.dim() == 3 and k_pages.dim() == 5
             and k_pages.shape == v_pages.shape
             and q.shape[-1] == k_pages.shape[-1] in _FUSED_HEAD_DIMS
+            and q.shape[1] % k_pages.shape[3] == 0
             and all(t.numel() > 0 for t in ops)
             and all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops)):
         H, Dh = q.shape[1:]
         pg, Kh = k_pages.shape[2:4]
         if fused_smem(H, Dh, pg, Kh, q.element_size()) <= BLOCK_SMEM:
             return "fused"
+        if heads_smem(H, Dh, pg, Kh, q.element_size()) <= BLOCK_SMEM:
+            return "heads"
     return "walk"
+
+
+def heads_partition(M: int, Kh: int) -> Tuple[int, int]:
+    """``(nb, spb)``: the heads decode route's blocks per (request, KV
+    head) and slots per block.  A request's Kh KV heads each walk its M
+    slots; a warp walks a block's slots one after another, so they are
+    split, as the fused route's are, into spb = ceil(M / s) consecutive
+    slots a block for s = min(M, 8, ceil(HEADS_MIN_BLOCKS / Kh)) groups (one
+    cluster of nb = ceil(M / spb) blocks a KV head, about the card's SMs a
+    request where M allows)."""
+    split = min(M, FUSED_MAX_CLUSTER, -(-HEADS_MIN_BLOCKS // Kh))
+    spb = -(-M // split)
+    return -(-M // spb), spb
 
 
 def walk_smem(H: int, Dh: int, pg: int, Kh: int, kg: int) -> int:
@@ -317,57 +360,65 @@ def walk_smem(H: int, Dh: int, pg: int, Kh: int, kg: int) -> int:
                 + 3 * H) + 16
 
 
-def ffma_smem(Dh: int, pg: int, kg: int) -> int:
-    """Dynamic shared-memory bytes of an FFMA prefill block that stages a
-    page ``kg`` KV heads at a time: its FFMA_ROWS q rows (padded) and
-    accumulators, the group's K (padded rows) and V tiles as f32, the
-    rows' scores and running m, l and scale, the counts
-    (the layout of csrc/paged_prefill.cu's ``prefill_partials``, which
-    takes these bytes from the wrapper)."""
-    rows, r = pg * kg, FFMA_ROWS
-    return 4 * (r * (Dh + 1) + rows * (2 * Dh + 1) + r * Dh + r * pg
-                + 3 * r) + 16
-
-
-def _largest_group(smem, Kh: int) -> int:
-    return next((kg for kg in range(Kh, 0, -1) if smem(kg) <= BLOCK_SMEM), 0)
-
-
 def walk_group(H: int, Dh: int, pg: int, Kh: int) -> int:
     """KV heads a walk decode block stages at a time: the most, up to
     ``Kh``, whose :func:`walk_smem` fits BLOCK_SMEM; 0 when not even one
     KV head's page fits.  The wrapper passes it and its bytes to the
     kernel's launch."""
-    return _largest_group(lambda kg: walk_smem(H, Dh, pg, Kh, kg), Kh)
+    return next((kg for kg in range(Kh, 0, -1)
+                 if walk_smem(H, Dh, pg, Kh, kg) <= BLOCK_SMEM), 0)
 
 
-def ffma_group(Dh: int, pg: int, Kh: int) -> int:
-    """KV heads an FFMA prefill block stages at a time, as
-    :func:`walk_group`."""
-    return _largest_group(lambda kg: ffma_smem(Dh, pg, kg), Kh)
+def ffma_smem(Dh: int, pg: int, itemsize: int, rnd: int) -> int:
+    """Dynamic shared-memory bytes of an FFMA prefill block that stages
+    ``rnd`` pages of one KV head at a time: its FFMA_ROWS q rows as f32 (Dh
+    rounded up to 4 lanes), per page its id and flags and each row's
+    rescale, each row's l, the rows' scores (FFMA_ROWS, rnd·pg + 4), and
+    the pages' K rows (padded by 16 bytes) and V rows in the storage dtype,
+    each 16-byte aligned (csrc/paged_prefill.cu: ``pf::Layout``)."""
+    r, dpad = FFMA_ROWS, -(-Dh // 4) * 4
+    row = -(-dpad * itemsize // 16) * 16
+    return (4 * r * dpad + 16 * rnd + 4 * r * rnd + 4 * r
+            + 4 * r * (rnd * pg + 4) + rnd * pg * (2 * row + 16))
+
+
+def ffma_round(Dh: int, pg: int, itemsize: int, M: int) -> int:
+    """Pages an FFMA prefill block stages at a time: the most, up to
+    FFMA_MAX_ROUND and the block table's M, whose :func:`ffma_smem` fits
+    BLOCK_SMEM; 0 when not even one page of one KV head fits.  The wrapper
+    passes it and its bytes to the kernel's launch."""
+    return next((n for n in range(min(M, FFMA_MAX_ROUND), 0, -1)
+                 if ffma_smem(Dh, pg, itemsize, n) <= BLOCK_SMEM), 0)
 
 
 def smem_refusal(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor) -> Optional[str]:
     """Why the card cannot take this call: the route :func:`decode_route`
     (a 3-D q) or :func:`route` (a 4-D q) picks stages a page in groups of
-    KV heads, and not even one KV head's page fits BLOCK_SMEM; ``None``
-    where it does."""
+    KV heads or in rounds of one KV head's rows, and not even one KV head's
+    page fits BLOCK_SMEM (or the FFMA prefill's head dim is over
+    FFMA_MAX_HEAD_DIM); ``None`` where it does."""
     H, Dh = q.shape[-2:]
     pg, Kh = k_pages.shape[2:4]
+    dt = str(q.dtype).split('.')[-1]
     if q.dim() == 3:
-        if (decode_route(q, k_pages, v_pages) == "fused"
+        if (decode_route(q, k_pages, v_pages) != "walk"
                 or walk_group(H, Dh, pg, Kh)):
             return None
         what, need = "paged decode (walk route)", walk_smem(H, Dh, pg, Kh, 1)
     else:
-        if route(q, k_pages, v_pages) == "wgmma" or ffma_group(Dh, pg, Kh):
+        if route(q, k_pages, v_pages) == "wgmma":
             return None
-        what, need = "paged prefill (ffma route)", ffma_smem(Dh, pg, 1)
+        if ffma_round(Dh, pg, k_pages.element_size(), 1):
+            if Dh <= FFMA_MAX_HEAD_DIM:
+                return None
+            return (f"paged prefill (ffma route) takes head dims up to "
+                    f"{FFMA_MAX_HEAD_DIM}, not {Dh} ({dt})")
+        what = "paged prefill (ffma route)"
+        need = ffma_smem(Dh, pg, k_pages.element_size(), 1)
     return (f"{what} needs {need} B of shared memory a block for one KV "
             f"head's page, over the {BLOCK_SMEM} B a block has, at {H} heads "
-            f"of {Dh} on pages of {pg} x {Kh} KV heads in "
-            f"{str(q.dtype).split('.')[-1]}")
+            f"of {Dh} on pages of {pg} x {Kh} KV heads in {dt}")
 
 
 def pool_refusal(n_heads: int, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -389,17 +440,18 @@ def _check_smem(q, k_pages, v_pages):
 
 
 def live_slots(q_start, C: int, G: int, pg: int, M: int,
-               flags: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """How many leading block-table slots each row block of the wgmma
-    route loads, (B, ceil(C·G / WGMMA_ROWS)) int64: slot j is live for a
-    block iff ``j·pg <= q_start[b] + c``, c the chunk row of the block's
-    last row.  The other slots' keys are masked for every row of the
+               flags: Optional[torch.Tensor] = None,
+               rows: int = WGMMA_ROWS) -> torch.Tensor:
+    """How many leading block-table slots each row block of ``rows`` rows
+    (the wgmma route's WGMMA_ROWS, the FFMA route's FFMA_ROWS) loads, (B,
+    ceil(C·G / rows)) int64: slot j is live for a block iff ``j·pg <=
+    q_start[b] + c``, c the chunk row of the block's last row.  The other slots' keys are masked for every row of the
     block.  With the scan's ``flags`` (:func:`prefill_scan_plain`), a block
     also loads every slot up to its request's last one whose V stays
     non-finite after the repair (bit 1 of the V flag): its 0 × NaN reaches
     the masked rows, as in the reference (csrc: ``key_end``)."""
-    n = -(-C * G // WGMMA_ROWS)
-    last = torch.clamp((torch.arange(n) + 1) * WGMMA_ROWS, max=C * G) - 1
+    n = -(-C * G // rows)
+    last = torch.clamp((torch.arange(n) + 1) * rows, max=C * G) - 1
     qs = torch.as_tensor(q_start).long().cpu().reshape(-1, 1)
     live = torch.clamp((qs + last[None] // G) // pg + 1, max=M)
     if flags is None:
@@ -414,9 +466,10 @@ def prefill_scan_plain(
     detector_k=DEFAULT_DETECTOR, detector_v=DEFAULT_DETECTOR,
     policy_v: str = "zero", constant_v: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain version of the wgmma route's scan kernel: every (b, j)
-    slot's K and V tiles at ``layer`` classified, null-padded slots and
-    slots past every row's causal limit included.  Returns ``(slot_counts
+    """The plain version of the scan kernel (csrc/paged.cuh ``page_scan``,
+    which the wgmma and FFMA prefill and the heads decode launch first):
+    every (b, j) slot's K and V tiles at ``layer`` classified, null-padded
+    slots and slots past every row's causal limit included.  Returns ``(slot_counts
     (B, M), counts int32[8], flags (B, M, 2))``, ``flags`` [K, V] int32:
     bit 0 where the slot's tile holds a fatal lane, and bit 1 of V where
     the V tile stays non-finite after the repair with the V fill (a lane
@@ -436,37 +489,19 @@ def prefill_scan_plain(
 
 
 # ---------------------------------------------------------------- kernels
-_DECODE_SIG = [
-    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
-    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.HOST_INTS, _native.HOST_INTS, _native.U, _native.U, _native.P,
-    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
-    _native.P, _native.P,
-]
-_PREFILL_SIG = [
-    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
-    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.HOST_INTS, _native.HOST_INTS, _native.U, _native.U, _native.P,
-    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
-    _native.P,
-]
+def _sig(n_in: int, n_int: int, n_out: int) -> list:
+    """ctypes argument types of a paged entry point: ``n_in`` pointers, then
+    ``n_int`` ints, the two detectors' host int32[8] and the two fills'
+    bits, then ``n_out`` pointers (the last the stream)."""
+    return ([_native.P] * n_in + [_native.I] * n_int + [_native.HOST_INTS] * 2
+            + [_native.U] * 2 + [_native.P] * n_out)
 
-_PREFILL_WGMMA_SIG = [
-    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
-    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.I, _native.I, _native.I, _native.I, _native.HOST_INTS,
-    _native.HOST_INTS, _native.U, _native.U, _native.P, _native.P,
-    _native.P, _native.P, _native.P, _native.P, _native.P,
-]
-_DECODE_FUSED_SIG = [
-    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
-    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.I, _native.I, _native.I, _native.HOST_INTS, _native.HOST_INTS,
-    _native.U, _native.U, _native.P, _native.P, _native.P, _native.P,
-    _native.P, _native.P,
-]
+
+_DECODE_SIG = _sig(5, 12, 9)
+_DECODE_FUSED_SIG = _sig(5, 10, 6)
+_DECODE_HEADS_SIG = _sig(5, 12, 7)
+_PREFILL_SIG = _sig(5, 13, 7)
+_PREFILL_WGMMA_SIG = _sig(5, 11, 7)
 _SCAN_SIG = [
     _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
@@ -536,36 +571,6 @@ def _decode_kernel(q, k_pages, v_pages, bt, pos, layer, splits, spec):
     return out, slot_counts, counts
 
 
-def _prefill_kernel(q, k_pages, v_pages, bt, q_start, layer, spec):
-    consts_k, consts_v, fill_k, fill_v = spec
-    _check_operands(q, k_pages, v_pages, bt, q_start, "paged prefill")
-    _check_smem(q, k_pages, v_pages)
-    B, C, H, Dh = q.shape
-    P, L, pg, Kh, _ = k_pages.shape
-    M = bt.shape[1]
-    dev = q.device
-    acc = torch.empty((B, C, H, Dh), dtype=torch.float32, device=dev)
-    m = torch.empty((B, C * H), dtype=torch.float32, device=dev)
-    l = torch.empty((B, C * H), dtype=torch.float32, device=dev)
-    slot_counts = torch.empty((B, M), dtype=torch.int32, device=dev)
-    counts = torch.zeros(8, dtype=torch.int32, device=dev)
-    fills_k, fills_v = _pool_tables(k_pages, v_pages, layer, spec)
-    kg = ffma_group(Dh, pg, Kh)
-    err = _native.function("paged_prefill", "repro_paged_prefill",
-                           _PREFILL_SIG)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        q_start.data_ptr(), common.DTYPE_CODES[q.dtype], B, C, H, Dh, L, pg, Kh,
-        kg, ffma_smem(Dh, pg, kg), M, int(layer), _native.int8_array(consts_k), _native.int8_array(consts_v),
-        common.fill_bits(*fill_k, q.dtype), common.fill_bits(*fill_v, q.dtype),
-        common.table_ptr(fills_k), common.table_ptr(fills_v),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), slot_counts.data_ptr(),
-        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _native.check(err, "paged prefill")
-    common.LAUNCHES["paged_prefill"] += 1
-    return acc, m, l, slot_counts, counts
-
-
 @functools.lru_cache(maxsize=64)
 def _pool_constants(what, k_shape, v_shape, dtype, include_inf, policy,
                     constant, detector_k, detector_v, policy_k, constant_k,
@@ -595,87 +600,123 @@ def _check_tables(q, bt, vec, what="paged prefill", vec_name="q_start"):
                              f"on {q.device}")
 
 
-def _prefill_wgmma(q, k_pages, v_pages, bt, q_start, layer, include_inf, fills):
-    """The wgmma route: one native call zeroes the counts and launches the
-    scan and the main kernel.  One int32 buffer holds counts (8), the
-    scan's per-request poison ends (B), slot_counts (B, M) and its flags
-    (B, M, 2)."""
-    _check_tables(q, bt, q_start)
+def _pool_call(what, vec_name, q, k_pages, v_pages, bt, vec, layer,
+               include_inf, fills):
+    """What every one-native-call route checks and passes: ``(P, L, pg, Kh,
+    M, layer, tail, tables)``, ``tail`` the detectors' host ints and the
+    fills' bits, ``tables`` the ``neighbor_mean`` tables (or None), which
+    the caller holds until its launch."""
+    _check_tables(q, bt, vec, what, vec_name)
     (P, L, pg, Kh, Dk), tail, nm_spec = _pool_constants(
-        "paged prefill", k_pages.shape, v_pages.shape, q.dtype, include_inf,
-        **fills)
-    B, C, H, Dh = q.shape
+        what, k_pages.shape, v_pages.shape, q.dtype, include_inf, **fills)
+    B, H, Dh = q.shape[0], q.shape[-2], q.shape[-1]
     if (Dk != Dh or H % Kh or bt.dim() != 2 or bt.shape[0] != B
-            or bt.shape[1] < 1 or q_start.shape != (B,)):
-        raise ValueError(f"paged prefill: q {tuple(q.shape)}, pages "
+            or bt.shape[1] < 1 or vec.shape != (B,)):
+        raise ValueError(f"{what}: q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)}, block tables "
-                         f"{tuple(bt.shape)} and q_start "
-                         f"{tuple(q_start.shape)} do not fit")
-    layer, M = int(layer), bt.shape[1]
+                         f"{tuple(bt.shape)} and {vec_name} "
+                         f"{tuple(vec.shape)} do not fit")
+    layer = int(layer)
     if not 0 <= layer < L:
-        raise IndexError(f"paged prefill: layer {layer} of a {L}-layer pool")
+        raise IndexError(f"{what}: layer {layer} of a {L}-layer pool")
+    tables = ((None, None) if nm_spec is None
+              else _pool_tables(k_pages, v_pages, layer, nm_spec))
+    return P, L, pg, Kh, bt.shape[1], layer, tail, tables
+
+
+def _scan_buffer(B, M, device):
+    """One int32 buffer for a route that runs the scan: counts (8), the
+    per-request poison ends (B), slot_counts (B, M) and flags (B, M, 2);
+    returns it and the device addresses of slot_counts and flags."""
     head = 8 + B
-    buf = torch.empty(head + 3 * B * M, dtype=torch.int32, device=q.device)
-    out = torch.empty_like(q)
+    buf = torch.empty(head + 3 * B * M, dtype=torch.int32, device=device)
     base = buf.data_ptr()
-    tables = ((None, None) if nm_spec is None
-              else _pool_tables(k_pages, v_pages, layer, nm_spec))
-    err = _native.function("paged_prefill", "repro_paged_prefill_wgmma",
-                           _PREFILL_WGMMA_SIG)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        q_start.data_ptr(), common.DTYPE_CODES[q.dtype], B, C, H, Dh, P, L,
-        pg, Kh, M, layer, *tail, *map(common.table_ptr, tables),
-        out.data_ptr(), base + 4 * head,
-        base + 4 * (head + B * M), base, common.raw_stream(q.device),
-    )
-    _native.check(err, "paged prefill (wgmma)")
+    return buf, base + 4 * head, base + 4 * (head + B * M)
+
+
+def _prefill_native(q, k_pages, v_pages, bt, q_start, layer, include_inf,
+                    fills, prefill_route):
+    """The wgmma or the FFMA prefill route: one native call zeroes the
+    counts and launches the scan and the main kernel, which writes the
+    normalised output."""
+    what = "paged prefill"
+    if prefill_route == "ffma":
+        _check_operands(q, k_pages, v_pages, bt, q_start, what)
+        _check_smem(q, k_pages, v_pages)
+    P, L, pg, Kh, M, layer, tail, tables = _pool_call(
+        what, "q_start", q, k_pages, v_pages, bt, q_start, layer, include_inf,
+        fills)
+    B, C, H, Dh = q.shape
+    buf, slots, flags = _scan_buffer(B, M, q.device)
+    out = torch.empty_like(q)
+    ints = [common.DTYPE_CODES[q.dtype], B, C, H, Dh, P, L, pg, Kh, M, layer]
+    if prefill_route == "wgmma":
+        fn = _native.function("paged_prefill", "repro_paged_prefill_wgmma",
+                              _PREFILL_WGMMA_SIG)
+    else:
+        rnd = ffma_round(Dh, pg, k_pages.element_size(), M)
+        ints += [rnd, ffma_smem(Dh, pg, k_pages.element_size(), rnd)]
+        fn = _native.function("paged_prefill", "repro_paged_prefill",
+                              _PREFILL_SIG)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             bt.data_ptr(), q_start.data_ptr(), *ints, *tail,
+             *map(common.table_ptr, tables),
+             out.data_ptr(), slots, flags, buf.data_ptr(),
+             common.raw_stream(q.device))
+    _native.check(err, f"paged prefill ({prefill_route})")
     common.LAUNCHES["paged_prefill"] += 1
-    return out, buf[head:head + B * M].view(B, M), buf[:8]
+    return out, _slots_view(buf, B, M), buf[:8]
 
 
-def _decode_fused(q, k_pages, v_pages, bt, pos, layer, include_inf, fills):
-    """The fused route: one native call zeroes the counts and launches
-    ``decode_fused``.  One int32 buffer holds counts (8) and slot_counts
-    (B, M)."""
-    _check_tables(q, bt, pos, "paged decode", "positions")
-    (P, L, pg, Kh, Dk), tail, nm_spec = _pool_constants(
-        "paged decode", k_pages.shape, v_pages.shape, q.dtype, include_inf,
-        **fills)
+def _slots_view(buf, B, M):
+    """slot_counts (B, M) in a :func:`_scan_buffer`."""
+    head = 8 + B
+    return buf[head:head + B * M].view(B, M)
+
+
+def _decode_native(q, k_pages, v_pages, bt, pos, layer, include_inf, fills,
+                   decode_route):
+    """The fused or the heads decode route: one native call zeroes the
+    counts and launches ``decode_fused``, or the scan and
+    ``decode_heads``."""
+    P, L, pg, Kh, M, layer, tail, tables = _pool_call(
+        "paged decode", "positions", q, k_pages, v_pages, bt, pos, layer,
+        include_inf, fills)
     B, H, Dh = q.shape
-    if (Dk != Dh or H % Kh or bt.dim() != 2 or bt.shape[0] != B
-            or bt.shape[1] < 1 or pos.shape != (B,)):
-        raise ValueError(f"paged decode: q {tuple(q.shape)}, pages "
-                         f"{tuple(k_pages.shape)}, block tables "
-                         f"{tuple(bt.shape)} and positions "
-                         f"{tuple(pos.shape)} do not fit")
-    layer, M = int(layer), bt.shape[1]
-    if not 0 <= layer < L:
-        raise IndexError(f"paged decode: layer {layer} of a {L}-layer pool")
-    buf = torch.empty(8 + B * M, dtype=torch.int32, device=q.device)
     out = torch.empty_like(q)
-    base = buf.data_ptr()
-    tables = ((None, None) if nm_spec is None
-              else _pool_tables(k_pages, v_pages, layer, nm_spec))
-    err = _native.function("paged_decode", "repro_paged_decode_fused",
-                           _DECODE_FUSED_SIG)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        pos.data_ptr(), common.DTYPE_CODES[q.dtype], B, H, Dh, P, L, pg, Kh,
-        M, layer, *tail, *map(common.table_ptr, tables), out.data_ptr(),
-        base + 32, base,
-        common.raw_stream(q.device),
-    )
-    _native.check(err, "paged decode (fused)")
+    ints = [common.DTYPE_CODES[q.dtype], B, H, Dh, P, L, pg, Kh, M, layer]
+    ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            bt.data_ptr(), pos.data_ptr()]
+    if decode_route == "fused":
+        buf = torch.empty(8 + B * M, dtype=torch.int32, device=q.device)
+        err = _native.function("paged_decode", "repro_paged_decode_fused",
+                               _DECODE_FUSED_SIG)(
+            *ptrs, *ints, *tail, *map(common.table_ptr, tables),
+            out.data_ptr(), buf.data_ptr() + 32,
+            buf.data_ptr(), common.raw_stream(q.device))
+        slot_counts = buf[8:].view(B, M)
+    else:
+        buf, slots, flags = _scan_buffer(B, M, q.device)
+        err = _native.function("paged_decode", "repro_paged_decode_heads",
+                               _DECODE_HEADS_SIG)(
+            *ptrs, *ints, *heads_partition(M, Kh), *tail,
+            *map(common.table_ptr, tables),
+            out.data_ptr(), slots, flags, buf.data_ptr(),
+            common.raw_stream(q.device))
+        slot_counts = _slots_view(buf, B, M)
+    _native.check(err, f"paged decode ({decode_route})")
     common.LAUNCHES["paged_decode"] += 1
-    return out, buf[8:].view(B, M), buf[:8]
+    return out, slot_counts, buf[:8]
 
 
 def _scan_kernel(k_pages, v_pages, block_tables, layer, *, include_inf=True,
                  detector_k=DEFAULT_DETECTOR, detector_v=DEFAULT_DETECTOR,
                  policy_v="zero", constant_v=0.0):
-    """The wgmma route's scan kernel alone, the twin of
-    :func:`prefill_scan_plain` (which the route's entry point launches
-    itself): ``(slot_counts, counts, flags, poison_end)``, ``poison_end``
-    (B,) the end of each request's last slot with bit 1 of its V flag."""
+    """The scan kernel alone (csrc/paged.cuh ``page_scan``, any dtype and
+    view), the twin of :func:`prefill_scan_plain` (which the wgmma and FFMA
+    prefill and the heads decode launch themselves): ``(slot_counts,
+    counts, flags, poison_end)``, ``poison_end`` (B,) the end of each
+    request's last slot with bit 1 of its V flag."""
     bt = block_tables
     P, L, pg, Kh, Dh = k_pages.shape
     B, M = bt.shape
@@ -734,6 +775,13 @@ def paged_decode_plain(
                          int(layer), block_tables.shape[1] // splits, spec)
 
 
+def _own_partition_plain(q, k_pages, v_pages, block_tables, positions, layer,
+                         spb, include_inf, fills):
+    spec = _decode_spec(q, k_pages, block_tables, 1, include_inf, fills)
+    return _decode_plain(q, k_pages, v_pages, block_tables, positions,
+                         int(layer), spb, spec)
+
+
 def paged_decode_fused_plain(
     q, k_pages, v_pages, block_tables, positions, layer, *,
     policy: str = "zero", constant: float = 0.0, include_inf: bool = True,
@@ -744,14 +792,32 @@ def paged_decode_fused_plain(
     """The plain twin of the fused decode route's partition
     (:func:`fused_partition`): the same page walk as
     :func:`paged_decode_plain`, in groups of ``spb`` consecutive slots."""
-    spec = _decode_spec(q, k_pages, block_tables, 1, include_inf, dict(
-        policy=policy, constant=constant, detector_k=detector_k,
-        detector_v=detector_v, policy_k=policy_k, constant_k=constant_k,
-        policy_v=policy_v, constant_v=constant_v,
-    ))
-    spb = fused_partition(block_tables.shape[1])[1]
-    return _decode_plain(q, k_pages, v_pages, block_tables, positions,
-                         int(layer), spb, spec)
+    return _own_partition_plain(
+        q, k_pages, v_pages, block_tables, positions, layer,
+        fused_partition(block_tables.shape[1])[1], include_inf, dict(
+            policy=policy, constant=constant, detector_k=detector_k,
+            detector_v=detector_v, policy_k=policy_k, constant_k=constant_k,
+            policy_v=policy_v, constant_v=constant_v))
+
+
+def paged_decode_heads_plain(
+    q, k_pages, v_pages, block_tables, positions, layer, *,
+    policy: str = "zero", constant: float = 0.0, include_inf: bool = True,
+    detector_k=DEFAULT_DETECTOR, detector_v=DEFAULT_DETECTOR,
+    policy_k: Optional[str] = None, constant_k: Optional[float] = None,
+    policy_v: Optional[str] = None, constant_v: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain twin of the heads decode route's partition
+    (:func:`heads_partition`): the page walk in groups of ``spb``
+    consecutive slots (every KV head walks the same groups, so one walk
+    serves them all)."""
+    return _own_partition_plain(
+        q, k_pages, v_pages, block_tables, positions, layer,
+        heads_partition(block_tables.shape[1], k_pages.shape[3])[1],
+        include_inf, dict(
+            policy=policy, constant=constant, detector_k=detector_k,
+            detector_v=detector_v, policy_k=policy_k, constant_k=constant_k,
+            policy_v=policy_v, constant_v=constant_v))
 
 
 def _decode(q, k_pages, v_pages, block_tables, positions, layer, splits,
@@ -761,10 +827,11 @@ def _decode(q, k_pages, v_pages, block_tables, positions, layer, splits,
             q, k_pages, v_pages, block_tables, positions, layer,
             splits=splits, include_inf=include_inf, **fills,
         )
-    if decode_route(q, k_pages, v_pages) == "fused":
+    kernel_route = decode_route(q, k_pages, v_pages)
+    if kernel_route != "walk":
         _check_splits(block_tables, splits)
-        return _decode_fused(q, k_pages, v_pages, block_tables, positions,
-                             layer, include_inf, fills)
+        return _decode_native(q, k_pages, v_pages, block_tables, positions,
+                              layer, include_inf, fills, kernel_route)
     spec = _decode_spec(q, k_pages, block_tables, splits, include_inf, fills)
     return _decode_kernel(q, k_pages, v_pages, block_tables, positions, layer,
                           splits, spec)
@@ -863,11 +930,5 @@ def paged_prefill_raw(
             q, k_pages, v_pages, block_tables, q_start, layer,
             include_inf=include_inf, **fills,
         )
-    if route(q, k_pages, v_pages) == "wgmma":
-        return _prefill_wgmma(q, k_pages, v_pages, block_tables, q_start,
-                              layer, include_inf, fills)
-    spec = _prefill_spec(q, k_pages, include_inf, fills)
-    acc, m, l, slot_counts, counts = _prefill_kernel(
-        q, k_pages, v_pages, block_tables, q_start, layer, spec
-    )
-    return prefill_normalize(q.dtype, acc, l), slot_counts, counts
+    return _prefill_native(q, k_pages, v_pages, block_tables, q_start, layer,
+                           include_inf, fills, route(q, k_pages, v_pages))

@@ -509,9 +509,12 @@ PF_CASES = {
     # q 2 bytes off 16-byte alignment; pages of 8 keys
     "bf16-unaligned": ((3, 64, 12, 2, 128, 16, 8), BF16, "ffma", 1),
     "bf16-pg8": ((3, 20, 12, 2, 64, 8, 8), BF16, "ffma", 0),
-    # StableLM-1.6B's f32 pool: each page staged in groups of 27 and 5 of
-    # its 32 KV heads; row blocks of 16 heads use one group or both
+    # StableLM-1.6B's f32 pool: 32 KV heads of one query head, two row
+    # blocks of 32 a KV head at C 64; the same with q 4 bytes off
     "f32-Kh32-D64": ((2, 64, 32, 32, 64, 16, 8), F32, "ffma", 0),
+    "f32-Kh32-D64-q-off": ((2, 64, 32, 32, 64, 16, 8), F32, "ffma", 1),
+    # StarCoder2-15B's f32 pool: G = 12, 24 row blocks a KV head
+    "f32-H48-G12": ((2, 64, 48, 4, 128, 16, 8), F32, "ffma", 0),
 }
 
 
@@ -607,14 +610,20 @@ def test_paged_prefill_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [c for c, v in PF_CASES.items() if v[2] == "wgmma"])
+@pytest.mark.parametrize("case", list(PF_CASES) + ["f32-Kh32-D64 pools-off",
+                                                  "bf16-pg8 pools-off"])
 def test_paged_prefill_scan_matches_plain(cuda, case):
-    """The wgmma route's scan kernel: slot counts, AT counts and per-slot
-    K/V flags equal to its plain version's, NULL and dead slots included;
-    each request's poison end is one past its last slot whose V stays
-    non-finite after the repair."""
-    _, dtype, _, _ = PF_CASES[case]
-    _, k, v, bt, _ = _pf_operands(cuda, PF_CASES[case])
+    """The scan kernel both prefill routes and the heads decode launch
+    first, in every dtype, on every case's pools and on two cases' pools
+    one lane into their storage (the head and tail lanes read one by one):
+    slot counts, AT counts and per-slot K/V flags equal to its plain
+    version's, NULL and dead slots included; each request's poison end is
+    one past its last slot whose V stays non-finite after the repair."""
+    name, _, off = case.partition(" ")
+    _, dtype, _, _ = PF_CASES[name]
+    _, k, v, bt, _ = _pf_operands(cuda, PF_CASES[name])
+    if off:
+        k, v = _at_offset(k, 1), _at_offset(v, 1)
     for kw in _pf_configs(dtype):
         poisoned = _pf_poisoned(kw)
         kw = {n: kw[n] for n in ("detector_k", "detector_v", "policy_v",
@@ -628,6 +637,29 @@ def test_paged_prefill_scan_matches_plain(cuda, case):
         end = (poison * torch.arange(1, bt.shape[1] + 1, device=cuda)).amax(1)
         assert torch.equal(poison_end, end.int())
         assert bool(poison.any()) == poisoned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32-Kh32-D64", "f32-H48-G12", "bf16-pg8"])
+def test_paged_prefill_ffma_on_offset_pools(cuda, case):
+    """The FFMA route on K and V pools one lane into their storage (rows
+    read lane by lane, the scan's head and tail lanes one by one), every
+    _pf_configs entry: slot counts and AT counts equal, outputs within the
+    file's tolerances, NaN where the plain version's are."""
+    _, dtype, _, _ = PF_CASES[case]
+    q, k, v, bt, qs = _pf_operands(cuda, PF_CASES[case])
+    k, v = _at_offset(k, 1), _at_offset(v, 1)
+    assert pa.route(q, k, v) == "ffma"
+    for kw in _pf_configs(dtype):
+        common.reset_launches()
+        got = pa.paged_prefill_raw(q, k, v, bt, qs, 1, **kw)
+        want = pa.paged_prefill_plain(q, k, v, bt, qs, 1, **kw)
+        assert common.LAUNCHES == {"paged_prefill": 1}
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        assert bool((~want[0].isfinite()).any()) == _pf_poisoned(kw)
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype],
+                                   equal_nan=True)
 
 
 # id: (B, H, Kh, Dh, pg, M), dtype, expected route, q offset in elements
@@ -657,8 +689,13 @@ DC_CASES = {
     # warp), the partials of a cluster of eight merged in shares
     "bf16-H48-G12": ((4, 48, 4, 128, 16, 8), BF16, "fused", 0),
     "f32-H48-G12": ((4, 48, 4, 128, 16, 8), F32, "fused", 0),
-    # StableLM-1.6B's f32 pool: each page in groups of 25 and 7 KV heads
-    "f32-Kh32-D64": ((2, 32, 32, 64, 16, 8), F32, "walk", 0),
+    # StableLM-1.6B's f32 pool (2 x 128 KiB a slot): a cluster of four
+    # blocks of two slots a KV head
+    "f32-Kh32-D64": ((2, 32, 32, 64, 16, 8), F32, "heads", 0),
+    # StarCoder2-15B's shape with pages of 64 keys (2 x 128 KiB a slot in
+    # f32): four KV heads, so each one's slots go to a cluster of eight
+    # blocks of one, merged in shares
+    "f32-H48-G12-pg64": ((2, 48, 4, 128, 64, 8), F32, "heads", 0),
 }
 
 
@@ -704,21 +741,27 @@ def _dc_operands(dev, case, nm=False):
     return _at_offset(q.to(dtype), off), k.to(dtype), v.to(dtype), bt, pos
 
 
+# the plain twins of the fused and heads routes' own partitions
+TWINS = {"fused": pa.paged_decode_fused_plain, "heads": pa.paged_decode_heads_plain}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(DC_CASES))
 def test_paged_decode_kernel_matches_plain(cuda, case):
-    """Both decode routes against the plain version at every ``splits``
-    that divides M (1, 2, 4): pages of 16, 32 and 48 keys; Dh 64 and 128;
-    G = 1, 6, 7, 8, 12 (28 and 48 heads: more than one head a warp; 32
-    KV heads of 64 in f32: the walk's page in two groups); B = 1, 2, 4; M =
-    5, 6, 8, 16, 20, 32 (one, two and three slots a block, a short last
-    block, slots in two rounds); planted lanes in live
-    pages, in a page past the position and in the NULL slots; both
+    """The three decode routes against the plain version at every
+    ``splits`` that divides M (1, 2, 4): pages of 16, 32, 48 and 64 keys;
+    Dh 64 and 128; G = 1, 6, 7, 8, 12 (28 and 48 heads: more than one head
+    a warp; 32 KV heads of 64 in f32: one heads block a KV head; 4 KV heads
+    of 128 with pages of 64 in f32: the heads route's slots split over a
+    cluster); B = 1, 2, 4; M = 5, 6, 8, 16, 20, 32 (one, two and three
+    slots a block, a short last block, slots in two rounds); planted lanes
+    in live pages, in a page past the position and in the NULL slots; both
     detectors and a constant V fill; V lanes left non-finite (detection
     off, an infinite fill), whose NaN and Inf must land where the plain
     version's do.  Slot counts and AT counts equal, outputs within the
-    file's tolerances (the fused route also against the plain twin of its
-    own partition), one launch a call, on the expected route."""
+    file's tolerances (the fused and heads routes also against the plain
+    twin of their own partition), one launch a call, on the expected
+    route."""
     (_, _, _, _, _, M), dtype, want_route, _ = DC_CASES[case]
     q, k, v, bt, pos = _dc_operands(cuda, DC_CASES[case])
     assert pa.decode_route(q, k, v) == want_route
@@ -730,8 +773,8 @@ def test_paged_decode_kernel_matches_plain(cuda, case):
                                                 splits=splits, **kw)
             assert common.LAUNCHES == {"paged_decode": 1}
             wants = [pa.paged_decode_plain(q, k, v, bt, pos, 1, splits=splits, **kw)]
-            if want_route == "fused":
-                wants.append(pa.paged_decode_fused_plain(q, k, v, bt, pos, 1, **kw))
+            if want_route in TWINS:
+                wants.append(TWINS[want_route](q, k, v, bt, pos, 1, **kw))
             for want in wants:
                 assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
                 out, ref = got[0].float(), want[0].float()
@@ -1267,11 +1310,13 @@ def _nm_paged_configs(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bf16-main", "f32-main", "bf16-M20",
                                   "f16-pg48-D64", "bf16-unaligned",
-                                  "bf16-H48-G12", "f32-H48-G12", "f32-Kh32-D64"])
+                                  "bf16-H48-G12", "f32-H48-G12", "f32-Kh32-D64",
+                                  "f32-H48-G12-pg64"])
 def test_paged_decode_neighbor_mean_matches_plain(cuda, case):
-    """Both decode routes with the per-page tables (a page is one logical
-    tile over both KV heads; the fused route's groups of slots take each
-    page's own): one tile_fill per operand with the mean, one decode."""
+    """The three decode routes with the per-page tables (a page is one
+    logical tile over every KV head; the fused route's groups of slots and
+    the heads route's KV heads take each page's own): one tile_fill per
+    operand with the mean, one decode."""
     (_, _, _, _, _, M), dtype, want_route, _ = DC_CASES[case]
     q, k, v, bt, pos = _dc_operands(cuda, DC_CASES[case], nm=True)
     assert pa.decode_route(q, k, v) == want_route
@@ -1284,8 +1329,8 @@ def test_paged_decode_neighbor_mean_matches_plain(cuda, case):
                                                 splits=splits, **kw)
             assert common.LAUNCHES == {"paged_decode": 1, "tile_fill": n_tables}
             wants = [pa.paged_decode_plain(q, k, v, bt, pos, 1, splits=splits, **kw)]
-            if want_route == "fused":
-                wants.append(pa.paged_decode_fused_plain(q, k, v, bt, pos, 1, **kw))
+            if want_route in TWINS:
+                wants.append(TWINS[want_route](q, k, v, bt, pos, 1, **kw))
             for want in wants:
                 assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
                 torch.testing.assert_close(got[0].float(), want[0].float(),
@@ -1300,10 +1345,11 @@ def test_paged_decode_neighbor_mean_matches_plain(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bf16-C64-D128", "f16-C20-D64",
                                   "bf16-C100-M16-D128", "f16-pg32-M16-D64",
-                                  "bf16-pg48", "f32-C64", "bf16-pg8"])
+                                  "bf16-pg48", "f32-C64", "bf16-pg8",
+                                  "f32-Kh32-D64", "f32-H48-G12"])
 def test_paged_prefill_neighbor_mean_matches_plain(cuda, case):
-    """Both prefill routes with the per-page tables, and the wgmma route's
-    scan: its V poison test is per page with a table.  The last config
+    """Both prefill routes with the per-page tables, and their scan: its V
+    poison test is per page with a table.  The last config
     puts two lanes near bf16's largest value in a V page beside a fatal
     lane, so the page's f32 sum overflows and its fill is Inf, as in the
     reference: that page poisons its KV head's rows on every route."""
@@ -1330,12 +1376,12 @@ def test_paged_prefill_neighbor_mean_matches_plain(cuda, case):
         _controls_fail(lambda **o: pa.paged_prefill_raw(q, k, vv, bt, qs, 1,
                                                         **{**kw, **o}),
                        (k, vv)[:n_tables], _zero_kw(kw), want[0], TOL[dtype])
-        if want_route == "wgmma":
-            skw = {n: kw[n] for n in ("detector_k", "detector_v") if n in kw}
-            skw["policy_v"] = kw.get("policy_v", "neighbor_mean")
-            *sgot, _ = pa._scan_kernel(k, vv, bt, 1, **skw)
-            for g, w in zip(sgot, pa.prefill_scan_plain(k, vv, bt, 1, **skw)):
-                assert torch.equal(g, w)
+        # the scan, which both routes launch first
+        skw = {n: kw[n] for n in ("detector_k", "detector_v") if n in kw}
+        skw["policy_v"] = kw.get("policy_v", "neighbor_mean")
+        *sgot, _ = pa._scan_kernel(k, vv, bt, 1, **skw)
+        for g, w in zip(sgot, pa.prefill_scan_plain(k, vv, bt, 1, **skw)):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-"""The route rule of the paged decode, the fused route's partition and its
-plain twin, on the CPU.
+"""The route rule of the paged decode, the fused and heads routes'
+partitions and their plain twins, on the CPU.
 
 ``decode_route`` is a pure function of the operands' dtypes, shapes and
 data pointers, so it is held here on CPU tensors.  The fused route groups
@@ -58,8 +58,12 @@ POOL = (5, 3, 16, 2, 128)
     ((4, 12, 96), (5, 3, 16, 2, 96), (BF16,) * 3, (0, 0, 0), "walk"),   # Dh 96
     ((4, 12, 256), (5, 3, 16, 2, 256), (BF16,) * 3, (0, 0, 0), "walk"),  # Dh 256
     ((4, 12, 128), (5, 3, 16, 2, 64), (BF16,) * 3, (0, 0, 0), "walk"),  # Dh differ
-    (Q, (5, 3, 112, 2, 128), (F32,) * 3, (0, 0, 0), "walk"),   # 112 KiB a K tile
-    (Q, (5, 3, 128, 4, 128), (BF16,) * 3, (0, 0, 0), "walk"),  # 2 x 128 KiB a slot
+    (Q, (5, 3, 112, 2, 128), (F32,) * 3, (0, 0, 0), "heads"),  # 112 KiB a K tile
+    (Q, (5, 3, 128, 4, 128), (BF16,) * 3, (0, 0, 0), "heads"),  # 2 x 128 KiB a slot
+    (Q, (5, 3, 256, 2, 128), (F32,) * 3, (0, 0, 0), "walk"),   # 128 KiB a KV head
+    ((4, 48, 128), (5, 3, 64, 4, 128), (F32,) * 3, (0, 0, 0), "heads"),  # G 12
+    ((4, 12, 128), (5, 3, 112, 2, 128), (F32,) * 3, (1, 0, 0), "walk"),  # q off
+    ((4, 48, 128), (5, 3, 64, 4, 128), (F32, F32, BF16), (0, 0, 0), "walk"),
     (Q, POOL, (BF16,) * 3, (1, 0, 0), "walk"),     # q 2 bytes off
     (Q, POOL, (F32,) * 3, (1, 0, 0), "walk"),      # q 4 bytes off
     (Q, POOL, (F16,) * 3, (0, 4, 0), "walk"),      # k 8 bytes off
@@ -72,7 +76,7 @@ POOL = (5, 3, 16, 2, 128)
     ((4, 48, 128), (5, 3, 16, 4, 128), (BF16,) * 3, (0, 0, 0), "fused"),  # StarCoder2
     ((4, 48, 128), (5, 3, 16, 4, 128), (F32,) * 3, (0, 0, 0), "fused"),
     ((4, 32, 64), (5, 3, 16, 32, 64), (BF16,) * 3, (0, 0, 0), "fused"),  # StableLM
-    ((4, 32, 64), (5, 3, 16, 32, 64), (F32,) * 3, (0, 0, 0), "walk"),  # 256 KiB a slot
+    ((4, 32, 64), (5, 3, 16, 32, 64), (F32,) * 3, (0, 0, 0), "heads"),  # 256 KiB a slot
 ])
 def test_decode_route_rule(q_shape, pool_shape, dtypes, offs, want):
     q, k, v = (_view(s, d, o) for s, d, o in
@@ -96,73 +100,113 @@ def test_decode_route_needs_contiguous_operands_and_matching_pools():
     (12, 128, 80, 2, 4), (12, 128, 96, 2, 4),
     (48, 128, 16, 4, 2), (48, 128, 16, 4, 4),    # StarCoder2-15B
     (32, 64, 16, 32, 2), (32, 64, 16, 32, 4),    # StableLM-1.6B
+    (48, 128, 64, 4, 4), (12, 128, 256, 2, 4),
 ])
 def test_fused_shared_memory_limit(H, Dh, pg, Kh, itemsize):
-    """The route takes a pool iff one slot's staging fits a block's shared
-    memory; the bytes are the kernel's layout, which holds the block's own
-    partial and its inbox for the merge (its share of every block's acc,
-    and each block's m and l), not the cluster's eight partials."""
+    """The fused route takes a pool iff one slot's staging fits a block's
+    shared memory; the bytes are the kernel's layout, which holds the
+    block's own partial and its inbox for the merge (its share of every
+    block's acc, and each block's m and l), not the cluster's eight
+    partials.  Where it does not fit, the heads route takes the pool iff
+    one KV head's share of a slot does: the same layout for the G query
+    heads of one KV head over that head's rows."""
     one = pa.fused_smem(H, Dh, pg, Kh, itemsize)
     tile = pg * Kh * Dh * itemsize
     partial = 4 * H * (Dh + 2)          # acc, m and l of one block
     inbox = 4 * H * Dh + 16 * 8 + 8 * 8 * H
     assert one == (16 + H * Dh * itemsize + 2 * tile + partial + inbox
                    + 4 * H * pg + 16)
+    G = H // Kh
+    heads = pa.heads_smem(H, Dh, pg, Kh, itemsize)
+    assert heads == (16 + G * Dh * itemsize + 2 * pg * Dh * itemsize
+                     + 4 * G * (Dh + 2) + 4 * G * Dh + 16 * 8 + 8 * 8 * G
+                     + 4 * G * pg + 16)
     dtype = {2: BF16, 4: F32}[itemsize]
     q, k = _view((2, H, Dh), dtype), _view((3, 2, pg, Kh, Dh), dtype)
-    assert pa.decode_route(q, k, k) == ("fused" if one <= 232448 else "walk")
-    want = {(12, 128, 16, 2, 2): 33536,      # the engine's pool, bf16
-            (48, 128, 16, 4, 2): 100896, (48, 128, 16, 4, 4): 145952,
-            (32, 64, 16, 32, 2): 156064}
-    if (H, Dh, pg, Kh, itemsize) in want:
-        assert one == want[H, Dh, pg, Kh, itemsize]
-        assert pa.decode_route(q, k, k) == "fused"
+    want = ("fused" if one <= 232448 else "heads" if heads <= 232448
+            else "walk")
+    assert pa.decode_route(q, k, k) == want
+    fused = {(12, 128, 16, 2, 2): 33536,      # the engine's pool, bf16
+             (48, 128, 16, 4, 2): 100896, (48, 128, 16, 4, 4): 145952,
+             (32, 64, 16, 32, 2): 156064}
+    if (H, Dh, pg, Kh, itemsize) in fused:
+        assert one == fused[H, Dh, pg, Kh, itemsize]
+        assert want == "fused"
     if (Kh, itemsize) == (32, 4):            # StableLM f32: 256 KiB of tiles
-        assert pa.decode_route(q, k, k) == "walk"
+        assert (one, heads, want) == (291232, 9256, "heads")
+    if (pg, itemsize) == (256, 4):           # 256 KiB of one KV head's rows
+        assert want == "walk"
 
 
 @pytest.mark.parametrize("dtype,H,Dh,Kh,need", [
-    (F32, 32, 64, 32, {}),                                  # StableLM: walk, ffma
+    (F32, 32, 64, 32, {}),                                  # StableLM: heads, ffma
     (BF16, 32, 64, 32, {}),                                 # fused, wgmma
     (F32, 48, 128, 4, {}),                                  # StarCoder2: fused, ffma
     (BF16, 48, 128, 4, {}),                                 # fused, wgmma
     (F32, 12, 128, 2, {}),                                  # Qwen2: fused, ffma
     # one KV head's page alone exceeds a block
-    (F32, 1, 2048, 1, {"decode (walk": 278684, "prefill (ffma": 525648}),
+    (F32, 1, 2048, 1, {"decode (walk": 278684, "prefill (ffma": 527376}),
 ])
 def test_pool_refusal_names_each_route_over_the_block(dtype, H, Dh, Kh, need):
-    """The walk decode and the FFMA prefill stage a page as f32 in groups
-    of KV heads, the largest group that fits a block (the kernels'
-    layouts): StableLM-1.6B's f32 pool goes in groups of 25 and 27 of its
-    32 KV heads.  Only a pool where one KV head's page does not fit is
+    """The walk decode stages a page as f32 in groups of KV heads, the
+    largest group that fits a block, and the FFMA prefill one KV head's
+    rows of a round of pages, the most pages that fit (the kernels'
+    layouts).  Only a pool where one KV head's page does not fit is
     refused before any launch, naming each route and its bytes."""
     pg, G = 16, H // Kh
-    kg, kf = pa.walk_group(H, Dh, pg, Kh), pa.ffma_group(Dh, pg, Kh)
+    es = 4 if dtype == F32 else 2
+    kg = pa.walk_group(H, Dh, pg, Kh)
     for n in (kg, kg + 1):
         assert pa.walk_smem(H, Dh, pg, Kh, n) == 4 * (
             2 * H * Dh + pg * n * (2 * Dh + 1) + n * G * pg + 3 * H) + 16
-    for n in (kf, kf + 1):
-        assert pa.ffma_smem(Dh, pg, n) == 4 * (
-            16 * (2 * Dh + 1) + pg * n * (2 * Dh + 1) + 16 * pg + 48) + 16
-    for group, smem in ((kg, lambda n: pa.walk_smem(H, Dh, pg, Kh, n)),
-                        (kf, lambda n: pa.ffma_smem(Dh, pg, n))):
-        assert 0 <= group <= Kh
-        assert group == Kh or smem(group + 1) > pa.BLOCK_SMEM
-        assert group == 0 or smem(group) <= pa.BLOCK_SMEM
+    assert 0 <= kg <= Kh
+    assert kg == Kh or pa.walk_smem(H, Dh, pg, Kh, kg + 1) > pa.BLOCK_SMEM
+    assert kg == 0 or pa.walk_smem(H, Dh, pg, Kh, kg) <= pa.BLOCK_SMEM
+    rnd = pa.ffma_round(Dh, pg, es, 8)
+    for n in (rnd, rnd + 1):
+        assert pa.ffma_smem(Dh, pg, es, n) == (
+            4 * 32 * Dh + 16 * n + 4 * 32 * n + 4 * 32
+            + 4 * 32 * (n * pg + 4) + n * pg * (2 * Dh * es + 16))
+    assert rnd == 8 or pa.ffma_smem(Dh, pg, es, rnd + 1) > pa.BLOCK_SMEM
+    assert rnd == 0 or pa.ffma_smem(Dh, pg, es, rnd) <= pa.BLOCK_SMEM
     if (H, Dh, Kh) == (32, 64, 32):
-        assert (kg, kf) == (25, 27)
+        assert (kg, rnd) == (25, 8)
     k = _view((3, 2, pg, Kh, Dh), dtype)
     why = pa.pool_refusal(H, k, k)
     if not need:
-        assert why is None and kg >= 1 and kf >= 1
+        assert why is None and rnd >= 1
         pa._check_smem(_view((2, H, Dh), dtype), k, k)
         return
-    assert kg == kf == 0
+    assert kg == rnd == 0
     for route, nbytes in need.items():
         assert f"paged {route} route) needs {nbytes} B" in why
     assert pa.pool_refusal(H, k, k, prefill=False).count("needs") == 1
     with pytest.raises(ValueError, match="ROADMAP"):
         pa._check_smem(_view((2, H, Dh), dtype), k, k)
+
+
+@pytest.mark.parametrize("Dh,pg,dtype,rnd", [
+    (64, 16, F32, 8), (128, 16, F32, 8), (16, 4, F32, 8), (96, 24, BF16, 8),
+    (20, 4, F16, 8), (512, 16, F32, 2), (512, 64, F32, 0), (1024, 4, BF16, 5),
+])
+def test_ffma_round_and_head_dim_limit(Dh, pg, dtype, rnd):
+    """Pages an FFMA prefill block stages a round (up to M = 8 here): all
+    eight at the registry's pools, fewer where a page of one KV head is
+    large; a head dim over 512 is refused even where its page fits (the
+    kernel's register tile), and a head dim that is not a multiple of 4
+    rounds its rows up to 4 lanes."""
+    es = 4 if dtype == F32 else 2
+    assert pa.ffma_round(Dh, pg, es, 8) == rnd
+    q, k = _view((1, 4, 1, Dh), dtype), _view((3, 2, pg, 1, Dh), dtype)
+    why = pa.smem_refusal(q, k, k)
+    if rnd and Dh <= pa.FFMA_MAX_HEAD_DIM:
+        assert why is None
+    elif rnd:
+        assert why == f"paged prefill (ffma route) takes head dims up to 512, not {Dh} (bfloat16)"
+    else:
+        assert "needs" in why and pa.route(q, k, k) == "ffma"
+    dpad = -(-Dh // 4) * 4
+    assert pa.ffma_smem(Dh, pg, es, 1) == pa.ffma_smem(dpad, pg, es, 1)
 
 
 @pytest.mark.parametrize("M", list(range(1, 41)) + [64, 100, 127, 128, 129])
