@@ -47,23 +47,30 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      on the card, outputs within the stated tolerance (attention also by
      the late-row relative norm against a dropped-tile control), memory mode's origin
      scrub bit-equal to the plain scrub and its second call counting 0
-     (bf16 x bf16 products take repair_matmul's wgmma route, the others its
-     FFMA route: ``kernels.repair_matmul.route``; 16-bit attention takes
-     flash_attention's wgmma route, f32 and unaligned views its FFMA route:
-     ``kernels.repair_attention.route``; every ``ops ok`` line names it);
+     (bf16 x bf16 products take repair_matmul's wgmma route, f32 x f32 its
+     f32 route, mixed dtypes its FFMA route: ``kernels.repair_matmul.route``;
+     16-bit attention takes flash_attention's wgmma route, f32 its f32 route
+     (also held against the plain twin of its key partition), unaligned
+     views its FFMA route: ``kernels.repair_attention.route``; every ``ops
+     ok`` line names it);
      the same checks at the quickstart's shapes and blocks (512³ matmul,
      blocks (128, 128, 256); attention 1×4×256×64 over Kh=2, blocks
      (64, 64)); then the quickstart twin (``examples/torch_quickstart.py``) on the
      card with its Table-3 asserts, and both kernels timed: repair_matmul
      at gate/up in bf16 on planted and on clean operands (the wgmma kernel
      must show in the profile; scan, main kernel and counts apart), in f32
-     (the FFMA route) and at the down projection; flash_attention causal
-     bf16 at S=T=2048 on planted and on clean operands (the wgmma kernel
-     must show in the profile; scan, main kernel and counts apart, beside
-     SDPA's call; the clean call also replayed from a CUDA graph) and in
-     f32 (the FFMA route); ``neighbor_mean`` (``nm ok`` lines): the gate/up
-     product and the 2,048-token attention in bf16 (wgmma routes), the
-     quickstart's f32 shapes (FFMA routes), each against its plain version,
+     on planted and on clean operands (the f32 route: scan, repair_mm_f32
+     and counts apart, the flagged tiles, TFLOP/s and the share of the FP32
+     bound; the FFMA route on the same values 4 bytes off alignment;
+     torch.matmul f32 with TF32 off) and at the down projection;
+     flash_attention causal bf16 at S=T=2048 on planted and on clean
+     operands (the wgmma kernel must show in the profile; scan, main kernel
+     and counts apart, beside SDPA's call; the clean call also replayed
+     from a CUDA graph) and in f32 likewise (the f32 route, beside the FFMA
+     route 4 bytes off alignment and SDPA in f32 on its math path and on
+     its memory-efficient kernel); ``neighbor_mean`` (``nm ok`` lines): the
+     gate/up product and the 2,048-token attention in bf16 (wgmma routes),
+     the quickstart's f32 shapes (f32 routes), each against its plain version,
      each operand's ``tile_fill`` table against the plain one, memory
      mode's origin scrub against the plain scrub, on operands whose tiles
      carry their own offsets, with the controls as above; one ``timing tile_fill``
@@ -465,12 +472,13 @@ KERNEL_NAMES = {
     "paged_decode": ("decode_partials", "lse_merge", "decode_fused", "decode_heads"),
     # both routes: page_scan (+ a memset), then FFMA or wgmma
     "paged_prefill": ("prefill_repair_ffma", "page_scan", "prefill_repair_wgmma"),
-    # FFMA route: tiles + counts; wgmma route: scan + wgmma + counts
+    # FFMA route: tiles + counts; wgmma and f32 routes: scan + main + counts
     "repair_matmul": ("repair_mm_tiles", "repair_mm_scan", "repair_mm_wgmma",
-                      "repair_mm_counts"),
-    # FFMA route: count_tiles + counts + fwd; wgmma route: scan + wgmma + counts
+                      "repair_mm_f32", "repair_mm_counts"),
+    # FFMA route: count_tiles + counts + fwd; wgmma and f32 routes: scan +
+    # main + counts
     "flash_attention": ("flash_repair_fwd", "flash_count_tiles", "flash_scan",
-                        "flash_repair_wgmma", "flash_counts"),
+                        "flash_repair_wgmma", "flash_repair_f32", "flash_counts"),
     # FFMA route: qk + scan; wgmma route: prep + scan_wgmma ("mlstm_scan"
     # matches both scans)
     "mlstm_chunk": ("mlstm_qk", "mlstm_prep", "mlstm_scan"),
@@ -1549,7 +1557,14 @@ def ops_phase(report: dict) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
-    max_err = {"repair_matmul": 0.0, "flash_attention": 0.0}
+    max_err = {"repair_matmul": 0.0, "flash_attention": 0.0,
+               "repair_mm_f32": 0.0, "flash_repair_f32": 0.0}
+    f32_row = {"repair_matmul": "repair_mm_f32", "flash_attention": "flash_repair_f32"}
+
+    def note_err(kernel, route, err):
+        max_err[kernel] = max(max_err[kernel], err)
+        if route == "f32":
+            max_err[f32_row[kernel]] = max(max_err[f32_row[kernel]], err)
     nm_err = report["nm_err"]
 
     def compare(what, got, want, tol):
@@ -1578,7 +1593,7 @@ def ops_phase(report: dict) -> None:
             got = rm.repair_matmul_raw(a, b, detector=det)
             want = rm.repair_matmul_plain(a, b, detector=det)
             err = compare(what, got, want, MM_TOL[out])
-            max_err["repair_matmul"] = max(max_err["repair_matmul"], err)
+            note_err("repair_matmul", rm.route(a, b), err)
             if int(got[1][rm.EV_TOTAL]) == 0:
                 raise AssertionError(f"{what}: saw none of the planted lanes")
             log(f"ops ok  {what}: counts={got[1].tolist()} max_abs_err={err:.3g} "
@@ -1616,9 +1631,13 @@ def ops_phase(report: dict) -> None:
         got = ra.flash_attention_raw(q, k, v, **kw)
         want = ra.flash_attention_plain(q, k, v, **kw)
         err = compare(what, got, want, (TOL[name], TOL[name]))
-        max_err["flash_attention"] = max(max_err["flash_attention"], err)
+        note_err("flash_attention", ra.route(q, k, v), err)
         if int(got[1][ra.EV_TOTAL]) == 0:
             raise AssertionError(f"{what}: saw none of the planted lanes")
+        if ra.route(q, k, v) == "f32":    # and the twin of its key partition
+            twin = ra.flash_attention_f32_plain(q, k, v, **kw)
+            compare(f"{what} vs the f32 partition's twin", got, twin,
+                    (TOL[name], TOL[name]))
         rel = float(_late_rel(got[0], want[0]).max())
         ctl = float(_late_rel(_dropped_tile_plain(q, k, v, causal, det), want[0]).min())
         if not rel <= LATE_REL_TOL[name] < ctl:
@@ -1650,7 +1669,7 @@ def ops_phase(report: dict) -> None:
             got = rm.repair_matmul_raw(a, b, **kw)
             want = rm.repair_matmul_plain(a, b, **kw)
             err = compare(what, got, want, MM_TOL[name])
-            max_err["repair_matmul"] = max(max_err["repair_matmul"], err)
+            note_err("repair_matmul", rm.route(a, b), err)
             if int(got[1][rm.EV_TOTAL]) == 0:
                 raise AssertionError(f"{what}: saw none of the planted lanes")
             _check_memory_mode(ops.repair_matmul, (a, b), kw,
@@ -1668,7 +1687,7 @@ def ops_phase(report: dict) -> None:
                 got = ra.flash_attention_raw(q, k, v, **kw)
                 want = ra.flash_attention_plain(q, k, v, **kw)
                 err = compare(what, got, want, (TOL[name], TOL[name]))
-                max_err["flash_attention"] = max(max_err["flash_attention"], err)
+                note_err("flash_attention", ra.route(q, k, v), err)
                 if int(got[1][ra.EV_TOTAL]) == 0:
                     raise AssertionError(f"{what}: saw none of the planted lanes")
                 _check_memory_mode(ops.flash_attention, (q, k, v), kw,
@@ -1678,7 +1697,7 @@ def ops_phase(report: dict) -> None:
     del a, b, q, k, v, got, want
 
     # ---- neighbor_mean: the gate/up product and the 2,048-token attention
-    # in bf16 on the wgmma route, the quickstart's f32 shapes on the FFMA
+    # in bf16 on the wgmma route, the quickstart's f32 shapes on the f32
     # route; each operand's table against the plain one, the call against
     # the plain version, and memory mode's origin scrub (the scrub's own
     # default tiles) against the plain scrub
@@ -1787,12 +1806,18 @@ def ops_phase(report: dict) -> None:
     torch.cuda.synchronize()
     qs_wall = time.perf_counter() - t0
     launches = dict(common.LAUNCHES)
+    route_launches = dict(common.ROUTE_LAUNCHES)
     for k_name in ("repair_matmul", "flash_attention", "scrub"):
         if launches.get(k_name, 0) < 1:
             raise AssertionError(f"kernel {k_name} never launched by the quickstart")
+    for key in (("repair_matmul", "f32"), ("flash_attention", "f32")):
+        if route_launches.get(key, 0) != launches[key[0]]:
+            raise AssertionError(f"the quickstart's f32 calls left the f32 "
+                                 f"route: {route_launches}")
     log(f"quickstart ok: register {qs['register']}, memory {qs['memory']}, "
         f"attention register {qs['attention_register']}, memory "
-        f"{qs['attention_memory']}, stats {qs['stats']}, launches {launches}, "
+        f"{qs['attention_memory']}, stats {qs['stats']}, launches {launches} "
+        f"(by route {route_launches}), "
         f"{qs_wall:.2f} s")
 
     # ---- timings, bf16: the gate/up projection and causal S = T = 2048
@@ -1865,24 +1890,56 @@ def ops_phase(report: dict) -> None:
         f"splits=4 {pool['neighbor_mean_ms']:.4f} vs {pool['zero_ms']:.4f} "
         f"({gpu_line()})")
     del a, b, fa, fb, ca, cb
-    # the f32 product (the FFMA route, which the quickstart takes)
-    a, b = clean_a, clean_b
-    if rm.route(a, b) != "ffma":
-        raise AssertionError("gate/up f32 is not on the FFMA route")
-    f32_parts = kernel_breakdown(lambda: rm.repair_matmul_raw(a, b), names, iters=3)
-    f32_ms = cuda_ms(lambda: rm.repair_matmul_raw(a, b), iters=5)
-    # the f32 yardstick: torch.matmul on the same operands, TF32 off (exact
-    # f32, as the FFMA route)
+    # the f32 product (the f32 route, which the quickstart takes), planted
+    # and clean, beside the FFMA route on the same values 4 bytes off
+    # alignment and torch.matmul in f32 with TF32 off (exact f32, as both)
+    ca, cb = clean_a, clean_b
+    a, b = _plant_lanes(ca.clone(), gen, f32), _plant_lanes(cb.clone(), gen, f32)
+    if rm.route(a, b) != "f32" or rm.route(ca, cb) != "f32":
+        raise AssertionError("gate/up f32 is not on the f32 route")
+    mm32_bound, mm32_by = bound(4 * (M * K + K * N + M * N) + 32, flops, "float32")
+    flagged = [int(x.sum()) for x in rm.scan_plain(a, b, tile=rm.F32_TILE)[2:]]
+    mm32_tiles = [r * c for r, c in rm._flag_shapes(M, N, K, rm.F32_TILE)]
+    fa, fb = ops.scrub(a.clone())[0], ops.scrub(b.clone())[0]
+    mm32 = dict(ms=cuda_ms(lambda: rm.repair_matmul_raw(a, b), iters=5),
+                plain_ms=cuda_ms(lambda: rm.repair_matmul_plain(a, b), iters=3),
+                bound_ms=mm32_bound, bound_by=mm32_by)
+    mm32_parts = {}
+    for label, x, y in (("planted", a, b), ("clean", ca, cb)):
+        pr = kernel_breakdown(lambda x=x, y=y: rm.repair_matmul_raw(x, y), names,
+                              iters=3)
+        if not pr["repair_mm_f32"] > 0:
+            raise AssertionError(f"gate/up f32 ran no repair_mm_f32: {pr}")
+        mm32_parts[label] = pr
+        dev_ms = sum(pr.values())
+        call = mm32["ms"] if label == "planted" else cuda_ms(
+            lambda: rm.repair_matmul_raw(ca, cb), iters=5)
+        log(f"timing repair_matmul gate/up f32 {label} (f32 route): device "
+            f"{dev_ms:.4f} ms = scan {pr['repair_mm_scan']:.4f} + repair_mm_f32 "
+            f"{pr['repair_mm_f32']:.4f} + counts {pr['repair_mm_counts']:.4f}; "
+            f"{flops / dev_ms / 1e9:.1f} TFLOP/s, {mm32_bound / dev_ms:.3f} of the "
+            f"FP32 bound {mm32_bound:.4f} ms; main loop "
+            f"{flops / pr['repair_mm_f32'] / 1e9:.1f} TFLOP/s; call {call:.4f} ms"
+            + (f"; flagged tiles A {flagged[0]} of {mm32_tiles[0]}, B "
+               f"{flagged[1]} of {mm32_tiles[1]}" if label == "planted" else ""))
+    mm32["device_ms"] = sum(mm32_parts["planted"].values())
+    mm32["clean_device_ms"] = sum(mm32_parts["clean"].values())
+    a_off, b_off = _at_offset(a, 1), _at_offset(b, 1)
+    if rm.route(a_off, b_off) != "ffma":
+        raise AssertionError("gate/up f32 4 bytes off is not on the FFMA route")
+    ffma_parts = kernel_breakdown(lambda: rm.repair_matmul_raw(a_off, b_off),
+                                  names, iters=3)
+    del a_off, b_off
     with _tf32_off():
-        mm_lib_ms = cuda_ms(lambda: torch.matmul(a, b), iters=5)
-        mm_lib_dev = library_device_ms(lambda: torch.matmul(a, b), iters=3)
-    log(f"timing repair_matmul gate/up f32 (ffma route): call {f32_ms:.4f} ms, "
-        f"device {sum(f32_parts.values()):.4f} ms "
-        f"({f32_parts['repair_mm_tiles']:.4f} in repair_mm_tiles), "
-        f"{flops / sum(f32_parts.values()) / 1e9:.1f} TFLOP/s; torch.matmul "
-        f"f32, TF32 off: device {mm_lib_dev} ms, call {mm_lib_ms:.4f} ms "
-        f"({gpu_line()})")
-    del a, b, clean_a, clean_b
+        mm32["library_ms"] = cuda_ms(lambda: torch.matmul(fa, fb), iters=5)
+        mm_lib_dev = library_device_ms(lambda: torch.matmul(fa, fb), iters=3)
+    log(f"timing repair_matmul gate/up f32 planted (ffma route, 4 bytes off "
+        f"alignment): device {sum(ffma_parts.values()):.4f} ms "
+        f"({ffma_parts['repair_mm_tiles']:.4f} in repair_mm_tiles), "
+        f"{flops / sum(ffma_parts.values()) / 1e9:.1f} TFLOP/s; torch.matmul "
+        f"f32, TF32 off: device {mm_lib_dev} ms, call {mm32['library_ms']:.4f} "
+        f"ms; plain {mm32['plain_ms']:.4f} ms ({gpu_line()})")
+    del a, b, fa, fb, ca, cb, clean_a, clean_b
     # the down projection, off the JSON line
     Md, Kd, Nd = MM_SHAPES["down"]
     a = _plant_lanes(torch.randn((Md, Kd), generator=gen, device=dev), gen, bf16)
@@ -1952,30 +2009,80 @@ def ops_phase(report: dict) -> None:
         f"replayed from a CUDA graph {graph_ms:.4f} ms; the eager wrapper's "
         f"host time {host_us:.1f} us per call")
     del q, k, v, fk, fv
-    # the f32 call (the FFMA route, which the quickstart takes)
+    # the f32 call (the f32 route, which the quickstart takes), planted and
+    # clean, beside the FFMA route on the same values 4 bytes off alignment
+    # and SDPA in f32 with TF32 off: on its math path with enable_gqa, and
+    # on its memory-efficient kernel over K/V expanded to H heads outside
+    # the timed region
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     q, k, v = qkv(f32)
-    if ra.route(q, k, v) != "ffma":
-        raise AssertionError("flash_attention f32 is not on the FFMA route")
-    f32_parts = kernel_breakdown(lambda: ra.flash_attention_raw(q, k, v), names, iters=3)
-    f32_ms = cuda_ms(lambda: ra.flash_attention_raw(q, k, v), iters=5)
-    # the f32 yardstick: SDPA on the same q and the repaired K/V, TF32 off
     fk, fv = ops.scrub(k.clone())[0], ops.scrub(v.clone())[0]
+    if ra.route(q, k, v) != "f32" or ra.route(q, fk, fv) != "f32":
+        raise AssertionError("flash_attention f32 is not on the f32 route")
+    at32_bound, at32_by = bound(4 * (2 * AT_B * AT_H * AT_S * AT_D)
+                                + 2 * kv_bytes + 32, flops, "float32")
+    flags32 = ra.scan_plain(k, v, S=AT_S, causal=True, tile=ra.F32_TILE)[1]
+    at32 = dict(ms=cuda_ms(lambda: ra.flash_attention_raw(q, k, v), iters=10),
+                plain_ms=cuda_ms(lambda: ra.flash_attention_plain(q, k, v), iters=5),
+                bound_ms=at32_bound, bound_by=at32_by)
+    at32_parts = {}
+    for label, kk, vv in (("planted", k, v), ("clean", fk, fv)):
+        pr = kernel_breakdown(lambda kk=kk, vv=vv: ra.flash_attention_raw(q, kk, vv),
+                              names, iters=5)
+        if not pr["flash_repair_f32"] > 0:
+            raise AssertionError(f"flash_attention f32 ran no flash_repair_f32: {pr}")
+        at32_parts[label] = pr
+        dev_ms = sum(pr.values())
+        call = at32["ms"] if label == "planted" else cuda_ms(
+            lambda: ra.flash_attention_raw(q, fk, fv), iters=10)
+        log(f"timing flash_attention causal f32 {label} (f32 route): device "
+            f"{dev_ms:.4f} ms = scan {pr['flash_scan']:.4f} + flash_repair_f32 "
+            f"{pr['flash_repair_f32']:.4f} + counts {pr['flash_counts']:.4f}; "
+            f"{flops / dev_ms / 1e9:.1f} TFLOP/s, {at32_bound / dev_ms:.3f} of the "
+            f"FP32 bound {at32_bound:.4f} ms; main loop "
+            f"{flops / pr['flash_repair_f32'] / 1e9:.1f} TFLOP/s; call {call:.4f} ms"
+            + (f"; flagged K/V tiles {int(flags32[..., 0].sum())} / "
+               f"{int(flags32[..., 1].sum())} of {flags32[..., 0].numel()}"
+               if label == "planted" else ""))
+    at32["device_ms"] = sum(at32_parts["planted"].values())
+    at32["clean_device_ms"] = sum(at32_parts["clean"].values())
+    qo, ko, vo = (_at_offset(x, 1) for x in (q, k, v))
+    if ra.route(qo, ko, vo) != "ffma":
+        raise AssertionError("flash_attention f32 4 bytes off is not on the FFMA route")
+    ffma_parts = kernel_breakdown(lambda: ra.flash_attention_raw(qo, ko, vo),
+                                  names, iters=3)
+    del qo, ko, vo
+    G = AT_H // AT_KH
+    kx, vx = (x.repeat_interleave(G, dim=1) for x in (fk, fv))
 
     def library32():
         return sdpa(q, fk, fv, is_causal=True, enable_gqa=True)
 
+    def efficient32():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return sdpa(q, kx, vx, is_causal=True)
+
     at_kernels: list = []
+    eff_kernels: list = []
     with _tf32_off():
         at_lib_ms = cuda_ms(library32, iters=5)
         at_lib_dev = library_device_ms(library32, iters=3, kernels=at_kernels)
-    at_backend = sdpa_backend(at_kernels)
-    log(f"timing flash_attention causal f32 (ffma route): call {f32_ms:.4f} ms, "
-        f"device {sum(f32_parts.values()):.4f} ms ({f32_parts['flash_repair_fwd']:.4f} "
-        f"in flash_repair_fwd, {f32_parts['flash_count_tiles']:.4f} in "
-        f"flash_count_tiles), {flops / sum(f32_parts.values()) / 1e9:.1f} TFLOP/s; "
-        f"SDPA f32, TF32 off: device {at_lib_dev} ms, call {at_lib_ms:.4f} ms, "
-        f"{at_backend} ({gpu_line()})")
-    del q, k, v, fk, fv
+        at32["library_ms"] = cuda_ms(efficient32, iters=10)
+        eff_dev = library_device_ms(efficient32, iters=5, kernels=eff_kernels)
+        eff_err = float((efficient32().float()
+                         - ra.flash_attention_plain(q, fk, fv)[0]).abs().max())
+    log(f"timing flash_attention causal f32 planted (ffma route, 4 bytes off "
+        f"alignment): device {sum(ffma_parts.values()):.4f} ms "
+        f"({ffma_parts['flash_repair_fwd']:.4f} in flash_repair_fwd, "
+        f"{ffma_parts['flash_count_tiles']:.4f} in flash_count_tiles), "
+        f"{flops / sum(ffma_parts.values()) / 1e9:.1f} TFLOP/s; SDPA f32, TF32 "
+        f"off, enable_gqa: device {at_lib_dev} ms, call {at_lib_ms:.4f} ms, "
+        f"{sdpa_backend(at_kernels)}; SDPA f32 memory-efficient (K/V expanded "
+        f"to {AT_H} heads): device {eff_dev} ms, call {at32['library_ms']:.4f} "
+        f"ms, {sdpa_backend(eff_kernels)}, max |diff| to the plain version "
+        f"{eff_err:.3g}; plain {at32['plain_ms']:.4f} ms ({gpu_line()})")
+    del q, k, v, fk, fv, kx, vx
     torch.cuda.empty_cache()
 
     rows = {
@@ -1987,9 +2094,23 @@ def ops_phase(report: dict) -> None:
             route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/repair_attention.py:44 (_flash_kernel)",
             max_abs_err=max_err["flash_attention"], **at),
+        # the f32 routes' main kernels (with their scan and counts), at
+        # gate/up and causal S = T = 2048 in f32; library: torch.matmul f32
+        # and SDPA's memory-efficient f32 kernel, TF32 off
+        "repair_mm_f32": dict(
+            route="cuda", source="src/repro_torch/csrc/repair_matmul.cu",
+            replaces="src/repro/kernels/repair_matmul.py:60 (_mm_kernel, f32)",
+            max_abs_err=max_err["repair_mm_f32"], **mm32),
+        "flash_repair_f32": dict(
+            route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/repair_attention.py:44 (_flash_kernel, f32)",
+            max_abs_err=max_err["flash_repair_f32"], **at32),
     }
+    wrapper = {"repair_mm_f32": ("repair_matmul", "f32"),
+               "flash_repair_f32": ("flash_attention", "f32")}
     for name, row in rows.items():
-        row["launches"] = int(launches.get(name, 0))
+        row["launches"] = int(route_launches.get(wrapper[name], 0)
+                              if name in wrapper else launches.get(name, 0))
         report["kernels"][name] = row
         log(f"timing {name}: call {row['ms']:.4f} ms (device {row['device_ms']}), "
             f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
@@ -2003,8 +2124,9 @@ def ops_phase(report: dict) -> None:
         f"call {down_lib:.4f} ms")
     log(f"timing shapes: repair_matmul A ({M}, {K}) @ B ({K}, {N}) bf16; "
         f"flash_attention B={AT_B} H={AT_H} Kh={AT_KH} S=T={AT_S} D={AT_D} "
-        f"causal bf16; library = torch.matmul / SDPA (enable_gqa) on the "
-        f"repaired operands")
+        f"causal bf16 (repair_mm_f32 and flash_repair_f32: the same shapes in "
+        f"f32); library = torch.matmul / SDPA (enable_gqa; the f32 rows: SDPA's "
+        f"memory-efficient kernel) on the repaired operands")
 
 
 # ------------------------------------------------------------ phases 3-5
@@ -2727,6 +2849,10 @@ DENSE_VARIANTS = (("stablelm-1.6b", STABLELM_POOL, "fused", "heads"),
 DRAWN_LEAVES = ("/bias", "/scale", "/b_up", "/b_down", "/bq", "/bk", "/bv")
 
 
+# calls a profiler window of the dense variants' kernel timings
+DENSE_ITERS = 10
+
+
 def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
                         decode_route: str, timed: bool = True) -> dict:
     """The paged kernels and the page scrub at one dense variant's pool in
@@ -2735,9 +2861,11 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
     splits 4 on the walk route; prefill at C and C_LONG, wgmma in bf16 and
     FFMA in f32, and a bf16 q off alignment at C on FFMA; the scrub of
     three pages bucketed to four), then (with ``timed``) each paged call's
-    device ms (split by kernel), on the planted pool and a clean copy, and
-    call ms beside its bound and SDPA's on the gathered view (and the
-    backend that served SDPA); on the fused and heads routes, the walk
+    device ms (split by kernel, windows of DENSE_ITERS calls) on the planted
+    pool, and call ms beside its bound and SDPA's on the gathered view (and
+    the backend that served SDPA); on a clean copy too for the decode at
+    splits 4 and the prefill at C (the calls at splits 1 and C_LONG run the
+    same kernels); at splits 4 on the fused and heads routes, the walk
     route's times on the same operands (q off alignment) beside them.
     Returns the timing rows (none without ``timed``)."""
     import torch
@@ -2779,7 +2907,8 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
 
     d_bound, d_by = pc.decode_bound(name, es)
     sdpa_kernels: list = []
-    sdpa_ms, sdpa_dev = cuda_ms(dsdpa), library_device_ms(dsdpa, kernels=sdpa_kernels)
+    sdpa_ms = cuda_ms(dsdpa)
+    sdpa_dev = library_device_ms(dsdpa, DENSE_ITERS, kernels=sdpa_kernels)
     log(f"{arch} {name}: SDPA ran {sdpa_backend(sdpa_kernels)} (decode, "
         f"gathered view, a boolean mask)")
     rows = {}
@@ -2791,17 +2920,19 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
         names = DECODE_KERNELS[decode_route]
         row = dict(
             route=decode_route, names=names, main=ROUTE_MAIN[decode_route],
-            parts=kernel_breakdown(dcall, names), ms=cuda_ms(dcall),
-            clean=kernel_breakdown(lambda: dcall(k=kc, v=vc), names),
-            clean_ms=cuda_ms(lambda: dcall(k=kc, v=vc)),
+            parts=kernel_breakdown(dcall, names, DENSE_ITERS), ms=cuda_ms(dcall),
             bound_ms=d_bound, bound_by=d_by,
             plain_ms=cuda_ms(lambda splits=splits: pa.paged_decode_plain(
                 q, kp, vp, pc.bt, pc.pos, LAYER, splits=splits, **kw)),
             sdpa_ms=sdpa_ms, sdpa_device_ms=sdpa_dev)
-        if decode_route != "walk":
-            row["walk"] = kernel_breakdown(lambda: dcall(qd=q_off),
-                                           DECODE_KERNELS["walk"])
-            row["walk_ms"] = cuda_ms(lambda: dcall(qd=q_off))
+        if splits == 4:
+            row["clean"] = kernel_breakdown(lambda: dcall(k=kc, v=vc), names,
+                                            DENSE_ITERS)
+            row["clean_ms"] = cuda_ms(lambda: dcall(k=kc, v=vc))
+            if decode_route != "walk":
+                row["walk"] = kernel_breakdown(lambda: dcall(qd=q_off),
+                                               DECODE_KERNELS["walk"], DENSE_ITERS)
+                row["walk_ms"] = cuda_ms(lambda: dcall(qd=q_off))
         rows[f"decode splits={splits}"] = row
     for c, qc in qcs.items():
         qc1, qs1 = qc[:1], pc.q_starts[c][:1]
@@ -2817,27 +2948,32 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
         p_bound, p_by = pc.prefill_bound(c, qs0, name, es)
         p_route = pa.route(qc1, kp, vp)
         sdpa_kernels = []
-        psdpa_dev = library_device_ms(psdpa, kernels=sdpa_kernels)
+        psdpa_dev = library_device_ms(psdpa, DENSE_ITERS, kernels=sdpa_kernels)
         log(f"{arch} {name}: SDPA ran {sdpa_backend(sdpa_kernels)} (prefill "
             f"C={c}, gathered view, a boolean mask)")
         names = PREFILL_ROUTE_KERNELS[p_route]
-        rows[f"prefill C={c}"] = dict(
+        row = rows[f"prefill C={c}"] = dict(
             route=p_route, names=names, main=ROUTE_MAIN[p_route],
-            parts=kernel_breakdown(pcall, names), ms=cuda_ms(pcall),
-            clean=kernel_breakdown(lambda: pcall(k=kc, v=vc), names),
-            clean_ms=cuda_ms(lambda: pcall(k=kc, v=vc)),
+            parts=kernel_breakdown(pcall, names, DENSE_ITERS), ms=cuda_ms(pcall),
             bound_ms=p_bound, bound_by=p_by,
             plain_ms=cuda_ms(lambda qc1=qc1, qs1=qs1: pa.paged_prefill_plain(
                 qc1, kp, vp, pc.bt[:1], qs1, LAYER, **kw)),
             sdpa_ms=cuda_ms(psdpa), sdpa_device_ms=psdpa_dev)
+        if c == C:
+            row["clean"] = kernel_breakdown(lambda: pcall(k=kc, v=vc), names,
+                                            DENSE_ITERS)
+            row["clean_ms"] = cuda_ms(lambda: pcall(k=kc, v=vc))
     for what, r in rows.items():
-        if not (r["parts"][r["main"]] > 0 and r["clean"][r["main"]] > 0):
+        if not (r["parts"][r["main"]] > 0
+                and r.get("clean", {r["main"]: 1.0})[r["main"]] > 0):
             raise AssertionError(f"{arch} {what}: {r['main']} did not run: "
-                                 f"{r['parts']} {r['clean']}")
+                                 f"{r['parts']} {r.get('clean')}")
         r["device_ms"] = sum(r["parts"].values())
-        r["clean_device_ms"] = sum(r["clean"].values())
-        for label, pt, ms in (("planted", r["parts"], r["ms"]),
-                              ("clean", r["clean"], r["clean_ms"])):
+        readings = [("planted", r["parts"], r["ms"])]
+        if "clean" in r:
+            r["clean_device_ms"] = sum(r["clean"].values())
+            readings.append(("clean", r["clean"], r["clean_ms"]))
+        for label, pt, ms in readings:
             split = " + ".join(f"{k} {v:.4f}" for k, v in pt.items())
             log(f"timing {arch} paged {what} {name} {label} ({r['route']} route): "
                 f"device {sum(pt.values()):.4f} ms = {split}; call {ms:.4f} ms; "

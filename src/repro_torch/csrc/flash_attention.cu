@@ -13,11 +13,12 @@
 //   acc = acc * alpha + p . v;  out = acc / max(l, 1e-30), in q's dtype.
 // Causal masking is the reference kernel's top-left alignment (query s sees
 // keys t <= s, also for S != T).  q is not repaired, as in the reference.
-// Two routes, chosen by the wrapper from dtypes, shapes and alignment alone
-// (kernels/repair_attention.py::route):
+// Three routes, chosen by the wrapper from dtypes, shapes and alignment
+// alone (kernels/repair_attention.py::route):
 //
-// FFMA route (`flash_count_tiles`, `flash_counts`, `flash_repair_fwd`): any
-// f32/bf16/f16 operands, D 64 or 128.  One block per (b, h, 64-row q tile)
+// FFMA route (`flash_count_tiles`, `flash_counts`, `flash_repair_fwd`): the
+// calls the other two do not take (mixed dtypes, views off 16-byte
+// alignment), D 64 or 128.  One block per (b, h, 64-row q tile)
 // walks the K/V tiles from position 0, repairs each 64-key tile into shared
 // memory as f32 and multiplies on the FP32 pipe (padded shared memory, row
 // stride D + 1; 4 x 4 scores and 4 x D/16 outputs per thread; p stays
@@ -67,7 +68,33 @@
 //   cores: running P . V in flight under the next tile's softmax measured
 //   no faster (PERF.md §6), so the loop stays serial.
 //
-// Counts (both routes): defined on the reference's logical (bq, bk) grid,
+// f32 route (`flash_scan`, `flash_repair_f32`, `flash_counts`): q, k, v all
+// f32, contiguous, D 64 or 128, 16-byte aligned.  Exact f32: FFMA on the
+// FP32 pipe and P kept in f32, as the reference keeps it.  Bound by
+// operations, 2*B*H*S*T*D causal flops against the FP32 pipe's 67 TFLOP/s,
+// so detection leaves the loop as on the wgmma route:
+//   * `flash_scan` on four f32 lanes a vector flags 64-row K/V tiles over
+//     every row a 64-row q tile loads.
+//   * `flash_repair_f32`: one block per (b, h, 64-row q tile), heavy causal
+//     tiles first, one block an SM (the heaviest q tile's 32 steps at S =
+//     2,048 stay under an SM's share of the causal work, so the blocks
+//     balance).  Q is loaded once.  Two groups of four warps split the
+//     q tile's 64-key K/V tiles (group g takes tiles g, g + 2, ...), each
+//     with its own K and V slots filled by cp.async: V_j loads under
+//     S = Q K_j^T and K_{j+2} under O += P V_j, one group barrier each.  A
+//     warp owns 16 q rows; a lane computes a 4 x 8 score tile and a 4 x
+//     D/8 output tile in registers from conflict-free float4 reads (rows
+//     padded to D + 4 floats).  The row max goes through warp shuffles, the
+//     running (m, l, O) stays in registers, P goes to the warp's own shared
+//     memory once a tile.  Only the diagonal tile (and a tile that reaches
+//     past T) is masked, with the reference's -1e30.  A flagged K or V tile
+//     is repaired in shared memory by its group first, then a group
+//     barrier.  At the end group 1 hands its (m, l, O) to group 0, which
+//     merges the two partitions and writes acc / max(l, 1e-30).  The plain
+//     twin of this key partition is
+//     kernels/repair_attention.py::flash_attention_f32_plain.
+//
+// Counts (every route): defined on the reference's logical (bq, bk) grid,
 // whose tiles no route shares.  Per logical (b, kh, kj) tile of the live
 // prefix, [NaN K, Inf K, NaN V, Inf V] lanes are added into per-tile
 // counters (by `flash_count_tiles`, a pass that reads the live K/V tiles
@@ -552,14 +579,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 constexpr int SCAN_THREADS = 256, SCAN_VECS = 2;
 
-// The scan's view of K and V: (B * Kh, T, D) 16-bit lanes, of which the
-// first `vecs` 16-byte vectors (`rows` rows) of each (b, kh) are read.
+// The scan's view of K and V: (B * Kh, T, D) lanes (16-bit, or f32 for the
+// f32 route), of which the first `vecs` 16-byte vectors (`rows` rows) of
+// each (b, kh) are read.
 struct KVScan {
   const uint4* k;
   const uint4* v;
-  unsigned vecs;    // rows * D / 8
-  unsigned stride;  // T * D / 8
-  int row_vecs;     // D / 8
+  unsigned vecs;    // rows * D / (a vector's lanes)
+  unsigned stride;  // T * D / (a vector's lanes)
+  int row_vecs;     // D / (a vector's lanes)
   int live_rows;    // the logical live prefix: the rows that are counted
   int bk, nk, nkv;  // logical tile rows and tiles; physical tiles
   Detector det_k, det_v;
@@ -569,16 +597,22 @@ struct KVScan {
 };
 
 // The full test of a suspect vector vi of K (which = 0) or V (1) of head
-// bh: classify, count, flag (out of line: clean data never calls it).  The
-// 8 lanes share one row, so one logical and one physical tile.
+// bh, of ES-byte lanes, against the main kernel's TILE-row K/V tiles:
+// classify, count, flag (out of line: clean data never calls it).  The
+// lanes share one row, so one logical and one physical tile.
+template <int ES, int TILE>
 __device__ __noinline__ void scan_vec(const KVScan s, int which, long long bh,
                                       unsigned vi, const uint4 q) {
   const uint32_t w[4] = {q.x, q.y, q.z, q.w};
   int n_nan = 0, n_inf = 0;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int cls = repro::classify((w[e >> 1] >> ((e & 1) * 16)) & 0xFFFFu,
-                                    which ? s.det_v : s.det_k);
+  for (int e = 0; e < 16 / ES; ++e) {
+    uint32_t bits;
+    if constexpr (ES == 4)
+      bits = w[e];
+    else
+      bits = (w[e >> 1] >> ((e & 1) * 16)) & 0xFFFFu;
+    const int cls = repro::classify(bits, which ? s.det_v : s.det_k);
     n_nan += cls & 1;
     n_inf += cls >> 1;
   }
@@ -589,11 +623,19 @@ __device__ __noinline__ void scan_vec(const KVScan s, int which, long long bh,
     if (n_nan) atomicAdd(t, n_nan);
     if (n_inf) atomicAdd(t + 1, n_inf);
   }
-  s.flags[2 * (bh * s.nkv + r / BKV) + which] = 1;
+  s.flags[2 * (bh * s.nkv + r / TILE) + which] = 1;
+}
+
+template <int ES>
+__device__ __forceinline__ bool suspect(const uint4& q, uint32_t exp_mask,
+                                        uint32_t floor) {
+  if constexpr (ES == 4) return may_be_fatal32(q, exp_mask, floor);
+  return may_be_fatal(q, exp_mask, floor);
 }
 
 // One block per (b, kh, SCAN_THREADS * SCAN_VECS vectors): each thread has
 // SCAN_VECS vectors of K and of V in flight, coalesced.
+template <int ES, int TILE>
 __global__ void __launch_bounds__(SCAN_THREADS) flash_scan(const KVScan s) {
   constexpr unsigned per_block = SCAN_THREADS * SCAN_VECS;
   const unsigned chunks = (s.vecs + per_block - 1) / per_block;
@@ -614,35 +656,40 @@ __global__ void __launch_bounds__(SCAN_THREADS) flash_scan(const KVScan s) {
   for (int i = 0; i < SCAN_VECS; ++i) {
     const unsigned vi = base + i * SCAN_THREADS;
     if (vi >= s.vecs) continue;
-    if (may_be_fatal(qk[i], s.det_k.exp_mask, s.floor_k))
-      scan_vec(s, 0, bh, vi, qk[i]);
-    if (may_be_fatal(qv[i], s.det_v.exp_mask, s.floor_v))
-      scan_vec(s, 1, bh, vi, qv[i]);
+    if (suspect<ES>(qk[i], s.det_k.exp_mask, s.floor_k))
+      scan_vec<ES, TILE>(s, 0, bh, vi, qk[i]);
+    if (suspect<ES>(qv[i], s.det_v.exp_mask, s.floor_v))
+      scan_vec<ES, TILE>(s, 1, bh, vi, qv[i]);
   }
 }
 
 // Rows of each (b, kh) that the scan reads: the live prefix, which it
-// counts, and every row that some q tile of the main kernel loads, which
-// it flags.
-inline int scan_rows(int S, int T, int bk, int causal) {
+// counts, and every row that some bq-row q tile of the main kernel loads,
+// which it flags.
+inline int scan_rows(int S, int T, int bk, int causal, int bq) {
   const long long loaded =
-      causal ? std::min<long long>(T, (S + BQ - 1LL) / BQ * BQ) : T;
+      causal ? std::min<long long>(T, (S + bq - 1LL) / bq * bq) : T;
   return (int)std::max<long long>(loaded,
                                   (long long)live_tiles(S, T, bk, causal) * bk);
 }
 
 bool scan_shape_ok(int dt, int B, int Kh, int S, int T, int D, int bk) {
-  return (dt == repro::DT_BF16 || dt == repro::DT_F16) &&
+  return dt >= repro::DT_F32 && dt <= repro::DT_F16 &&
          (D == 64 || D == 128) && B > 0 && Kh > 0 && S > 0 && T > 0 &&
          bk >= 1 && T % bk == 0 && (long long)B * Kh * T * D < (1ll << 31);
 }
+
+// flash_repair_f32's q and K/V tile rows (flash_repair_wgmma's are BKV)
+constexpr int F32_TILE = 64;
 
 cudaError_t launch_scan(const void* k, const void* v, int dt, int B, int Kh,
                         int S, int T, int D, int bk, int causal,
                         const int* det_k, const int* det_v, int* tiles,
                         int* flags, cudaStream_t stream) {
   if (!scan_shape_ok(dt, B, Kh, S, T, D, bk)) return cudaErrorInvalidValue;
-  const int nkv = (T + BKV - 1) / BKV;
+  const bool f32 = dt == repro::DT_F32;
+  const int tile = f32 ? F32_TILE : BKV, lanes = f32 ? 4 : 8;
+  const int nkv = (T + tile - 1) / tile;
   cudaError_t err = cudaMemsetAsync(
       tiles, 0, sizeof(int) * 4 * (size_t)B * Kh * (T / bk), stream);
   if (err == cudaSuccess)
@@ -653,9 +700,9 @@ cudaError_t launch_scan(const void* k, const void* v, int dt, int B, int Kh,
                  dv = repro::detector_from(det_v);
   const KVScan s{static_cast<const uint4*>(k),
                  static_cast<const uint4*>(v),
-                 (unsigned)(scan_rows(S, T, bk, causal) * D / 8),
-                 (unsigned)(T * D / 8),
-                 D / 8,
+                 (unsigned)(scan_rows(S, T, bk, causal, tile) * D / lanes),
+                 (unsigned)(T * D / lanes),
+                 D / lanes,
                  live_tiles(S, T, bk, causal) * bk,
                  bk,
                  T / bk,
@@ -667,8 +714,12 @@ cudaError_t launch_scan(const void* k, const void* v, int dt, int B, int Kh,
                  tiles,
                  flags};
   const unsigned per_block = SCAN_THREADS * SCAN_VECS;
-  flash_scan<<<(unsigned)B * Kh * ((s.vecs + per_block - 1) / per_block),
-               SCAN_THREADS, 0, stream>>>(s);
+  const unsigned blocks =
+      (unsigned)B * Kh * ((s.vecs + per_block - 1) / per_block);
+  if (f32)
+    flash_scan<4, F32_TILE><<<blocks, SCAN_THREADS, 0, stream>>>(s);
+  else
+    flash_scan<2, BKV><<<blocks, SCAN_THREADS, 0, stream>>>(s);
   return cudaGetLastError();
 }
 
@@ -715,6 +766,298 @@ cudaError_t launch_main_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace fw
 
+// ------------------------------------------------------------ f32 route
+namespace ff {
+
+using namespace hopper;
+
+// One block per (b, h, 64-row q tile), heavy causal tiles first; two
+// groups of four warps split the q tile's 64-key K/V tiles between them
+// (group g takes tiles g, g + 2, ...) and merge at the end.  Warp w of a
+// group owns q rows 16 (w % 4) .. + 15 for the scores and the output.
+constexpr int BQ = 64, BKV = 64, THREADS = 256, GROUP = 128;
+static_assert(BQ == fw::F32_TILE && BKV == fw::F32_TILE,
+              "the scan flags the tiles this kernel loads");
+constexpr int PS = BKV + 4;  // a warp's P row stride (floats)
+constexpr double LOG2E = 1.4426950408889634;
+
+template <int D>
+struct Lay {
+  static constexpr int QS = D + 4;  // Q and K row stride (floats)
+  static constexpr int Q_FLOATS = BQ * QS;
+  static constexpr int K_FLOATS = BKV * QS;
+  static constexpr int V_FLOATS = BKV * D;
+  static constexpr int GROUP_FLOATS = K_FLOATS + V_FLOATS;  // a group's K, V
+  static constexpr int P_FLOATS = 16 * PS;                  // a warp's P
+  static constexpr int DC = D / 32;  // a lane's float4 output columns a row
+  // what group 1 hands group 0 per lane: m and l of 4 rows, 4 x D / 8 O
+  static constexpr int XCH = 8 + D / 2;
+  static constexpr int SMEM_BYTES =
+      4 * (Q_FLOATS + 2 * GROUP_FLOATS + 8 * P_FLOATS);
+  static_assert(4 * XCH * 32 <= GROUP_FLOATS, "the hand-off fits a group");
+};
+
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + g), "n"(GROUP) : "memory");
+}
+
+// Rows [r0, r0 + 64) of one head's (rows, D) f32 matrix into shared memory
+// at row stride ST by cp.async, from `n` threads (this one is `t`); rows
+// at or past `limit` land as zeros and read nothing.
+template <int D, int ST>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0,
+                                          int limit, int t, int n) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  for (int q = t; q < 64 * CPR; q += n) {
+    const int r = q / CPR, c = q % CPR;
+    const bool in = r0 + r < limit;
+    cp_async16_zfill(smem_u32(dst + r * ST + 4 * c),
+                     in ? src + (long long)(r0 + r) * D + 4 * c : src,
+                     in ? 16 : 0);
+  }
+}
+
+// A flagged K or V tile, by its group: every fatal lane of a row before T
+// takes its logical (bk, D) tile's fill; row0 is the head's first row of
+// the (B*Kh*T, D) view.  Rows at or past T are zeros and never touched.
+template <int D, int ST>
+__device__ __noinline__ void repair_tile(float* tile, int k0, int T,
+                                         const Detector det,
+                                         const repro::Fill fill,
+                                         long long row0, int bk, int t) {
+  constexpr int CPR = D / 4;
+  const int rows = min(BKV, T - k0);
+  for (int c = t; c < rows * CPR; c += GROUP) {
+    const int r = c / CPR;
+    repair_chunk32_with(tile + r * ST + 4 * (c % CPR), det, [&](int) {
+      return fill.at((row0 + k0 + r) / bk);
+    });
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_repair_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int BH, int H, int Kh, int S, int T, int causal,
+                     float scale_log2, Detector det_k, Detector det_v,
+                     repro::Fill fill_k, repro::Fill fill_v, int bk,
+                     const int* __restrict__ flags) {
+  using L = Lay<D>;
+  constexpr int QS = L::QS;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = warp >> 2, wq = warp & 3, t = threadIdx.x & (GROUP - 1);
+  float* q_s = smem;
+  float* k_s = smem + L::Q_FLOATS + g * L::GROUP_FLOATS;
+  float* v_s = k_s + L::K_FLOATS;
+  float* p_s = smem + L::Q_FLOATS + 2 * L::GROUP_FLOATS + warp * L::P_FLOATS;
+
+  const int nqt = (S + BQ - 1) / BQ;
+  const int bh = blockIdx.x % BH, q0 = (nqt - 1 - blockIdx.x / BH) * BQ;
+  const int kvh = bh / H * Kh + bh % H / (H / Kh);
+  const float* kh = k + (long long)kvh * T * D;
+  const float* vh = v + (long long)kvh * T * D;
+  const int n_kv = ((causal ? min(T, q0 + BQ) : T) + BKV - 1) / BKV;
+  const int* tile_flags = flags + 2ll * kvh * ((T + BKV - 1) / BKV);
+
+  // Q once, by every thread; each group's first K tile
+  load_rows<D, QS>(q_s, q + (long long)bh * S * D, q0, S, threadIdx.x, THREADS);
+  if (g < n_kv) load_rows<D, QS>(k_s, kh, g * BKV, T, t, GROUP);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // scores: rows rl + 4 i of the q tile (rl = 16 wq + rg), keys kc + 8 j of
+  // the K/V tile; output: the same rows, columns 4 kc + 32 c (+0..3).  Four
+  // consecutive rows and eight consecutive keys a warp read distinct banks.
+  const int rg = lane >> 3, kc = lane & 7, rl = 16 * wq + rg;
+  float o[4][D / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) o[i][c] = 0.f;
+  float m[4], l[4];  // running max (log2 domain) and this lane's share of l
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = repro::NEG_INF, l[i] = 0.f;
+  const float* q_lane = q_s + rl * QS;
+  float* p_row = p_s + rg * PS;  // the lane's P rows rg + 4 i
+
+  for (int j = g; j < n_kv; j += 2) {
+    const int k0 = j * BKV;
+    const int fl_k = tile_flags[2 * j], fl_v = tile_flags[2 * j + 1];
+    cp_async_wait<0>();  // K_j
+    group_sync(g);       // K_j is whole; the group is done with V_{j-2}
+    load_rows<D, D>(v_s, vh, k0, T, t, GROUP);
+    cp_async_commit();
+    if (fl_k) {
+      repair_tile<D, QS>(k_s, k0, T, det_k, fill_k, (long long)kvh * T, bk, t);
+      group_sync(g);
+    }
+
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) s[i][jj] = 0.f;
+    const float* k_lane = k_s + kc * QS;
+#pragma unroll 2
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      float4 qa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(q_lane + 4 * i * QS + 4 * d4);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float4 kb =
+            *reinterpret_cast<const float4*>(k_lane + 8 * jj * QS + 4 * d4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][jj] = fmaf(qa[i].x, kb.x, s[i][jj]);
+          s[i][jj] = fmaf(qa[i].y, kb.y, s[i][jj]);
+          s[i][jj] = fmaf(qa[i].z, kb.z, s[i][jj]);
+          s[i][jj] = fmaf(qa[i].w, kb.w, s[i][jj]);
+        }
+      }
+    }
+    // the mask, on the diagonal tile and a tile that reaches past T only
+    if (k0 + BKV > T || (causal && k0 + BKV - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int lim = causal ? min(T, q0 + rl + 4 * i + 1) : T;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          if (k0 + kc + 8 * jj >= lim) s[i][jj] = repro::NEG_INF;
+      }
+    }
+    // online softmax in the log2 domain; the row max over the row's eight
+    // lanes by shuffles, l kept per lane and summed at the end
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int jj = 1; jj < 8; ++jj) mx = fmaxf(mx, s[i][jj]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx * scale_log2);
+      const float alpha = attn::ex2(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float p = attn::ex2(fmaf(s[i][jj], scale_log2, -m_new));
+        p_row[4 * i * PS + kc + 8 * jj] = p;
+        sum += p;
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) o[i][c] *= alpha;
+    }
+    __syncwarp();
+
+    cp_async_wait<0>();  // V_j
+    group_sync(g);       // V_j is whole; the group is done with K_j
+    if (j + 2 < n_kv) load_rows<D, QS>(k_s, kh, k0 + 2 * BKV, T, t, GROUP);
+    cp_async_commit();
+    if (fl_v) {
+      repair_tile<D, D>(v_s, k0, T, det_v, fill_v, (long long)kvh * T, bk, t);
+      group_sync(g);
+    }
+    // O += P V: per four keys, four float4 of P and D / 8 float4 of V
+    const float* v_lane = v_s + 4 * kc;
+#pragma unroll 2
+    for (int t4 = 0; t4 < BKV / 4; ++t4) {
+      float4 pa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[i] = *reinterpret_cast<const float4*>(p_row + 4 * i * PS + 4 * t4);
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) {
+        const float* vr = v_lane + (4 * t4 + tt) * D;
+#pragma unroll
+        for (int c = 0; c < L::DC; ++c) {
+          const float4 vb = *reinterpret_cast<const float4*>(vr + 32 * c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = tt == 0 ? pa[i].x : tt == 1 ? pa[i].y
+                          : tt == 2 ? pa[i].z : pa[i].w;
+            o[i][4 * c] = fmaf(p, vb.x, o[i][4 * c]);
+            o[i][4 * c + 1] = fmaf(p, vb.y, o[i][4 * c + 1]);
+            o[i][4 * c + 2] = fmaf(p, vb.z, o[i][4 * c + 2]);
+            o[i][4 * c + 3] = fmaf(p, vb.w, o[i][4 * c + 3]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the warp is done with P before the next tile writes it
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+  }
+
+  // group 1 hands (m, l, O) to group 0 through its own K/V region, lane
+  // by lane; group 0 merges the two partitions and writes the rows
+  float* xch = smem + L::Q_FLOATS + L::GROUP_FLOATS + wq * L::XCH * 32 + lane;
+  if (g == 1) {
+    group_sync(1);  // the group is done with its V tile
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      xch[32 * i] = m[i];
+      xch[32 * (4 + i)] = l[i];
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) xch[32 * (8 + i * (D / 8) + c)] = o[i][c];
+    }
+  }
+  __syncthreads();
+  if (g == 1) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float m1 = xch[32 * i], l1 = xch[32 * (4 + i)];
+    const float mm = fmaxf(m[i], m1);
+    const float a0 = attn::ex2(m[i] - mm), a1 = attn::ex2(m1 - mm);
+    const float inv = 1.f / fmaxf(l[i] * a0 + l1 * a1, 1e-30f);
+    const int r = q0 + rl + 4 * i;
+    if (r >= S) continue;
+    float* dst = out + ((long long)bh * S + r) * D + 4 * kc;
+#pragma unroll
+    for (int c = 0; c < L::DC; ++c) {
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y[e] = (o[i][4 * c + e] * a0 + xch[32 * (8 + i * (D / 8) + 4 * c + e)] * a1) * inv;
+      *reinterpret_cast<float4*>(dst + 32 * c) = make_float4(y[0], y[1], y[2], y[3]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int H, int Kh, int S, int T, int causal,
+                   float sm_scale, const int* det_k, const int* det_v,
+                   repro::Fill fill_k, repro::Fill fill_v, int bk,
+                   const int* flags, cudaStream_t stream) {
+  static bool smem_set = false;  // the attribute is set once per kernel
+  if (!smem_set) {
+    const cudaError_t err = repro::allow_smem(
+        (const void*)flash_repair_f32<D>, Lay<D>::SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const unsigned blocks = (unsigned)B * H * ((S + BQ - 1) / BQ);
+  flash_repair_f32<D><<<blocks, THREADS, Lay<D>::SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), B * H, H, Kh, S,
+      T, causal, (float)(sm_scale * LOG2E), repro::detector_from(det_k),
+      repro::detector_from(det_v), fill_k, fill_v, bk, flags);
+  return cudaGetLastError();
+}
+
+}  // namespace ff
+
 }  // namespace
 
 // q (B, H, S, D), k/v (B, Kh, T, D), out (B, H, S, D), all in `dtype`
@@ -755,13 +1098,15 @@ extern "C" int repro_flash_attention(
   return (int)cudaErrorInvalidValue;
 }
 
-// The wgmma route's scan alone: k/v (B, Kh, T, D) bf16 (dtype 1) or f16 (2),
-// 16-byte aligned, D 64 or 128, bk the logical K/V block (it must divide
-// T).  Adds [NaN K, Inf K, NaN V, Inf V] lane counts of the logical live
-// prefix into tiles (int32[4 * B * Kh * (T / bk)]) and sets flags
-// (int32[2 * B * Kh * ceil(T / 128)], [K, V] per physical 128-row tile)
-// for every tile that a q tile of flash_repair_wgmma loads and that holds
-// a fatal lane; both are zeroed first, on the stream.
+// The scan of either route alone: k/v (B, Kh, T, D) bf16 (dtype 1) or f16
+// (2) for the wgmma route, f32 (0) for the f32 route, 16-byte aligned, D 64
+// or 128, bk the logical K/V block (it must divide T).  Adds [NaN K, Inf K,
+// NaN V, Inf V] lane counts of the logical live prefix into tiles
+// (int32[4 * B * Kh * (T / bk)]) and sets flags (int32[2 * B * Kh *
+// ceil(T / tile)], [K, V] per physical tile: 128 rows of flash_repair_wgmma,
+// 64 of flash_repair_f32) for every tile that a q tile of the route's main
+// kernel loads and that holds a fatal lane; both are zeroed first, on the
+// stream.
 extern "C" int repro_flash_scan(const void* k, const void* v, int dtype,
                                 int B, int Kh, int S, int T, int D, int bk,
                                 int causal, const int* det_k, const int* det_v,
@@ -782,6 +1127,7 @@ extern "C" int repro_flash_attention_wgmma(
     const unsigned int* fills_k, const unsigned int* fills_v, int* tiles,
     int* flags, int* counts, void* stream) {
   if (H < 1 || Kh < 1 || H % Kh || bq < 1 || S % bq ||
+      (dtype != repro::DT_BF16 && dtype != repro::DT_F16) ||
       (long long)B * H * S * D >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -797,6 +1143,37 @@ extern "C" int repro_flash_attention_wgmma(
             : fw::launch_main_d<repro::DT_F16>(D, q, k, v, out, B, H, Kh, S, T,
                                                causal, sm_scale, det_k, det_v,
                                                fill_k, fill_v, bk, flags, s);
+  if (err != cudaSuccess) return (int)err;
+  flash_counts<<<1, kThreads, 0, s>>>(tiles, B * Kh, T / bk,
+                                      live_tiles(S, T, bk, causal), H / Kh,
+                                      S / bq, bq, bk, causal, counts);
+  return (int)cudaGetLastError();
+}
+
+// The f32 route: repro_flash_scan (dtype 0), flash_repair_f32 and the
+// counts.  Arguments as in repro_flash_attention_wgmma, with q, k, v and
+// out all f32 and 16-byte aligned.
+extern "C" int repro_flash_attention_f32(
+    const void* q, const void* k, const void* v, void* out, int dtype, int B,
+    int H, int Kh, int S, int T, int D, int bq, int bk, int causal,
+    float sm_scale, const int* det_k, const int* det_v,
+    unsigned int fill_k_bits, unsigned int fill_v_bits,
+    const unsigned int* fills_k, const unsigned int* fills_v, int* tiles,
+    int* flags, int* counts, void* stream) {
+  if (H < 1 || Kh < 1 || H % Kh || bq < 1 || S % bq ||
+      dtype != repro::DT_F32 || (long long)B * H * S * D >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const repro::Fill fill_k{fills_k, fill_k_bits}, fill_v{fills_v, fill_v_bits};
+  cudaError_t err = fw::launch_scan(k, v, dtype, B, Kh, S, T, D, bk, causal,
+                                    det_k, det_v, tiles, flags, s);
+  if (err != cudaSuccess) return (int)err;
+  err = D == 64 ? ff::launch<64>(q, k, v, out, B, H, Kh, S, T, causal,
+                                 sm_scale, det_k, det_v, fill_k, fill_v, bk,
+                                 flags, s)
+                : ff::launch<128>(q, k, v, out, B, H, Kh, S, T, causal,
+                                  sm_scale, det_k, det_v, fill_k, fill_v, bk,
+                                  flags, s);
   if (err != cudaSuccess) return (int)err;
   flash_counts<<<1, kThreads, 0, s>>>(tiles, B * Kh, T / bk,
                                       live_tiles(S, T, bk, causal), H / Kh,

@@ -143,6 +143,25 @@ __device__ __forceinline__ void repair_chunk(uint4* p, int n_in,
   repair_chunk_with(p, n_in, det, [fill](int) { return fill; });
 }
 
+// Repairs the fatal lanes of one 16-byte chunk of four f32 lanes in shared
+// memory, all in bounds: fatal lane e takes fill_of(e).
+template <typename FillOf>
+__device__ __forceinline__ void repair_chunk32_with(float* p,
+                                                   const Detector& det,
+                                                   FillOf fill_of) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  bool hit = false;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (repro::classify(w[e], det)) {
+      w[e] = fill_of(e);
+      hit = true;
+    }
+  }
+  if (hit) *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // A lane whose exponent field is below this cannot be fatal under `d`
 // (NaN and Inf need it all ones, the range guard at least `range`); a
 // bit-pattern detector admits any lane.
@@ -165,6 +184,35 @@ __device__ __forceinline__ bool may_be_fatal(const uint4& q, uint32_t exp_mask,
   for (int i = 0; i < 4; ++i)
     m = max(m, max(w[i] & exp_mask, (w[i] >> 16) & exp_mask));
   return m >= floor;
+}
+
+// The same test for a 16-byte vector of four 32-bit lanes.
+__device__ __forceinline__ bool may_be_fatal32(const uint4& q,
+                                               uint32_t exp_mask,
+                                               uint32_t floor) {
+  const uint32_t m = max(max(q.x & exp_mask, q.y & exp_mask),
+                         max(q.z & exp_mask, q.w & exp_mask));
+  return m >= floor;
+}
+
+// A 16-byte cp.async (L2 only) of the first `src_bytes` (0 or 16) of src;
+// the rest of the 16 bytes at dst are zeros, so src_bytes 0 reads nothing.
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed cp.async groups are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);

@@ -7,10 +7,12 @@
 // neighbor_mean the entry of its logical (bm, bk) / (bk, bn) tile in the
 // table that tile_fill.cu wrote) before it reaches the product.  The
 // stored operands are never written: the memory-mode origin scrub is a
-// separate call (kernels/ops.py).  Two routes, chosen by the wrapper from
+// separate call (kernels/ops.py).  Three routes, chosen by the wrapper from
 // dtypes, shapes and alignment alone (kernels/repair_matmul.py::route):
 //
-// FFMA route (`repair_mm_tiles`): any dtype mix, any shape.  Every lane of
+// FFMA route (`repair_mm_tiles`): every product the other two do not take
+// (mixed dtypes, K or N off the vector width, views off 16-byte
+// alignment).  Every lane of
 // an A or B tile is classified against its operand's detector as it is
 // loaded into shared memory.  Operands are widened to f32 in shared memory
 // and multiplied with FFMA, no TF32 and no tensor cores, so f32 parity with
@@ -58,7 +60,28 @@
 // The bf16 x bf16 and f16 x f16 products are exact in f32, so the route
 // differs from the plain version only in summation order.
 //
-// Counts (both routes): defined on the reference's logical (bm, bn, bk)
+// f32 route (`repair_mm_scan`, then `repair_mm_f32`): A and B both f32, K
+// and N multiples of 4, both 16-byte aligned.  Exact f32: FFMA on the FP32
+// pipe, never TF32 or the tensor cores.  Bound by operations, 2*M*N*K
+// flops against the FP32 pipe's 67 TFLOP/s; so the FP32 pipe must be fed
+// and detection leaves the loop as on the wgmma route:
+//   * the same scan, on four f32 lanes a 16-byte vector, flags the main
+//     kernel's A (128 x 16) and B (16 x 128) tiles.
+//   * `repair_mm_f32`: a classic SGEMM.  A 128 x 128 output tile a block,
+//     256 threads with an 8 x 8 register tile each, 2 blocks an SM; A and B
+//     tiles (k-steps of 16) in a ring of 4 stages filled by 16-byte
+//     `cp.async` (zeros past M, N and K through the source size).  Each
+//     thread writes the A chunks it loaded transposed into one of two A^T
+//     tiles, so a k of the register tile is four conflict-free float4
+//     reads; one barrier a stage.  A stage whose A or B tile is flagged is
+//     first repaired in shared memory by the threads that loaded it (every
+//     fatal in-bounds lane takes the fill), before that barrier; unflagged
+//     stages do no integer work and the loop has no atomics.  The tiles that would leave the last
+//     wave mostly idle are split over k between several blocks, whose
+//     partials the last one to finish sums in a fixed order.  Each output
+//     is one sequential FFMA chain in k order per split.
+//
+// Counts (every route): defined on the reference's logical (bm, bn, bk)
 // grid, not on a physical one.  A one-block epilogue (`repair_mm_counts`)
 // turns the per-tile counters into the seven MM counts by the closed forms
 // (nj x A lanes, ni x B lanes, and
@@ -346,11 +369,12 @@ __device__ __forceinline__ void store_pair(void* C, int dt, long long i,
   }
 }
 
-// One operand of the scan: (rows, cols) row-major 16-bit lanes, its logical
-// tile (br, bc) for the counts and its flag tile (fr, fc).
+// One operand of the scan: (rows, cols) row-major lanes (16-bit, or f32
+// for the f32 route), its logical tile (br, bc) for the counts and its
+// flag tile (fr, fc).
 struct ScanOperand {
   const uint4* x;
-  unsigned vecs;  // rows * cols / 8
+  unsigned vecs;  // rows * cols / (16-byte vector's lanes)
   int cols, br, bc, fr, fc;
   Detector det;
   uint32_t floor;  // fatal_floor(det)
@@ -358,18 +382,26 @@ struct ScanOperand {
   int* flags;      // [ceil(rows/fr)][ceil(cols/fc)]
 };
 
-// The full test of a suspect vector v of `op`: classify, count, flag (out
-// of line: clean data never calls it).
+// The full test of a suspect vector v of `op` whose lanes are ES bytes
+// (2: eight lanes a vector, 4: four): classify, count, flag (out of line:
+// clean data never calls it).  A vector never spans rows (cols is a
+// multiple of its lanes) nor flag tiles (fc is).
+template <int ES>
 __device__ __noinline__ void scan_vec(const ScanOperand op, unsigned v,
                                       const uint4 q) {
-  const unsigned per_row = (unsigned)op.cols >> 3;
-  const int r = (int)(v / per_row), c0 = (int)(v - (unsigned)r * per_row) * 8;
+  constexpr int LANES = 16 / ES;
+  const unsigned per_row = (unsigned)op.cols / LANES;
+  const int r = (int)(v / per_row), c0 = (int)(v - (unsigned)r * per_row) * LANES;
   const uint32_t w[4] = {q.x, q.y, q.z, q.w};
   bool any = false;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int cls =
-        repro::classify((w[e >> 1] >> ((e & 1) * 16)) & 0xFFFFu, op.det);
+  for (int e = 0; e < LANES; ++e) {
+    uint32_t bits;
+    if constexpr (ES == 4)
+      bits = w[e];
+    else
+      bits = (w[e >> 1] >> ((e & 1) * 16)) & 0xFFFFu;
+    const int cls = repro::classify(bits, op.det);
     if (cls) {
       any = true;
       count_lane(op.tiles,
@@ -381,9 +413,16 @@ __device__ __noinline__ void scan_vec(const ScanOperand op, unsigned v,
     op.flags[(r / op.fr) * ((op.cols + op.fc - 1) / op.fc) + c0 / op.fc] = 1;
 }
 
+template <int ES>
+__device__ __forceinline__ bool suspect(const uint4& q, const ScanOperand& op) {
+  if constexpr (ES == 4) return may_be_fatal32(q, op.det.exp_mask, op.floor);
+  return may_be_fatal(q, op.det.exp_mask, op.floor);
+}
+
 constexpr int SCAN_THREADS = 256, SCAN_VECS = 4;  // 64 bytes in flight a thread
 
 // A's vectors first, then B's; a block reads SCAN_VECS * 4 KB, coalesced.
+template <int ES>
 __global__ void __launch_bounds__(SCAN_THREADS)
     repair_mm_scan(ScanOperand a, ScanOperand b) {
   const unsigned base = blockIdx.x * (SCAN_THREADS * SCAN_VECS) + threadIdx.x;
@@ -400,10 +439,9 @@ __global__ void __launch_bounds__(SCAN_THREADS)
   for (int i = 0; i < SCAN_VECS; ++i) {
     const unsigned v = base + i * SCAN_THREADS;
     if (v < a.vecs) {
-      if (may_be_fatal(q[i], a.det.exp_mask, a.floor)) scan_vec(a, v, q[i]);
+      if (suspect<ES>(q[i], a)) scan_vec<ES>(a, v, q[i]);
     } else if (v - a.vecs < b.vecs) {
-      if (may_be_fatal(q[i], b.det.exp_mask, b.floor))
-        scan_vec(b, v - a.vecs, q[i]);
+      if (suspect<ES>(q[i], b)) scan_vec<ES>(b, v - a.vecs, q[i]);
     }
   }
 }
@@ -553,6 +591,274 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, int out_dt,
 
 }  // namespace wg
 
+// ------------------------------------------------------------ f32 route
+namespace f32mm {
+
+using namespace hopper;
+
+// A 128 x 128 output tile a block, k-steps of 16 in a ring of 4 stages,
+// 256 threads with an 8 x 8 register tile each, 2 blocks an SM.
+constexpr int BM = 128, BN = 128, BK = 16, STAGES = 4, THREADS = 256;
+constexpr int A_FLOATS = BM * BK;           // A tile as loaded: [m][k]
+constexpr int B_FLOATS = BK * BN;           // B tile [k][n]
+constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+constexpr int TS = BM + 4;                  // A^T's row stride (floats)
+constexpr int AT_FLOATS = BK * TS;          // A tile transposed: [k][m]
+// the ring and two transposed A tiles: 82,432 bytes
+constexpr int SMEM_BYTES = (STAGES * STAGE_FLOATS + 2 * AT_FLOATS) * 4;
+
+// One stage's A (128 x 16) and B (16 x 128) tiles by cp.async, two 16-byte
+// chunks of each a thread: A chunk (q >> 2, q & 3), B chunk (q >> 5,
+// q & 31) for q = threadIdx.x + 256 p.  A chunk at or past M, N or K reads
+// nothing and lands as zeros (K and N are multiples of 4, so a chunk is
+// wholly in or out).
+__device__ __forceinline__ void load_stage(float* st, const float* A,
+                                           const float* B, int M, int N,
+                                           int K, int m0, int n0, int k0) {
+  const uint32_t a_s = smem_u32(st), b_s = smem_u32(st + A_FLOATS);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int q = threadIdx.x + p * THREADS;
+    const int r = q >> 2, c = q & 3;
+    const int gr = m0 + r, gk = k0 + 4 * c;
+    const bool in = gr < M && gk < K;
+    cp_async16_zfill(a_s + q * 16, in ? A + (long long)gr * K + gk : A,
+                     in ? 16 : 0);
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int q = threadIdx.x + p * THREADS;
+    const int r = q >> 5, c = q & 31;
+    const int gk = k0 + r, gn = n0 + 4 * c;
+    const bool in = gk < K && gn < N;
+    cp_async16_zfill(b_s + q * 16, in ? B + (long long)gk * N + gn : B,
+                     in ? 16 : 0);
+  }
+}
+
+// A flagged stage: each thread repairs the in-bounds chunks it loaded
+// (visible to it once its own cp.async group is complete), before it
+// transposes A.  A fatal lane takes its logical tile's fill, A (bm x bk)
+// and B (bk x bn).
+__device__ __noinline__ void repair_stage(float* st, int fl, int M, int N,
+                                          int K, int m0, int n0, int k0,
+                                          int bm, int bn, int bk,
+                                          const Detector det_a,
+                                          const Detector det_b,
+                                          const repro::Fill fill_a,
+                                          const repro::Fill fill_b) {
+  if (fl & 1) {
+    const int nk = K / bk;
+    for (int p = 0; p < 2; ++p) {
+      const int q = threadIdx.x + p * THREADS;
+      const int gr = m0 + (q >> 2), gk = k0 + 4 * (q & 3);
+      if (gr < M && gk < K)
+        repair_chunk32_with(st + 4 * q, det_a, [&](int e) {
+          return fill_a.at((long long)(gr / bm) * nk + (gk + e) / bk);
+        });
+    }
+  }
+  if (fl & 2) {
+    const int nj = N / bn;
+    for (int p = 0; p < 2; ++p) {
+      const int q = threadIdx.x + p * THREADS;
+      const int gk = k0 + (q >> 5), gn = n0 + 4 * (q & 31);
+      if (gk < K && gn < N)
+        repair_chunk32_with(st + A_FLOATS + 4 * q, det_b, [&](int e) {
+          return fill_b.at((long long)(gk / bk) * nj + (gn + e) / bn);
+        });
+    }
+  }
+}
+
+// Four consecutive outputs of row-major C at element i (i % 4 == 0).
+__device__ __forceinline__ void store4(void* C, int dt, long long i,
+                                       const float* v) {
+  if (dt == repro::DT_F32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(C) + i) =
+        make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+  uint32_t h[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    h[e] = dt == repro::DT_BF16 ? Storage<repro::DT_BF16>::from_float(v[e])
+                                : Storage<repro::DT_F16>::from_float(v[e]);
+  *reinterpret_cast<uint2*>(static_cast<uint16_t*>(C) + i) =
+      make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+}
+
+// The grid: blocks [0, n_full) each compute one 128 x 128 output tile t =
+// blockIdx.x over all of K; the m tile runs fastest, so a wave of blocks
+// shares few B columns in L2.  When the tiles do not fill the last wave
+// (kernels/repair_matmul.py::f32_plan), each of the remaining tiles is
+// split over `splits` blocks by k-steps: each writes its partial tile to
+// `ws`, and the last of them to finish (a counter a tile) sums the
+// partials in split order, so the result does not depend on which block
+// finishes last, and writes C.
+//
+// A step: each thread waits for its own chunks of the stage, repairs them
+// if the stage is flagged, and writes its A chunks transposed into one of
+// two A^T tiles; one barrier; the loads of a later stage are issued; the
+// product runs from A^T and B.  Thread (ty, tx) holds rows 4 ty + i,
+// 64 + 4 ty + i and columns 4 tx + j, 64 + 4 tx + j (i, j < 4): a k of the
+// step is two float4 of A^T and two of B, and in a warp 4 consecutive ty
+// and 8 consecutive tx read 64 and 128 contiguous bytes, conflict-free.
+__global__ void __launch_bounds__(THREADS, 2)
+    repair_mm_f32(const float* __restrict__ A, const float* __restrict__ B,
+                  void* C, int out_dt, int M, int N, int K, int bm, int bn,
+                  int bk, Detector det_a, Detector det_b, repro::Fill fill_a,
+                  repro::Fill fill_b, const int* __restrict__ flags_a,
+                  const int* __restrict__ flags_b, int n_full, int splits,
+                  float* __restrict__ ws, int* __restrict__ tile_count) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ int last;
+  float* a_t = ring + STAGES * STAGE_FLOATS;  // two A^T tiles
+  const int nmb = (M + BM - 1) / BM, nnb = (N + BN - 1) / BN;
+  const int nkt = (K + BK - 1) / BK;
+  int t = blockIdx.x, part = 0, kt0 = 0, kt1 = nkt;
+  if (t >= n_full) {  // a split tile: k-steps [kt0, kt1)
+    const int u = t - n_full;
+    t = n_full + u / splits;
+    part = u % splits;
+    kt0 = (int)((long long)part * nkt / splits);
+    kt1 = (int)((long long)(part + 1) * nkt / splits);
+  }
+  const int mb = t % nmb, nb = t / nmb;
+  const int m0 = mb * BM, n0 = nb * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int steps = kt1 - kt0;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps)
+      load_stage(ring + s * STAGE_FLOATS, A, B, M, N, K, m0, n0, (kt0 + s) * BK);
+    cp_async_commit();
+  }
+  // a stage's flags, read one step ahead
+  int fl_next = steps > 0 ? (flags_a[mb * nkt + kt0] ? 1 : 0) |
+                                (flags_b[kt0 * nnb + nb] ? 2 : 0)
+                          : 0;
+  for (int i = 0; i < steps; ++i) {
+    const int kt = kt0 + i, fl = fl_next;
+    if (i + 1 < steps)
+      fl_next = (flags_a[mb * nkt + kt + 1] ? 1 : 0) |
+                (flags_b[(kt + 1) * nnb + nb] ? 2 : 0);
+    float* st = ring + (i % STAGES) * STAGE_FLOATS;
+    float* at = a_t + (i & 1) * AT_FLOATS;
+    cp_async_wait<STAGES - 2>();  // this thread's chunks of stage i
+    if (fl)
+      repair_stage(st, fl, M, N, K, m0, n0, kt * BK, bm, bn, bk, det_a, det_b,
+                   fill_a, fill_b);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {  // its A chunks into A^T
+      const int q = threadIdx.x + p * THREADS;
+      const float4 v = *reinterpret_cast<const float4*>(st + 4 * q);
+      float* dst = at + 4 * (q & 3) * TS + (q >> 2);
+      dst[0] = v.x;
+      dst[TS] = v.y;
+      dst[2 * TS] = v.z;
+      dst[3 * TS] = v.w;
+    }
+    __syncthreads();  // A^T and B of stage i are whole; stage i - 1 is done
+    const int nxt = i + STAGES - 1;
+    if (nxt < steps)
+      load_stage(ring + (nxt % STAGES) * STAGE_FLOATS, A, B, M, N, K, m0, n0,
+                 (kt0 + nxt) * BK);
+    cp_async_commit();
+
+    const float* ar = at + 4 * ty;
+    const float* br = st + A_FLOATS + 4 * tx;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(ar + kk * TS);
+      const float4 a1 = *reinterpret_cast<const float4*>(ar + kk * TS + 64);
+      const float4 b0 = *reinterpret_cast<const float4*>(br + kk * BN);
+      const float4 b1 = *reinterpret_cast<const float4*>(br + kk * BN + 64);
+      const float ra[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float rb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(ra[r], rb[j], acc[r][j]);
+    }
+  }
+
+  if (blockIdx.x >= n_full) {  // hand the partial over; the last one sums
+    float* mine = ws + ((long long)(t - n_full) * splits + part) * (BM * BN);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mine[(i * 8 + j) * THREADS + threadIdx.x] = acc[i][j];
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      last = atomicAdd(&tile_count[t - n_full], 1) == splits - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const float* all = ws + (long long)(t - n_full) * splits * (BM * BN);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int p = 0; p < splits; ++p)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] += __ldcg(all + (long long)p * (BM * BN) +
+                              (i * 8 + j) * THREADS + threadIdx.x);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + 4 * ty + (i & 3) + 64 * (i >> 2);
+    if (r >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + 4 * tx + 64 * h;
+      if (c < N) store4(C, out_dt, (long long)r * N + c, &acc[i][4 * h]);
+    }
+  }
+}
+
+cudaError_t launch_f32(const void* a, const void* b, void* c, int out_dt,
+                       int M, int N, int K, int bm, int bn, int bk,
+                       const int* det_a, const int* det_b, repro::Fill fill_a,
+                       repro::Fill fill_b, const int* flags_a,
+                       const int* flags_b, int n_full, int splits, float* ws,
+                       int* tile_count, cudaStream_t stream) {
+  static bool smem_set = false;  // the attribute is set once
+  if (!smem_set) {
+    const cudaError_t err =
+        repro::allow_smem((const void*)repair_mm_f32, SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (splits < 1 || n_full < 0 || n_full > tiles ||
+      (n_full < tiles && (splits < 2 || !ws || !tile_count)) ||
+      n_full + (tiles - n_full) * splits >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)(n_full + (tiles - n_full) * splits);
+  repair_mm_f32<<<blocks, THREADS, SMEM_BYTES, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), c, out_dt, M,
+      N, K, bm, bn, bk, repro::detector_from(det_a),
+      repro::detector_from(det_b), fill_a, fill_b, flags_a, flags_b, n_full,
+      splits, ws, tile_count);
+  return cudaGetLastError();
+}
+
+}  // namespace f32mm
+
 template <int DA, int DB>
 cudaError_t launch(const void* a, const void* b, void* c, int out_dt, int M,
                    int N, int K, int bm, int bn, int bk, const int* det_a,
@@ -644,32 +950,86 @@ static bool wgmma_shape_ok(int dt, int out_dt, int M, int N, int K, int bm,
          (long long)M * K / 8 + (long long)K * N / 8 < (1ll << 32) - 4096;
 }
 
-// The wgmma route's scan: a (M, K) and b (K, N) row-major 16-bit (dtype
-// dt), 16-byte aligned.  Adds [nan, inf] lane counts into tiles_a
-// (ni x nk) and tiles_b (nk x nj) on the logical blocks (bm, bn, bk), and
-// sets flags_a (ceil(M/128) x ceil(K/64)) and flags_b (ceil(K/64) x
-// ceil(N/256)), all zeroed by the caller, for every physical operand tile
-// of repair_mm_wgmma that holds a fatal lane.
+// The f32 route's shapes: K and N multiples of 4 (16-byte rows) and the
+// scan's 32-bit vector index.
+static bool f32_shape_ok(int dt, int out_dt, int M, int N, int K, int bm,
+                         int bn, int bk) {
+  return dt == repro::DT_F32 && out_dt >= 0 && out_dt <= 2 && M > 0 &&
+         N > 0 && K > 0 && K % 4 == 0 && N % 4 == 0 && bm >= 1 && bn >= 1 &&
+         bk >= 1 && M % bm == 0 && N % bn == 0 && K % bk == 0 &&
+         (long long)M * K / 4 + (long long)K * N / 4 < (1ll << 32) - 4096;
+}
+
+// The scan of either route: a (M, K) and b (K, N) row-major in dtype dt,
+// 16-byte aligned; bf16/f16 (dt 1, 2) for the wgmma route, f32 (0) for the
+// f32 route.  Adds [nan, inf] lane counts into tiles_a (ni x nk) and
+// tiles_b (nk x nj) on the logical blocks (bm, bn, bk), and sets flags_a
+// and flags_b, all zeroed by the caller, for every physical operand tile of
+// the route's main kernel that holds a fatal lane: A (128 x 64) and B
+// (64 x 256) tiles of repair_mm_wgmma, or A (128 x 16) and B (16 x 128)
+// tiles of repair_mm_f32.
 extern "C" int repro_repair_mm_scan(const void* a, const void* b, int dt,
                                     int M, int N, int K, int bm, int bn,
                                     int bk, const int* det_a,
                                     const int* det_b, int* tiles_a,
                                     int* tiles_b, int* flags_a, int* flags_b,
                                     void* stream) {
-  if (!wgmma_shape_ok(dt, 0, M, N, K, bm, bn, bk))
+  const bool f32 = dt == repro::DT_F32;
+  if (f32 ? !f32_shape_ok(dt, 0, M, N, K, bm, bn, bk)
+          : !wgmma_shape_ok(dt, 0, M, N, K, bm, bn, bk))
     return (int)cudaErrorInvalidValue;
   const Detector da = repro::detector_from(det_a),
                  db = repro::detector_from(det_b);
+  const int lanes = f32 ? 4 : 8;  // a 16-byte vector's
+  const int tm = f32 ? f32mm::BM : wg::BM, tn = f32 ? f32mm::BN : wg::BN,
+            tk = f32 ? f32mm::BK : wg::BK;
   const wg::ScanOperand sa{static_cast<const uint4*>(a),
-                           (unsigned)((long long)M * K / 8), K, bm, bk, wg::BM,
-                           wg::BK, da, hopper::fatal_floor(da), tiles_a, flags_a};
+                           (unsigned)((long long)M * K / lanes), K, bm, bk, tm,
+                           tk, da, hopper::fatal_floor(da), tiles_a, flags_a};
   const wg::ScanOperand sb{static_cast<const uint4*>(b),
-                           (unsigned)((long long)K * N / 8), N, bk, bn, wg::BK,
-                           wg::BN, db, hopper::fatal_floor(db), tiles_b, flags_b};
+                           (unsigned)((long long)K * N / lanes), N, bk, bn, tk,
+                           tn, db, hopper::fatal_floor(db), tiles_b, flags_b};
   const unsigned per_block = wg::SCAN_THREADS * wg::SCAN_VECS;
-  const unsigned total = sa.vecs + sb.vecs;
-  wg::repair_mm_scan<<<(total + per_block - 1) / per_block, wg::SCAN_THREADS,
-                       0, static_cast<cudaStream_t>(stream)>>>(sa, sb);
+  const unsigned blocks = (sa.vecs + sb.vecs + per_block - 1) / per_block;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    wg::repair_mm_scan<4><<<blocks, wg::SCAN_THREADS, 0, s>>>(sa, sb);
+  else
+    wg::repair_mm_scan<2><<<blocks, wg::SCAN_THREADS, 0, s>>>(sa, sb);
+  return (int)cudaGetLastError();
+}
+
+// The f32 route: repro_repair_mm_scan (dt 0), repair_mm_f32 and the
+// counts.  Arguments as in repro_repair_mm_wgmma, with a and b f32 (dt 0),
+// K and N multiples of 4, 16-byte aligned; then the grid's plan
+// (kernels/repair_matmul.py::f32_plan): n_full tiles over all of K, the
+// rest split `splits` ways, with ws (f32, 128 * 128 per split of a split
+// tile) and tile_count (int32 per split tile, zeroed by the caller).
+extern "C" int repro_repair_mm_f32(const void* a, const void* b, void* c,
+                                   int dt, int out_dt, int M, int N, int K,
+                                   int bm, int bn, int bk, const int* det_a,
+                                   const int* det_b, unsigned int fill_a_bits,
+                                   unsigned int fill_b_bits,
+                                   const unsigned int* fills_a,
+                                   const unsigned int* fills_b, int* tiles_a,
+                                   int* tiles_b, int* flags_a, int* flags_b,
+                                   int* counts, int n_full, int splits,
+                                   float* ws, int* tile_count, void* stream) {
+  const repro::Fill fill_a{fills_a, fill_a_bits}, fill_b{fills_b, fill_b_bits};
+  if (!f32_shape_ok(dt, out_dt, M, N, K, bm, bn, bk))
+    return (int)cudaErrorInvalidValue;
+  const int scan =
+      repro_repair_mm_scan(a, b, dt, M, N, K, bm, bn, bk, det_a, det_b,
+                           tiles_a, tiles_b, flags_a, flags_b, stream);
+  if (scan != 0) return scan;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      f32mm::launch_f32(a, b, c, out_dt, M, N, K, bm, bn, bk, det_a, det_b,
+                        fill_a, fill_b, flags_a, flags_b, n_full, splits, ws,
+                        tile_count, s);
+  if (err != cudaSuccess) return (int)err;
+  repair_mm_counts<<<1, 256, 0, s>>>(tiles_a, tiles_b, M / bm, N / bn, K / bk,
+                                     counts);
   return (int)cudaGetLastError();
 }
 

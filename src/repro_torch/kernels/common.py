@@ -33,10 +33,14 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # launches per kernel wrapper: bumped only where a CUDA kernel is launched
 LAUNCHES: collections.Counter = collections.Counter()
+# the same per (wrapper, route) of the wrappers with routes, e.g.
+# ("repair_matmul", "f32")
+ROUTE_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    ROUTE_LAUNCHES.clear()
 
 
 def kernel_fill(fill) -> Optional[Tuple[str, float]]:

@@ -24,6 +24,16 @@ view, from a table per operand that ``kernels.tile_fill`` writes first.
 Routes on the card (:func:`route`, a pure function of the operands'
 dtypes, shapes and data pointers, decided before any launch):
 
+  ``"f32"``    q, k and v all f32, contiguous, head dim 64 or 128,
+               non-empty, each data pointer 16-byte aligned, fewer than
+               2³¹ lanes in each.  The same scan as the wgmma route, on four
+               f32 lanes a vector, flags the main kernel's ``F32_TILE``
+               K/V tiles; the main kernel (one block per 64-row q tile, two
+               warp groups splitting its 64-key tiles, scores, softmax and
+               output in registers, FFMA on the FP32 pipe: exact f32, never
+               TF32, the weights kept in f32) repairs only the flagged
+               tiles, in shared memory.  Its online softmax groups keys as
+               :func:`flash_attention_f32_plain` does.
   ``"wgmma"``  q, k and v all bf16 or all f16, contiguous, head dim 64 or
                128, non-empty, each data pointer 16-byte aligned, fewer
                than 2³¹ lanes in q and in k (the kernels' int offsets).  A
@@ -34,11 +44,12 @@ dtypes, shapes and data pointers, decided before any launch):
                the tensor cores, online softmax in registers) repairs only
                the flagged tiles, in shared memory.  It rounds the softmax
                weights to the operand dtype before the value product.
-  ``"ffma"``   everything else: f32 (exact f32, never TF32), unaligned or
+  ``"ffma"``   everything else: mixed dtypes, views off 16-byte alignment,
                empty operands.  Each tile is repaired as it is loaded and
-               multiplied on the FP32 pipe, the weights kept in f32.
+               multiplied on the FP32 pipe (exact f32), the weights kept in
+               f32.
 
-A failure on either route raises; neither falls back to the other.
+A failure on any route raises; none falls back to another.
 """
 from __future__ import annotations
 
@@ -64,18 +75,25 @@ KERNEL_HEAD_DIMS = (64, 128)
 # flags
 WGMMA_TILE = (128, 128)
 _WGMMA_DTYPES = (torch.bfloat16, torch.float16)
-_WGMMA_MAX_LANES = 1 << 31     # csrc: repro_flash_attention_wgmma
+_MAX_LANES = 1 << 31     # csrc: repro_flash_attention_wgmma / _f32
+# (BQ, BKV) of the f32 route's main kernel (namespace ff), which the scan
+# flags
+F32_TILE = (64, 64)
+TILES = {"wgmma": WGMMA_TILE, "f32": F32_TILE}
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """``"wgmma"`` or ``"ffma"``: which CUDA kernels take the call (the
-    rule in the module docstring)."""
+    """``"f32"``, ``"wgmma"`` or ``"ffma"``: which CUDA kernels take the
+    call (the rule in the module docstring)."""
     ops = (q, k, v)
-    if (q.dtype == k.dtype == v.dtype and q.dtype in _WGMMA_DTYPES
+    if (q.dtype == k.dtype == v.dtype
             and q.dim() == 4 and q.shape[-1] in KERNEL_HEAD_DIMS
-            and all(0 < t.numel() < _WGMMA_MAX_LANES for t in ops)
+            and all(0 < t.numel() < _MAX_LANES for t in ops)
             and all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops)):
-        return "wgmma"
+        if q.dtype == torch.float32:
+            return "f32"
+        if q.dtype in _WGMMA_DTYPES:
+            return "wgmma"
     return "ffma"
 
 
@@ -140,13 +158,15 @@ def _at_counts(tiles: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     ]).to(torch.int32)
 
 
-def _scan_rows(S: int, T: int, bk: int, causal: bool) -> Tuple[int, int]:
-    """(rows counted, rows read) per (b, kh) by the wgmma route's scan: the
-    logical live prefix, and beyond it every row that some ``WGMMA_TILE``
-    q tile of the main kernel loads (csrc: live_tiles, scan_rows)."""
+def _scan_rows(S: int, T: int, bk: int, causal: bool,
+               tile=WGMMA_TILE) -> Tuple[int, int]:
+    """(rows counted, rows read) per (b, kh) by the scan of a route whose
+    main kernel runs ``tile`` (BQ, BKV): the logical live prefix, and
+    beyond it every row that some BQ-row q tile of the main kernel loads
+    (csrc: live_tiles, scan_rows)."""
     nk = T // bk
     live = (min(nk, -(-S // bk)) if causal else nk) * bk
-    tq = WGMMA_TILE[0]
+    tq = tile[0]
     loaded = min(T, -(-S // tq) * tq) if causal else T
     return live, max(live, loaded)
 
@@ -160,24 +180,26 @@ def scan_plain(
     include_inf: bool = True,
     blocks: Optional[Tuple[int, int]] = None,
     detector=None,
+    tile: Tuple[int, int] = WGMMA_TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the wgmma route's scan kernel for k, v
-    (B, Kh, T, D) and S query rows: ``(tiles, flags)``, int32.  ``tiles``
-    (B, Kh, T/bk, 4) are the [NaN K, Inf K, NaN V, Inf V] lanes of each
-    logical tile of the live prefix (0 past it), the input of the closed
-    forms; ``flags`` (B, Kh, ceil(T/BKV), 2) mark the [K, V] tiles of
-    ``WGMMA_TILE`` rows that hold a fatal lane in a row the scan reads."""
+    """The plain version of the scan kernel of the wgmma and f32 routes
+    for k, v (B, Kh, T, D) and S query rows: ``(tiles, flags)``, int32.
+    ``tiles`` (B, Kh, T/bk, 4) are the [NaN K, Inf K, NaN V, Inf V] lanes
+    of each logical tile of the live prefix (0 past it), the input of the
+    closed forms; ``flags`` (B, Kh, ceil(T/BKV), 2) mark the [K, V] tiles
+    of the main kernel's ``tile`` (BQ, BKV) that hold a fatal lane in a row
+    the scan reads: ``WGMMA_TILE`` for bf16/f16, ``F32_TILE`` for f32."""
     B, Kh, T, D = k.shape
     (_, bk), consts_k, consts_v = _blocks_and_consts(
         S, T, k.dtype, v.dtype, include_inf, blocks, detector)
-    live, rows = _scan_rows(S, T, bk, causal)
+    live, rows = _scan_rows(S, T, bk, causal, tile)
     nan_k, inf_k = common.fatal_masks(k, consts_k)
     nan_v, inf_v = common.fatal_masks(v, consts_v)
     pos = torch.arange(T, device=k.device)[:, None]
     lanes = torch.stack([nan_k, inf_k, nan_v, inf_v], dim=-1) & (pos < live)[..., None]
     tiles = lanes.reshape(B, Kh, T // bk, bk * D, 4).sum(dim=3)
     fatal = torch.stack([(nan_k | inf_k).any(-1), (nan_v | inf_v).any(-1)], dim=-1)
-    tk = WGMMA_TILE[1]
+    tk = tile[1]
     fatal = torch.nn.functional.pad((fatal & (pos < rows)).to(torch.int32),
                                     (0, 0, 0, -T % tk))
     return tiles.to(torch.int32), fatal.reshape(B, Kh, -1, tk, 2).amax(dim=3)
@@ -218,6 +240,70 @@ def flash_attention_plain(
     return out.to(q.dtype), counts
 
 
+def flash_attention_f32_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    policy: str = "zero",
+    constant: float = 0.0,
+    include_inf: bool = True,
+    blocks: Optional[Tuple[int, int]] = None,
+    detector=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of the f32 route's key partition (any device, f32
+    arithmetic): per ``F32_TILE`` q tile, its K/V tiles of 64 keys up to
+    the causal edge split into two partitions (tiles 0, 2, ... and 1, 3,
+    ...), each an online softmax in the log2 domain over its tiles in order
+    (masked scores at -1e30), merged at the end; out = acc / max(l, 1e-30)
+    in q's dtype.  Counts as :func:`flash_attention_plain`."""
+    (bq, bk), consts_k, consts_v = _spec(q, k, v, include_inf, blocks, detector)
+    B, H, S, D = q.shape
+    Kh, T = k.shape[1], k.shape[2]
+    G = H // Kh
+    fk, nan_k, inf_k = common.repair_tile(k, consts_k, policy, constant, (bk, D))
+    fv, nan_v, inf_v = common.repair_tile(v, consts_v, policy, constant, (bk, D))
+    lanes = torch.stack([nan_k, inf_k, nan_v, inf_v], dim=-1)
+    tiles = lanes.reshape(B, Kh, T // bk, bk * D, 4).sum(dim=3)
+    counts = _at_counts(tiles, G * _live_visits(S, T, bq, bk, causal))
+    kx = fk.float().repeat_interleave(G, dim=1)
+    vx = fv.float().repeat_interleave(G, dim=1)
+    scale_log2 = torch.tensor((1.0 / math.sqrt(D)) * math.log2(math.e),
+                              dtype=torch.float32)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32)
+    tq, tkv = F32_TILE
+    out = torch.empty((B, H, S, D), dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, tq):
+        qt = q.float()[:, :, q0:q0 + tq]
+        rows = torch.arange(q0, q0 + qt.shape[2], device=q.device)[:, None]
+        n_kv = -(-(min(T, q0 + tq) if causal else T) // tkv)
+        parts = []
+        for g in (0, 1):
+            m = torch.full(qt.shape[:3], NEG_INF, device=q.device)
+            l = torch.zeros(qt.shape[:3], device=q.device)
+            o = torch.zeros(qt.shape, device=q.device)
+            for j in range(g, n_kv, 2):
+                k0 = j * tkv
+                s = torch.matmul(qt, kx[:, :, k0:k0 + tkv].transpose(-1, -2))
+                if causal:
+                    keys = torch.arange(k0, k0 + s.shape[-1], device=q.device)
+                    s = torch.where(keys[None, :] <= rows, s, neg)
+                m_new = torch.maximum(m, s.amax(dim=-1) * scale_log2)
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s * scale_log2 - m_new[..., None])
+                l = l * alpha + p.sum(dim=-1)
+                o = o * alpha[..., None] + torch.matmul(p, vx[:, :, k0:k0 + tkv])
+                m = m_new
+            parts.append((m, l, o))
+        (m0, l0, o0), (m1, l1, o1) = parts
+        mm = torch.maximum(m0, m1)
+        a0, a1 = torch.exp2(m0 - mm), torch.exp2(m1 - mm)
+        den = torch.clamp(l0 * a0 + l1 * a1, min=1e-30)
+        out[:, :, q0:q0 + tq] = (o0 * a0[..., None] + o1 * a1[..., None]) / den[..., None]
+    return out.to(q.dtype), counts
+
+
 _SIGNATURE = [
     _native.P, _native.P, _native.P, _native.P, _native.I, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
@@ -233,25 +319,27 @@ _SCAN_SIGNATURE = [
 ]
 
 
-def _scratch_sizes(B: int, Kh: int, T: int, bk: int):
-    """int32 lengths of (counts, tiles, flags)."""
-    return [8, 4 * B * Kh * (T // bk), 2 * B * Kh * -(-T // WGMMA_TILE[1])]
+def _scratch_sizes(B: int, Kh: int, T: int, bk: int, tile=WGMMA_TILE):
+    """int32 lengths of (counts, tiles, flags), the flags on the main
+    kernel's ``tile``."""
+    return [8, 4 * B * Kh * (T // bk), 2 * B * Kh * -(-T // tile[1])]
 
 
-def _scratch(B, Kh, T, bk, dev):
+def _scratch(B, Kh, T, bk, dev, tile=WGMMA_TILE):
     """One int32 buffer and the data pointers of its parts (counts, tiles,
     flags), which the native calls zero or write in full on the stream; the
-    flags are tiny and there on either route."""
-    sizes = _scratch_sizes(B, Kh, T, bk)
+    flags are tiny and there on every route."""
+    sizes = _scratch_sizes(B, Kh, T, bk, tile)
     buf = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
     base = buf.data_ptr()
     return buf, [base + 4 * o for o in itertools.accumulate([0] + sizes[:-1])]
 
 
 def _scan_kernel(k, v, S, causal, blocks, consts_k, consts_v, ptrs):
-    """The wgmma route's scan alone, into the parts at ``ptrs`` (from
-    :func:`_scratch`): the kernel twin of :func:`scan_plain`, which the
-    wgmma route's entry point launches itself."""
+    """The scan alone (the wgmma route's for bf16/f16, the f32 route's for
+    f32), into the parts at ``ptrs`` (from :func:`_scratch` with the
+    route's tile): the kernel twin of :func:`scan_plain`, which each
+    route's entry point launches itself."""
     B, Kh, T, D = k.shape
     err = _native.function("flash_attention", "repro_flash_scan",
                            _SCAN_SIGNATURE)(
@@ -271,7 +359,7 @@ def _kernel(q, k, v, causal, blocks, consts_k, consts_v, policy, constant):
     B, H, S, D = q.shape
     Kh, T = k.shape[1], k.shape[2]
     path = route(q, k, v)
-    if path == "ffma":           # what the wgmma route's rule already holds
+    if path == "ffma":           # what the other routes' rules already hold
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not t.is_contiguous():
                 raise ValueError(f"flash_attention kernel: {name} must be "
@@ -282,7 +370,8 @@ def _kernel(q, k, v, causal, blocks, consts_k, consts_v, policy, constant):
         if D not in KERNEL_HEAD_DIMS:
             raise ValueError(f"flash_attention kernel supports head dims "
                              f"{KERNEL_HEAD_DIMS}, got {D}")
-    buf, (counts, tiles, flags) = _scratch(B, Kh, T, blocks[1], q.device)
+    buf, (counts, tiles, flags) = _scratch(B, Kh, T, blocks[1], q.device,
+                                           TILES.get(path, WGMMA_TILE))
     out = torch.empty_like(q)
     kv_rows, kv_block = B * Kh * T, (blocks[1], D)
     fills_k = tile_fill.table_or_none(policy, k, kv_rows, D, kv_block, consts_k)
@@ -296,14 +385,16 @@ def _kernel(q, k, v, causal, blocks, consts_k, consts_v, policy, constant):
         common.table_ptr(fills_k), common.table_ptr(fills_v),
     )
     stream = common.raw_stream(q.device)
-    if path == "wgmma":          # scan, main kernel and counts
-        err = _native.function("flash_attention", "repro_flash_attention_wgmma",
+    if path in TILES:            # scan, main kernel and counts
+        err = _native.function("flash_attention",
+                               f"repro_flash_attention_{path}",
                                _WGMMA_SIGNATURE)(*head, tiles, flags, counts, stream)
     else:
         err = _native.function("flash_attention", "repro_flash_attention",
                                _SIGNATURE)(*head, tiles, counts, stream)
     _native.check(err, f"flash_attention ({path})")
     common.LAUNCHES["flash_attention"] += 1
+    common.ROUTE_LAUNCHES["flash_attention", path] += 1
     return out, buf[:8]
 
 

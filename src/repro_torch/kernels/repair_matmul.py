@@ -23,6 +23,16 @@ of the lane's logical tile, A (bm, bk) and B (bk, bn), from a table that
 Routes on the card (:func:`route`, a pure function of the operands'
 dtypes, shapes and data pointers, decided before any launch):
 
+  ``"f32"``    A and B both f32; M, N, K > 0; K % 4 == 0 and N % 4 == 0
+               (16-byte rows); both data pointers 16-byte aligned; fewer
+               than 2³⁴ lanes in A and B together (the scan's 32-bit vector
+               index).  The same scan as the wgmma route, on four f32
+               lanes a vector, flags the main kernel's ``F32_TILE``
+               operand tiles; the main kernel (a cp.async ring of k-steps
+               of 16, 8 x 8 register tiles, FFMA on the FP32 pipe: exact
+               f32, never TF32; the last wave's tiles split over k by
+               :func:`f32_plan`) repairs only the flagged tiles, in shared
+               memory.
   ``"wgmma"``  A and B both bf16 or both f16; M, N, K > 0;
                K % 8 == 0 and N % 8 == 0 (TMA's 16-byte row strides); both
                data pointers 16-byte aligned; fewer than 2³⁵ lanes in A
@@ -32,14 +42,15 @@ dtypes, shapes and data pointers, decided before any launch):
                hold one; the main kernel (persistent, TMA ring, ``wgmma``
                on the tensor cores) repairs only the flagged tiles, in
                shared memory.
-  ``"ffma"``   every other product: any f32 operand (exact f32, never
-               TF32), mixed dtypes, unaligned shapes or views.  Each tile
-               is repaired as it is loaded and multiplied on the FP32 pipe.
+  ``"ffma"``   every other product: mixed dtypes, K or N off the vector
+               width, views off 16-byte alignment.  Each tile is repaired
+               as it is loaded and multiplied on the FP32 pipe (exact f32).
 
-A failure on either route raises; neither falls back to the other.
+A failure on any route raises; none falls back to another.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Optional, Tuple
 
@@ -56,23 +67,61 @@ NAN_A, INF_A, EV_A, NAN_B, INF_B, EV_B, EV_TOTAL = range(7)
 WGMMA_TILE = (128, 256, 64)
 _WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 _WGMMA_MAX_LANES = 8 * ((1 << 32) - 4096)     # csrc: wgmma_shape_ok
+# (BM, BN, BK) of the f32 route's main kernel (csrc/repair_matmul.cu,
+# namespace f32mm), whose A (BM x BK) and B (BK x BN) tiles the scan flags
+F32_TILE = (128, 128, 16)
+_F32_MAX_LANES = 4 * ((1 << 32) - 4096)       # csrc: f32_shape_ok
+TILES = {"wgmma": WGMMA_TILE, "f32": F32_TILE}
+# repair_mm_f32's grid: blocks resident an SM (its registers and shared
+# memory allow 2), and the split of the last wave's tiles over k: at most
+# F32_MAX_SPLITS blocks a tile, each with at least F32_MIN_SPLIT_STEPS
+# k-steps
+F32_BLOCKS_PER_SM, F32_MAX_SPLITS, F32_MIN_SPLIT_STEPS = 2, 8, 8
 
 
 def route(a: torch.Tensor, b: torch.Tensor) -> str:
-    """``"wgmma"`` or ``"ffma"``: which CUDA kernels take ``a @ b`` (the
-    rule in the module docstring)."""
+    """``"f32"``, ``"wgmma"`` or ``"ffma"``: which CUDA kernels take
+    ``a @ b`` (the rule in the module docstring)."""
     (M, K), N = a.shape, b.shape[1]
-    if (a.dtype == b.dtype and a.dtype in _WGMMA_DTYPES
-            and M > 0 and N > 0 and K > 0 and K % 8 == 0 and N % 8 == 0
-            and M * K + K * N < _WGMMA_MAX_LANES
+    if not (a.dtype == b.dtype and M > 0 and N > 0 and K > 0
             and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
+        return "ffma"
+    if (a.dtype == torch.float32 and K % 4 == 0 and N % 4 == 0
+            and M * K + K * N < _F32_MAX_LANES):
+        return "f32"
+    if (a.dtype in _WGMMA_DTYPES and K % 8 == 0 and N % 8 == 0
+            and M * K + K * N < _WGMMA_MAX_LANES):
         return "wgmma"
     return "ffma"
 
 
-def _flag_shapes(M: int, N: int, K: int):
-    """Shapes of the wgmma route's A and B tile flags."""
-    tm, tn, tk = WGMMA_TILE
+def f32_plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int]:
+    """``(n_full, splits)`` of the f32 route's grid on a card of ``sms``
+    SMs: the tiles that fill whole waves of resident blocks take one block
+    each over all of K; each of the rest (the last wave's) is split over
+    ``splits`` blocks by k-steps, as many as fill that wave (within
+    F32_MAX_SPLITS and F32_MIN_SPLIT_STEPS), or not split (``splits`` 1,
+    ``n_full`` every tile).  A pure function of the shapes and the SM
+    count: the split changes only the summation order."""
+    tm, tn, tk = F32_TILE
+    tiles = -(-M // tm) * -(-N // tn)
+    tail = tiles % (F32_BLOCKS_PER_SM * sms)
+    if not tail:
+        return tiles, 1
+    splits = min(F32_BLOCKS_PER_SM * sms // tail,
+                 -(-K // tk) // F32_MIN_SPLIT_STEPS, F32_MAX_SPLITS)
+    return (tiles - tail, splits) if splits >= 2 else (tiles, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _flag_shapes(M: int, N: int, K: int, tile=WGMMA_TILE):
+    """Shapes of a scan's A and B tile flags on the main kernel's
+    ``tile`` (BM, BN, BK)."""
+    tm, tn, tk = tile
     return (-(-M // tm), -(-K // tk)), (-(-K // tk), -(-N // tn))
 
 
@@ -136,19 +185,21 @@ def scan_plain(
     include_inf: bool = True,
     blocks: Optional[Tuple[int, int, int]] = None,
     detector=None,
+    tile: Tuple[int, int, int] = WGMMA_TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain version of the wgmma route's scan kernel: ``(tiles_a,
-    tiles_b, flags_a, flags_b)``, int32.  ``tiles_a`` (ni, nk, 2) and
-    ``tiles_b`` (nk, nj, 2) are the [NaN, Inf] lanes per logical tile (the
-    input of the closed forms); ``flags_a`` (ceil(M/BM), ceil(K/BK)) and
-    ``flags_b`` (ceil(K/BK), ceil(N/BN)) mark the ``WGMMA_TILE`` operand
-    tiles that hold a fatal lane."""
+    """The plain version of the scan kernel of the wgmma and f32 routes:
+    ``(tiles_a, tiles_b, flags_a, flags_b)``, int32.  ``tiles_a`` (ni, nk,
+    2) and ``tiles_b`` (nk, nj, 2) are the [NaN, Inf] lanes per logical
+    tile (the input of the closed forms); ``flags_a`` (ceil(M/BM),
+    ceil(K/BK)) and ``flags_b`` (ceil(K/BK), ceil(N/BN)) mark the operand
+    tiles of the main kernel's ``tile`` (BM, BN, BK) that hold a fatal
+    lane: ``WGMMA_TILE`` for bf16/f16, ``F32_TILE`` for f32."""
     (bm, bn, bk), consts_a, consts_b, _ = _spec(
         a, b, include_inf, blocks, None, detector
     )
     nan_a, inf_a = common.fatal_masks(a, consts_a)
     nan_b, inf_b = common.fatal_masks(b, consts_b)
-    tm, tn, tk = WGMMA_TILE
+    tm, tn, tk = tile
     return (_tile_sums(nan_a, inf_a, bm, bk).to(torch.int32),
             _tile_sums(nan_b, inf_b, bk, bn).to(torch.int32),
             _tile_flags(nan_a | inf_a, tm, tk), _tile_flags(nan_b | inf_b, tk, tn))
@@ -203,36 +254,42 @@ _WGMMA_SIGNATURE = [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
     _native.P, _native.P,
 ]
+_F32_SIGNATURE = _WGMMA_SIGNATURE[:-1] + [
+    _native.I, _native.I, _native.P, _native.P, _native.P,
+]
 
 
-def _scratch_sizes(M, N, K, blocks):
-    """int32 lengths of (counts, tiles_a, tiles_b, flags_a, flags_b)."""
+def _scratch_sizes(M, N, K, blocks, tile=WGMMA_TILE):
+    """int32 lengths of (counts, tiles_a, tiles_b, flags_a, flags_b), the
+    flags on the main kernel's ``tile``."""
     bm, bn, bk = blocks
     ni, nj, nk = M // bm, N // bn, K // bk
-    (fa0, fa1), (fb0, fb1) = _flag_shapes(M, N, K)
+    (fa0, fa1), (fb0, fb1) = _flag_shapes(M, N, K, tile)
     return [8, 2 * ni * nk, 2 * nk * nj, fa0 * fa1, fb0 * fb1]
 
 
-def _scratch(M, N, K, blocks, dev):
+def _scratch(M, N, K, blocks, dev, tile=WGMMA_TILE, extra=0):
     """One zeroed int32 buffer and the data pointers of its parts (counts,
-    tiles_a, tiles_b, flags_a, flags_b); the flags are tiny and there on
-    either route."""
-    sizes = _scratch_sizes(M, N, K, blocks)
+    tiles_a, tiles_b, flags_a, flags_b, and ``extra`` more ints: the f32
+    route's counters of split tiles); the flags are tiny and there on every
+    route."""
+    sizes = _scratch_sizes(M, N, K, blocks, tile) + [extra]
     buf = torch.zeros(sum(sizes), dtype=torch.int32, device=dev)
     base = buf.data_ptr()
     return buf, [base + 4 * o for o in itertools.accumulate([0] + sizes[:-1])]
 
 
 def _scan_kernel(a, b, blocks, consts_a, consts_b, ptrs):
-    """The wgmma route's scan alone, into the parts at ``ptrs`` (from
-    :func:`_scratch`): the kernel twin of :func:`scan_plain`, which the
-    wgmma route's entry point launches itself."""
+    """The scan alone (the wgmma route's for bf16/f16, the f32 route's for
+    f32), into the parts at ``ptrs`` (from :func:`_scratch` with the
+    route's tile): the kernel twin of :func:`scan_plain`, which each
+    route's entry point launches itself."""
     (M, K), N = a.shape, b.shape[1]
     err = _native.function("repair_matmul", "repro_repair_mm_scan",
                            _SCAN_SIGNATURE)(
         a.data_ptr(), b.data_ptr(), common.DTYPE_CODES[a.dtype], M, N, K,
         *blocks, common.host_ints(consts_a), common.host_ints(consts_b),
-        *ptrs[1:],
+        *ptrs[1:5],
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     _native.check(err, "repair_matmul scan")
@@ -249,7 +306,18 @@ def _kernel(a, b, blocks, consts_a, consts_b, out_dtype, policy, constant):
             raise TypeError(f"repair_matmul kernel supports f32/bf16/f16, got {t}")
     (M, K), N = a.shape, b.shape[1]
     dev = a.device
-    buf, (counts, tiles_a, tiles_b, flags_a, flags_b) = _scratch(M, N, K, blocks, dev)
+    path = route(a, b)
+    n_full = splits = n_split = 0
+    if path == "f32":            # the grid's split of its last wave
+        tm, tn, _ = F32_TILE
+        n_full, splits = f32_plan(M, N, K, _sms(
+            dev.index if dev.index is not None else torch.cuda.current_device()))
+        n_split = -(-M // tm) * -(-N // tn) - n_full
+    # the split tiles' partials, alive until the launch is queued
+    ws = (torch.empty(n_split * splits * F32_TILE[0] * F32_TILE[1],
+                      dtype=torch.float32, device=dev) if n_split else None)
+    buf, (counts, tiles_a, tiles_b, flags_a, flags_b, tile_count) = _scratch(
+        M, N, K, blocks, dev, TILES.get(path, WGMMA_TILE), n_split)
     c = torch.empty((M, N), dtype=out_dtype, device=dev)
     codes = common.DTYPE_CODES
     head = (a.data_ptr(), b.data_ptr(), c.data_ptr())
@@ -261,8 +329,14 @@ def _kernel(a, b, blocks, consts_a, consts_b, out_dtype, policy, constant):
             common.fill_bits(policy, constant, b.dtype),
             common.table_ptr(fills_a), common.table_ptr(fills_b))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    path = route(a, b)
-    if path == "wgmma":          # scan, main kernel and counts
+    if path == "f32":            # scan, main kernel (on its plan) and counts
+        err = _native.function("repair_matmul", "repro_repair_mm_f32",
+                               _F32_SIGNATURE)(
+            *head, codes[a.dtype], codes[out_dtype], M, N, K, *blocks, *dets,
+            tiles_a, tiles_b, flags_a, flags_b, counts, n_full, splits,
+            None if ws is None else ws.data_ptr(), tile_count, stream,
+        )
+    elif path == "wgmma":        # scan, main kernel and counts
         err = _native.function("repair_matmul", "repro_repair_mm_wgmma",
                                _WGMMA_SIGNATURE)(
             *head, codes[a.dtype], codes[out_dtype], M, N, K, *blocks, *dets,
@@ -276,6 +350,7 @@ def _kernel(a, b, blocks, consts_a, consts_b, out_dtype, policy, constant):
         )
     _native.check(err, f"repair_matmul ({path})")
     common.LAUNCHES["repair_matmul"] += 1
+    common.ROUTE_LAUNCHES["repair_matmul", path] += 1
     return c, buf[:8]
 
 

@@ -1,5 +1,6 @@
-"""The route rule of ``flash_attention`` and the plain twin of the wgmma
-route's scan kernel, on the CPU.
+"""The route rule of ``flash_attention``, the plain twin of the scan
+kernel of its wgmma and f32 routes, and the plain twin of the f32 route's
+key partition, on the CPU.
 
 ``route`` is a pure function of the operands' dtypes, shapes and data
 pointers, so it is held here on CPU tensors.  ``scan_plain`` (what the scan
@@ -46,8 +47,16 @@ def _view(shape, dtype, off=0):
     ((2, 4, 128, 128), (2, 2, 192, 128), (BF16,) * 3, (0, 0, 0), "wgmma"),
     ((1, 4, 64, 128), (1, 4, 192, 128), (F16,) * 3, (0, 0, 0), "wgmma"),
     ((1, 12, 2048, 128), (1, 2, 2048, 128), (BF16,) * 3, (0, 0, 0), "wgmma"),
-    ((1, 4, 256, 64), (1, 2, 256, 64), (F32,) * 3, (0, 0, 0), "ffma"),
-    ((1, 12, 2048, 128), (1, 2, 2048, 128), (F32,) * 3, (0, 0, 0), "ffma"),
+    ((1, 4, 256, 64), (1, 2, 256, 64), (F32,) * 3, (0, 0, 0), "f32"),     # the quickstart
+    ((1, 12, 2048, 128), (1, 2, 2048, 128), (F32,) * 3, (0, 0, 0), "f32"),
+    ((2, 4, 128, 64), (2, 2, 192, 64), (F32,) * 3, (0, 0, 0), "f32"),
+    ((1, 4, 256, 96), (1, 2, 256, 96), (F32,) * 3, (0, 0, 0), "ffma"),    # D 96
+    ((1, 4, 256, 64), (1, 2, 256, 64), (F32,) * 3, (1, 0, 0), "ffma"),    # q 4 bytes off
+    ((1, 4, 256, 64), (1, 2, 256, 64), (F32,) * 3, (0, 2, 0), "ffma"),    # k 8 bytes off
+    ((1, 4, 256, 64), (1, 2, 256, 64), (F32,) * 3, (0, 0, 3), "ffma"),    # v 12 bytes off
+    ((1, 4, 256, 64), (1, 2, 256, 64), (F32,) * 3, (4, 4, 4), "f32"),     # 16 bytes off
+    ((1, 4, 256, 64), (1, 2, 256, 64), (F32, F32, BF16), (0, 0, 0), "ffma"),
+    ((1, 4, 0, 64), (1, 2, 256, 64), (F32,) * 3, (0, 0, 0), "ffma"),      # S = 0
     ((1, 4, 256, 64), (1, 2, 256, 64), (BF16, BF16, F16), (0, 0, 0), "ffma"),
     ((1, 4, 256, 64), (1, 2, 256, 64), (BF16, F32, F32), (0, 0, 0), "ffma"),
     ((1, 4, 256, 96), (1, 2, 256, 96), (BF16,) * 3, (0, 0, 0), "ffma"),
@@ -65,11 +74,12 @@ def test_route_rule(q_shape, kv_shape, dtypes, offs, want):
     assert ra.route(q, k, v) == want
 
 
-def test_route_rule_needs_contiguous_operands():
-    q = _view((1, 4, 256, 64), BF16)
-    k = _view((1, 2, 64, 256), BF16).transpose(2, 3)
+@pytest.mark.parametrize("dtype,want", [(BF16, "wgmma"), (F32, "f32")])
+def test_route_rule_needs_contiguous_operands(dtype, want):
+    q = _view((1, 4, 256, 64), dtype)
+    k = _view((1, 2, 64, 256), dtype).transpose(2, 3)
     assert ra.route(q, k, k) == "ffma"
-    assert ra.route(q, k.contiguous(), k.contiguous()) == "wgmma"
+    assert ra.route(q, k.contiguous(), k.contiguous()) == want
 
 
 def _planted(rng, shape, n_bad, dtype, rows=()):
@@ -141,6 +151,85 @@ def test_scan_plain_matches_numpy(case, dtype):
         assert bool(tiles[0, 0, r // bk, 0] > 0) == (r < live)
 
 
+# rows counted and read per case by the f32 route's scan, whose main kernel
+# loads keys in 64-row tiles up to its 64-row q tile's causal edge
+F32_SCAN_ROWS = {"causal S=T": (256, 256), "causal S<T": (64, 64),
+                 "ragged T": (192, 192), "ragged T non-causal": (192, 192),
+                 "live past loaded": (512, 512), "non-causal S<T": (256, 256)}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_f32_scan_plain_matches_numpy(case):
+    """The f32 route's scan on ``F32_TILE``: the same counts, flags on
+    64-row K/V tiles over the rows a 64-row q tile loads (at S = 64 < T
+    keys 100 and 200 are neither read nor counted)."""
+    (B, Kh, S, T, D), blocks, causal, rows_planted, _ = SCAN_CASES[case]
+    live, rows = F32_SCAN_ROWS[case]
+    rng = np.random.default_rng(S + T + D)
+    k = _planted(rng, (B, Kh, T, D), 12, F32, rows_planted)
+    v = _planted(rng, (B, Kh, T, D), 12, F32, rows_planted[:1])
+    bk = (blocks or ra._default_blocks(S, T))[1]
+    assert ra._scan_rows(S, T, bk, causal, ra.F32_TILE) == (live, rows)
+    tiles, flags = ra.scan_plain(k, v, S=S, causal=causal, blocks=blocks,
+                                 tile=ra.F32_TILE)
+    tk = ra.F32_TILE[1]
+    assert tuple(flags.shape) == (B, Kh, -(-T // tk), 2)
+    assert flags.numel() == ra._scratch_sizes(B, Kh, T, bk, ra.F32_TILE)[2]
+    for i, x in enumerate((k, v)):
+        (nan, inf), f = _np_scan(x, bk, live, rows, tk)
+        np.testing.assert_array_equal(tiles[..., 2 * i].numpy(), nan)
+        np.testing.assert_array_equal(tiles[..., 2 * i + 1].numpy(), inf)
+        np.testing.assert_array_equal(flags[..., i].numpy(), f)
+    for r in rows_planted:
+        assert bool(flags[0, 0, r // tk, 0]) == (r < rows)
+        assert bool(tiles[0, 0, r // bk, 0] > 0) == (r < live)
+
+
+# (B, H, Kh, S, T, D), blocks, causal: causal S = T over several q tiles,
+# S < T, non-causal with T off the 64-key tile, D 128, G 1 and 6
+F32_TWIN_CASES = {
+    "causal S=T": ((1, 4, 2, 256, 256, 64), (64, 32), True),
+    "causal S<T": ((1, 4, 2, 64, 192, 128), (32, 64), True),
+    "non-causal ragged T": ((1, 2, 1, 96, 160, 64), (32, 32), False),
+    "causal G=6 ragged S": ((2, 6, 1, 200, 200, 64), (40, 40), True),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_TWIN_CASES))
+def test_f32_partition_twin_matches_plain(case):
+    """The f32 route's key partition (two online softmaxes over alternate
+    64-key tiles, merged) gives the full softmax's output within 1e-5 and
+    the same counts, with NaN and Inf planted in K and V."""
+    (B, H, Kh, S, T, D), blocks, causal = F32_TWIN_CASES[case]
+    rng = np.random.default_rng(S * T + D)
+    q = convert.to_torch(rng.standard_normal((B, H, S, D)).astype(np.float32))
+    k = _planted(rng, (B, Kh, T, D), 6, F32, (T - 1,))
+    v = _planted(rng, (B, Kh, T, D), 6, F32)
+    kw = dict(causal=causal, blocks=blocks)
+    got = ra.flash_attention_f32_plain(q, k, v, **kw)
+    want = ra.flash_attention_plain(q, k, v, **kw)
+    assert torch.equal(got[1], want[1]) and int(got[1][ra.EV_TOTAL]) > 0
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+
+
+def test_f32_partition_twin_matches_reference():
+    """The twin against the reference's Pallas kernel in interpret mode:
+    causal over four 64-row q tiles with S < T, G = 2; output within 1e-5
+    (f32, other summation orders), counts equal."""
+    B, H, Kh, S, T, D, blocks = 1, 4, 2, 256, 320, 64, (64, 64)
+    rng = np.random.default_rng(29)
+    q = convert.to_torch(rng.standard_normal((B, H, S, D)).astype(np.float32))
+    k = _planted(rng, (B, Kh, T, D), 6, F32, (70,))
+    v = _planted(rng, (B, Kh, T, D), 6, F32, (130,))
+    out, counts = jra.flash_attention_raw(
+        *(jnp.asarray(convert.to_numpy(x)) for x in (q, k, v)),
+        causal=True, blocks=blocks, interpret=True)
+    got = ra.flash_attention_f32_plain(q, k, v, causal=True, blocks=blocks)
+    assert got[1].tolist() == np.asarray(counts).tolist()
+    torch.testing.assert_close(got[0], convert.to_torch(np.asarray(out)),
+                               rtol=1e-5, atol=1e-5)
+
+
 def _detectors(kind, dtype):
     """(reference, port) detectors of one kind."""
     if kind == "default":
@@ -170,7 +259,9 @@ def test_scan_counts_match_reference(dtype, kind):
     _, want = jra.flash_attention_raw(
         *(jnp.asarray(convert.to_numpy(x)).astype(JDT[dtype]) for x in (q, k, v)),
         causal=True, blocks=blocks, detector=jd, interpret=True)
-    tiles, flags = ra.scan_plain(k, v, S=S, causal=True, blocks=blocks, detector=td)
+    tile = ra.TILES[ra.route(q, k, v)]    # f32 on its own route's tiles
+    tiles, flags = ra.scan_plain(k, v, S=S, causal=True, blocks=blocks,
+                                 detector=td, tile=tile)
     got = ra._at_counts(tiles, (H // Kh) * ra._live_visits(S, T, *blocks, True))
     assert got.tolist() == np.asarray(want).tolist()
     assert got[ra.EV_TOTAL] > 0

@@ -217,10 +217,18 @@ def _detectors(dtype):
 F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 # logical blocks that split each shape, besides the default fit
 MM_SPLIT = {(96, 264, 320): (32, 64, 88), (96, 260, 324): (32, 108, 130),
-            (200, 1032, 328): (50, 82, 86)}
+            (200, 1032, 328): (50, 82, 86), (5, 8, 8): (5, 4, 4),
+            (96, 262, 320): (32, 64, 131)}
 # id: (M, K, N), (a, b, out dtypes), expected route, extra plants
 MM_CASES = {
-    "f32": ((96, 264, 320), (F32, F32, None), "ffma", None),
+    "f32": ((96, 264, 320), (F32, F32, None), "f32", None),
+    "f32-out-bf16": ((96, 264, 320), (F32, F32, BF16), "f32", None),
+    "f32-tiny": ((5, 8, 8), (F32, F32, None), "f32", None),
+    "f32-ring-corners": ((200, 1032, 328), (F32, F32, None), "f32", "f32-corners"),
+    "f32-all-fatal-tile": ((200, 1032, 328), (F32, F32, None), "f32", "f32-tile"),
+    "f32-zero-pattern": ((200, 1032, 328), (F32, F32, None), "f32", "zeros"),
+    "f32-odd-K": ((96, 262, 320), (F32, F32, None), "ffma", None),
+    "f32-fatal-tile-K264": ((96, 264, 320), (F32, F32, None), "f32", "f32-tile"),
     "bf16": ((96, 264, 320), (BF16, BF16, None), "wgmma", None),
     "bf16xf32": ((96, 264, 320), (BF16, F32, F32), "ffma", None),
     "f16": ((96, 264, 320), (F16, F16, None), "wgmma", None),
@@ -234,6 +242,9 @@ MM_CASES = {
 # lanes of the last, partial k stage (k >= 1024 of K = 1032)
 A_CORNERS = [(0, 0), (127, 63), (128, 64), (199, 1031), (5, 1030)]
 B_CORNERS = [(0, 0), (63, 255), (64, 256), (1031, 327), (1028, 3)]
+# the same for the f32 route's 128 x 16 A tiles and 16 x 128 B tiles
+F32_A_CORNERS = [(0, 0), (127, 15), (128, 16), (199, 1031), (5, 1030)]
+F32_B_CORNERS = [(0, 0), (15, 127), (16, 128), (1031, 327), (1028, 3)]
 
 
 def _mm_operands(dev, shape, dtypes, extra, nm_blocks=None):
@@ -253,13 +264,18 @@ def _mm_operands(dev, shape, dtypes, extra, nm_blocks=None):
         b[3, 4], a[5, 3] = float("nan"), NM_SPIKE
     a, b = _plant(a, 3), _plant(b, 4)
     vals = [float("nan"), float("inf"), float("-inf"), 3.0e4, 3.0]
-    if extra == "corners":
-        for (x, corners) in ((a, A_CORNERS), (b, B_CORNERS)):
+    if extra in ("corners", "f32-corners"):
+        f32 = extra == "f32-corners"
+        for (x, corners) in ((a, F32_A_CORNERS if f32 else A_CORNERS),
+                             (b, F32_B_CORNERS if f32 else B_CORNERS)):
             for (r, c), val in zip(corners, vals):
                 x[r, c] = val
     elif extra == "tile":         # one whole A tile and one whole B tile
         a[:128, 64:128] = float("nan")
         b[64:128, :256] = float("-inf")
+    elif extra == "f32-tile":     # the same on the f32 route's tiles
+        a[:128, 16:32] = float("nan")
+        b[16:32, :128] = float("-inf")
     elif extra == "zeros":        # the bit pattern of +0.0, which TMA pads with
         for (x, corners) in ((a, A_CORNERS), (b, B_CORNERS)):
             for r, c in corners:
@@ -281,12 +297,13 @@ def _mm_detectors(dtype, extra):
 @pytest.mark.parametrize("case", list(MM_CASES))
 @pytest.mark.parametrize("split", [False, True])
 def test_repair_matmul_kernel_matches_plain(cuda, case, split):
-    """Both routes against the plain version: ragged physical edges, the
-    wgmma ring wrapped several times with ragged M, N and a partial last k
-    stage, planted lanes at tile corners, a whole fatal tile, and a
-    detector that matches TMA's zero padding; under both detectors (one for
-    the zero-pattern case).  Memory mode leaves the operands bit-equal to
-    the plain scrub, and a second call counts nothing."""
+    """Every route against the plain version: ragged physical edges, the
+    wgmma and f32 rings wrapped several times with ragged M, N and a
+    partial last k stage, planted lanes at tile corners, a whole fatal
+    tile, and a detector that matches the zero padding of TMA and of
+    cp.async; under both detectors (one for the zero-pattern case).  Memory
+    mode leaves the operands bit-equal to the plain scrub, and a second
+    call counts nothing."""
     shape, dtypes, want_route, extra = MM_CASES[case]
     da, db, out = dtypes
     tol = TOL[out or da]
@@ -299,6 +316,7 @@ def test_repair_matmul_kernel_matches_plain(cuda, case, split):
         got = rm.repair_matmul_raw(a, b, **kw)
         want = rm.repair_matmul_plain(a, b, **kw)
         assert common.LAUNCHES == {"repair_matmul": 1}
+        assert common.ROUTE_LAUNCHES == {("repair_matmul", want_route): 1}
         assert torch.equal(got[1], want[1]) and int(got[1][rm.EV_TOTAL]) > 0
         torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol, atol=tol)
         ka, kb, pa_, pb = a.clone(), b.clone(), a.clone(), b.clone()
@@ -313,20 +331,23 @@ def test_repair_matmul_kernel_matches_plain(cuda, case, split):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [c for c, v in MM_CASES.items() if v[2] == "wgmma"])
+@pytest.mark.parametrize("case", [c for c, v in MM_CASES.items()
+                                  if v[2] in ("wgmma", "f32")])
 def test_repair_matmul_scan_matches_plain(cuda, case):
-    """The wgmma route's scan kernel: per-logical-tile lane counts and
-    per-physical-tile flags equal to its plain version's."""
-    shape, dtypes, _, extra = MM_CASES[case]
+    """The scan kernel of the wgmma and f32 routes: per-logical-tile lane
+    counts and per-physical-tile flags (on the route's own tiles) equal to
+    its plain version's."""
+    shape, dtypes, want_route, extra = MM_CASES[case]
     M, K, N = shape
+    tile = rm.TILES[want_route]
     a, b = _mm_operands(cuda, shape, dtypes, extra)
     for det, _ in _mm_detectors(dtypes[0], extra):
         for blocks in (None, MM_SPLIT[shape]):
             blk, consts_a, consts_b, _ = rm._spec(a, b, True, blocks, None, det)
-            buf, ptrs = rm._scratch(M, N, K, blk, cuda)
+            buf, ptrs = rm._scratch(M, N, K, blk, cuda, tile)
             rm._scan_kernel(a, b, blk, consts_a, consts_b, ptrs)
-            want = rm.scan_plain(a, b, blocks=blocks, detector=det)
-            got = torch.split(buf, rm._scratch_sizes(M, N, K, blk))[1:]
+            want = rm.scan_plain(a, b, blocks=blocks, detector=det, tile=tile)
+            got = torch.split(buf, rm._scratch_sizes(M, N, K, blk, tile))[1:]
             for g, w in zip(got, want):
                 assert torch.equal(g.view(w.shape), w)
             assert int(want[2].sum()) > 0 and int(want[3].sum()) > 0
@@ -334,9 +355,28 @@ def test_repair_matmul_scan_matches_plain(cuda, case):
 
 # id: (B, H, Kh, S, T, D), blocks, causal, dtype, expected route, extra plants
 FA_CASES = {
-    "f32-causal": ((2, 4, 2, 128, 128, 64), (64, 32), True, F32, "ffma", None),
-    "f32-S<T": ((1, 4, 2, 64, 192, 128), (32, 64), True, F32, "ffma", None),
-    "f32-noncausal": ((1, 4, 1, 96, 64, 64), None, False, F32, "ffma", None),
+    "f32-causal": ((2, 4, 2, 128, 128, 64), (64, 32), True, F32, "f32", None),
+    "f32-S<T": ((1, 4, 2, 64, 192, 128), (32, 64), True, F32, "f32", None),
+    "f32-noncausal": ((1, 4, 1, 96, 64, 64), None, False, F32, "f32", None),
+    # five q tiles, G = 6, the last K/V tile ragged; NaN past T in the next
+    # head's first rows
+    "f32-causal-D128-G6-long": ((1, 12, 2, 300, 300, 128), (60, 60), True, F32,
+                                "f32", "next-head"),
+    "f32-noncausal-G6-ragged-T": ((1, 6, 1, 96, 160, 64), (32, 32), False, F32,
+                                  "f32", None),
+    # S = 100: the second 64-row q tile loads keys 64..127; keys 112..127
+    # are masked for every row and past the live prefix (bk 16), and a NaN
+    # in V there would still poison P . V
+    "f32-masked-key": ((1, 4, 2, 100, 384, 128), (50, 16), True, F32, "f32",
+                       "f32-masked"),
+    "f32-all-fatal-tile": ((1, 4, 2, 256, 256, 128), (64, 64), True, F32,
+                           "f32", "tile"),
+    "f32-zero-pattern-D64": ((1, 4, 2, 192, 192, 64), (64, 64), True, F32,
+                             "f32", "zeros"),
+    "f32-clean": ((1, 4, 2, 256, 256, 128), None, True, F32, "f32", "clean"),
+    # one f32 lane (4 bytes) off 16-byte alignment: the FFMA route
+    "f32-unaligned": ((1, 4, 2, 64, 192, 128), (32, 64), True, F32, "ffma",
+                      "offset-2B"),
     "bf16-causal": ((2, 4, 2, 128, 128, 64), (64, 32), True, BF16, "wgmma", None),
     "bf16-S<T": ((1, 4, 2, 64, 192, 128), (32, 64), True, BF16, "wgmma", None),
     "bf16-noncausal": ((1, 4, 1, 96, 64, 64), None, False, BF16, "wgmma", None),
@@ -416,6 +456,10 @@ def _fa_operands(dev, case, nm=False):
         k[0, 0, 100, 5] = nan
         v[0, 0, 100, 3] = nan
         k[0, 1, 5, 9] = float("inf")   # and one lane the live prefix counts
+    elif extra == "f32-masked":
+        k[0, 0, 120, 5] = nan
+        v[0, 0, 120, 3] = nan
+        k[0, 1, 5, 9] = float("inf")
     elif extra == "tile":         # one whole K tile and one whole V tile
         k[0, 0, 128:256] = nan
         v[0, 1, :128] = float("-inf")
@@ -440,13 +484,14 @@ def _fa_detectors(dtype, extra):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(FA_CASES))
 def test_flash_attention_kernel_matches_plain(cuda, case):
-    """Both routes against the plain version: causal S = T, S < T and
+    """Every route against the plain version: causal S = T, S < T and
     non-causal, a ragged last K/V tile with NaN in the next head's rows, a
     fatal V lane in a loaded but masked key, whole fatal tiles, a detector
-    that matches TMA's zero padding (fill 0.5), clean operands, and 16-bit
-    views off 16-byte alignment (FFMA); under both detectors (one for the
-    zero-pattern case).  Memory mode, on copies at the same offsets, leaves
-    K and V clean: a second call counts nothing."""
+    that matches the zero padding of TMA and of cp.async (fill 0.5), clean
+    operands, and views off 16-byte alignment (FFMA); under both detectors
+    (one for the zero-pattern case).  The f32 route also against the plain
+    twin of its key partition.  Memory mode, on copies at the same offsets,
+    leaves K and V clean: a second call counts nothing."""
     (B, H, Kh, S, T, D), blocks, causal, dtype, want_route, extra = FA_CASES[case]
     tol = TOL[dtype]
     q, k, v = _fa_operands(cuda, FA_CASES[case])
@@ -457,9 +502,13 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
         got = ra.flash_attention_raw(q, k, v, **kw)
         want = ra.flash_attention_plain(q, k, v, **kw)
         assert common.LAUNCHES == {"flash_attention": 1}
+        assert common.ROUTE_LAUNCHES == {("flash_attention", want_route): 1}
         assert torch.equal(got[1], want[1])
         assert (int(got[1][ra.EV_TOTAL]) > 0) == (extra != "clean")
         torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol, atol=tol)
+        if want_route == "f32":
+            twin = ra.flash_attention_f32_plain(q, k, v, **kw)
+            torch.testing.assert_close(got[0], twin[0], rtol=tol, atol=tol)
         kk, vv = (_at_offset(t, t.storage_offset()) for t in (k, v))
         assert ra.route(q, kk, vv) == want_route
         ops.flash_attention(q, kk, vv, mode="memory", **kw)
@@ -469,19 +518,23 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [c for c, v in FA_CASES.items() if v[4] == "wgmma"])
+@pytest.mark.parametrize("case", [c for c, v in FA_CASES.items()
+                                  if v[4] in ("wgmma", "f32")])
 def test_flash_attention_scan_matches_plain(cuda, case):
-    """The wgmma route's scan kernel: per-logical-tile lane counts and
-    per-physical-tile K/V flags equal to its plain version's."""
-    (B, H, Kh, S, T, D), blocks, causal, dtype, _, extra = FA_CASES[case]
+    """The scan kernel of the wgmma and f32 routes: per-logical-tile lane
+    counts and per-physical-tile K/V flags (on the route's own tiles) equal
+    to its plain version's."""
+    (B, H, Kh, S, T, D), blocks, causal, dtype, want_route, extra = FA_CASES[case]
+    tile = ra.TILES[want_route]
     q, k, v = _fa_operands(cuda, FA_CASES[case])
     for det, _ in _fa_detectors(dtype, extra):
         for blk in {blocks, None}:
             spec, consts_k, consts_v = ra._spec(q, k, v, True, blk, det)
-            buf, ptrs = ra._scratch(B, Kh, T, spec[1], cuda)
+            buf, ptrs = ra._scratch(B, Kh, T, spec[1], cuda, tile)
             ra._scan_kernel(k, v, S, causal, spec, consts_k, consts_v, ptrs)
-            want = ra.scan_plain(k, v, S=S, causal=causal, blocks=blk, detector=det)
-            got = torch.split(buf, ra._scratch_sizes(B, Kh, T, spec[1]))[1:]
+            want = ra.scan_plain(k, v, S=S, causal=causal, blocks=blk,
+                                 detector=det, tile=tile)
+            got = torch.split(buf, ra._scratch_sizes(B, Kh, T, spec[1], tile))[1:]
             for g, w in zip(got, want):
                 assert torch.equal(g.view(w.shape), w)
             assert (int(want[1].sum()) > 0) == (extra != "clean")
@@ -1240,7 +1293,8 @@ def test_scrub_kernel_neighbor_mean_matches_plain(cuda, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["f32", "bf16", "bf16xf32", "f16",
-                                  "bf16-unaligned", "all-fatal-tile"])
+                                  "bf16-unaligned", "all-fatal-tile",
+                                  "f32-fatal-tile-K264", "f32-odd-K"])
 @pytest.mark.parametrize("split", [False, True])
 def test_repair_matmul_neighbor_mean_matches_plain(cuda, case, split):
     """Both routes with the fill table of each operand: the split blocks'
@@ -1276,9 +1330,40 @@ def test_repair_matmul_neighbor_mean_matches_plain(cuda, case, split):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])
+def test_repair_matmul_f32_route_error_bound(cuda, split):
+    """The f32 route at K = 1032 with whole fatal tiles and the
+    neighbor_mean tables, where the tile offsets make sums cancel: against
+    the product of the plain version's repaired operands in f64, every
+    output within the worst-case bound of an f32 sum of K products in any
+    order, K * 2^-24 * (|A| @ |B|); the zero fill, a wrong fill, must break
+    that bound.  Counts equal to the plain version's."""
+    shape = (200, 1032, 328)
+    M, K, N = shape
+    blocks = MM_SPLIT[shape] if split else None
+    bm, bn, bk = blocks or rm._default_blocks(M, N, K)
+    a, b = _mm_operands(cuda, shape, (F32, F32, None), "f32-tile",
+                        nm_blocks=(bm, bn, bk))
+    assert rm.route(a, b) == "f32"
+    for det in _detectors(F32):
+        kw = dict(blocks=blocks, detector=det, **NM)
+        got = rm.repair_matmul_raw(a, b, **kw)
+        assert torch.equal(got[1], rm.repair_matmul_plain(a, b, **kw)[1])
+        consts = [common.cached_operand(common.resolve_detector(det, True), F32)] * 2
+        fa, fb = (common.repair_tile(x, c, "neighbor_mean", 0.0, blk)[0].double()
+                  for x, c, blk in ((a, consts[0], (bm, bk)), (b, consts[1], (bk, bn))))
+        exact = fa @ fb
+        bound = K * 2.0 ** -24 * (fa.abs() @ fb.abs())
+        assert bool(((got[0].double() - exact).abs() <= bound).all())
+        zero = rm.repair_matmul_raw(a, b, **{**kw, "policy": "zero"})[0]
+        assert not bool(((zero.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["f32-causal", "f32-S<T", "bf16-causal",
                                   "f16-causal-D64-long", "bf16-ragged-T",
-                                  "bf16-all-fatal-tile", "bf16-unaligned"])
+                                  "bf16-all-fatal-tile", "bf16-unaligned",
+                                  "f32-causal-D128-G6-long", "f32-unaligned"])
 def test_flash_attention_neighbor_mean_matches_plain(cuda, case):
     """Both routes with the K and V tables ((bk, D) tiles of the
     (B*Kh*T, D) view, which the wgmma route's 128-row tiles do not share):
