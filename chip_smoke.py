@@ -360,6 +360,18 @@ def device_profile(fn, table: str = "", counts: dict | None = None,
         fn()
         torch.cuda.synchronize()
         time.sleep(pad)
+    # device events summed by name straight from the trace: the sums of
+    # ``key_averages()`` without building its event tree (15–21 s for the
+    # ~95 k kernels of one engine run)
+    per = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.duration_ns() / 1e6
+        if ms:
+            per[evt.name()] = per.get(evt.name(), 0.0) + ms
+            if counts is not None:
+                counts[evt.name()] = counts.get(evt.name(), 0) + 1
     if table:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -368,17 +380,6 @@ def device_profile(fn, table: str = "", counts: dict | None = None,
             avg.table(sort_by="self_cpu_time_total", row_limit=40) + "\n"
             + avg.table(sort_by="self_device_time_total", row_limit=40)
         )
-    per = {}
-    for evt in prof.key_averages():
-        if evt.self_cpu_time_total:      # a host op; its kernels appear on their own
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us:
-            per[evt.key] = per.get(evt.key, 0.0) + us / 1e3
-            if counts is not None:
-                counts[evt.key] = counts.get(evt.key, 0) + evt.count
     return per
 
 
@@ -2990,10 +2991,11 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
     return {k: {f: v for f, v in r.items() if f != "names"} for k, r in rows.items()}
 
 
-def _serve_dense(arch: str, decode_route: str) -> dict:
+def _serve_dense(arch: str, decode_route: str, then=None) -> dict:
     """``arch`` at full width in bf16 (seed 0) through ``Engine.step``: the
     engine cell's six requests, 16 new tokens each, faults planted after
-    step 3 (``drive``); then a warm run and one profiled pass.  Returns
+    step 3 (``drive``); then a warm run and one profiled pass.  With
+    ``then``, ``then(model, row)`` runs before the model is freed.  Returns
     the timing row; the model is freed."""
     import gc
 
@@ -3005,12 +3007,14 @@ def _serve_dense(arch: str, decode_route: str) -> dict:
     from repro_torch.serving import Engine
 
     cfg = get_config(arch)
+    label = "moe" if cfg.n_experts else "dense"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t_phase = t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    weight_gb = sum(p.nbytes for p in model.param_tree().values()) / 1e9
     prompts = requests(cfg.vocab)
     common.reset_launches()
     t0 = time.perf_counter()
@@ -3040,12 +3044,14 @@ def _serve_dense(arch: str, decode_route: str) -> dict:
                   if r not in (decode_route, "wgmma"))
     # a pass whose window dropped the route's kernels is taken again with
     # twice the pad (as ``kernel_breakdown`` does), up to five times
-    for i in range(5):
+    t0 = time.perf_counter()
+    for tries in range(1, 6):
         per = device_profile(lambda: drive(
             Engine(model, serving_config(), device="cuda"), prompts),
-            pad=PROFILE_PAD_S * 2 ** i)
+            pad=PROFILE_PAD_S * 2 ** (tries - 1))
         if all(any(w in k for k in per) for w in want):
             break
+    profile_s = time.perf_counter() - t0
     if (not all(any(w in k for k in per) for w in want)
             or any(a in k for a in avoid for k in per)):
         raise AssertionError(f"{arch}: the profile shows not all of {want} or "
@@ -3055,11 +3061,14 @@ def _serve_dense(arch: str, decode_route: str) -> dict:
     row = dict(
         arch=arch, layers=cfg.n_layers, dtype=cfg.dtype_name,
         params=sum(p.numel() for p in model.parameters()), init_s=init_s,
+        weight_gb=weight_gb,
         decode_route=decode_route, prefill_route="wgmma",
         tokens=wm["tokens_emitted"], steps=wm["steps"],
         ms_per_step=1e3 * warm_wall / wm["steps"],
         tokens_per_s=wm["tokens_emitted"] / warm_wall,
         first_run_ms_per_step=1e3 * cold_wall / steps,
+        cold_s=cold_wall, warm_s=warm_wall, profile_s=profile_s,
+        profile_tries=tries,
         launches_per_step={k: v / steps for k, v in sorted(launches.items())},
         device_ms_per_step={k: v / wm["steps"] for k, v in groups.items()},
         repair_ms_per_step={k: v / wm["steps"] for k, v in by_kernel.items() if v},
@@ -3069,26 +3078,47 @@ def _serve_dense(arch: str, decode_route: str) -> dict:
         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
         stats=cold.stats_dict(), kernel_counts=cold.kernel_counts.tolist(),
     )
-    log(f"dense serve ok {arch}: {len(results)} requests x 16 tokens at full width, "
+    log(f"{label} serve ok {arch}: {len(results)} requests x 16 tokens at full width, "
         f"planted faults charged and repaired, paged_decode/paged_prefill/scrub "
-        f"launched {[launches[k] for k in ('paged_decode', 'paged_prefill', 'scrub')]}, "
-        f"decode {decode_route}, prefill wgmma")
-    log(f"timing dense {arch}: {json.dumps(row)} ({gpu_line()}; "
+        f"launched {[launches[k] for k in ('paged_decode', 'paged_prefill', 'scrub')]} "
+        f"in {steps} steps, decode {decode_route}, prefill wgmma")
+    log(f"timing {label} {arch}: {json.dumps(row)} ({gpu_line()}; "
         f"{time.perf_counter() - t_phase:.1f} s)")
-    del cold, warm, model
+    del cold, warm
+    if then is not None:
+        then(model, row)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return row
+
+
+def _route_recorder(model, routes: list, gaps: list):
+    """Forward hooks on every MoE router of ``model``: each call appends
+    its layer's top-k expert ids (``nn.moe.top_k``) to ``routes`` and the
+    smallest gap between the k-th and the (k+1)-th logit to ``gaps``."""
+    from repro_torch.nn import moe
+
+    def hook(layer, k):
+        def record(_mod, _inp, logits):
+            vals, idx = moe.top_k(logits, k + 1)
+            routes.append((layer, idx[..., :k].tolist()))
+            gaps.append(float((vals[..., k - 1] - vals[..., k]).min()))
+        return record
+
+    return [blk.mlp.router.register_forward_hook(hook(i, blk.mlp.k))
+            for i, blk in enumerate(model.layers)]
 
 
 def _dense_parity(arch: str) -> None:
     """``arch`` at full width with 2 layers in f32 (TF32 off), its biases
     and norm parameters drawn nonzero, on the card (kernels) and on the CPU
     (plain versions): the engine on its paged lanes (StableLM-1.6B's f32
-    pool takes the heads decode and the FFMA prefill, StarCoder2-15B's the
-    fused decode and the FFMA prefill), 8 new tokens a request, the same
-    plants; tokens, page events, stats, kernel counts and host syncs equal,
-    and no gather."""
+    pool takes the heads decode and the FFMA prefill, StarCoder2-15B's and
+    Qwen3-MoE's the fused decode and the FFMA prefill), 8 new tokens a
+    request, the same plants; tokens, page events, stats, kernel counts and
+    host syncs equal, and no gather; an MoE model's per-layer expert ids
+    equal too (the smallest routing gap printed beside them)."""
     import gc
 
     import torch
@@ -3101,6 +3131,7 @@ def _dense_parity(arch: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype_name="float32")
+    label = "moe" if cfg.n_experts else "dense"
     gpu = build_model(cfg, device="cuda", seed=0)
     gen = torch.Generator(device="cuda").manual_seed(5)
     drawn = []
@@ -3113,28 +3144,36 @@ def _dense_parity(arch: str) -> None:
     cpu = build_model(cfg, device="cpu", seed=1)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     prompts = requests(cfg.vocab)
-    outs = []
+    outs, gaps = [], []
     for model in (gpu, cpu):
         eng = Engine(model, serving_config(), device=model.device)
         if eng.paged_plan is None or not eng.paged_plan.prefill:
-            raise AssertionError(f"dense parity {arch}: the paged lanes are off")
+            raise AssertionError(f"{label} parity {arch}: the paged lanes are off")
+        routes: list = []
+        hooks = (_route_recorder(model, routes, gaps if model is gpu else [])
+                 if cfg.n_experts else [])
         res = drive(eng, prompts, max_new=8)
+        for h in hooks:
+            h.remove()
         outs.append(dict(
             tokens=[r["tokens"] for r in res],
             page_events=eng.pool.page_events.tolist(), stats=eng.stats_dict(),
             kernel_counts=eng.kernel_counts.tolist(),
             n_host_syncs=eng.metrics()["n_host_syncs"],
-            gathers=eng.metrics()["pool_gathers"]))
+            gathers=eng.metrics()["pool_gathers"], routes=routes))
     if outs[0]["gathers"] > 0:
-        raise AssertionError(f"dense parity {arch}: not on the paged path")
+        raise AssertionError(f"{label} parity {arch}: not on the paged path")
     for key in outs[0]:
         if outs[0][key] != outs[1][key]:
-            raise AssertionError(f"dense parity {arch}: {key} differs between "
-                                 "card and CPU")
-    log(f"dense parity ok {arch} arm=paged: 2-layer f32, {len(drawn)} bias/norm "
+            raise AssertionError(f"{label} parity {arch}: {key} differs between "
+                                 f"card and CPU (smallest routing gap "
+                                 f"{min(gaps, default=None)})")
+    routed = (f", {len(outs[0]['routes'])} router calls' expert ids equal, "
+              f"smallest routing gap {min(gaps)!r}" if gaps else "")
+    log(f"{label} parity ok {arch} arm=paged: 2-layer f32, {len(drawn)} bias/norm "
         f"leaves drawn nonzero, stats {outs[0]['stats']}, kernel_counts "
-        f"{outs[0]['kernel_counts']}, host syncs {outs[0]['n_host_syncs']} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"{outs[0]['kernel_counts']}, host syncs {outs[0]['n_host_syncs']}"
+        f"{routed} ({time.perf_counter() - t0:.1f} s)")
     del gpu, cpu
     gc.collect()
     torch.cuda.empty_cache()
@@ -3166,6 +3205,130 @@ def dense_variants_phase(report: dict) -> None:
         report["dense_variants"][arch]["serve"] = _serve_dense(arch, route)
     for arch, *_ in DENSE_VARIANTS:
         _dense_parity(arch)
+
+
+# ------------------------------------------------------------ phase 5a (MoE)
+# Qwen3-MoE-30B-A3B (48 layers, 128 experts top 8, 61.1 GB of bf16 weights)
+# at full width and depth on the engine cell; one MoE layer timed alone at
+# a decode step of MOE_DECODE_B tokens and a prefill chunk of C_LONG rows;
+# a NaN lane planted in hidden row MOE_NAN_ROW; card vs CPU at 2 layers f32
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_DECODE_B = 6
+MOE_NAN_ROW, MOE_NAN_LANE = 2, 100
+MOE_ITERS = 10
+# what else the card may hold when the phase starts (the engine phase's
+# Qwen2-1.5B, kept for later phases, is counted apart)
+MOE_START_SLACK = 1e9
+
+
+def _moe_layer_checks(model, row) -> None:
+    """One MoE layer of the served model alone: device ms a call (the
+    profiler's sum over MOE_ITERS calls, by group) and CUDA events around
+    MOE_ITERS queued calls, at a decode step and at a prefill chunk, beside
+    the bound of reading its experts once; then a NaN lane in one token's
+    hidden row: that token routes to experts 0…k-1 with equal gates and
+    comes out NaN, the others route as the port's CPU plain path does on
+    the same inputs and come out finite within the bf16 tolerance."""
+    import torch
+
+    from repro_torch.nn import moe
+
+    cfg = model.cfg
+    layer = model.layers[0].mlp
+    expert_bytes = sum(getattr(layer, n).nbytes for n in ("w_gate", "w_up", "w_down"))
+    bound_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    timings = {}
+    for what, shape in ((f"decode B={MOE_DECODE_B}", (MOE_DECODE_B, 1)),
+                        (f"prefill C={C_LONG}", (1, C_LONG))):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen,
+                        device="cuda").to(cfg.dtype)
+        with torch.no_grad():
+            def call(x=x):
+                return layer(x)
+
+            per = device_profile(lambda: [call() for _ in range(MOE_ITERS)])
+            groups, _ = device_groups(per)
+            dev = {k: v / MOE_ITERS for k, v in groups.items()}
+            queued = queued_ms(call, MOE_ITERS)
+            call_ms = cuda_ms(call, iters=MOE_ITERS)
+        total = sum(dev.values())
+        timings[what] = dict(rows=layer.n_experts * shape[0] * layer.capacity(shape[1]),
+                             device_ms=total, device_groups=dev,
+                             queued_ms=queued, call_ms=call_ms,
+                             bound_ms=bound_ms, bound_by="bytes")
+        log(f"timing moe layer {what}: device {total:.4f} ms a call = "
+            + ", ".join(f"{k} {v:.4f}" for k, v in dev.items())
+            + f"; queued {queued:.4f} ms, call {call_ms:.4f} ms; experts "
+            f"{expert_bytes / 1e9:.4f} GB, bound {bound_ms:.4f} ms (bytes), device "
+            f"{total / bound_ms:.2f}x it; x {cfg.n_layers} layers: device "
+            f"{cfg.n_layers * total:.2f} ms vs bound {cfg.n_layers * bound_ms:.2f} "
+            f"ms ({gpu_line()})")
+    row["moe_layer"] = timings
+
+    # the planted NaN lane, card against the CPU plain path
+    x = torch.randn((MOE_DECODE_B, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.dtype)
+    x[MOE_NAN_ROW, 0, MOE_NAN_LANE] = float("nan")
+    cpu = moe.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                  cfg.capacity_factor, dtype=cfg.dtype, device="cpu")
+    with torch.no_grad():
+        for n, t in layer.named_parameters():
+            owner, leaf = n.rsplit(".", 1) if "." in n else ("", n)
+            getattr(cpu.get_submodule(owner), leaf).copy_(t.cpu())
+        out, _ = layer(x)
+        gates, idx, _ = layer.route(x)
+        want, _ = cpu(x.cpu())
+        _, want_idx, _ = cpu.route(x.cpu())
+        vals, _ = moe.top_k(cpu.router(x.cpu()), cfg.top_k + 1)
+    k = cfg.top_k
+    others = [b for b in range(MOE_DECODE_B) if b != MOE_NAN_ROW]
+    gap = float((vals[others, 0, k - 1] - vals[others, 0, k]).min())
+    if idx[MOE_NAN_ROW, 0].tolist() != list(range(k)):
+        raise AssertionError(f"moe NaN row routed to {idx[MOE_NAN_ROW, 0].tolist()}")
+    if not bool((gates[MOE_NAN_ROW, 0] == 1.0 / k).all()):
+        raise AssertionError(f"moe NaN row gates {gates[MOE_NAN_ROW, 0].tolist()}")
+    if not torch.equal(idx.cpu(), want_idx):
+        raise AssertionError(f"moe expert ids differ from the CPU plain path "
+                             f"(smallest routing gap {gap!r})")
+    if not bool(torch.isnan(out[MOE_NAN_ROW]).all()):
+        raise AssertionError("moe NaN row's output is not NaN")
+    got = out[others].float().cpu()
+    err = _errs(got, want[others].float())
+    if not bool(torch.isfinite(got).all()) or err > TOL["bfloat16"] * max(
+            1.0, float(want[others].float().abs().max())):
+        raise AssertionError(f"moe layer vs CPU: max abs err {err}")
+    row["moe_nan_row"] = dict(max_abs_err=err, routing_gap=gap)
+    log(f"moe nan-row ok: hidden row {MOE_NAN_ROW} lane {MOE_NAN_LANE} NaN -> "
+        f"experts {idx[MOE_NAN_ROW, 0].tolist()}, gates 1/{k}, output NaN; the "
+        f"other {len(others)} rows' expert ids equal the CPU plain path's "
+        f"(smallest routing gap {gap!r}), outputs finite, max abs err {err:.3e}")
+
+
+def moe_phase(report: dict) -> None:
+    """Qwen3-MoE-30B-A3B at full width and depth in bf16 through
+    ``Engine.step`` (the fused decode and the wgmma prefill in its profile),
+    one layer timed alone and the NaN-row routing checked on the served
+    model, then card vs CPU at 2 layers in f32 with equal expert ids; the
+    card holds no other model than the engine phase's Qwen2-1.5B when the
+    phase starts, and every model is freed before it returns."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # the routers' f32 logits
+    held = report.get("model")
+    held_bytes = sum(p.nbytes for p in held.parameters()) if held is not None else 0
+    start = torch.cuda.memory_allocated()
+    if start - held_bytes > MOE_START_SLACK:
+        raise AssertionError(f"moe phase: {start / 1e9:.2f} GB allocated at its "
+                             f"start ({held_bytes / 1e9:.2f} GB of them the engine "
+                             "phase's model)")
+    log(f"moe phase: {start / 1e9:.3f} GB allocated at its start, "
+        f"{held_bytes / 1e9:.3f} GB of them the engine phase's model")
+    row = _serve_dense(MOE_ARCH, "fused", then=_moe_layer_checks)
+    log(f"moe memory: weights {row['weight_gb']:.3f} GB, max_memory_allocated "
+        f"{row['peak_gb']:.3f} GB ({gpu_line()})")
+    report["moe"] = dict(serve=row)
+    _dense_parity(MOE_ARCH)
 
 
 # ------------------------------------------------------------ phase 5b
@@ -4915,7 +5078,7 @@ def ptxas_summary(text: str) -> dict:
 
 PHASES = ("kernel_phase", "ops_phase", "engine_phase", "fallback_phase",
           "prefix_tier_phase", "parity_phase", "injection_phase",
-          "dense_variants_phase", "train_phase",
+          "dense_variants_phase", "moe_phase", "train_phase",
           "checkpoint_phase", "mlstm_phase", "xlstm_forward_phase",
           "xlstm_generate_phase", "xlstm_depth_phase", "xlstm_parity_phase",
           "xlstm_train_phase", "autopilot_phase")

@@ -3,7 +3,9 @@ from __future__ import annotations
 
 from . import (
     mistral_large_123b,
+    phi35_moe_42b,
     qwen2_1_5b,
+    qwen3_moe_30b,
     stablelm_1_6b,
     starcoder2_15b,
     xlstm_1_3b,
@@ -11,7 +13,8 @@ from . import (
 from .base import ArchConfig  # noqa: F401
 
 _CONFIGS = {m.CONFIG.name: m.CONFIG for m in (
-    starcoder2_15b, qwen2_1_5b, mistral_large_123b, stablelm_1_6b, xlstm_1_3b,
+    starcoder2_15b, qwen2_1_5b, mistral_large_123b, stablelm_1_6b,
+    phi35_moe_42b, qwen3_moe_30b, xlstm_1_3b,
 )}
 
 

@@ -1,7 +1,7 @@
 """Architecture configuration: the fields of the reference's ``ArchConfig``
-that the ported families read (the dense decoder and the xLSTM stack), with
-its ``reduced()`` test variant and a map from the dtype name to a torch
-dtype."""
+that the ported families read (the dense and MoE decoders and the xLSTM
+stack), with its ``reduced()`` test variant and a map from the dtype name
+to a torch dtype."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,6 +36,8 @@ class ArchConfig:
     mlp: str = "swiglu"
     tie_embeddings: bool = True
     n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     slstm_every: int = 8                # xlstm: every k-th block is sLSTM
 
     dtype_name: str = "bfloat16"
@@ -68,6 +70,8 @@ class ArchConfig:
             head_dim=32,
             d_ff=256 if self.d_ff else 0,
             vocab=512,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
             slstm_every=4,          # 4 reduced layers: 1 group of 3+1
             ssm_chunk=16,
             attn_q_block=64,

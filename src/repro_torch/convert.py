@@ -11,7 +11,11 @@ Both directions go through numpy, so this module needs no JAX:
                                as the models store them; a tied
                                embedding stays one table (``embed/table``,
                                also the readout), an untied head is its
-                               own leaf (``lm_head/w``)
+                               own leaf (``lm_head/w``); an MoE block's
+                               router is ``layers/mlp/router/w`` (L, D, E)
+                               and its experts ``layers/mlp/w_gate`` /
+                               ``w_up`` (L, E, D, F) and ``w_down`` (L, E,
+                               F, D)
   train_state_from_jax(state, cfg)
                                a reference train state (params, AdamW
                                moments and step, stats, rule_counts) → the

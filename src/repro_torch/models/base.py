@@ -36,22 +36,35 @@ def next_token_loss(
     }
 
 
+def owner_of(module: nn.Module, name: str) -> Tuple[nn.Module, str]:
+    """The submodule that holds the parameter ``name`` (``router.w`` or
+    ``router/w``) of ``module``, and its own name there."""
+    *heads, leaf = name.replace("/", ".").split(".")
+    for h in heads:
+        module = getattr(module, h)
+    return module, leaf
+
+
 def stack_blocks(blocks: Sequence[nn.Module], modules: Sequence[str],
-                 prefix: str, lead: Tuple[int, ...]) -> Dict[str, torch.Tensor]:
+                 prefix: str, lead: Tuple[int, ...],
+                 device=None) -> Dict[str, torch.Tensor]:
     """One contiguous tensor per block weight, shaped ``lead`` + the
-    weight's shape, under the reference's path ``prefix/module/name``; each
-    block's parameter becomes the view of its slot (the blocks in row-major
-    order over ``lead``)."""
+    weight's shape, under the reference's path ``prefix/module/name`` (a
+    nested module's parameter under ``prefix/module/sub/name``), on
+    ``device`` (default: the blocks' own); each block's parameter becomes
+    the view of its slot (the blocks in row-major order over ``lead``).
+    Blocks built on the meta device take no memory before their weights
+    are stacked."""
     stacked = {}
     for mod in modules:
-        for name, p0 in getattr(blocks[0], mod).named_parameters(recurse=False):
+        for name, p0 in getattr(blocks[0], mod).named_parameters():
             whole = torch.empty(tuple(lead) + tuple(p0.shape), dtype=p0.dtype,
-                                device=p0.device)
+                                device=p0.device if device is None else device)
             rows = whole.view((-1,) + tuple(p0.shape))
             for blk, row in zip(blocks, rows):
-                setattr(getattr(blk, mod), name,
-                        nn.Parameter(row, requires_grad=False))
-            stacked[f"{prefix}/{mod}/{name}"] = whole
+                owner, leaf = owner_of(getattr(blk, mod), name)
+                setattr(owner, leaf, nn.Parameter(row, requires_grad=False))
+            stacked[f"{prefix}/{mod}/{name.replace('.', '/')}"] = whole
     return stacked
 
 

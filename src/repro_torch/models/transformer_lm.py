@@ -1,5 +1,5 @@
 """Decoder-only transformer LM: the dense family (Qwen2, StarCoder2,
-StableLM, Mistral-Large).
+StableLM, Mistral-Large) and the MoE family (Qwen3-MoE, Phi-3.5-MoE).
 
 A Python loop over per-layer blocks replaces the reference's ``lax.scan``;
 the layer index reaches the kernels as an argument, so one kernel serves
@@ -15,15 +15,20 @@ whole sequence under autograd, each block recomputed in the backward with
 its weights through the use-site repair of ``cfg.repair`` with the
 reference's parameter paths (``layers/attn/wq``, ``embed/table``, ...).
 The config picks the norm (``rms``: RMSNorm, ``ln``: LayerNorm), the MLP
-(``swiglu``, or ``gelu``: the GeLU MLP with biases), the QKV bias, the
-rotary fraction and the head's tying.  MoE is not ported.
+(``swiglu``, or ``gelu``: the GeLU MLP with biases; with ``n_experts`` the
+``nn.moe.MoE`` block, whatever ``mlp`` says), the QKV bias, the rotary
+fraction and the head's tying.  An MoE block returns its load-balance aux
+term beside its output: ``loss`` adds ``0.01 ·`` the sum over layers (and
+reports it as ``moe_aux``); the serving paths drop it.
 
 Each layer weight lives in one contiguous (L, ...) tensor, the reference's
-stacked leaf (``param_tree``); the blocks' parameters are its per-layer
-views.  So the train state, the scrub, the injection and the optimizer act
-on the same bytes as the blocks, one tensor a weight, and ``bind_grads``
-gives every weight one (L, ...) gradient buffer whose slices are the
-views' ``.grad``.
+stacked leaf (``param_tree``; the router's ``layers/mlp/router/w`` too);
+the blocks' parameters are its per-layer views.  So the train state, the
+scrub, the injection and the optimizer act on the same bytes as the
+blocks, one tensor a weight, and ``bind_grads`` gives every weight one
+(L, ...) gradient buffer whose slices are the views' ``.grad``.  The
+blocks are built on the meta device, so building a model allocates its
+weights' bytes once.
 
 The dense cache is the pool's flat-keyed layout: ``{"layers/k",
 "layers/v"}`` of shape (L, B, S, Kh, Dh), what ``PagedKVPool.gather``
@@ -31,6 +36,7 @@ returns.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -43,7 +49,8 @@ from ..nn import initializers as ini
 from ..nn.attention import Attention
 from ..nn.layers import Embedding, LayerNorm, Linear, RMSNorm
 from ..nn.mlp import GeluMLP, SwiGLU
-from .base import bind_stacked_grads, next_token_loss, stack_blocks
+from ..nn.moe import MoE
+from .base import bind_stacked_grads, next_token_loss, owner_of, stack_blocks
 
 _BLOCK_MODULES = ("norm1", "attn", "norm2", "mlp")
 # the modules outside the blocks whose parameters are ``param_tree`` leaves
@@ -69,9 +76,20 @@ class Block(nn.Module):
             kv_block=cfg.attn_kv_block,
         )
         self.norm2 = _norm(cfg, device, "layers/norm2")
-        mlp = GeluMLP if cfg.mlp == "gelu" else SwiGLU
-        self.mlp = mlp(cfg.d_model, cfg.d_ff, dtype=dt, device=device,
-                       rcfg=rcfg, path="layers/mlp")
+        if cfg.n_experts:
+            self.mlp = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                           cfg.capacity_factor, dtype=dt, device=device,
+                           rcfg=rcfg)
+        else:
+            mlp = GeluMLP if cfg.mlp == "gelu" else SwiGLU
+            self.mlp = mlp(cfg.d_model, cfg.d_ff, dtype=dt, device=device,
+                           rcfg=rcfg, path="layers/mlp")
+
+    def ffn(self, x: torch.Tensor):
+        """``(y, aux)``: the MLP's output and an MoE block's aux term (None
+        for a dense block)."""
+        y = self.mlp(x)
+        return y if isinstance(self.mlp, MoE) else (y, None)
 
 
 class TransformerLM(nn.Module):
@@ -84,22 +102,22 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, device=None, seed: int = 0):
         super().__init__()
-        if cfg.n_experts:
-            raise NotImplementedError(
-                "MoE not ported: ROADMAP slice 5 (the other families)"
-            )
         dev = device_lib.resolve(device)
+        if cfg.n_experts and dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+            warnings.warn("TF32 is on: the MoE router's f32 logits are not exact, "
+                          "and its top-k set may differ from the reference's")
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab, cfg.d_model, dtype=cfg.dtype,
                                device=dev, rcfg=cfg.repair, path="embed")
-        self.layers = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
+        meta = torch.device("meta")
+        self.layers = nn.ModuleList(Block(cfg, meta) for _ in range(cfg.n_layers))
         self.final_norm = _norm(cfg, dev, "final_norm")
         if not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.d_model, cfg.vocab, dtype=cfg.dtype,
                                   device=dev, rcfg=cfg.repair, path="lm_head")
         # one (L, ...) tensor per layer weight, the blocks' parameters its views
         self._stacked = stack_blocks(self.layers, _BLOCK_MODULES, "layers",
-                                     (cfg.n_layers,))
+                                     (cfg.n_layers,), device=dev)
         self._grads: Optional[Dict[str, torch.Tensor]] = None
         self.init_weights(seed)
 
@@ -118,10 +136,9 @@ class TransformerLM(nn.Module):
         """The parameters that hold ``path``: the per-layer views of a
         stacked weight, or the one parameter."""
         if not path.startswith("layers/"):
-            mod, name = path.split("/")
-            return [getattr(getattr(self, mod), name)]
-        _, mod, name = path.split("/")
-        return [getattr(getattr(blk, mod), name) for blk in self.layers]
+            return [getattr(*owner_of(self, path))]
+        name = path[len("layers/"):]
+        return [getattr(*owner_of(blk, name)) for blk in self.layers]
 
     def bind_grads(self) -> Dict[str, torch.Tensor]:
         """Make the weights trainable and return ``{path: gradient}``: one
@@ -167,22 +184,27 @@ class TransformerLM(nn.Module):
     @staticmethod
     def _block(blk: Block, h: torch.Tensor, positions: torch.Tensor):
         h = h + blk.attn(blk.norm1(h), positions)
-        return h + blk.mlp(blk.norm2(h))
+        y, aux = blk.ffn(blk.norm2(h))
+        return h + y, aux
 
     def _logits(self, tokens: torch.Tensor, remat: bool = False):
-        """(B, S) tokens -> f32 logits (B, S, V), causal over the whole
-        sequence (``Attention.forward``, ``impl="auto"``); with ``remat``
-        each block is recomputed in the backward (non-reentrant
-        checkpoint, the reference's ``jax.checkpoint``)."""
+        """(B, S) tokens -> ``(f32 logits (B, S, V), aux)``, causal over the
+        whole sequence (``Attention.forward``, ``impl="auto"``); ``aux`` is
+        the MoE blocks' aux terms summed in f32 (0 for a dense model).
+        With ``remat`` each block is recomputed in the backward
+        (non-reentrant checkpoint, the reference's ``jax.checkpoint``)."""
         h = self.embed(tokens)
         positions = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for blk in self.layers:
             if remat:
-                h = checkpoint(self._block, blk, h, positions,
-                               use_reentrant=False)
+                h, a = checkpoint(self._block, blk, h, positions,
+                                  use_reentrant=False)
             else:
-                h = self._block(blk, h, positions)
-        return self._readout(self.final_norm(h))
+                h, a = self._block(blk, h, positions)
+            if a is not None:
+                aux = aux + a
+        return self._readout(self.final_norm(h)), aux
 
     def _readout(self, h: torch.Tensor) -> torch.Tensor:
         """f32 logits of the final hidden ``h``: the tied table's f32
@@ -195,22 +217,26 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens -> f32 logits (B, S, V)."""
-        return self._logits(tokens)
+        return self._logits(tokens)[0]
 
     def loss(self, batch: Dict[str, Any]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token loss of ``batch["tokens"]`` (B, S) under autograd,
         as the reference's ``loss``: ``(scalar f32, {"loss", "accuracy",
-        "tokens"})``, the metrics detached."""
+        "tokens"})``, the metrics detached; an MoE model adds ``0.01 ·
+        aux`` to the loss and ``moe_aux`` to the metrics."""
         if "patch_embeds" in batch:
             raise NotImplementedError(
                 "the patch-embedding prefix is not ported: ROADMAP slice 5 "
                 "(the other families)"
             )
         tokens = batch["tokens"]
-        logits = self._logits(tokens, remat=self.cfg.remat
-                              and torch.is_grad_enabled())
+        logits, aux = self._logits(tokens, remat=self.cfg.remat
+                                   and torch.is_grad_enabled())
         loss, metrics = next_token_loss(logits, tokens)
+        if self.cfg.n_experts:
+            loss = loss + 0.01 * aux
+            metrics = dict(metrics, moe_aux=aux)
         return loss, {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
@@ -223,7 +249,7 @@ class TransformerLM(nn.Module):
         h = self.embed(tokens)
         for i, blk in enumerate(self.layers):
             h = h + blk.attn.decode(blk.norm1(h), kc[i], vc[i], pos)
-            h = h + blk.mlp(blk.norm2(h))
+            h = h + blk.ffn(blk.norm2(h))[0]
         return self._readout(self.final_norm(h)), cache
 
     def prefill(self, cache, tokens, pos):
@@ -238,7 +264,7 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(self.layers):
             a, slot, cnt = attend(blk.attn, blk.norm1(h), i)
             h = h + a
-            h = h + blk.mlp(blk.norm2(h))
+            h = h + blk.ffn(blk.norm2(h))[0]
             slot_acc = slot if slot_acc is None else slot_acc + slot
             counts_acc = cnt if counts_acc is None else counts_acc + cnt
         return self.final_norm(h), slot_acc, counts_acc

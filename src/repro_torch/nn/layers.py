@@ -16,7 +16,8 @@ so each module decides it once, at construction (``read_site``): where it
 cannot, the read is the bare tensor with no call at all.
 
 Products the reference forms with ``preferred_element_type=f32`` go through
-``matmul_f32``, which keeps them in f32 until the caller rounds, once.
+``matmul_f32`` (``bmm_f32`` for a stack of experts), which keeps them in
+f32 until the caller rounds, once.
 """
 from __future__ import annotations
 
@@ -83,6 +84,46 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _MatmulF32.apply(a, b)
     return _mm_f32(a, b)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+class _BmmF32(torch.autograd.Function):
+    """``_MatmulF32`` for each batch: the f32 cotangent times the other
+    operand widened to f32, each gradient rounded once."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return ga, gb
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The batched ``matmul_f32``: ``a`` (E, N, K) @ ``b`` (E, K, M) with
+    an f32 result (E, N, M), rounded once, by the caller.  16-bit operands
+    on the card: one ``torch.bmm(..., out_dtype=torch.float32)``; on the
+    CPU the f32 product of the same values; under autograd ``_BmmF32``.
+    f32 operands: the plain product and its own backward."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _BmmF32.apply(a, b)
+    return _bmm_f32(a, b)
 
 
 def sub_path(prefix: str, name: str) -> str:

@@ -1,7 +1,9 @@
 """The port under autograd: the CUDA kernel wrappers refuse inputs that
 require grad (a kernel writes raw device memory and has no backward, so
 its result would silently leave the graph), ``matmul_f32``'s backward
-on the card keeps the f32 cotangent, the xLSTM's loss and gradients on the
+on the card keeps the f32 cotangent (and ``bmm_f32``, its batched twin,
+agrees with it), the MoE block on the card routes as on the CPU, the
+xLSTM's loss and gradients on the
 card match the CPU's, and a checkpoint of card tensors (the save scrub on
 the card) round-trips.
 
@@ -22,7 +24,8 @@ from repro_torch.kernels import mlstm_chunk as mc  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import repair_attention as ra  # noqa: E402
 from repro_torch.kernels import repair_matmul as rm  # noqa: E402
-from repro_torch.nn.layers import matmul_f32  # noqa: E402
+from repro_torch.nn import moe  # noqa: E402
+from repro_torch.nn.layers import bmm_f32, matmul_f32  # noqa: E402
 
 NO_BACKWARD = "no backward"
 
@@ -168,6 +171,67 @@ def test_matmul_f32_backward_on_the_card(cuda):
     ctrl = g.bfloat16().reshape(-1, 384) @ w.detach().t()
     beyond, share = _bwd_bar(ctrl, exact_a, mag_a, 384)
     assert beyond > 0 or share > 1e-2, (beyond, share)
+
+
+@pytest.mark.cuda
+def test_bmm_f32_on_the_card_matches_matmul_f32(cuda):
+    """``bmm_f32`` on bf16 operands (one ``torch.bmm`` with an f32
+    result) against ``matmul_f32`` a batch at a time: the product and both
+    gradients within the f32 sums' error, K·2^-24·(|a|@|b|) for the
+    product and one bf16 ulp for the rounded gradients."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn((4, 48, 512), generator=gen, device=cuda).bfloat16()
+    b = (torch.randn((4, 512, 384), generator=gen, device=cuda) / 16).bfloat16()
+    g = torch.randn((4, 48, 384), generator=gen, device=cuda)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    out = bmm_f32(a, b)
+    assert out.dtype == torch.float32
+    out.backward(g)
+    for e in range(4):
+        ae = a.detach()[e].clone().requires_grad_(True)
+        be = b.detach()[e].clone().requires_grad_(True)
+        oe = matmul_f32(ae, be)
+        oe.backward(g[e])
+        mag = ae.detach().float().abs() @ be.detach().float().abs()
+        assert bool(((out[e].detach() - oe.detach()).abs()
+                     <= 512 * 2.0 ** -24 * mag).all())
+        for got, want in ((a.grad[e], ae.grad), (b.grad[e], be.grad)):
+            assert bool(((got.float() - want.float()).abs()
+                         <= 2.0 ** -7 * want.float().abs() + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_moe_on_the_card_matches_the_cpu(cuda):
+    """The reduced Qwen3-MoE block in bf16 (16 experts, top 8) on the card
+    and on the CPU on the same weights and inputs, a NaN lane in one
+    hidden row: equal expert ids and kept slots (NaN row: experts 0…7),
+    the NaN row NaN, the others within 2e-2 of the CPU's (bf16 outputs
+    whose f32 sums run in different orders)."""
+    torch.backends.cuda.matmul.allow_tf32 = False        # the router's f32 logits
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    kw = dict(dtype=torch.bfloat16)
+    gpu = moe.MoE(cfg.d_model, cfg.d_ff, 16, 8, device=cuda, **kw)
+    cpu = moe.MoE(cfg.d_model, cfg.d_ff, 16, 8, device="cpu", **kw)
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for (n, p), (_, q) in zip(gpu.named_parameters(), cpu.named_parameters()):
+            q.copy_(torch.randn(q.shape, generator=gen) * 0.1)
+            p.copy_(q)
+        x = torch.randn((3, 5, cfg.d_model), generator=gen).bfloat16()
+        x[1, 2, 7] = float("nan")
+        out, _ = gpu(x.to(cuda))
+        want, _ = cpu(x)
+        ids = [m.route(t)[1] for m, t in ((gpu, x.to(cuda)), (cpu, x))]
+    assert torch.equal(ids[0].cpu(), ids[1])
+    assert ids[1][1, 2].tolist() == list(range(8))
+    assert torch.equal(moe.slots(ids[0], 16, gpu.capacity(5))[1].cpu(),
+                       moe.slots(ids[1], 16, cpu.capacity(5))[1])
+    out = out.cpu().float()
+    assert bool(torch.isnan(out[1, 2]).all())
+    out[1, 2] = want[1, 2] = 0.0
+    assert float((out - want.float()).abs().max()) <= 2e-2
 
 
 @pytest.mark.cuda

@@ -49,6 +49,8 @@ from test_torch_engine import CASES, _plant  # noqa: E402
 TOL = dict(rtol=1e-4, atol=1e-4)
 MODULE_TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("starcoder2-15b", "stablelm-1.6b", "mistral-large-123b")
+# the MoE twins (tests/test_torch_moe.py) share the config and layout checks
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
 P, PG, M = 9, 4, 4
 # the parameters the init leaves at 0 or 1: every bias, every norm scale
 _DRAWN = ("/bias", "/scale", "/b_up", "/b_down", "/bq", "/bk", "/bv")
@@ -93,7 +95,7 @@ def twins():
     """Each arch's reference model, its params and the port's model, built
     once for the module."""
     out = {}
-    for i, arch in enumerate(ARCHS):
+    for i, arch in enumerate(ARCHS + MOE_ARCHS):
         jm = jbuild_model(jtiny_cfg(arch))
         jp = _drawn_params(jm, i)
         tm = convert.params_from_jax(jp, tiny_cfg(arch), device="cpu")
@@ -154,7 +156,7 @@ def test_configs_copy_the_reference():
     """Every field the port's ``ArchConfig`` has, full and reduced."""
     fields = [f.name for f in dataclasses.fields(get_config("qwen2-1.5b"))
               if f.name != "repair"]
-    for arch in ARCHS:
+    for arch in ARCHS + MOE_ARCHS:
         for mine, ref in ((get_config(arch), jget_config(arch)),
                           (get_config(arch).reduced(), jget_config(arch).reduced())):
             for f in fields:
@@ -162,7 +164,7 @@ def test_configs_copy_the_reference():
     assert get_config("stablelm-1.6b").reduced().n_kv == 4      # MHA stays MHA
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_param_tree_matches_reference_paths(twins, arch):
     jm, jp, tm = twins[arch]
     flat = regions.flatten(jax.tree.map(np.asarray, jp))
@@ -173,7 +175,8 @@ def test_param_tree_matches_reference_paths(twins, arch):
     assert ("lm_head/w" in tree) and ("embed/table" in tree)
     cfg = tm.cfg
     assert ("final_norm/bias" in tree) == (cfg.norm == "ln")
-    assert ("layers/mlp/b_up" in tree) == (cfg.mlp == "gelu")
+    assert ("layers/mlp/b_up" in tree) == (cfg.mlp == "gelu" and not cfg.n_experts)
+    assert ("layers/mlp/router/w" in tree) == bool(cfg.n_experts)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -143,8 +143,8 @@ def test_params_carry_across_and_init_scheme(models):
 
 
 def test_unported_families_raise():
-    from repro_torch.models import TransformerLM
+    from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(tiny_cfg(), n_experts=4)
+    cfg = dataclasses.replace(tiny_cfg(), family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(cfg, device="cpu")
+        build_model(cfg, device="cpu")
