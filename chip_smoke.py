@@ -80,7 +80,7 @@ Phases, in order; each raises on failure, so the run exits non-zero:
   3. the engine at full width (28 layers, bf16, random weights from seed
      0): 6 requests, faults planted after step 3, repair and launch checks
   3b. the fallback arms on the same requests, on a model of their own
-     (Qwen2-1.5B width cut to FALLBACK_LAYERS = 8 layers), each cold (its
+     (Qwen2-1.5B width cut to FALLBACK_LAYERS = 4 layers), each cold (its
      checks) then warm (one ``timing engine arm=`` line: ms and host syncs,
      gathers, scatters, launches and stage wall times a step, the device's
      idle share): (a) ``paged_decode="off"`` (everything gathered, the
@@ -191,11 +191,11 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      DEPTH_TOL and within DEPTH_CONTROL_X of a one-ulp control
   9. xLSTM parity at full width, 8 blocks, f32: card (kernels) against CPU
      (plain versions), the same weights and planted cache faults
-  10. xLSTM training at full xlstm-1.3b width and depth
+  10. xLSTM training at full xlstm-1.3b width, XT_LAYERS = 16 of its 48 blocks
      (``xlstm_train_phase``): bf16 params, f32 moments, batch 4 x 128, 3
      steps in memory mode with a zero fill (the mLSTM in chunks of 32: at
      128 the reference's gradient is NaN, ROADMAP §3), NaN and ±Inf planted in a
-     weight and a moment before step 2: the boundary scrub over the ~35 GB
+     weight and a moment before step 2: the boundary scrub over the ~12 GB
      state (the scrub kernel, one launch a leaf: 20 params + 40 moments)
      must count what ``scrub_plain`` counts and leave the planted leaves
      bit-equal to it; no mLSTM kernel launches (training runs the plain
@@ -225,6 +225,30 @@ Phases, in order; each raises on failure, so the run exits non-zero:
      a stricter or exact rule deployed, every loss finite, the scrub
      kernel's launches a step as each step's rule implies.  One ``timing
      autopilot:`` line
+  12. LLaVA-NeXT-Mistral-7B (``llava_phase``): the paged kernels and the
+     page scrub at its bf16 pool (H 32, Kh 8, Dh 128) against their plain
+     versions under two detectors, then timed beside SDPA as in phase 5;
+     the model served at full width and depth in bf16 (14.48 GB) through
+     ``Engine.step`` with the engine cell's requests and plants (tokens
+     only, as the reference serves it; ``timing dense
+     llava-next-mistral-7b:``); on the served model a forward of 256
+     patch rows before 1,792 tokens (2,048 positions, the chunked
+     attention): finite logits of the tokens alone, timed; card against
+     CPU at 2 layers in f32 (TF32 off) on a patch batch: the loss and
+     every gradient within TRAIN_CPU_RTOL
+  13. Zamba2-7B (``zamba_phase``) at full width and depth in bf16 (81
+     Mamba2 layers, two shared attention blocks of head dim 224; 15.59
+     GB) through ``generate``: 4 prompts of 32 tokens, 16 new, the cache
+     scrubbed every 8 steps by the scrub kernel (one launch a leaf), a NaN
+     planted in the SSM state before the first scrub after the warmup,
+     which must find it and leave every leaf finite before step 32 reads
+     it, each leaf bit for bit and count for count as ``scrub_plain``
+     leaves a copy of it, every step's logits finite; a warm and a profiled run; the
+     forward over 2,048 tokens; card against CPU at 13 layers in f32 (both
+     shared sets and a tail): tokens, stats, each scrub's counts and the
+     scrubbed bytes equal.  One ``timing zamba:`` line: ms a step, idle
+     share, device ms by group, scrub launches and bytes, the forward's
+     ms, peak memory
 
 Prints the kernel report as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -2229,6 +2253,11 @@ def device_groups(per: dict):
     return groups, by_kernel
 
 
+# the window of the engine's host and device tables (chiprun_out/
+# engine_profile.txt): the first requests of the workload, few new tokens
+ENGINE_TABLE_REQUESTS, ENGINE_TABLE_NEW = 2, 4
+
+
 def engine_phase(report: dict) -> None:
     import torch
 
@@ -2273,9 +2302,18 @@ def engine_phase(report: dict) -> None:
     torch.cuda.synchronize()
     warm_wall = time.perf_counter() - t0
     wm = warm.metrics()
+    t0 = time.perf_counter()
     per = device_profile(lambda: drive(
-        Engine(model, serving_config(), device="cuda"), prompts),
+        Engine(model, serving_config(), device="cuda"), prompts))
+    profile_s = time.perf_counter() - t0
+    # the host and device tables over a short window (ENGINE_TABLE_*): the
+    # host trace of the whole run took ~60 s to summarise
+    t0 = time.perf_counter()
+    device_profile(lambda: drive(
+        Engine(model, serving_config(), device="cuda"),
+        prompts[:ENGINE_TABLE_REQUESTS], plant_after=None, max_new=ENGINE_TABLE_NEW),
         table="engine_profile.txt")
+    table_s = time.perf_counter() - t0
     groups, by_kernel = device_groups(per)
     busy = sum(groups.values())
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
@@ -2291,7 +2329,8 @@ def engine_phase(report: dict) -> None:
         top_kernels_ms=[(k[:60], v) for k, v in top],
         stats=engine.stats_dict(), kernel_counts=engine.kernel_counts.tolist(),
         n_host_syncs=m["n_host_syncs"], scrubbed_bytes=m["scrubbed_bytes"],
-        split_k=m["split_k"], stage_wall_s=wm["stage_wall_s"],
+        split_k=m["split_k"], stage_wall_s=wm["stage_wall_s"], profile_s=profile_s,
+        table_s=table_s,
     )
     log("engine: " + json.dumps(report["engine"]))
     dms = report["engine"]["device_ms_per_step"]
@@ -2409,7 +2448,7 @@ def _register_forward(model, tokens):
 
 # the fallback arms' depth: Qwen2-1.5B width cut to this many layers (the
 # arms are host-bound, their time grows with depth)
-FALLBACK_LAYERS = 8
+FALLBACK_LAYERS = 4
 
 
 def fallback_phase(report: dict) -> None:
@@ -2992,11 +3031,11 @@ def _dense_pool_kernels(arch: str, shape: PoolShape, dtype_name: str,
 
 
 def _serve_dense(arch: str, decode_route: str, then=None) -> dict:
-    """``arch`` at full width in bf16 (seed 0) through ``Engine.step``: the
-    engine cell's six requests, 16 new tokens each, faults planted after
-    step 3 (``drive``); then a warm run and one profiled pass.  With
-    ``then``, ``then(model, row)`` runs before the model is freed.  Returns
-    the timing row; the model is freed."""
+    """``arch`` at full width and depth in bf16 (seed 0) through
+    ``Engine.step``: the engine cell's six requests, 16 new tokens each,
+    faults planted after step 3 (``drive``); then a warm run and one
+    profiled pass.  With ``then``, ``then(model, row)`` runs before the
+    model is freed.  Returns the timing row; the model is freed."""
     import gc
 
     import torch
@@ -3079,6 +3118,7 @@ def _serve_dense(arch: str, decode_route: str, then=None) -> dict:
         stats=cold.stats_dict(), kernel_counts=cold.kernel_counts.tolist(),
     )
     log(f"{label} serve ok {arch}: {len(results)} requests x 16 tokens at full width, "
+        f"{cfg.n_layers} layers, "
         f"planted faults charged and repaired, paged_decode/paged_prefill/scrub "
         f"launched {[launches[k] for k in ('paged_decode', 'paged_prefill', 'scrub')]} "
         f"in {steps} steps, decode {decode_route}, prefill wgmma")
@@ -3305,6 +3345,23 @@ def _moe_layer_checks(model, row) -> None:
         f"(smallest routing gap {gap!r}), outputs finite, max abs err {err:.3e}")
 
 
+def _check_start(label: str, report: dict) -> None:
+    """A phase that builds a large model checks that the card holds no
+    other model than the engine phase's Qwen2-1.5B (if still held) when it
+    starts: an earlier phase that kept its model would show here."""
+    import torch
+
+    held = report.get("model")
+    held_bytes = sum(p.nbytes for p in held.parameters()) if held is not None else 0
+    start = torch.cuda.memory_allocated()
+    if start - held_bytes > MOE_START_SLACK:
+        raise AssertionError(f"{label} phase: {start / 1e9:.2f} GB allocated at "
+                             f"its start ({held_bytes / 1e9:.2f} GB of them the "
+                             "engine phase's model)")
+    log(f"{label} phase: {start / 1e9:.3f} GB allocated at its start, "
+        f"{held_bytes / 1e9:.3f} GB of them the engine phase's model")
+
+
 def moe_phase(report: dict) -> None:
     """Qwen3-MoE-30B-A3B at full width and depth in bf16 through
     ``Engine.step`` (the fused decode and the wgmma prefill in its profile),
@@ -3315,15 +3372,7 @@ def moe_phase(report: dict) -> None:
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False     # the routers' f32 logits
-    held = report.get("model")
-    held_bytes = sum(p.nbytes for p in held.parameters()) if held is not None else 0
-    start = torch.cuda.memory_allocated()
-    if start - held_bytes > MOE_START_SLACK:
-        raise AssertionError(f"moe phase: {start / 1e9:.2f} GB allocated at its "
-                             f"start ({held_bytes / 1e9:.2f} GB of them the engine "
-                             "phase's model)")
-    log(f"moe phase: {start / 1e9:.3f} GB allocated at its start, "
-        f"{held_bytes / 1e9:.3f} GB of them the engine phase's model")
+    _check_start("moe", report)
     row = _serve_dense(MOE_ARCH, "fused", then=_moe_layer_checks)
     log(f"moe memory: weights {row['weight_gb']:.3f} GB, max_memory_allocated "
         f"{row['peak_gb']:.3f} GB ({gpu_line()})")
@@ -4220,16 +4269,40 @@ def xlstm_forward_phase(report: dict) -> None:
     log("xlstm forward: " + json.dumps(report["xlstm_forward"]))
 
 
-def _plant_before(space, scrub_no: int, plants, log_deltas: list):
+def _plant_before(space, scrub_no: int, plants, log_deltas: list,
+                  against_plain: bool = False):
     """Wrap ``space.scrub``: before its ``scrub_no``-th call set
     ``plants`` ([(path, index, value)]) in the cache; log every call's
-    [nan_found, inf_found, events] delta."""
+    [nan_found, inf_found, events] delta.  With ``against_plain`` every
+    leaf of that call must go through the scrub kernel and come out bit
+    for bit as ``scrub_plain`` leaves a copy of it, with its counts."""
+    import torch
+
+    from repro_torch.core import detect
+    from repro_torch.kernels import common
+    from repro_torch.kernels import scrub as scrub_kernel
+
     inner = space.scrub
 
     def scrub(cache, stats, *, trigger="forced"):
+        plain, want = {}, None
         if len(log_deltas) + 1 == scrub_no:
             for path, idx, val in plants:
                 cache[path][idx] = val
+            if against_plain:
+                plan = space.plan_for(cache, scope="tree", trigger=trigger)
+                if set(cache) - plan.kernel_paths:
+                    raise AssertionError(f"leaves off the scrub kernel: "
+                                         f"{sorted(set(cache) - plan.kernel_paths)}")
+                want = 0
+                for path, leaf in cache.items():
+                    rule = plan.rules[path]
+                    policy, constant = common.kernel_fill(rule.fill)
+                    plain[path] = leaf.clone()
+                    want = want + scrub_kernel.scrub_plain(
+                        plain[path], policy=policy, constant=constant,
+                        detector=rule.detect)[1][:2].to(torch.int64)
+                want = want.tolist()
         cache, out = inner(cache, stats, trigger=trigger)
         log_deltas.append([out[k] - stats[k]
                            for k in ("nan_found", "inf_found", "events")])
@@ -4237,9 +4310,14 @@ def _plant_before(space, scrub_no: int, plants, log_deltas: list):
             for path, leaf in cache.items():
                 if not bool(torch.isfinite(leaf).all()):
                     raise AssertionError(f"{path}: a fatal lane survived the scrub")
+                if path in plain and not torch.equal(detect.bits_of(leaf),
+                                                     detect.bits_of(plain[path])):
+                    raise AssertionError(f"{path}: the scrub's bits differ from "
+                                         "scrub_plain's")
+            if want is not None and log_deltas[-1][:2] != want:
+                raise AssertionError(f"the scrub counted {log_deltas[-1]}, "
+                                     f"scrub_plain [nan, inf] {want}")
         return cache, out
-
-    import torch
 
     space.scrub = scrub
 
@@ -4417,7 +4495,7 @@ def xlstm_parity_phase(report: dict) -> None:
 
 
 # ------------------------------------------------------------ phase 10
-# xLSTM training at full xlstm-1.3b width and depth: bf16 params, f32
+# xLSTM training at full xlstm-1.3b width, XT_LAYERS blocks: bf16 params, f32
 # moments, batch 4 x 128 (512 tokens a step: the step is held by the host's
 # eager time loops, whose length is the sequence's, so 2 x 256 took ~8 s a
 # step), 3 steps; faults planted before step 2.  The
@@ -4426,10 +4504,14 @@ def xlstm_parity_phase(report: dict) -> None:
 # ``_chunked_mlstm`` is NaN in both packages, at 64 in the reference's
 # (its stabilised denominator underflows; ROADMAP §3)
 XT_B, XT_S, XT_STEPS, XT_PLANT_STEP, XT_CHUNK = 4, 128, 3, 1, 32
-XT_PLANTS = (("params/mlstm_groups/mlstm/w_q", (2, 3, 100, 200), float("nan")),
-             ("params/mlstm_groups/mlstm/w_q", (5, 6, 4000, 7), float("inf")),
+# the depth trained: 16 of the 48 blocks (2 groups), to keep the whole
+# script inside its time limit (a step is host-bound and its time grows
+# with depth)
+XT_LAYERS = 16
+XT_PLANTS = (("params/mlstm_groups/mlstm/w_q", (1, 3, 100, 200), float("nan")),
+             ("params/mlstm_groups/mlstm/w_q", (0, 6, 4000, 7), float("inf")),
              ("opt/nu/slstm_layers/slstm/w", (1, 1000, 5000), float("nan")),
-             ("opt/nu/slstm_layers/slstm/w", (4, 7, 8000), float("-inf")))
+             ("opt/nu/slstm_layers/slstm/w", (0, 7, 8000), float("-inf")))
 # card vs CPU, one group (8 blocks) in f32, 64 tokens: the loss and each
 # gradient leaf (relative L2) within this
 XT_CPU_RTOL = 1e-4
@@ -4445,8 +4527,8 @@ def _xlstm_train_flops(n_params: int, B: int, S: int) -> float:
 
 
 def xlstm_train_phase(report: dict) -> None:
-    """xLSTM training at full width and depth on the card (ROADMAP §1 item
-    14): memory mode through the boundary scrub kernel over ~35 GB, repair
+    """xLSTM training at full width and XT_LAYERS blocks on the card (ROADMAP
+    §1 item 14): memory mode through the boundary scrub kernel over ~12 GB, repair
     off poisoned, card against CPU."""
     import numpy as np
     import torch
@@ -4464,6 +4546,7 @@ def xlstm_train_phase(report: dict) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = dataclasses.replace(get_config("xlstm-1.3b"), ssm_chunk=XT_CHUNK,
+                              n_layers=XT_LAYERS,
                               repair=ApproxConfig(mode="memory", policy="zero"))
     model = XLSTMLM(cfg, device="cuda", seed=0)
     tree = model.param_tree()
@@ -4721,6 +4804,8 @@ def autopilot_phase(report: dict) -> None:
     preset's two groups and four refresh points, (b) the frontier, (c) the
     engine's online guard, steady and under drift, (d) the train loop's
     guard."""
+    import gc
+
     import torch
 
     from repro_torch import autopilot
@@ -5010,7 +5095,6 @@ def autopilot_phase(report: dict) -> None:
         f"a step {per_step} (implied by each step's rule: {want}), "
         f"{train_s:.2f} s ({card})")
     del tmodel, state, resident
-    torch.cuda.empty_cache()
     timing = dict(
         campaign_s=campaign_s, episode_s=[e["s"] for e in episodes],
         steady_ms_per_step={k: [r["ms"] for r in v] for k, v in steady.items()},
@@ -5018,6 +5102,299 @@ def autopilot_phase(report: dict) -> None:
         trip_tick_ms=[trace[i]["guard_ms"] for i in at], train_s=train_s,
         phase_s=time.perf_counter() - t_phase)
     log(f"timing autopilot: {json.dumps(timing)} ({card})")
+    # each engine is a reference cycle (its repair manager holds a bound
+    # method of the engine) that holds the model and its pool
+    del model, eng, tspace, data, data_fn, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 12 (LLaVA)
+# LLaVA-NeXT-Mistral-7B (32 layers, d_model 4096, 32/8 heads of 128, d_ff
+# 14336, vocab 32000, untied; 14.48 GB of bf16 weights) at full width and
+# depth on the engine cell, tokens only as the reference serves it; its bf16
+# pool's kernels; one forward of LLAVA_PATCHES patch rows before
+# LLAVA_TOKENS tokens (2,048 positions: the chunked attention); card vs CPU
+# at 2 layers in f32 on a patch batch of LLAVA_PARITY_SEQ positions
+LLAVA_ARCH = "llava-next-mistral-7b"
+LLAVA_POOL = PoolShape(65, 32, 16, 8, 128, 32)
+LLAVA_PATCHES, LLAVA_TOKENS = 256, 1792
+LLAVA_PARITY_SEQ = 64
+
+
+def _llava_prefix_forward(model, row) -> None:
+    """The served model's ``forward`` over one request of LLAVA_PATCHES
+    patch rows and LLAVA_TOKENS tokens: finite logits of the tokens alone,
+    timed (CUDA events, after a warm call)."""
+    import torch
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, (1, LLAVA_TOKENS), generator=gen,
+                           device="cuda")
+    patches = torch.randn((1, LLAVA_PATCHES, cfg.d_model), generator=gen,
+                          device="cuda").to(cfg.dtype)
+    logits = model(tokens, patch_embeds=patches)
+    if tuple(logits.shape) != (1, LLAVA_TOKENS, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"llava prefix forward: {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    if torch.equal(model(tokens)[:, -1], logits[:, -1]):
+        raise AssertionError("llava prefix forward: the prefix changed nothing")
+    ms = cuda_ms(lambda: model(tokens, patch_embeds=patches), iters=3, warmup=1)
+    n = LLAVA_PATCHES + LLAVA_TOKENS
+    row["prefix_forward"] = dict(patches=LLAVA_PATCHES, tokens=LLAVA_TOKENS,
+                                 positions=n, ms=ms, tokens_per_s=n / ms * 1e3)
+    log(f"llava prefix ok: {LLAVA_PATCHES} patch rows + {LLAVA_TOKENS} tokens "
+        f"({n} positions, chunked attention), logits {tuple(logits.shape)} "
+        f"finite; timing llava forward {ms:.2f} ms ({n / ms * 1e3:.0f} "
+        f"positions/s) ({gpu_line()})")
+
+
+def _llava_parity() -> None:
+    """LLaVA at full width with 2 layers in f32 (TF32 off): the loss and
+    every gradient of one patch batch on the card and on the CPU (plain
+    versions) within TRAIN_CPU_RTOL."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticStream
+    from repro_torch.models import TransformerLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    fcfg = dataclasses.replace(get_config(LLAVA_ARCH), n_layers=2,
+                               dtype_name="float32")
+    cpu = TransformerLM(fcfg, device="cpu", seed=0)
+    gpu = TransformerLM(fcfg, device="cuda", seed=1)
+    with torch.no_grad():
+        for path, t in gpu.param_tree().items():
+            t.copy_(cpu.param_tree()[path])
+    batch = SyntheticStream(fcfg, seed=1, batch=1, seq=LLAVA_PARITY_SEQ,
+                            device="cpu")(0)
+    outs = []
+    for m in (gpu, cpu):
+        g = m.bind_grads()
+        loss, _ = m.loss({k: v.to(m.device) for k, v in batch.items()})
+        loss.backward()
+        outs.append((float(loss.detach()), {p: v.cpu() for p, v in g.items()}))
+    loss_rel = abs(outs[0][0] - outs[1][0]) / abs(outs[1][0])
+    worst = max(
+        (float((outs[0][1][p] - w).abs().max() / w.abs().max().clamp_min(1e-30)), p)
+        for p, w in outs[1][1].items())
+    if loss_rel > TRAIN_CPU_RTOL or worst[0] > TRAIN_CPU_RTOL:
+        raise AssertionError(f"llava parity: loss rel {loss_rel}, worst grad {worst}")
+    log(f"llava parity ok: card vs CPU, 2 layers at full width, f32, "
+        f"{tuple(batch['patch_embeds'].shape)[1]} patch rows + "
+        f"{tuple(batch['tokens'].shape)[1]} tokens: loss {outs[0][0]:.6f} (rel "
+        f"{loss_rel:.2e}), {len(outs[1][1])} grads, worst {worst[0]:.2e} at "
+        f"{worst[1]} <= {TRAIN_CPU_RTOL} ({time.perf_counter() - t0:.1f} s)")
+    del cpu, gpu, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def llava_phase(report: dict) -> None:
+    """LLaVA-NeXT-Mistral-7B: the paged kernels and the page scrub at its
+    bf16 pool against their plain versions and timed beside SDPA; the model
+    served at full width and depth through ``Engine.step`` (the fused
+    decode and the wgmma prefill in its profile); the patch-prefix forward
+    on the served model; card vs CPU at 2 layers in f32 on a patch batch.
+    Every model is freed before the phase returns."""
+    _check_start("llava", report)
+    kernels = _dense_pool_kernels(LLAVA_ARCH, LLAVA_POOL, "bfloat16", "fused")
+    row = _serve_dense(LLAVA_ARCH, "fused", then=_llava_prefix_forward)
+    report["llava"] = dict(kernels=kernels, serve=row)
+    _llava_parity()
+
+
+# ------------------------------------------------------------ phase 13 (Zamba)
+# Zamba2-7B (81 Mamba2 layers: 13 groups of 6 and a tail of 3, d_model 3584,
+# ssm_state 64; two shared attention blocks at width 7168, 32 heads of 224;
+# 15.59 GB of bf16 weights) at full width and depth through ``generate``
+# (the xLSTM cell's 4 prompts of 32 tokens, 16 new, the cache scrubbed
+# every 8 steps by the scrub kernel, a zero fill); a NaN planted in the SSM
+# state before the first scrub after the warmup; the forward over
+# ZAMBA_FORWARD_S tokens; card vs CPU at ZAMBA_CUT_LAYERS layers in f32
+ZAMBA_ARCH = "zamba2-7b"
+ZAMBA_PLANT_SCRUB = XL_PROMPT_LEN // XL_SCRUB + 1   # before step 32, the first new token
+ZAMBA_PLANTS = [("mamba_groups/ssm", (7, 3, 2, 50, 10, 20), float("nan"))]
+ZAMBA_FORWARD_S = 2048
+ZAMBA_CUT_LAYERS = 13        # 2 groups (both shared sets) and a tail of 1
+ZAMBA_CUT_PROMPT, ZAMBA_CUT_NEW, ZAMBA_CUT_SCRUB = 4, 4, 2
+ZAMBA_CUT_PLANTS = [("mamba_groups/ssm", (1, 5, 1, 100, 3, 9), float("nan")),
+                    ("mamba_tail/ssm", (0, 0, 7, 60, 1), float("inf"))]
+
+
+def _zamba_cfg(**changes):
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import ApproxConfig
+
+    # a kernel fill, so the serving scrub runs the scrub kernel on the cache
+    return dataclasses.replace(
+        get_config(ZAMBA_ARCH),
+        repair=ApproxConfig(mode="memory", policy="zero"), **changes)
+
+
+def _zamba_cut_parity() -> None:
+    """Zamba2-7B at full width cut to ZAMBA_CUT_LAYERS layers in f32 (TF32
+    off), on the card (the scrub kernel) and on the CPU (its plain
+    version), the same weights, prompts and plants: greedy tokens, stats,
+    each scrub's counts and the scrubbed bytes equal."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import ZambaLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = _zamba_cfg(n_layers=ZAMBA_CUT_LAYERS, dtype_name="float32")
+    gpu = ZambaLM(cfg, device="cuda", seed=0)
+    cpu = ZambaLM(cfg, device="cpu", seed=1)
+    with torch.no_grad():
+        for path, t in cpu.param_tree().items():
+            t.copy_(gpu.param_tree()[path].cpu())
+    n_params = sum(t.numel() for t in gpu.param_tree().values())
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(2, ZAMBA_CUT_PROMPT)))
+    outs = []
+    for m in (gpu, cpu):
+        space = serve.serve_space(m, ZAMBA_CUT_SCRUB, memoize=False)
+        deltas: list = []
+        _plant_before(space, 2, ZAMBA_CUT_PLANTS, deltas)
+        tokens, stats = serve.generate(
+            m, prompts, max_new=ZAMBA_CUT_NEW,
+            max_seq=ZAMBA_CUT_PROMPT + ZAMBA_CUT_NEW, space=space)
+        outs.append(dict(tokens=tokens.cpu().tolist(), stats=stats, deltas=deltas,
+                         scrubbed_bytes=space.scrubbed_bytes))
+    if outs[0]["deltas"][1][:2] != [1, 1]:
+        raise AssertionError(f"zamba parity: scrubs found {outs[0]['deltas']}")
+    for key in outs[0]:
+        if outs[0][key] != outs[1][key]:
+            raise AssertionError(f"zamba parity: {key} differs between card and "
+                                 f"CPU: {outs[0][key]} vs {outs[1][key]}")
+    log(f"zamba parity ok: card vs CPU, {ZAMBA_CUT_LAYERS} layers at full width "
+        f"({n_params / 1e9:.2f} B, {4 * n_params / 1e9:.2f} GB f32), 2 x "
+        f"{ZAMBA_CUT_PROMPT} + {ZAMBA_CUT_NEW}: tokens, stats {outs[0]['stats']}, "
+        f"scrub deltas {outs[0]['deltas']} and {outs[0]['scrubbed_bytes']} "
+        f"scrubbed bytes equal ({time.perf_counter() - t0:.1f} s)")
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zamba_phase(report: dict) -> None:
+    """Zamba2-7B at full width and depth in bf16 through ``generate``: the
+    interval scrub runs the scrub kernel on every cache leaf, a NaN planted
+    in the SSM state is repaired before the next step reads it (that
+    scrub's leaves bit- and count-equal to ``scrub_plain``), and every
+    step's logits are finite; then a warm and a profiled run (ms a step,
+    idle share), the forward over ZAMBA_FORWARD_S tokens, and card vs CPU
+    at ZAMBA_CUT_LAYERS layers in f32.  Every model is freed before the
+    phase returns."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve
+    from repro_torch.models import ZambaLM
+
+    _check_start("zamba", report)
+    card = gpu_line()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ZambaLM(_zamba_cfg(), device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in model.param_tree().values())
+    weight_gb = sum(t.nbytes for t in model.param_tree().values()) / 1e9
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, model.cfg.vocab, size=(XL_PROMPTS, XL_PROMPT_LEN)))
+    max_seq = XL_PROMPT_LEN + XL_NEW
+    cache_bytes = {p: int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+                   for p, (shape, dt) in model.cache_defs(XL_PROMPTS, max_seq).items()}
+    space = serve.serve_space(model, XL_SCRUB, memoize=False)
+    deltas, steps = [], []
+    _plant_before(space, ZAMBA_PLANT_SCRUB, ZAMBA_PLANTS, deltas, against_plain=True)
+    _checked_steps(model, steps)
+    common.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, stats = serve.generate(model, prompts, max_new=XL_NEW, max_seq=max_seq,
+                                   space=space)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    del model.serve_step                     # drop the checking wrapper
+    launches = dict(common.LAUNCHES)
+    n_steps = max_seq - 1
+    want = [[1, 0] if i == ZAMBA_PLANT_SCRUB - 1 else [0, 0]
+            for i in range(len(deltas))]
+    if tokens.shape != (XL_PROMPTS, max_seq) or len(steps) != n_steps:
+        raise AssertionError(f"zamba generate: {tuple(tokens.shape)}, {len(steps)} steps")
+    if [d[:2] for d in deltas] != want:
+        raise AssertionError(f"zamba generate: scrubs found {deltas}, want {want}")
+    if launches.get("scrub", 0) != len(deltas) * len(cache_bytes):
+        raise AssertionError(f"zamba generate: scrub launches {launches}, "
+                             f"{len(deltas)} scrubs of {len(cache_bytes)} leaves")
+    scrubbed = space.scrubbed_bytes
+    # the same run unchecked and unplanted: the warm timing, then profiled
+    run = lambda: serve.generate(  # noqa: E731
+        model, prompts, max_new=XL_NEW, max_seq=max_seq,
+        space=serve.serve_space(model, XL_SCRUB, memoize=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    per = device_profile(run)
+    groups, by_kernel = device_groups(per)
+    busy = sum(groups.values())
+    # the forward over ZAMBA_FORWARD_S tokens (chunk 128, chunked attention)
+    ftok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, model.cfg.vocab, size=(1, ZAMBA_FORWARD_S))).to("cuda")
+    logits = model(ftok)
+    if tuple(logits.shape) != (1, ZAMBA_FORWARD_S, model.cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"zamba forward: {tuple(logits.shape)} not finite")
+    del logits
+    fwd_ms = cuda_ms(lambda: model(ftok), iters=3, warmup=1)
+    row = dict(
+        arch=ZAMBA_ARCH, layers=model.cfg.n_layers, groups=model.n_groups,
+        tail=model.n_tail, dtype=model.cfg.dtype_name, params=n_params,
+        weight_gb=weight_gb, init_s=init_s, steps=n_steps, scrubs=len(deltas),
+        scrub_deltas=deltas, stats=stats, launches=launches,
+        scrubbed_bytes=scrubbed, cache_gb={p: b / 1e9 for p, b in cache_bytes.items()},
+        first_wall_s=first, warm_wall_s=warm, ms_per_step=1e3 * warm / n_steps,
+        new_tokens_per_s=XL_PROMPTS * XL_NEW / warm,
+        device_ms_per_step={k: v / n_steps for k, v in groups.items()},
+        scrub_device_ms_per_step={k: v / n_steps for k, v in by_kernel.items() if v},
+        device_idle_share=(1.0 - busy / (1e3 * warm)) if busy else None,
+        forward_tokens=ZAMBA_FORWARD_S, forward_ms=fwd_ms,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    report["zamba"] = row
+    log(f"zamba generate ok: {XL_PROMPTS} x {XL_PROMPT_LEN} + {XL_NEW} at full width "
+        f"({n_params / 1e9:.3f} B, {weight_gb:.3f} GB bf16), every logit finite, the "
+        f"NaN planted in mamba_groups/ssm repaired by scrub {ZAMBA_PLANT_SCRUB} "
+        f"before step {XL_PROMPT_LEN} read it, every leaf of that scrub (the f32 "
+        f"SSM state, the bf16 conv state and shared K/V) bit- and count-equal to "
+        f"scrub_plain of its copy, scrub launches {launches.get('scrub')} "
+        f"({len(deltas)} scrubs x {len(cache_bytes)} leaves), {scrubbed} bytes "
+        f"scrubbed ({card})")
+    log(f"timing zamba: {json.dumps(row)} ({card})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zamba_cut_parity()
 
 
 def _kernel_name(mangled: str) -> str:
@@ -5081,7 +5458,8 @@ PHASES = ("kernel_phase", "ops_phase", "engine_phase", "fallback_phase",
           "dense_variants_phase", "moe_phase", "train_phase",
           "checkpoint_phase", "mlstm_phase", "xlstm_forward_phase",
           "xlstm_generate_phase", "xlstm_depth_phase", "xlstm_parity_phase",
-          "xlstm_train_phase", "autopilot_phase")
+          "xlstm_train_phase", "autopilot_phase", "llava_phase",
+          "zamba_phase")
 
 
 def main(argv=None) -> int:
@@ -5098,6 +5476,13 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from repro_torch.kernels import _native
+
+    # torch.utils.checkpoint imports torch._dynamo at its first call, and
+    # that import leaves a frame cycle (torch.fx.wrap keeps its own frame)
+    # whose f_back chain holds every caller's locals, a phase's models
+    # among them, until the next full collection: import it here, where
+    # the stack holds nothing
+    import torch._dynamo  # noqa: F401
 
     phases = args.phases.split(",") if args.phases else list(PHASES)
     unknown = set(phases) - set(PHASES)

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 from . import (
+    llava_next_mistral_7b,
     mistral_large_123b,
     phi35_moe_42b,
     qwen2_1_5b,
@@ -9,12 +10,14 @@ from . import (
     stablelm_1_6b,
     starcoder2_15b,
     xlstm_1_3b,
+    zamba2_7b,
 )
 from .base import ArchConfig  # noqa: F401
 
 _CONFIGS = {m.CONFIG.name: m.CONFIG for m in (
     starcoder2_15b, qwen2_1_5b, mistral_large_123b, stablelm_1_6b,
-    phi35_moe_42b, qwen3_moe_30b, xlstm_1_3b,
+    phi35_moe_42b, qwen3_moe_30b, llava_next_mistral_7b, zamba2_7b,
+    xlstm_1_3b,
 )}
 
 

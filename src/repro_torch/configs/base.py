@@ -1,7 +1,7 @@
 """Architecture configuration: the fields of the reference's ``ArchConfig``
-that the ported families read (the dense and MoE decoders and the xLSTM
-stack), with its ``reduced()`` test variant and a map from the dtype name
-to a torch dtype."""
+that the ported families read (the dense, MoE and patch-prefix decoders,
+the Zamba hybrid and the xLSTM stack), with its ``reduced()`` test variant
+and a map from the dtype name to a torch dtype."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,13 +38,19 @@ class ArchConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    ssm_state: int = 0                  # zamba: Mamba2 state size N
+    ssm_head_dim: int = 64              # zamba: Mamba2 head dim P
+    mamba_per_attn: int = 2             # zamba: mamba layers per shared-attn
+    n_shared_blocks: int = 2            # zamba: alternating shared blocks
     slstm_every: int = 8                # xlstm: every k-th block is sLSTM
+    frontend: str = "none"              # none | patches | frames
+    frontend_fraction: float = 0.125    # fraction of seq that is frontend tokens
 
     dtype_name: str = "bfloat16"
     repair: ApproxConfig = ApproxConfig(
         mode="memory", policy="neighbor_mean", max_magnitude=1e3
     )
-    ssm_chunk: int = 128                # xlstm: chunk length of the mLSTM
+    ssm_chunk: int = 128                # chunk length of the mLSTM and of Mamba2's SSD
     attn_q_block: int = 512             # chunked attention's tiles
     attn_kv_block: int = 1024
     remat: bool = True                  # training: recompute each block
@@ -72,6 +78,9 @@ class ArchConfig:
             vocab=512,
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=32,
+            mamba_per_attn=2,       # 4 reduced layers: 2 groups, no tail
             slstm_every=4,          # 4 reduced layers: 1 group of 3+1
             ssm_chunk=16,
             attn_q_block=64,

@@ -7,8 +7,11 @@ Both directions go through numpy, so this module needs no JAX:
                                ``cfg.family``: a ``TransformerLM``
                                (``layers/...`` stacked (L, ...)) or an
                                ``XLSTMLM`` (``mlstm_groups/...`` stacked
-                               (G, M, ...), ``slstm_layers/...`` (G, ...)),
-                               as the models store them; a tied
+                               (G, M, ...), ``slstm_layers/...`` (G, ...))
+                               or a ``ZambaLM`` (``mamba_groups/...`` (G,
+                               M, ...), ``shared/...`` (n_shared_blocks,
+                               ...), ``proj`` (G, 2D, D), ``mamba_tail/...``
+                               (n_tail, ...)), as the models store them; a tied
                                embedding stays one table (``embed/table``,
                                also the readout), an untied head is its
                                own leaf (``lm_head/w``); an MoE block's
@@ -21,7 +24,9 @@ Both directions go through numpy, so this module needs no JAX:
                                moments and step, stats, rule_counts) → the
                                port's model and its flat train state
   cache_from_jax(cache, tree)  a reference cache or pool tree → the port's
-                               flat ``{path: tensor}`` state, in place
+                               flat ``{path: tensor}`` state, in place (a
+                               Zamba cache: ``mamba_groups/{conv,ssm}``,
+                               ``shared_kv/{k,v}``, ``mamba_tail/...``)
   cache_to_numpy(cache)        that flat state → the reference's nested layout
                                (for a ``PagedKVPool``, pass ``pool.tree``)
 
@@ -36,7 +41,7 @@ import torch
 
 from .configs.base import ArchConfig
 from .core.regions import flatten
-from .models import TransformerLM, XLSTMLM
+from .models import XLSTMLM, build_model
 
 
 def to_torch(arr: Any, device=None) -> torch.Tensor:
@@ -69,8 +74,7 @@ def params_from_jax(tree: Any, cfg: ArchConfig, *, device=None):
     (``param_tree``, the layer weights stacked as the reference stacks
     them).  Raises on a path it does not map, on a parameter left unset
     and on a shape that differs."""
-    family = XLSTMLM if cfg.family == "ssm" else TransformerLM
-    model = family(cfg, device=device)
+    model = build_model(cfg, device=device)
     own = model.param_tree()
     flat = flatten(tree)
     extra = sorted(set(flat) - set(own))

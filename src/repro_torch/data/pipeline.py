@@ -10,8 +10,11 @@ The draws come from an explicit ``torch.Generator`` on the CPU, seeded
 from ``(seed, step)``, and the batch is then moved to the device, so the
 card and the CPU get the same tokens.  Its bits cannot equal the
 reference's threefry stream: tests that hold the port against the
-reference feed it the reference's batches as numpy.  The audio and
-patch-prefix families are not ported.
+reference feed it the reference's batches as numpy.  A patch-prefix
+config (``frontend == "patches"``, LLaVA) gets ``int(seq ·
+frontend_fraction)`` rows of standard-normal ``patch_embeds`` in its
+dtype before ``seq - P`` tokens, drawn from a generator of their own; the
+audio family's frame batches are not ported.
 
 ``host_slice`` carves the global batch by process index, the multi-host
 arithmetic of the reference (one process here).
@@ -27,11 +30,12 @@ from .. import device as device_lib
 from ..configs.base import ArchConfig
 
 _SALT = 0x7E4
+_PATCH_SALT = 0xF1
 
 
-def _generator(seed: int, step: int) -> torch.Generator:
+def _generator(seed: int, step: int, salt: int = _SALT) -> torch.Generator:
     mixed = (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xBF58476D1CE4E5B9
-             + _SALT) % (1 << 63)
+             + salt) % (1 << 63)
     return torch.Generator(device="cpu").manual_seed(mixed)
 
 
@@ -53,13 +57,23 @@ def _tokens_for_step(seed: int, step: int, batch: int, seq: int,
 def batch_for_step(cfg: ArchConfig, seed: int, step: int, *, batch: int,
                    seq: int, device=None) -> Dict[str, torch.Tensor]:
     """The global batch of one training step, ``{"tokens": (batch, seq)
-    int32}`` on ``device`` (the card unless the caller asks for the CPU)."""
-    if cfg.family == "audio" or getattr(cfg, "frontend", None) == "patches":
+    int32}`` on ``device`` (the card unless the caller asks for the CPU);
+    a patch-prefix config's is ``{"tokens": (batch, seq - P),
+    "patch_embeds": (batch, P, d_model) cfg.dtype}``, ``P = int(seq ·
+    frontend_fraction)``."""
+    if cfg.family == "audio":
         raise NotImplementedError(
-            "the audio and patch-prefix batches are not ported: ROADMAP "
-            "slice 5 (the other families)"
+            "the audio frame batches are not ported: ROADMAP slice 5 (the "
+            "other families)"
         )
     dev = device_lib.resolve(device)
+    if cfg.frontend == "patches":
+        P = int(seq * cfg.frontend_fraction)
+        tokens = _tokens_for_step(seed, int(step), batch, seq - P, cfg.vocab)
+        gen = _generator(seed, int(step), _PATCH_SALT)
+        patches = torch.randn(batch, P, cfg.d_model, generator=gen)
+        return {"tokens": tokens.to(dev),
+                "patch_embeds": patches.to(cfg.dtype).to(dev)}
     tokens = _tokens_for_step(seed, int(step), batch, seq, cfg.vocab)
     return {"tokens": tokens.to(dev)}
 

@@ -8,8 +8,9 @@ repairing mechanism applied to the recurrent state, cheaper than leaving a
 NaN resident to poison every later token (Table 3's temporal analogue).
 
 ``generate`` prefills a transformer's dense cache in one batched pass and
-warms a recurrent cache one token at a time; ``paged=True`` rebases the
-run onto the serving engine, one request per prompt row.
+warms a recurrent cache (the xLSTM's, Zamba's Mamba states and shared KV)
+one token at a time; ``paged=True`` rebases the run onto the serving
+engine, one request per prompt row.
 """
 from __future__ import annotations
 
@@ -97,7 +98,8 @@ def generate(
 
     A transformer (``supports_batched_prefill``) prefills its dense cache of
     ``max_seq`` positions in one pass; a recurrent model warms its cache
-    one prompt token at a time (``max_seq`` is then unused).  Before every
+    one prompt token at a time (the xLSTM ignores ``max_seq``; Zamba's
+    shared attention keeps a dense KV of ``max_seq`` positions).  Before every
     step ``t`` (the batched prefill is step 0) the space's schedule may
     scrub the whole cache (``scrub_every``; trigger "interval"); the
     run's stats are returned and recorded into ``space``

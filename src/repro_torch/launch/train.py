@@ -13,12 +13,13 @@ Step anatomy (memory mode, the paper's recommendation):
 The train state is flat, ``{path: value}`` under the reference's paths:
 ``params/<path>`` (the model's own tensors, layer weights stacked as the
 reference stacks them: (L, ...) for the transformer, (G, M, ...) and
-(G, ...) for the xLSTM's groups), ``opt/step``, ``opt/mu/<path>``,
+(G, ...) for the xLSTM's and Zamba's groups), ``opt/step``, ``opt/mu/<path>``,
 ``opt/nu/<path>``, ``stats`` (host counters) and, with a space,
 ``rule_counts`` (int64 [n_rules, 3], the boundary scrub's per-rule ledger,
 folded into ``space.rule_stats()`` by ``train_loop``).  The step updates
-the tensors in place.  Both ported families train: ``TransformerLM`` and
-``XLSTMLM``.
+the tensors in place.  Every ported family trains: ``TransformerLM`` (a
+VLM batch's ``patch_embeds`` sliced with its tokens into microbatches),
+``XLSTMLM`` and ``ZambaLM``.
 
 ``train_loop`` arms the autopilot's online guard when the space's config
 carries an ``AutopilotConfig``: every ``window`` steps the state's rule

@@ -1,5 +1,8 @@
 """Decoder-only transformer LM: the dense family (Qwen2, StarCoder2,
-StableLM, Mistral-Large) and the MoE family (Qwen3-MoE, Phi-3.5-MoE).
+StableLM, Mistral-Large), the MoE family (Qwen3-MoE, Phi-3.5-MoE) and the
+VLM backbone (LLaVA-NeXT-Mistral-7B: precomputed patch embeddings prefix
+the tokens in ``forward`` and ``loss``; serving takes tokens only, as in
+the reference).
 
 A Python loop over per-layer blocks replaces the reference's ``lax.scan``;
 the layer index reaches the kernels as an argument, so one kernel serves
@@ -187,14 +190,29 @@ class TransformerLM(nn.Module):
         y, aux = blk.ffn(blk.norm2(h))
         return h + y, aux
 
-    def _logits(self, tokens: torch.Tensor, remat: bool = False):
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      patch_embeds: Optional[torch.Tensor] = None):
+        """``(h, positions, n_prefix)``: the token embeddings, with a VLM's
+        patch prefix (B, P, D) cast to their dtype and put before them, and
+        positions over all P + S rows (the reference's ``_embed_inputs``)."""
+        h = self.embed(tokens)
+        n_prefix = 0
+        if patch_embeds is not None:
+            n_prefix = patch_embeds.shape[1]
+            h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
+        positions = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+        return h, positions, n_prefix
+
+    def _logits(self, tokens: torch.Tensor, remat: bool = False,
+                patch_embeds: Optional[torch.Tensor] = None):
         """(B, S) tokens -> ``(f32 logits (B, S, V), aux)``, causal over the
         whole sequence (``Attention.forward``, ``impl="auto"``); ``aux`` is
-        the MoE blocks' aux terms summed in f32 (0 for a dense model).
+        the MoE blocks' aux terms summed in f32 (0 for a dense model).  A
+        patch prefix runs through the trunk and is dropped before the
+        readout, so the logits are the tokens' alone.
         With ``remat`` each block is recomputed in the backward
         (non-reentrant checkpoint, the reference's ``jax.checkpoint``)."""
-        h = self.embed(tokens)
-        positions = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+        h, positions, n_prefix = self._embed_inputs(tokens, patch_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for blk in self.layers:
             if remat:
@@ -204,7 +222,7 @@ class TransformerLM(nn.Module):
                 h, a = self._block(blk, h, positions)
             if a is not None:
                 aux = aux + a
-        return self._readout(self.final_norm(h)), aux
+        return self._readout(self.final_norm(h)[:, n_prefix:]), aux
 
     def _readout(self, h: torch.Tensor) -> torch.Tensor:
         """f32 logits of the final hidden ``h``: the tied table's f32
@@ -215,24 +233,24 @@ class TransformerLM(nn.Module):
         return self.lm_head(h).float()
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """(B, S) tokens -> f32 logits (B, S, V)."""
-        return self._logits(tokens)[0]
+    def forward(self, tokens: torch.Tensor, *,
+                patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, S) tokens -> f32 logits (B, S, V); a VLM's ``patch_embeds``
+        (B, P, D) prefix the tokens in the trunk."""
+        return self._logits(tokens, patch_embeds=patch_embeds)[0]
 
     def loss(self, batch: Dict[str, Any]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token loss of ``batch["tokens"]`` (B, S) under autograd,
         as the reference's ``loss``: ``(scalar f32, {"loss", "accuracy",
         "tokens"})``, the metrics detached; an MoE model adds ``0.01 ·
-        aux`` to the loss and ``moe_aux`` to the metrics."""
-        if "patch_embeds" in batch:
-            raise NotImplementedError(
-                "the patch-embedding prefix is not ported: ROADMAP slice 5 "
-                "(the other families)"
-            )
+        aux`` to the loss and ``moe_aux`` to the metrics.  A VLM batch's
+        ``patch_embeds`` prefix the tokens; the loss runs over the tokens
+        only."""
         tokens = batch["tokens"]
         logits, aux = self._logits(tokens, remat=self.cfg.remat
-                                   and torch.is_grad_enabled())
+                                   and torch.is_grad_enabled(),
+                                   patch_embeds=batch.get("patch_embeds"))
         loss, metrics = next_token_loss(logits, tokens)
         if self.cfg.n_experts:
             loss = loss + 0.01 * aux

@@ -13,6 +13,7 @@ interpret mode, as the reference's own tests run it.  Everything here is
 integer: counts and flags must be equal.  The scan kernel itself is held
 against ``scan_plain`` on the card (``tests/test_torch_cuda.py``).
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib
 
 import pytest

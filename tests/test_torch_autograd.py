@@ -4,7 +4,9 @@ its result would silently leave the graph), ``matmul_f32``'s backward
 on the card keeps the f32 cotangent (and ``bmm_f32``, its batched twin,
 agrees with it), the MoE block on the card routes as on the CPU, the
 xLSTM's loss and gradients on the
-card match the CPU's, and a checkpoint of card tensors (the save scrub on
+card match the CPU's, LLaVA's and Zamba's full-width bf16 forwards are
+finite and their f32 cuts match the CPU (LLaVA's loss and gradients on a
+patch batch, Zamba's ``generate`` under a planted fault), and a checkpoint of card tensors (the save scrub on
 the card) round-trips.
 
 The guard's own test runs on the CPU; one test per wrapper, and the
@@ -13,6 +15,7 @@ file imports neither JAX nor the reference, so on the card it runs as
 
     python -m pytest --noconftest -q tests/test_torch_autograd.py
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -264,6 +267,99 @@ def test_xlstm_loss_and_grads_on_the_card(cuda):
         assert torch.isfinite(got).all(), path
         err = float((got - want).norm() / want.norm().clamp_min(1e-30))
         assert err <= 1e-4, (path, err)
+
+
+def _card_cpu_pair(cls, cfg, cuda):
+    """``cls(cfg)`` on the card and on the CPU with the card's weights."""
+    card, cpu = cls(cfg, device=cuda, seed=0), cls(cfg, device="cpu", seed=1)
+    with torch.no_grad():
+        for path, t in cpu.param_tree().items():
+            t.copy_(card.param_tree()[path].cpu())
+    return card, cpu
+
+
+@pytest.mark.cuda
+def test_llava_on_the_card(cuda):
+    """LLaVA-NeXT-Mistral-7B at full width in bf16: the forward over 16
+    patch rows and 48 tokens gives finite logits of the tokens alone; cut
+    to 2 layers in f32 (TF32 off), the loss of a patch batch within 1e-5
+    of the CPU's and every gradient within 1e-4 of its norm."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticStream
+    from repro_torch.models import TransformerLM
+
+    cfg = get_config("llava-next-mistral-7b")
+    model = TransformerLM(cfg, device=cuda, seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (1, 48), generator=gen, device=cuda)
+    patches = torch.randn((1, 16, cfg.d_model), generator=gen, device=cuda).bfloat16()
+    logits = model(tokens, patch_embeds=patches)
+    assert logits.shape == (1, 48, cfg.vocab) and bool(torch.isfinite(logits).all())
+    del model, logits
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, cpu = _card_cpu_pair(
+        TransformerLM, dataclasses.replace(cfg, n_layers=2, dtype_name="float32"), cuda)
+    batch = SyntheticStream(cpu.cfg, seed=1, batch=1, seq=64, device="cpu")(0)
+    out = []
+    for m in (card, cpu):
+        grads = m.bind_grads()
+        loss, _ = m.loss({k: v.to(m.device) for k, v in batch.items()})
+        loss.backward()
+        out.append((float(loss.detach()), {p: g.cpu() for p, g in grads.items()}))
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[1][0])
+    for path, want in out[1][1].items():
+        err = float((out[0][1][path] - want).norm() / want.norm().clamp_min(1e-30))
+        assert err <= 1e-4, (path, err)
+
+
+@pytest.mark.cuda
+def test_zamba_on_the_card(cuda):
+    """Zamba2-7B at full width in bf16: the forward over 128 tokens gives
+    finite logits; cut to 7 layers (a group and a tail of 1) in f32 (TF32
+    off), ``generate`` with an interval scrub and a NaN planted in the SSM
+    state gives the CPU's tokens, stats, scrub counts and scrubbed bytes,
+    and the scrub runs the kernel on every cache leaf."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.models import ZambaLM
+    from repro_torch.runtime import ApproxConfig
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"),
+                              repair=ApproxConfig(mode="memory", policy="zero"))
+    model = ZambaLM(cfg, device=cuda, seed=0)
+    tokens = torch.randint(0, cfg.vocab, (1, 128),
+                           generator=torch.Generator().manual_seed(3)).to(cuda)
+    logits = model(tokens)
+    assert logits.shape == (1, 128, cfg.vocab) and bool(torch.isfinite(logits).all())
+    del model, logits
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, cpu = _card_cpu_pair(
+        ZambaLM, dataclasses.replace(cfg, n_layers=7, dtype_name="float32"), cuda)
+    prompt = torch.randint(0, cfg.vocab, (2, 4), generator=torch.Generator().manual_seed(4))
+    out = []
+    for m in (card, cpu):
+        space = serve.serve_space(m, 2, memoize=False)
+        inner, log = space.scrub, []
+
+        def scrub(cache, stats, *, trigger="forced", inner=inner, log=log):
+            if len(log) == 1:
+                cache["mamba_groups/ssm"][0, 1, 1, 5, 3, 2] = float("nan")
+            cache, new = inner(cache, stats, trigger=trigger)
+            log.append(new["nan_found"] - stats["nan_found"])
+            return cache, new
+
+        space.scrub = scrub
+        common.reset_launches()
+        toks, stats = serve.generate(m, prompt, max_new=4, max_seq=8, space=space)
+        out.append((toks.cpu().tolist(), stats, log, space.scrubbed_bytes,
+                    dict(common.LAUNCHES)))
+    assert out[0][:4] == out[1][:4]
+    assert out[0][2][1] == 1
+    assert out[0][4] == {"scrub": len(out[0][2]) * len(card.cache_defs(2, 8))}
 
 
 @pytest.mark.cuda

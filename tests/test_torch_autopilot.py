@@ -7,6 +7,7 @@ package, the online guard driven by one scripted counter sequence through
 a stub space in both packages (identical decisions and rulesets), and the
 presets.  Campaigns, the engine and the train loop with the guard are in
 ``tests/test_torch_autopilot_campaign.py``."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import json
 import math

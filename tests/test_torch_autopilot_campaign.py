@@ -18,6 +18,7 @@ the reference's ``jax.random`` arrays.
 Tolerance: integer outputs and serve ``quality`` (a token-agreement rate)
 are equal; the train ``loss_delta`` within ``LOSS_ATOL`` (both packages sum
 the f32 losses and gradients in different orders; measured ~1e-7)."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import pytest

@@ -13,6 +13,7 @@ continued run is held as ``tests/test_torch_train.py`` holds three steps
 in f32: moments within 1e-5 of the leaf's largest |moment|, params within
 2 % of the summed learning rates.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import json
 import os

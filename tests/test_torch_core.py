@@ -4,6 +4,7 @@ injection and the counter stream — the same inputs (numpy, from a seed)
 through the JAX reference and the PyTorch port.  Integer and bit outputs
 must be identical; no float tolerance is needed here (every compared value
 is a bit pattern, a count, or computed with the same IEEE operations)."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

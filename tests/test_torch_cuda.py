@@ -18,6 +18,7 @@ cores as bf16 hi/lo pairs (2^-17 relative) and W as three bf16 terms.  Integer o
 (slot counts, AT, MM and mLSTM counts, scrub counts, repaired bits) must be
 identical.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import contextlib
 import dataclasses
 

@@ -15,6 +15,7 @@ running max where the partitions differ), non-finite lanes where the
 reference's are.  The kernel itself is held against these plain versions
 on the card (``tests/test_torch_cuda.py``).
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

@@ -9,6 +9,7 @@ agree within rtol = atol = 1e-4 (f32; the two packages sum the products
 in different orders, and two layers compound it), the modules within
 1e-5.  Also the small public helpers of ``core`` and the deprecated
 shims, each against the reference on the same numpy inputs."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import warnings
 

@@ -8,6 +8,7 @@ host-sync count must be identical; the pools stay within rtol = atol = 1e-5
 the gathered-view fallback (decode and prefill, ``repair="off"``, a
 ``neighbor_mean`` space, a register-mode model) and the desynchronized
 stats drain."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import pytest

@@ -1,6 +1,7 @@
 """The port's example twins run on the CPU (their plain versions), each at
 its original's sizes unless the test says otherwise, with the checks the
 originals print."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 from pathlib import Path
 

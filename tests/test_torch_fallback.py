@@ -10,6 +10,7 @@ Two tests run the port against itself: its bit-flip injection draws from a
 ``torch.Generator`` and the reference's from a ``PRNGKey``, so the two
 packages see different flips, and the desynchronized drain's replay
 contract is held port to port."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import pytest

@@ -3,6 +3,7 @@
 reference package ``repro``, and
 ``import repro_torch`` (with every submodule) works where JAX cannot be
 imported and no card is present."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import ast
 import subprocess
 import sys

@@ -5,6 +5,7 @@ integer outputs (slot counts, AT counts, scrub counts, repaired bits) must
 be identical; f32 outputs agree within rtol = atol = 1e-5 (the two sum in
 different orders).  The kernels themselves are held against these plain
 versions on the card by ``tests/test_torch_cuda.py``."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

@@ -11,6 +11,7 @@ rounds ``W`` to bf16, where a last-place difference flips roundings).
 Under ``include_inf=False`` the Inf lanes pass into the state and the
 outputs are poisoned; NaN and Inf must then sit in the same places.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

@@ -14,6 +14,7 @@ outputs are ratios of sums that cancel; the largest error here is about a
 fifth of it).  The kernel itself is held against both plain versions on
 the card (``tests/test_torch_cuda.py``).
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

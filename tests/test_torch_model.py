@@ -5,6 +5,7 @@ pool (faults planted) on both sides.  Slot and AT counts must be identical;
 logits and the pool after the K/V writes agree within rtol = atol = 1e-4
 (f32 throughout; XLA and PyTorch sum the projections in different orders,
 and two layers compound it)."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import pytest
@@ -145,6 +146,6 @@ def test_params_carry_across_and_init_scheme(models):
 def test_unported_families_raise():
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(tiny_cfg(), family="hybrid")
+    cfg = dataclasses.replace(tiny_cfg(), family="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")

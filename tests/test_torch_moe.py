@@ -11,6 +11,7 @@ integers), and the loss with its aux term and its gradients.  Models agree
 within rtol = atol = 1e-4 (f32; the two packages sum the products in
 different orders)."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

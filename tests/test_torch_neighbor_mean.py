@@ -13,6 +13,7 @@ parity tests hold them to for the other fills (the two sum in different
 orders).  Each case plants NaN, ±Inf, a lane only the range guard catches
 and one logical tile that is fatal in every lane (its fill is 0).
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

@@ -12,6 +12,7 @@ and 3e-2 (bf16 attention), the two summing in different orders.  The CUDA
 kernels are held against these plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 from pathlib import Path
 

@@ -13,6 +13,7 @@ against the JAX reference on the CPU.
   dtypes and ``host_slice`` rows, tokens in range with the same n-gram
   structure (its bits cannot be threefry's).
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import pytest

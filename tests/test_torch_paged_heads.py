@@ -21,6 +21,7 @@ Tolerances as in ``tests/test_torch_decode_route.py`` (f32 1e-4: the
 partitions sum in other orders); integer outputs equal.  The reference
 runs once per configuration, in a module-scoped fixture.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

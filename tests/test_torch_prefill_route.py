@@ -15,6 +15,7 @@ block's rows bit for bit, also where a V lane stays non-finite after the
 repair and reaches rows that mask it.  The kernels themselves are held against these
 plain versions on the card (``tests/test_torch_cuda.py``).
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

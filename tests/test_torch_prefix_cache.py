@@ -7,6 +7,7 @@ must be equal, on the paged lane and on the gathered path; at BER 0 the
 cache-on tokens equal the port's cache-off tokens.  The pool-level cases
 hold the refcount, dwell, copy-on-write and reference-repair primitives,
 the last bit for bit against the snapshot (through ``detect.bits_of``)."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import pytest

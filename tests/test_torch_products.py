@@ -10,6 +10,7 @@ values — at most 0.1 % of the lanes, and none more than one bf16 ulp apart.
 The bar for the f32 logits: within 1e-5 of the row's largest |logit|.  A
 control rounds each product to bf16 before it is widened (the port's form
 before the fix), and the bar must refuse it."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import pytest

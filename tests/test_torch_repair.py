@@ -4,6 +4,7 @@
 inputs.  Repaired tensors must be bit-equal (``neighbor_mean`` included:
 both sum each tile with the same order-fixed pairwise f32 fold) and the
 counts and stats equal."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

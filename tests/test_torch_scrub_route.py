@@ -6,6 +6,7 @@ in the middle of a tile, and many tiles with a fatal lane in each.  Counts
 and repaired bits must be identical.  Also the wrapper's launch plan and
 its page-id check, which are plain Python.  The kernel itself is held
 against the plain versions on the card by ``tests/test_torch_cuda.py``."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

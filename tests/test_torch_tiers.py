@@ -6,6 +6,7 @@ pool's guards raise.  On the engine, in f32 against the JAX engine step for
 step: a preemption storm with swap gives the recompute arm's tokens and the
 reference's ``tier_stats()``, a full host store falls back to recompute,
 and prefix-cache entries demote to the tier and promote back."""
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 torch = pytest.importorskip("torch")

@@ -31,6 +31,7 @@ Tolerances, each measured against what the two summation orders give:
   update the reference rounds away on most lanes (the norm scales at 1.0,
   where three updates of at most 3.6e-3 stay under half of bf16's ulp).
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import pytest

@@ -23,6 +23,7 @@ control: the reference's own run from params one ulp up.  The port's
 distance to the reference stays within ``CONTROL_X`` times the control's
 (measured: at most 1.05 times).
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import pytest
